@@ -1,0 +1,166 @@
+"""Package rules of the PyTorch port: it imports neither JAX nor the JAX
+package, imports without nvcc, runs the plain versions for CPU tensors only,
+and refuses what it does not port yet with NotImplementedError."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import tnmf_tpu_torch
+from tnmf_tpu_torch import engine
+from tnmf_tpu_torch.kernels import _build, gw, mu, mu_h
+from tnmf_tpu_torch.ops.modes import ConvPlan
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG = ROOT / 'tnmf_tpu_torch'
+
+
+def _run(code, env=None):
+    return subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120, check=False)
+
+
+def test_import_leaves_jax_out():
+    code = ('import sys, tnmf_tpu_torch, tnmf_tpu_torch.engine, tnmf_tpu_torch.kernels.mu, '
+            'tnmf_tpu_torch.kernels.gw, tnmf_tpu_torch.kernels.mu_h, '
+            'tnmf_tpu_torch.utils.data_loading\n'
+            'bad = sorted(m for m in sys.modules\n'
+            '             if m.split(".")[0] in ("jax", "jaxlib", "tnmf_tpu"))\n'
+            'print(bad)')
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == '[]'
+
+
+def test_sources_import_no_jax():
+    """No module of the port names jax or the JAX package in an import."""
+    for path in PKG.rglob('*.py'):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split('.')[0] not in ('jax', 'jaxlib', 'tnmf_tpu', 'triton'), \
+                    f'{path}: imports {name}'
+
+
+def test_kernel_modules_import_without_nvcc(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path))
+    env.pop('CUDA_HOME', None)
+    env.pop('CUDA_PATH', None)
+    code = ('import tnmf_tpu_torch.kernels.mu, tnmf_tpu_torch.kernels.gw, '
+            'tnmf_tpu_torch.kernels.mu_h as k, tnmf_tpu_torch.kernels._build as b\n'
+            'print(b._lib is None, k.mu_h.launches)')
+    proc = _run(code, env)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ['True', '0']
+
+
+def test_build_flags_target_hopper():
+    assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
+    names = {p.name for p in _build.SOURCE_DIR.glob('*.cu')}
+    assert names == {'mu_ratio.cu', 'grad_w.cu', 'mu_h.cu'}
+    assert _build.library_path().parent == _build.BUILD_DIR
+    assert 'tnmf_tpu_torch/_build/' in (ROOT / '.gitignore').read_text().split()
+
+
+def _kernel_inputs(device):
+    rng = np.random.default_rng(0)
+    plan = ConvPlan.create('valid', (10, 9), (3, 2))
+    T = plan.transform_shape
+    E = tuple(t + a - 1 for t, a in zip(T, plan.atom_shape))
+
+    def t(*shape):
+        return torch.tensor(rng.random(shape), dtype=torch.float32, device=device)
+    return plan, t(2, 2, *E), t(2, 2, *E), t(3, 2, 3, 2), t(2, 3, *T)
+
+
+def test_cpu_tensors_take_plain_versions():
+    plan, Vp, Rx, W, H = _kernel_inputs('cpu')
+    before = (mu.mu_ratio.launches, gw.grad_w.launches, mu_h.mu_h.launches)
+    assert torch.equal(mu.mu_ratio(W, W, W, 0.5), mu.mu_ratio_plain(W, W, W, 0.5))
+    X2 = torch.cat([Vp, Rx], dim=1)
+    for a, b in zip(gw.grad_w(X2, H, plan), gw.grad_w_plain(X2, H, plan)):
+        assert torch.equal(a, b)
+    assert torch.equal(mu_h.mu_h(Vp, Rx, W, H, 0.1), mu_h.mu_h_plain(Vp, Rx, W, H, 0.1))
+    assert (mu.mu_ratio.launches, gw.grad_w.launches, mu_h.mu_h.launches) == before
+
+
+def test_non_cpu_tensors_never_take_plain_versions():
+    """A tensor off the CPU goes to the kernel or raises; here (meta
+    tensors, no card) it raises before any build."""
+    plan, Vp, Rx, W, H = _kernel_inputs('meta')
+    with pytest.raises(ValueError, match='expected CUDA'):
+        mu.mu_ratio(W, W, W, 0.5)
+    with pytest.raises(ValueError, match='expected CUDA'):
+        gw.grad_w(torch.cat([Vp, Rx], dim=1), H, plan)
+    with pytest.raises(ValueError, match='expected CUDA'):
+        mu_h.mu_h(Vp, Rx, W, H, 0.1)
+    assert _build._lib is None
+
+
+@pytest.mark.parametrize('backend', ['jax_fft', 'numpy_fft', 'pytorch_fft'])
+def test_fft_backend_not_ported(backend):
+    nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), backend=backend, device='cpu')
+    with pytest.raises(NotImplementedError, match='item 8'):
+        nmf.fit(np.ones((1, 1, 8, 8)), n_iterations=1)
+
+
+def test_auto_large_atoms_and_plain_nmf_not_ported():
+    # 'auto' picks fft for atoms above the direct-conv threshold
+    nmf = tnmf_tpu_torch.TransformInvariantNMF(1, (25, 25), device='cpu')
+    with pytest.raises(NotImplementedError, match='fft'):
+        nmf.fit(np.ones((1, 1, 30, 30)), n_iterations=1)
+    # a single transform (atoms as large as the samples, 'full') is plain NMF
+    nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (4, 4), reconstruction_mode='full',
+                                               device='cpu')
+    with pytest.raises(NotImplementedError, match='dot'):
+        nmf.fit(np.ones((3, 1, 4, 4)), n_iterations=1)
+    with pytest.raises(NotImplementedError, match='phased'):
+        engine.require_ported('phased')
+
+
+@pytest.mark.parametrize('kwargs', [
+    dict(inhibition_strength=0.1), dict(cross_atom_inhibition_strength=0.1),
+    dict(l2_H=0.1), dict(ortho_W=0.1), dict(mask=np.ones((1, 1, 8, 8))),
+    dict(tol=1e-3), dict(record_energies=True), dict(solver='hals'),
+    dict(progress_callback=lambda m, i: True), dict(keep_H=True),
+])
+def test_unported_fit_arguments_raise(kwargs):
+    nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu')
+    with pytest.raises(NotImplementedError, match='ROADMAP.md queue 1, item'):
+        nmf.fit(np.ones((1, 1, 8, 8)), n_iterations=1, **kwargs)
+
+
+def test_fit_arguments_at_jax_defaults_are_accepted():
+    nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu', beta_loss='frobenius',
+                                               precision=None, init='host')
+    nmf.fit(np.ones((1, 1, 8, 8)), n_iterations=1, inhibition_strength=0.,
+            l2_H=0, mask=None, solver='mu', tol=None)
+    assert nmf.n_iterations_ == 1
+
+
+@pytest.mark.parametrize('kwargs', [dict(beta_loss=1.0), dict(precision='high'),
+                                    dict(transform_type='shift+flip'), dict(init='device')])
+def test_unported_constructor_arguments_raise(kwargs):
+    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu', **kwargs)
+
+
+def test_minibatch_and_unknown_arguments():
+    nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu')
+    with pytest.raises(NotImplementedError, match='item 11'):
+        nmf.fit(np.ones((4, 1, 8, 8)), batch_size=2)
+    with pytest.raises(TypeError, match='unexpected keyword'):
+        nmf.fit(np.ones((4, 1, 8, 8)), n_iterationz=2)
+    with pytest.raises(ValueError, match='non-negative'):
+        nmf.fit(-np.ones((1, 1, 8, 8)), n_iterations=1)

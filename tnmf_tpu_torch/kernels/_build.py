@@ -1,0 +1,140 @@
+"""Lazy build and load of the hand-written CUDA kernels.
+
+All ``tnmf_tpu_torch/csrc/*.cu`` files compile with ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, which is
+loaded with :mod:`ctypes`.  The library is named by a hash of the sources
+and the flags, so an edited source triggers a rebuild and an unchanged one
+loads the cached build.  The build runs at the first kernel launch, never at
+import, so the package imports and its CPU tests run without ``nvcc``.
+
+The build directory (``tnmf_tpu_torch/_build/``) is listed in
+``.gitignore``.  ``nvcc``'s resource report (``-Xptxas -v``: registers,
+shared memory and spills per kernel) is kept beside the library as
+``<library>.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE_DIR = _PKG / 'csrc'
+BUILD_DIR = _PKG / '_build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_P, _F, _I, _I64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int64
+
+#: C entry points and their argument types; each returns a cudaError_t
+SIGNATURES = {
+    # arr, neg, pos, reg, out, n, stream
+    'tnmf_mu_ratio': (_P, _P, _P, _F, _P, _I64, _P),
+    # x2, h, out, scratch, n, m, c2, ex, ey, tx, ty, ax, ay,
+    # tile_rows, tile_cols, grid_x, grid_y, smem_bytes, stream
+    'tnmf_grad_w': (_P, _P, _P, _P) + (_I,) * 14 + (_P,),
+    # vp, rx, w, h, pos_extra, denom_add, out, n, m, c, ex, ey, tx, ty, ax, ay,
+    # pitch, smem_bytes, stream
+    'tnmf_mu_h': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 11 + (_P,),
+}
+
+#: the largest dynamic shared memory a Hopper block may opt in to (bytes)
+MAX_SMEM_BYTES = 232448
+
+_lib = None
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on
+    ``PATH``, else the toolkit's default install location."""
+    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
+    candidates = [Path(home) / 'bin' / 'nvcc'] if home else []
+    on_path = shutil.which('nvcc')
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path('/usr/local/cuda/bin/nvcc'))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        'nvcc not found (set CUDA_HOME): the CUDA kernels of tnmf_tpu_torch '
+        'are built from source at first use')
+
+
+def library_path() -> Path:
+    """Where the build of the current sources lives (whether built or not)."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in sorted(SOURCE_DIR.glob('*.cu*')):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f'libtnmf_kernels_{h.hexdigest()[:16]}.so'
+
+
+def build() -> Path:
+    """Compile the sources unless a build of them exists; returns its path."""
+    so = library_path()
+    if so.exists():
+        return so
+    compiler = nvcc()
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
+    cmd = [compiler, *NVCC_FLAGS, '-o', str(tmp),
+           *(str(p) for p in sorted(SOURCE_DIR.glob('*.cu')))]
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f'nvcc failed with exit code {proc.returncode}:\n'
+            f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+    so.with_name(so.name + '.log').write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.tnmf_error_string.argtypes = (ctypes.c_int,)
+        lib.tnmf_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_launch(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    if err != 0:
+        msg = library().tnmf_error_string(err).decode()
+        raise RuntimeError(f'{name}: CUDA error {err}: {msg}')
+
+
+def check_inputs(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels take contiguous float32 CUDA tensors on one device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != 'cuda':
+            raise ValueError(f'{name}: expected CUDA tensors, got one on {t.device}')
+        if t.device != dev:
+            raise ValueError(f'{name}: tensors on {dev} and {t.device}')
+        if t.dtype != torch.float32:
+            raise TypeError(
+                f'{name}: the CUDA kernel takes float32, got {t.dtype} '
+                '(bf16 storage: ROADMAP.md queue 2)')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: expected contiguous tensors')
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on an NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths once on an NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -10,19 +10,30 @@ failure (exit code != 0, no result line):
 1. device: the card's name and power limit (``nvidia-smi``), torch and nvcc;
 2. build: compiles ``tnmf_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``tnmf_tpu_torch/_build/`` (set-up time) and prints ptxas' resource report;
-3. kernels: K1 ``mu_ratio``, K2 ``grad_w`` and K3 ``mu_h`` against their plain
-   PyTorch versions on the card, at the flagship shapes and at two ragged
-   small ones (one 1-D), within max|kernel - plain| / max|plain| <= 1e-4;
-4. golden: the seeded golden 2-D fixture fit (tests/golden_values.json,
-   '2d'/'valid') in float32 on the card, energy within rtol 1e-4;
+3. kernels: K1 ``mu_ratio``, K2 ``grad_w``, K3 ``mu_h`` and K4
+   ``inhibited_mu_h`` against their plain PyTorch versions on the card, at
+   the flagship shapes and at small ragged ones (K4 also at the repository's
+   long 1-D shape, each small one with same-atom, cross-atom and both
+   terms), within max|kernel - plain| / max|plain| <= 1e-4;
+4. golden: the seeded golden fits of tests/golden_values.json in float32 on
+   the card: the 2-D fixture ('2d'/'valid'), the 1-D pulse train with
+   inhibition ('1d', four modes) and the regularizer sweep
+   ('sparsity_inhibition', seven settings); energy (and L1) within rtol
+   1e-4, L0 printed beside its golden;
 5. flagship: ``TransformInvariantNMF(16, (9, 9)).fit`` on 64 x 1 x 256 x 256
-   for 20 iterations with every launch counter reset before and read after;
-   energy finite and below the initial one, unit-sum atoms, each kernel
-   launched at least once per iteration; then MU ms/iteration (CUDA events);
-6. per-kernel times at the flagship shapes, kernel against plain version.
+   for 20 iterations, plain (K1, K2, K3), with ``inhibition_strength=0.1``
+   and with ``cross_atom_inhibition_strength=0.05`` added (K1, K2, K4), every
+   launch counter reset before each fit and read after it; energy finite and
+   below the initial one, unit-sum atoms, each kernel of the path launched
+   at least once per iteration; then MU ms/iteration (CUDA events) and peak
+   device memory;
+6. a small 3-D fit, which the rank gate sends to the plain operators (no
+   kernel launch), against the same fit in float64 on the CPU;
+7. per-kernel times at the flagship shapes: kernel, plain version and the
+   nearest single PyTorch call, with each kernel's bound.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launches on the main path, error, and times; the last line is
+launches on the main paths, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -39,17 +50,25 @@ import numpy as np
 import torch
 
 from tnmf_tpu_torch import TransformInvariantNMF, engine
-from tnmf_tpu_torch.kernels import _build, gw, mu, mu_h
+from tnmf_tpu_torch.kernels import _build, gw, inhibit, mu, mu_h
 from tnmf_tpu_torch.ops import conv
+from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
 from tnmf_tpu_torch.ops.modes import ConvPlan
 from tnmf_tpu_torch.utils.data_loading import synthetic_face
+from tnmf_tpu_torch.utils.signals import generate_pulse_train
 
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-4            # max|kernel - plain| / max|plain|, float32 on the card
 GOLDEN_RTOL = 1e-4    # float32 fit on the card against the float64 golden
 N_ITER = 20
 SEED = 0
-FLAGSHIP = dict(N=64, C=1, S=(256, 256), M=16, A=(9, 9), mode='valid', sparsity=0.1)
+DEVICE = 'cuda'
+FLAGSHIP = dict(N=64, C=1, S=(256, 256), M=16, A=(9, 9), mode='valid', sparsity=0.1,
+                inhibition=0.1, cross=0.05)
+# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and FP32
+# outside the tensor cores (TF32 is not allowed at this precision)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 KERNELS = {
     'mu_ratio': dict(wrapper=mu.mu_ratio, source='tnmf_tpu_torch/csrc/mu_ratio.cu',
                      replaces='tnmf_tpu/experimental/pallas_mu.py:62'),
@@ -57,7 +76,28 @@ KERNELS = {
                    replaces='tnmf_tpu/experimental/pallas_gw.py:163'),
     'mu_h': dict(wrapper=mu_h.mu_h, source='tnmf_tpu_torch/csrc/mu_h.cu',
                  replaces='tnmf_tpu/experimental/pallas_phased.py:169'),
+    'inhibited_mu_h': dict(wrapper=inhibit.inhibited_mu_h,
+                           source='tnmf_tpu_torch/csrc/inhibited_mu_h.cu',
+                           replaces='tnmf_tpu/experimental/pallas_mu.py:213'),
 }
+COMBOS = [(True, False), (False, True), (True, True)]
+# K4 alone: (where, H shape, inhibition range), random H, neg and pos
+K4_CASES = [
+    ('2-D ragged 3x5x37x29 r(6,2)', (3, 5, 37, 29), (6, 2)),
+    ('2-D tall 1x3x300x40 r(4,3)', (1, 3, 300, 40), (4, 3)),
+    ('1-D 3x4x40 r(5)', (3, 4, 40), (5,)),
+    ('1-D long 16x8x4159 r(63)', (16, 8, 4159), (63,)),
+]
+# tests/test_sparsity_inhibition.py's settings
+SPARSITY_INHIBITION = [
+    dict(),
+    dict(sparsity_H=0.1),
+    dict(sparsity_H=1.0),
+    dict(inhibition_strength=0.1),
+    dict(inhibition_strength=1.0),
+    dict(cross_atom_inhibition_strength=0.5),
+    dict(sparsity_H=0.5, inhibition_strength=0.5, cross_atom_inhibition_strength=0.5),
+]
 
 
 def log(*args):
@@ -80,6 +120,12 @@ def time_ms(fn, reps: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, flops: float) -> tuple:
+    """The least time of the work on the card (ms) and what bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
 def reset_counts():
@@ -121,26 +167,45 @@ def phase_build():
 
 def _problem(N, C, S, M, A, mode, seed):
     """Random factors and the inputs each kernel gets from them on the main
-    path (plain operators, float32 on the card)."""
+    paths (plain operators, float32 on the card).  For each kernel:
+    (kernel, plain version, nearest single PyTorch call or None,
+    (bytes, flops) of the work)."""
     rng = np.random.default_rng(seed)
     plan = ConvPlan.create(mode, S, A)
-    dev = dict(device='cuda', dtype=torch.float32)
+    T = plan.transform_shape
+    dev = dict(device=DEVICE, dtype=torch.float32)
     V = torch.tensor(rng.random((N, C) + S), **dev)
     W = rng.random((M, C) + A)
     W = torch.tensor(W / W.sum(axis=tuple(range(2, W.ndim)), keepdims=True), **dev)
-    H = torch.tensor(rng.random((N, M) + plan.transform_shape), **dev)
+    H = torch.tensor(rng.random((N, M) + T), **dev)
     Vp = conv.prepare_data(V, plan)
     Rx = conv.extend_data(conv.reconstruct(W, H, plan), plan)
     X2 = torch.cat([Vp, Rx], dim=1)
     neg, pos = gw.grad_w_plain(X2, H, plan)
     neg, pos = neg.contiguous(), pos.contiguous()
+    hneg, hpos = (g.contiguous() for g in conv.grad_H_pair_prepared(Vp, Rx, W))
+    VR = torch.cat([Vp, Rx], dim=0)
+    ks = tuple(torch.tensor(k, **dev) for k in inhibition_kernels(tuple(a - 1 for a in A)))
     denom = engine.EPS + 0.1
+    inh = dict(inhibition=0.1, cross_inhibition=0.05, reg=denom, use_same=True,
+               use_cross=True)
+    nT, nA, nH = math.prod(T), math.prod(A), H.numel()
     return {
         'mu_ratio': (lambda: mu.mu_ratio(W, neg, pos, engine.EPS),
-                     lambda: mu.mu_ratio_plain(W, neg, pos, engine.EPS)),
-        'grad_w': (lambda: gw.grad_w(X2, H, plan), lambda: gw.grad_w_plain(X2, H, plan)),
+                     lambda: mu.mu_ratio_plain(W, neg, pos, engine.EPS), None,
+                     (4 * 4 * W.numel(), 3 * W.numel())),
+        'grad_w': (lambda: gw.grad_w(X2, H, plan), lambda: gw.grad_w_plain(X2, H, plan),
+                   lambda: conv.corr_W(X2, H),
+                   (4 * (X2.numel() + nH + 2 * W.numel()), 2 * M * 2 * C * nA * N * nT)),
         'mu_h': (lambda: mu_h.mu_h(Vp, Rx, W, H, denom),
-                 lambda: mu_h.mu_h_plain(Vp, Rx, W, H, denom)),
+                 lambda: mu_h.mu_h_plain(Vp, Rx, W, H, denom),
+                 lambda: conv.corr_H(VR, W),
+                 (4 * (Vp.numel() + Rx.numel() + W.numel() + 2 * nH),
+                  2 * 2 * N * M * C * nT * nA + 3 * nH)),
+        'inhibited_mu_h': (lambda: inhibit.inhibited_mu_h(H, hneg, hpos, ks, **inh),
+                           lambda: inhibit.inhibited_mu_h_plain(H, hneg, hpos, ks, **inh),
+                           None,
+                           (4 * 4 * nH, nH * (2 * sum(k.numel() for k in ks) + 10))),
     }
 
 
@@ -157,7 +222,7 @@ def _compare(name, kernel, plain, where) -> float:
         abs_err = max(abs_err, float((g - w).abs().max()))
         scale = max(scale, float(w.abs().max()))
     rel = abs_err / scale
-    log(f'  {name:9s} {where:28s} max_abs_err={abs_err:.3e} rel={rel:.3e}')
+    log(f'  {name:14s} {where:34s} max_abs_err={abs_err:.3e} rel={rel:.3e}')
     if not rel <= TOL:
         raise AssertionError(f'{name} at {where}: kernel disagrees with its plain '
                              f'version (relative error {rel:.3e} > {TOL})')
@@ -174,10 +239,21 @@ def phase_kernels() -> dict:
     ]
     errors = {}
     for i, (where, args) in enumerate(cases):
-        for name, (kernel, plain) in _problem(*args, seed=i).items():
+        for name, (kernel, plain, _, _) in _problem(*args, seed=i).items():
             err = _compare(name, kernel, plain, where)
             if i == 0:
                 errors[name] = err
+    rng = np.random.default_rng(SEED)
+    for where, dims, ranges in K4_CASES:
+        H, neg, pos = (torch.tensor(rng.random(dims), device=DEVICE, dtype=torch.float32)
+                       for _ in range(3))
+        ks = inhibition_kernels(ranges)
+        for use_same, use_cross in COMBOS:
+            kw = dict(use_same=use_same, use_cross=use_cross)
+            args = (H, neg, pos, ks, 0.3, 0.2, engine.EPS + 0.1)
+            _compare('inhibited_mu_h', lambda: inhibit.inhibited_mu_h(*args, **kw),
+                     lambda: inhibit.inhibited_mu_h_plain(*args, **kw),
+                     f'{where} {"s" if use_same else ""}{"c" if use_cross else ""}')
     return errors
 
 
@@ -187,81 +263,197 @@ def _image_2d() -> np.ndarray:
     return np.repeat(img.transpose((2, 0, 1))[np.newaxis], 2, axis=0)
 
 
-def _ms_per_iteration(model, sparsity, n=10) -> float:
+def _signal_1d() -> np.ndarray:
+    """The golden 1-D pulse train, built as tests/fixtures.py builds it
+    (it reseeds the global NumPy stream)."""
+    np.random.seed(42)
+    signal, _ = generate_pulse_train(pulse_length=20, n_pulses=5)
+    return signal[np.newaxis]
+
+
+def _fit_kw(fit: dict) -> tuple:
+    """``engine.fit_loop`` arguments of a ``fit`` call's regularizers."""
+    inh = fit.get('inhibition_strength', 0.)
+    cross = fit.get('cross_atom_inhibition_strength', 0.)
+    return ((fit.get('sparsity_H', 0.), inh, cross),
+            dict(use_inhibition=inh > 0, use_cross=cross > 0))
+
+
+def _ms_per_iteration(model, fit: dict, n=10) -> float:
+    args, flags = _fit_kw(fit)
+
     def run():
-        model._W, model._H = engine.fit_loop(model._Vp, model._W, model._H, n, sparsity,
-                                             plan=model._plan)
+        model._W, model._H = engine.fit_loop(model._Vp, model._W, model._H, n, *args,
+                                             model._kernels, plan=model._plan, **flags)
     return time_ms(run, reps=1) / n
 
 
-def phase_golden() -> float:
-    golden = json.loads((ROOT / 'tests' / 'golden_values.json').read_text())['2d']['valid']
-    np.random.seed(42)
-    nmf = TransformInvariantNMF(n_atoms=10, atom_shape=(7, 7), device='cuda')
-    nmf.fit(_image_2d(), sparsity_H=0.1, n_iterations=10)
-    e = nmf._energy_function()
-    rel = abs(e - golden) / abs(golden)
-    log(f'golden 2-D fixture: energy {e!r} vs {golden!r} (rel {rel:.3e})')
+def _check_rel(what, got, want):
+    rel = abs(got - want) / abs(want)
+    log(f'  {what}: {got!r} vs golden {want!r} (rel {rel:.3e})')
     if not rel <= GOLDEN_RTOL:
-        raise AssertionError(f'golden energy off by {rel:.3e} > {GOLDEN_RTOL}')
-    ms = _ms_per_iteration(nmf, 0.1)
-    log(f'golden 2-D fixture: {ms:.4f} ms/iteration')
+        raise AssertionError(f'{what} off by {rel:.3e} > {GOLDEN_RTOL}')
+
+
+def phase_golden() -> dict:
+    goldens = json.loads((ROOT / 'tests' / 'golden_values.json').read_text())
+    image = _image_2d()
+    ms = {}
+    log('golden 2-D fixture:')
+    np.random.seed(42)
+    nmf = TransformInvariantNMF(n_atoms=10, atom_shape=(7, 7), device=DEVICE)
+    nmf.fit(image, sparsity_H=0.1, n_iterations=10)
+    _check_rel('2d/valid energy', nmf._energy_function(), goldens['2d']['valid'])
+    ms['2d'] = _ms_per_iteration(nmf, dict(sparsity_H=0.1))
+    log(f'  2-D fixture: {ms["2d"]:.4f} ms/iteration')
+
+    log('golden 1-D pulse train (inhibition_strength=0.1):')
+    for mode, golden in goldens['1d'].items():
+        np.random.seed(42)
+        nmf = TransformInvariantNMF(n_atoms=3, atom_shape=(20,), reconstruction_mode=mode,
+                                    device=DEVICE)
+        reset_counts()
+        nmf.fit(_signal_1d(), n_iterations=10, inhibition_strength=0.1)
+        launches = counts()
+        _check_rel(f'1d/{mode} energy', nmf._energy_function(), golden)
+        if launches['inhibited_mu_h'] < 10:
+            raise AssertionError(f'1-D {mode}: K4 launched {launches["inhibited_mu_h"]} '
+                                 'times in 10 iterations')
+        if mode == 'valid':
+            ms['1d'] = _ms_per_iteration(nmf, dict(inhibition_strength=0.1))
+            log(f'  1-D pulse train: {ms["1d"]:.4f} ms/iteration; launches {launches}')
+
+    log('golden sparsity_inhibition sweep (2-D fixture, 5 atoms 5x5):')
+    for params in SPARSITY_INHIBITION:
+        key = ','.join(f'{k}={v}' for k, v in sorted(params.items())) or 'plain'
+        golden = goldens['sparsity_inhibition'][key]
+        np.random.seed(42)
+        nmf = TransformInvariantNMF(n_atoms=5, atom_shape=(5, 5), device=DEVICE)
+        nmf.fit(image, n_iterations=10, **params)
+        H = nmf.H
+        _check_rel(f'{key} energy', nmf._energy_function(), golden['energy'])
+        _check_rel(f'{key} L1', float(np.abs(H).sum(dtype=np.float64)), golden['l1'])
+        log(f'  {key} L0: {int((H > 1e-4).sum())} vs golden {golden["l0"]}')
     return ms
 
 
 def phase_flagship() -> tuple:
+    """The flagship fit plain and inhibited; returns the launches and the
+    iterations of each kernel's paths, ms/iteration per path and the last
+    plain model."""
     f = FLAGSHIP
     V = np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'], dtype=np.float32)
 
     def model():
         return TransformInvariantNMF(n_atoms=f['M'], atom_shape=f['A'],
-                                     reconstruction_mode=f['mode'], seed=SEED, device='cuda')
+                                     reconstruction_mode=f['mode'], seed=SEED, device=DEVICE)
     start = model()
     start.fit(V, n_iterations=0)
     e0 = start._energy_function()
     del start
 
-    nmf = model()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    nmf.fit(V, n_iterations=N_ITER, sparsity_H=f['sparsity'])
-    sync()
-    wall = time.perf_counter() - t0
-    launches = counts()
+    # the plain path last: its model stays alive for phase 7 and would
+    # count in the other paths' peak memory
+    paths = [
+        ('inhibited', ('mu_ratio', 'grad_w', 'inhibited_mu_h'),
+         dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition'])),
+        ('inhibited+cross', ('mu_ratio', 'grad_w', 'inhibited_mu_h'),
+         dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition'],
+              cross_atom_inhibition_strength=f['cross'])),
+        ('plain', ('mu_ratio', 'grad_w', 'mu_h'), dict(sparsity_H=f['sparsity'])),
+    ]
+    total = dict.fromkeys(KERNELS, 0)
+    iterations = dict.fromkeys(KERNELS, 0)
+    ms, plain_model = {}, None
+    for label, required, fit in paths:
+        nmf = model()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        nmf.fit(V, n_iterations=N_ITER, **fit)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        e = nmf._energy_function()
+        log(f'flagship {label}: energy {e0!r} -> {e!r} after {N_ITER} iterations '
+            f'({wall:.2f} s wall incl. host init); launches {launches}; '
+            f'peak device memory {peak:.0f} MiB')
+        if not (math.isfinite(e) and e < e0):
+            raise AssertionError(f'flagship {label}: energy {e} is not finite and below {e0}')
+        sums = nmf._W.sum(dim=(-2, -1))
+        if not torch.allclose(sums, torch.ones_like(sums), atol=1e-5):
+            raise AssertionError(f'flagship {label}: atoms do not sum to 1: '
+                                 f'{sums.flatten().tolist()}')
+        for name in required:
+            if launches[name] < N_ITER:
+                raise AssertionError(f'flagship {label}: {name} launched {launches[name]} '
+                                     f'times in {N_ITER} iterations')
+            iterations[name] += N_ITER
+        for name, n in launches.items():
+            total[name] += n
+        ms[label] = _ms_per_iteration(nmf, fit)
+        log(f'flagship {label}: {ms[label]:.4f} ms/iteration')
+        if label == 'plain':
+            plain_model = nmf
+        del nmf
+    return total, iterations, ms, plain_model
 
-    e = nmf._energy_function()
-    log(f'flagship: energy {e0!r} -> {e!r} after {N_ITER} iterations '
-        f'({wall:.2f} s wall incl. host init); launches {launches}; '
-        f'peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB')
-    if not (math.isfinite(e) and e < e0):
-        raise AssertionError(f'flagship energy {e} is not finite and below {e0}')
-    sums = nmf._W.sum(dim=(-2, -1))
-    if not torch.allclose(sums, torch.ones_like(sums), atol=1e-5):
-        raise AssertionError(f'atoms do not sum to 1: {sums.flatten().tolist()}')
-    for name, n in launches.items():
-        if n < N_ITER:
-            raise AssertionError(f'{name} launched {n} times in {N_ITER} iterations')
-    ms = _ms_per_iteration(nmf, f['sparsity'])
-    log(f'flagship: {ms:.4f} ms/iteration')
-    return launches, ms, nmf
+
+def phase_3d():
+    """A small 3-D inhibited fit: the rank gate keeps it off the kernels;
+    its factors match the same seeded fit in float64 on the CPU."""
+    V = np.random.default_rng(SEED).random((2, 1, 12, 12, 12))
+    fit = dict(n_iterations=5, sparsity_H=0.1, inhibition_strength=0.1,
+               cross_atom_inhibition_strength=0.05)
+    gpu = TransformInvariantNMF(n_atoms=4, atom_shape=(3, 3, 3), seed=SEED, device=DEVICE)
+    if engine.uses_kernels(ConvPlan.create('valid', V.shape[2:], (3, 3, 3))):
+        raise AssertionError('3-D: the rank gate sends the problem to the kernels')
+    reset_counts()
+    gpu.fit(V, **fit)
+    sync()
+    launches = counts()
+    cpu = TransformInvariantNMF(n_atoms=4, atom_shape=(3, 3, 3), seed=SEED, device='cpu',
+                                dtype=torch.float64)
+    cpu.fit(V, **fit)
+    rel = max(float(np.abs(gpu.W - cpu.W).max() / np.abs(cpu.W).max()),
+              float(np.abs(gpu.H - cpu.H).max() / np.abs(cpu.H).max()))
+    log(f'3-D 2x1x12x12x12/4x3x3x3 (plain operators): launches {launches}; W and H '
+        f'{rel:.3e} off float64 on the CPU')
+    if any(launches.values()):
+        raise AssertionError(f'3-D fit launched kernels: {launches}')
+    if not rel <= TOL:
+        raise AssertionError(f'3-D fit off float64 by {rel:.3e} > {TOL}')
 
 
 def phase_times(nmf) -> dict:
     """Kernel and plain version at the flagship shapes, in turns
-    (plain, kernel, kernel, plain), plus the rest of one iteration."""
+    (plain, kernel, kernel, plain), the nearest single PyTorch call, the
+    bound, and the rest of one iteration."""
     f = FLAGSHIP
     fns = _problem(f['N'], f['C'], f['S'], f['M'], f['A'], f['mode'], seed=0)
     times = {}
-    for name, (kernel, plain) in fns.items():
+    for name, (kernel, plain, library, work) in fns.items():
         p1, k1, k2, p2 = (time_ms(fn) for fn in (plain, kernel, kernel, plain))
-        times[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
-        log(f'  {name:9s} kernel {k1:.4f}/{k2:.4f} ms  plain {p1:.4f}/{p2:.4f} ms')
+        lib = None if library is None else time_ms(library)
+        bound_ms, bound_by = bound(*work)
+        ms = (k1 + k2) / 2
+        times[name] = dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=lib)
+        log(f'  {name:14s} kernel {k1:.4f}/{k2:.4f} ms  plain {p1:.4f}/{p2:.4f} ms  '
+            f'library {"none" if lib is None else f"{lib:.4f} ms"}  bound {bound_ms:.4f} ms '
+            f'({bound_by}; {work[0] / 1e9:.4f} GB, {work[1] / 1e9:.4f} GFLOP), '
+            f'{100 * bound_ms / ms:.1f} % of bound')
     W, H, plan = nmf._W, nmf._H, nmf._plan
     rec = time_ms(lambda: conv.reconstruct(W, H, plan))
     ext = time_ms(lambda: torch.cat([nmf._Vp, conv.extend_data(conv.reconstruct(W, H, plan),
                                                                 plan)], dim=1)) - rec
     log(f'  reconstruct (cuDNN, TF32 off) {rec:.4f} ms; extend + stack {ext:.4f} ms')
+    pair = time_ms(lambda: conv.grad_H_pair_prepared(nmf._Vp, conv.extend_data(
+        conv.reconstruct(W, H, plan), plan), W)) - rec
+    log(f'  extend + H gradient pair of the inhibited path (cuDNN, TF32 off, 2N batch) '
+        f'{pair:.4f} ms')
     # K1 at the size of H, for its bandwidth (the main path calls it on W)
     big = [torch.rand_like(H) for _ in range(3)]
     k1 = time_ms(lambda: mu.mu_ratio(*big, 0.1))
@@ -276,11 +468,14 @@ def main() -> int:
     log('kernels against their plain versions:')
     errors = phase_kernels()
     phase_golden()
-    launches, _, nmf = phase_flagship()
+    launches, iterations, _, nmf = phase_flagship()
+    phase_3d()
     log('per-kernel times at the flagship shapes:')
     times = phase_times(nmf)
     rows = [dict(name=name, route='cuda', source=k['source'], replaces=k['replaces'],
-                 launches=launches[name], max_abs_err=errors[name], **times[name])
+                 launches=launches[name],
+                 launches_per_iteration=launches[name] / iterations[name],
+                 max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': dict(platform=device['platform'],

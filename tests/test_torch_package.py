@@ -14,7 +14,8 @@ import torch
 
 import tnmf_tpu_torch
 from tnmf_tpu_torch import engine
-from tnmf_tpu_torch.kernels import _build, gw, mu, mu_h
+from tnmf_tpu_torch.kernels import _build, gw, inhibit, mu, mu_h
+from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
 from tnmf_tpu_torch.ops.modes import ConvPlan
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -29,7 +30,8 @@ def _run(code, env=None):
 def test_import_leaves_jax_out():
     code = ('import sys, tnmf_tpu_torch, tnmf_tpu_torch.engine, tnmf_tpu_torch.kernels.mu, '
             'tnmf_tpu_torch.kernels.gw, tnmf_tpu_torch.kernels.mu_h, '
-            'tnmf_tpu_torch.utils.data_loading\n'
+            'tnmf_tpu_torch.kernels.inhibit, tnmf_tpu_torch.ops.inhibition, '
+            'tnmf_tpu_torch.utils.data_loading, tnmf_tpu_torch.utils.signals\n'
             'bad = sorted(m for m in sys.modules\n'
             '             if m.split(".")[0] in ("jax", "jaxlib", "tnmf_tpu"))\n'
             'print(bad)')
@@ -58,17 +60,18 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
     env.pop('CUDA_HOME', None)
     env.pop('CUDA_PATH', None)
     code = ('import tnmf_tpu_torch.kernels.mu, tnmf_tpu_torch.kernels.gw, '
+            'tnmf_tpu_torch.kernels.inhibit as i, '
             'tnmf_tpu_torch.kernels.mu_h as k, tnmf_tpu_torch.kernels._build as b\n'
-            'print(b._lib is None, k.mu_h.launches)')
+            'print(b._lib is None, k.mu_h.launches, i.inhibited_mu_h.launches)')
     proc = _run(code, env)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.split() == ['True', '0']
+    assert proc.stdout.split() == ['True', '0', '0']
 
 
 def test_build_flags_target_hopper():
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
     names = {p.name for p in _build.SOURCE_DIR.glob('*.cu')}
-    assert names == {'mu_ratio.cu', 'grad_w.cu', 'mu_h.cu'}
+    assert names == {'mu_ratio.cu', 'grad_w.cu', 'mu_h.cu', 'inhibited_mu_h.cu'}
     assert _build.library_path().parent == _build.BUILD_DIR
     assert 'tnmf_tpu_torch/_build/' in (ROOT / '.gitignore').read_text().split()
 
@@ -84,15 +87,23 @@ def _kernel_inputs(device):
     return plan, t(2, 2, *E), t(2, 2, *E), t(3, 2, 3, 2), t(2, 3, *T)
 
 
+def _launches():
+    return (mu.mu_ratio.launches, gw.grad_w.launches, mu_h.mu_h.launches,
+            inhibit.inhibited_mu_h.launches)
+
+
 def test_cpu_tensors_take_plain_versions():
     plan, Vp, Rx, W, H = _kernel_inputs('cpu')
-    before = (mu.mu_ratio.launches, gw.grad_w.launches, mu_h.mu_h.launches)
+    before = _launches()
     assert torch.equal(mu.mu_ratio(W, W, W, 0.5), mu.mu_ratio_plain(W, W, W, 0.5))
     X2 = torch.cat([Vp, Rx], dim=1)
     for a, b in zip(gw.grad_w(X2, H, plan), gw.grad_w_plain(X2, H, plan)):
         assert torch.equal(a, b)
     assert torch.equal(mu_h.mu_h(Vp, Rx, W, H, 0.1), mu_h.mu_h_plain(Vp, Rx, W, H, 0.1))
-    assert (mu.mu_ratio.launches, gw.grad_w.launches, mu_h.mu_h.launches) == before
+    ks = inhibition_kernels((1, 2))
+    assert torch.equal(inhibit.inhibited_mu_h(H, H, H, ks, 0.1, 0.2, 0.1, use_cross=True),
+                       inhibit.inhibited_mu_h_plain(H, H, H, ks, 0.1, 0.2, 0.1, use_cross=True))
+    assert _launches() == before
 
 
 def test_non_cpu_tensors_never_take_plain_versions():
@@ -105,6 +116,8 @@ def test_non_cpu_tensors_never_take_plain_versions():
         gw.grad_w(torch.cat([Vp, Rx], dim=1), H, plan)
     with pytest.raises(ValueError, match='expected CUDA'):
         mu_h.mu_h(Vp, Rx, W, H, 0.1)
+    with pytest.raises(ValueError, match='expected CUDA'):
+        inhibit.inhibited_mu_h(H, H, H, inhibition_kernels((1, 1)), 0.1, 0., 0.1)
     assert _build._lib is None
 
 
@@ -130,7 +143,7 @@ def test_auto_large_atoms_and_plain_nmf_not_ported():
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(inhibition_strength=0.1), dict(cross_atom_inhibition_strength=0.1),
+    dict(revive_every=5), dict(extrapolate=True),
     dict(l2_H=0.1), dict(ortho_W=0.1), dict(mask=np.ones((1, 1, 8, 8))),
     dict(tol=1e-3), dict(record_energies=True), dict(solver='hals'),
     dict(progress_callback=lambda m, i: True), dict(keep_H=True),

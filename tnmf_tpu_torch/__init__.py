@@ -8,12 +8,12 @@ Pallas for the TPU as a kernel hand-written in CUDA C++ for ``sm_90a``
 reference the port is held against; this package imports neither it nor
 JAX.
 
-Ported so far: the full-batch MU fit with the direct-convolution strategy
-(see ROADMAP.md for the rest)::
+Ported so far: the full-batch MU fit with the direct-convolution strategy,
+with lateral inhibition (see ROADMAP.md for the rest)::
 
     from tnmf_tpu_torch import TransformInvariantNMF
     nmf = TransformInvariantNMF(n_atoms=16, atom_shape=(9, 9), device='cuda')
-    nmf.fit(V, n_iterations=100, sparsity_H=0.1)
+    nmf.fit(V, n_iterations=100, sparsity_H=0.1, inhibition_strength=0.1)
 """
 
 from .models.tnmf import TransformInvariantNMF, from_numpy

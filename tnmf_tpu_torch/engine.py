@@ -11,26 +11,37 @@ the strategy a fit resolves to with :func:`require_ported`.  On CUDA
 tensors the hot operators run through the hand-written kernels: the H
 update through K3 (:func:`~tnmf_tpu_torch.kernels.mu_h.mu_h`),
 the W statistics through K2 (:func:`~tnmf_tpu_torch.kernels.gw.grad_w`) and
-the W ratio through K1 (:func:`~tnmf_tpu_torch.kernels.mu.mu_ratio`).  On CPU
-tensors the same wrappers run their plain versions.  The reconstruction
-stays a convolution (cuDNN, TF32 off), as the JAX package left it to XLA.
+the W ratio through K1 (:func:`~tnmf_tpu_torch.kernels.mu.mu_ratio`), and
+the inhibited H update (lateral inhibition on) through K4
+(:func:`~tnmf_tpu_torch.kernels.inhibit.inhibited_mu_h`).  On CPU tensors
+the same wrappers run their plain versions.  The reconstruction stays a
+convolution (cuDNN, TF32 off), as the JAX package left it to XLA.
+
+Rank gate: the kernels serve 1-D and 2-D shifts, the rank scope of the
+JAX package's own kernels.  ``_mu_H`` and ``_mu_W`` choose by
+``plan.ndim`` before any launch (:func:`uses_kernels`): a 3-D problem runs
+the plain versions (cuDNN ``conv3d``, TF32 off) on every device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
-from .kernels.gw import grad_w
-from .kernels.mu import mu_ratio
-from .kernels.mu_h import mu_h
+from .kernels.gw import grad_w, grad_w_plain
+from .kernels.inhibit import inhibited_mu_h, inhibited_mu_h_plain
+from .kernels.mu import mu_ratio, mu_ratio_plain
+from .kernels.mu_h import mu_h, mu_h_plain
 from .ops import beta as beta_ops
 from .ops import conv as conv_ops
 from .ops.modes import ConvPlan
 
 EPS = 1.0e-9  # reference: TransformInvariantNMF.py:166
+
+#: shift ranks whose MU step runs through the hand-written kernels
+KERNEL_RANKS = (1, 2)
 
 #: the ROADMAP item that ports each strategy the port does not run yet
 _UNPORTED_STRATEGIES = {
@@ -96,13 +107,31 @@ def energy(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
     return beta_ops.divergence(V, reconstruct(W, H, plan=plan))
 
 
-def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float, *,
-          plan: ConvPlan) -> torch.Tensor:
+def uses_kernels(plan: ConvPlan) -> bool:
+    """Whether the MU step of ``plan`` goes to the hand-written kernels
+    (1-D and 2-D shifts) or to their plain versions (3-D).  Decided from
+    the plan alone, never from a failed launch."""
+    return plan.ndim in KERNEL_RANKS
+
+
+def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
+          inhibition: float = 0., cross_inhibition: float = 0., kernels: Sequence = (),
+          *, plan: ConvPlan, use_inhibition: bool = False,
+          use_cross: bool = False) -> torch.Tensor:
     """One multiplicative H update (reference ``_update_H``,
     ``TransformInvariantNMF.py:246-271``):
-    ``H * corr(Vp, W) / (corr(Rx, W) + EPS + sparsity)``, fused in K3."""
+    ``H * corr(Vp, W) / (corr(Rx, W) + EPS + sparsity)``, fused in K3.  With
+    lateral inhibition (``use_inhibition`` same-atom, ``use_cross``
+    cross-atom) the gradient pair is one stacked convolution and K4 adds the
+    inhibition term and forms the ratio."""
     Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
-    return mu_h(Vp, Rx, W, H, EPS + float(sparsity))
+    reg = EPS + float(sparsity)
+    if not (use_inhibition or use_cross):
+        return (mu_h if uses_kernels(plan) else mu_h_plain)(Vp, Rx, W, H, reg)
+    neg, pos = conv_ops.grad_H_pair_prepared(Vp, Rx, W)
+    update = inhibited_mu_h if uses_kernels(plan) else inhibited_mu_h_plain
+    return update(H, neg, pos, kernels, float(inhibition), float(cross_inhibition), reg,
+                  use_same=use_inhibition, use_cross=use_cross)
 
 
 def _normalize_W(W: torch.Tensor, n_shift_axes: int) -> torch.Tensor:
@@ -117,27 +146,35 @@ def _mu_W(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
     (reference ``_update_W`` + ``normalize``, ``TransformInvariantNMF.py:240-244``):
     the statistics in K2, the ratio ``W * neg / (pos + EPS)`` in K1."""
     Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
-    neg, pos = grad_w(torch.cat([Vp, Rx], dim=1), H, plan)
-    return _normalize_W(mu_ratio(W, neg, pos, EPS), plan.ndim)
+    stats, ratio = (grad_w, mu_ratio) if uses_kernels(plan) else (grad_w_plain, mu_ratio_plain)
+    neg, pos = stats(torch.cat([Vp, Rx], dim=1), H, plan)
+    return _normalize_W(ratio(W, neg, pos, EPS), plan.ndim)
 
 
 def update_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
-                sparsity: float, *, plan: ConvPlan, update_H: bool = True,
-                update_W: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                sparsity: float, inhibition: float = 0., cross_inhibition: float = 0.,
+                kernels: Sequence = (), *, plan: ConvPlan, update_H: bool = True,
+                update_W: bool = True, use_inhibition: bool = False,
+                use_cross: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """One full MU iteration: H update, then W update.  Returns ``(W, H)``."""
     if update_H:
-        H = _mu_H(Vp, W, H, sparsity, plan=plan)
+        H = _mu_H(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
+                  use_inhibition=use_inhibition, use_cross=use_cross)
     if update_W:
         W = _mu_W(Vp, W, H, plan=plan)
     return W, H
 
 
 def fit_loop(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
-             n_iterations: int, sparsity: float, *, plan: ConvPlan,
-             update_H: bool = True,
-             update_W: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``n_iterations`` MU iterations.  Returns ``(W, H)``."""
+             n_iterations: int, sparsity: float, inhibition: float = 0.,
+             cross_inhibition: float = 0., kernels: Sequence = (), *, plan: ConvPlan,
+             update_H: bool = True, update_W: bool = True, use_inhibition: bool = False,
+             use_cross: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``n_iterations`` MU iterations.  Returns ``(W, H)``.  ``kernels`` are
+    the per-axis inhibition kernels, read when ``use_inhibition`` or
+    ``use_cross`` is set."""
     for _ in range(int(n_iterations)):
-        W, H = update_step(Vp, W, H, sparsity, plan=plan,
-                           update_H=update_H, update_W=update_W)
+        W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
+                           plan=plan, update_H=update_H, update_W=update_W,
+                           use_inhibition=use_inhibition, use_cross=use_cross)
     return W, H

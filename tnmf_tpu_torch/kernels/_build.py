@@ -42,6 +42,9 @@ SIGNATURES = {
     # vp, rx, w, h, pos_extra, denom_add, out, n, m, c, ex, ey, tx, ty, ax, ay,
     # pitch, smem_bytes, stream
     'tnmf_mu_h': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 11 + (_P,),
+    # h, neg, pos, taps, out, n, m, x, y, tx, ty, tile_x, tile_y, inh, cross,
+    # reg, use_same, use_cross, two_d, smem_bytes, stream
+    'tnmf_inhibited_mu_h': (_P,) * 5 + (_I,) * 8 + (_F,) * 3 + (_I,) * 4 + (_P,),
 }
 
 #: the largest dynamic shared memory a Hopper block may opt in to (bytes)

@@ -2,8 +2,9 @@
 
 Port of the full-batch multiplicative-update fit of
 :class:`tnmf_tpu.models.tnmf.TransformInvariantNMF`: the constructor, ``fit``
-/ ``fit_batch``, the host-NumPy initialization (reference RNG stream, so
-seeded fits match the JAX package), the ``W`` / ``H`` / ``V`` / ``R``
+/ ``fit_batch`` with the L1 and lateral-inhibition regularizers, the
+host-NumPy initialization (reference RNG stream, so seeded fits match the
+JAX package), the ``W`` / ``H`` / ``V`` / ``R``
 accessors, ``R_partial``, the energy, and loading the JAX package's ``.npz``
 checkpoints.  Arguments of the JAX API that select parts not ported yet
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -14,12 +15,13 @@ choice) in an explicit ``dtype`` (default float32).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import engine
+from ..ops.inhibition import cross_scale, inhibition_kernels, resolve_inhibition_range
 from ..ops.modes import ConvPlan
 
 # reference backend names (tnmf/TransformInvariantNMF.py:168-176) and the
@@ -40,7 +42,6 @@ _ITEM = 'ROADMAP.md queue 1, item {}'
 
 #: constructor arguments of the JAX API not ported yet: (default, ROADMAP item)
 _UNPORTED_INIT = {
-    'inhibition_range': (None, _ITEM.format(7)),
     'logger': (None, _ITEM.format(4)),
     'verbose': (0, _ITEM.format(4)),
     'mesh': (None, _ITEM.format(14)),
@@ -57,8 +58,6 @@ _UNPORTED_INIT = {
 
 #: fit_batch arguments of the JAX API not ported yet: (default, ROADMAP item)
 _UNPORTED_FIT = {
-    'inhibition_strength': (0., _ITEM.format(7)),
-    'cross_atom_inhibition_strength': (0., _ITEM.format(7)),
     'l2_H': (0., _ITEM.format(10)),
     'ortho_W': (0., _ITEM.format(10)),
     'mask': (None, _ITEM.format(10)),
@@ -137,6 +136,9 @@ class TransformInvariantNMF:
     atom_shape : Tuple[int, ...]
         Spatial shape of the atoms.
     reconstruction_mode : {'valid', 'full', 'circular', 'reflect'}, default 'valid'
+    inhibition_range : int or Tuple[int, ...], optional
+        Lateral inhibition range per shift axis; defaults to
+        ``atom_shape - 1`` (reference ``TransformInvariantNMF.py:154-160``).
     backend : str, default 'auto'
         A backend name of the JAX package.  Only the direct-convolution
         strategy is ported: names (or an ``'auto'`` choice) that resolve to
@@ -154,12 +156,16 @@ class TransformInvariantNMF:
     """
 
     def __init__(self, n_atoms: int, atom_shape: Tuple[int, ...],
-                 reconstruction_mode: str = 'valid', backend: str = 'auto',
-                 seed: Optional[int] = None, device='cuda',
+                 reconstruction_mode: str = 'valid',
+                 inhibition_range: Union[int, Tuple[int, ...], None] = None,
+                 backend: str = 'auto', seed: Optional[int] = None, device='cuda',
                  dtype: torch.dtype = torch.float32, **unported):
         _reject_unported('TransformInvariantNMF', unported, _UNPORTED_INIT)
         self.n_atoms = int(n_atoms)
         self.atom_shape = tuple(int(a) for a in atom_shape)
+        self._inhibition_range = resolve_inhibition_range(inhibition_range, self.atom_shape)
+        self._inhibition_kernels_1D = inhibition_kernels(self._inhibition_range)
+        self._kernels: Tuple[torch.Tensor, ...] = ()
         self._axes_W_normalization = tuple(range(-len(self.atom_shape), 0))
         try:
             self._strategy_request = _BACKEND_STRATEGY[backend.lower()]
@@ -246,6 +252,9 @@ class TransformInvariantNMF:
         self._W, self._H = from_numpy(W, H, device=self.device, dtype=self.dtype)
         self._Vd = torch.as_tensor(V, dtype=self.dtype, device=self.device)
         self._Vp = engine.prepare_data(self._Vd, plan=self._plan)
+        # built in float64, cast to the compute dtype
+        self._kernels = tuple(torch.as_tensor(k, dtype=self.dtype, device=self.device)
+                              for k in self._inhibition_kernels_1D)
 
     # ------------------------------------------------------------------
     # batch fitting (reference fit_batch, TransformInvariantNMF.py:282-348)
@@ -253,24 +262,35 @@ class TransformInvariantNMF:
 
     def fit_batch(self, V, n_iterations: int = 1000, update_H: bool = True,
                   update_W: bool = True, keep_W: bool = False,
-                  sparsity_H: float = 0., **unported):
+                  sparsity_H: float = 0., inhibition_strength: float = 0.,
+                  cross_atom_inhibition_strength: float = 0., **unported):
         """Full-batch multiplicative-update factorization of ``V``
         (``(n_samples, n_channels, *sample_shape)``, nonnegative):
         ``n_iterations`` H+W updates; ``update_H`` / ``update_W`` freeze a
         factor; ``keep_W`` warm-starts from the current dictionary;
-        ``sparsity_H`` is the L1 weight on the activations."""
+        ``sparsity_H`` is the L1 weight on the activations;
+        ``inhibition_strength`` and ``cross_atom_inhibition_strength``
+        weight the same-atom and cross-atom lateral inhibition."""
         _reject_unported('fit_batch', unported, _UNPORTED_FIT)
         V = np.asarray(V)
         if not np.all(V >= 0):
             raise ValueError('The input data V must be non-negative.')
         if not (update_H or update_W):
             raise ValueError('at least one of update_H / update_W must be True')
-        if not sparsity_H >= 0:
-            raise ValueError(f'sparsity_H must be >= 0, got {sparsity_H!r}')
+        for name, value in dict(
+                sparsity_H=sparsity_H, inhibition_strength=inhibition_strength,
+                cross_atom_inhibition_strength=cross_atom_inhibition_strength).items():
+            if not value >= 0:
+                raise ValueError(f'{name} must be >= 0, got {value!r}')
+        if cross_atom_inhibition_strength > 0:
+            cross_scale(cross_atom_inhibition_strength, self.n_atoms)  # raises for one atom
         self._initialize_matrices(V, keep_W)
         self._W, self._H = engine.fit_loop(
             self._Vp, self._W, self._H, int(n_iterations), float(sparsity_H),
-            plan=self._plan, update_H=update_H, update_W=update_W)
+            float(inhibition_strength), float(cross_atom_inhibition_strength), self._kernels,
+            plan=self._plan, update_H=update_H, update_W=update_W,
+            use_inhibition=inhibition_strength > 0,
+            use_cross=cross_atom_inhibition_strength > 0)
         self.n_iterations_ = int(n_iterations)
 
     def fit(self, V, y=None, **kwargs):
@@ -293,8 +313,8 @@ class TransformInvariantNMF:
              dtype: Optional[torch.dtype] = None) -> 'TransformInvariantNMF':
         """Restore a model from the JAX package's ``.npz`` checkpoint
         (``W``, optional ``H``, ``n_atoms``, ``atom_shape``,
-        ``reconstruction_mode``, ``dtype``).  ``dtype`` defaults to the
-        stored one.  Continue with ``fit(V, keep_W=True)``."""
+        ``inhibition_range``, ``reconstruction_mode``, ``dtype``).  ``dtype``
+        defaults to the stored one.  Continue with ``fit(V, keep_W=True)``."""
         with np.load(path, allow_pickle=False) as data:
             if 'transform_type' in data and str(data['transform_type']) != 'shift':
                 raise NotImplementedError(
@@ -306,6 +326,8 @@ class TransformInvariantNMF:
             model = cls(n_atoms=int(data['n_atoms']),
                         atom_shape=tuple(int(a) for a in data['atom_shape']),
                         reconstruction_mode=str(data['reconstruction_mode']),
+                        inhibition_range=(tuple(int(r) for r in data['inhibition_range'])
+                                          if 'inhibition_range' in data else None),
                         device=device, dtype=dtype)
             H = data['H'] if 'H' in data else None
             model._W, model._H = from_numpy(data['W'], H, device=model.device, dtype=dtype)

@@ -9,12 +9,19 @@ failure (exit code != 0, no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and nvcc;
 2. build: compiles ``tnmf_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
-   ``tnmf_tpu_torch/_build/`` (set-up time) and prints ptxas' resource report;
+   ``tnmf_tpu_torch/_build/`` (set-up time), prints ptxas' resource report
+   and counts the tensor-core (HMMA) instructions of K2 in the library's
+   SASS (``cuobjdump -sass``); none fails the run;
 3. kernels: K1 ``mu_ratio``, K2 ``grad_w``, K3 ``mu_h`` and K4
    ``inhibited_mu_h`` against their plain PyTorch versions on the card, at
-   the flagship shapes and at small ragged ones (K4 also at the repository's
-   long 1-D shape, each small one with same-atom, cross-atom and both
-   terms), within max|kernel - plain| / max|plain| <= 1e-4;
+   the flagship shapes and at small ragged ones (K2 also at the edges of its
+   tiling: 3, 17 and 64 atoms, 3 channels with 7 x 7 atoms, the 1-D pulse
+   train's 20-tap atoms, a ragged ty, all four modes; K4 also at the
+   repository's long 1-D shape, each small one with same-atom, cross-atom
+   and both terms, and same-atom only at the flagship, also with the
+   runtime tap loop in place of the compiled taps), within
+   max|kernel - plain| / max|plain| <= 1e-4; K2 at the flagship also
+   against float64 within 1e-5, and two K2 launches bit-identical;
 4. golden: the seeded golden fits of tests/golden_values.json in float32 on
    the card: the 2-D fixture ('2d'/'valid'), the 1-D pulse train with
    inhibition ('1d', four modes) and the regularizer sweep
@@ -30,7 +37,8 @@ failure (exit code != 0, no result line):
 6. a small 3-D fit, which the rank gate sends to the plain operators (no
    kernel launch), against the same fit in float64 on the CPU;
 7. per-kernel times at the flagship shapes: kernel, plain version and the
-   nearest single PyTorch call, with each kernel's bound.
+   nearest single PyTorch call, with each kernel's bound; K4 also
+   same-atom only, and with its runtime tap loop against the compiled taps.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths, error, times and bound; the last line is
@@ -39,6 +47,7 @@ launches on the main paths, error, times and bound; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -59,16 +68,22 @@ from tnmf_tpu_torch.utils.signals import generate_pulse_train
 
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-4            # max|kernel - plain| / max|plain|, float32 on the card
+F64_TOL = 1e-5        # K2 (3xTF32) against float64 at the flagship
 GOLDEN_RTOL = 1e-4    # float32 fit on the card against the float64 golden
 N_ITER = 20
 SEED = 0
 DEVICE = 'cuda'
 FLAGSHIP = dict(N=64, C=1, S=(256, 256), M=16, A=(9, 9), mode='valid', sparsity=0.1,
                 inhibition=0.1, cross=0.05)
-# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and FP32
-# outside the tensor cores (TF32 is not allowed at this precision)
+# published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, FP32 outside
+# the tensor cores, and dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
+# the rate each kernel's operations run at: K2 does three TF32 products per
+# float32 product (3xTF32), the others FP32 FMAs
+OPS_PER_S = dict(mu_ratio=FP32_FLOP_PER_S, grad_w=TF32_FLOP_PER_S / 3,
+                 mu_h=FP32_FLOP_PER_S, inhibited_mu_h=FP32_FLOP_PER_S)
 KERNELS = {
     'mu_ratio': dict(wrapper=mu.mu_ratio, source='tnmf_tpu_torch/csrc/mu_ratio.cu',
                      replaces='tnmf_tpu/experimental/pallas_mu.py:62'),
@@ -87,6 +102,27 @@ K4_CASES = [
     ('2-D tall 1x3x300x40 r(4,3)', (1, 3, 300, 40), (4, 3)),
     ('1-D 3x4x40 r(5)', (3, 4, 40), (5,)),
     ('1-D long 16x8x4159 r(63)', (16, 8, 4159), (63,)),
+    # taps too wide for two H buffers (one buffer), and for any 8-row tile
+    # or two buffers of one row (tiles of one row, one buffer)
+    ('2-D wide 1x3x200x200 r(82)', (1, 3, 200, 200), (82, 82)),
+    ('2-D rows 1x2x12x4500 r(1,2000)', (1, 2, 12, 4500), (1, 2000)),
+    ('1-D one buffer 1x2x20000 r(9700)', (1, 2, 20000), (9700,)),
+]
+# K2 at the edges of its tiling: (where, (N, C, S, M, A, mode))
+K2_CASES = [
+    ('2-D 3 atoms valid', (2, 1, (40, 37), 3, (9, 9), 'valid')),
+    ('2-D 17 atoms full', (2, 1, (40, 37), 17, (9, 9), 'full')),
+    ('2-D 64 atoms circular', (2, 1, (30, 30), 64, (5, 5), 'circular')),
+    ('2-D C=3 7x7 reflect', (2, 3, (38, 51), 10, (7, 7), 'reflect')),
+    ('1-D pulse train Ay=20', (1, 1, (100,), 3, (20,), 'valid')),
+    ('2-D ragged Ty=92', (3, 2, (29, 97), 5, (4, 6), 'valid')),
+    # more work items than warps: blocks stage only their own atoms
+    ('2-D 100 atoms valid', (1, 1, (40, 40), 100, (9, 9), 'valid')),
+    # chunks only the compact layout holds (one plane, split as it loads)
+    ('2-D 100x100 atoms on 200x200', (1, 1, (299, 299), 4, (100, 100), 'full')),
+    ('2-D C=3 57x57 atoms', (1, 3, (160, 160), 4, (57, 57), 'full')),
+    ('2-D narrow Ty=5 168x168 atoms', (1, 1, (171, 172), 3, (168, 168), 'full')),
+    ('2-D narrow Ty=4 169x165 atoms', (1, 1, (172, 168), 3, (169, 165), 'full')),
 ]
 # tests/test_sparsity_inhibition.py's settings
 SPARSITY_INHIBITION = [
@@ -122,9 +158,10 @@ def time_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(n_bytes: float, flops: float) -> tuple:
-    """The least time of the work on the card (ms) and what bounds it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+def bound(n_bytes: float, flops: float, ops_per_s: float) -> tuple:
+    """The least time of the work on the card (ms) and what bounds it, with
+    the operations at the rate of the unit the kernel uses."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
 
 
@@ -135,6 +172,17 @@ def reset_counts():
 
 def counts() -> dict:
     return {name: k['wrapper'].launches for name, k in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def runtime_taps():
+    """Inside the block K4 runs its runtime tap loop for every tap count (no
+    compiled one): the comparison of the two at the flagship."""
+    compiled, inhibit._COMPILED_TAPS = inhibit._COMPILED_TAPS, ()
+    try:
+        yield
+    finally:
+        inhibit._COMPILED_TAPS = compiled
 
 
 # ---------------------------------------------------------------- phases
@@ -163,9 +211,28 @@ def phase_build():
     for line in report:
         if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
             log('  ' + line.strip())
+    hmma = sass_counts(so, 'grad_w_partial', 'HMMA')
+    log(f'  K2 SASS: {hmma} HMMA instructions over its grad_w_partial instances')
+    if not hmma:
+        raise AssertionError('K2 grad_w_partial has no tensor-core (HMMA) instruction')
 
 
-def _problem(N, C, S, M, A, mode, seed):
+def sass_counts(so: Path, function: str, opcode: str) -> int:
+    """Instructions with ``opcode`` in the SASS of every function whose
+    name holds ``function`` (``cuobjdump -sass`` of the built library)."""
+    tool = Path(_build.nvcc()).with_name('cuobjdump')
+    sass = subprocess.run([str(tool), '-sass', str(so)], capture_output=True, text=True,
+                          check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            inside = function in line
+        elif inside and opcode in line:
+            count += 1
+    return count
+
+
+def _problem(N, C, S, M, A, mode, seed, use_cross=True):
     """Random factors and the inputs each kernel gets from them on the main
     paths (plain operators, float32 on the card).  For each kernel:
     (kernel, plain version, nearest single PyTorch call or None,
@@ -188,7 +255,7 @@ def _problem(N, C, S, M, A, mode, seed):
     ks = tuple(torch.tensor(k, **dev) for k in inhibition_kernels(tuple(a - 1 for a in A)))
     denom = engine.EPS + 0.1
     inh = dict(inhibition=0.1, cross_inhibition=0.05, reg=denom, use_same=True,
-               use_cross=True)
+               use_cross=use_cross)
     nT, nA, nH = math.prod(T), math.prod(A), H.numel()
     return {
         'mu_ratio': (lambda: mu.mu_ratio(W, neg, pos, engine.EPS),
@@ -243,6 +310,10 @@ def phase_kernels() -> dict:
             err = _compare(name, kernel, plain, where)
             if i == 0:
                 errors[name] = err
+    for i, (where, args) in enumerate(K2_CASES):
+        k2 = _k2_problem(*args, seed=10 + i)
+        _compare('grad_w', lambda: gw.grad_w(*k2), lambda: gw.grad_w_plain(*k2), where)
+    _k2_float64_and_determinism()
     rng = np.random.default_rng(SEED)
     for where, dims, ranges in K4_CASES:
         H, neg, pos = (torch.tensor(rng.random(dims), device=DEVICE, dtype=torch.float32)
@@ -254,7 +325,44 @@ def phase_kernels() -> dict:
             _compare('inhibited_mu_h', lambda: inhibit.inhibited_mu_h(*args, **kw),
                      lambda: inhibit.inhibited_mu_h_plain(*args, **kw),
                      f'{where} {"s" if use_same else ""}{"c" if use_cross else ""}')
+    f = FLAGSHIP
+    same = _problem(f['N'], f['C'], f['S'], f['M'], f['A'], f['mode'], seed=0,
+                    use_cross=False)['inhibited_mu_h']
+    _compare('inhibited_mu_h', same[0], same[1], 'flagship same-atom only')
+    with runtime_taps():
+        _compare('inhibited_mu_h', same[0], same[1], 'flagship, runtime tap loop')
     return errors
+
+
+
+def _k2_problem(N, C, S, M, A, mode, seed):
+    """Random non-negative X2 and H of one K2 problem, and its plan."""
+    rng = np.random.default_rng(seed)
+    plan = ConvPlan.create(mode, S, A)
+    T = plan.transform_shape
+    E = tuple(t + a - 1 for t, a in zip(T, A))
+    dev = dict(device=DEVICE, dtype=torch.float32)
+    return (torch.tensor(rng.random((N, 2 * C) + E), **dev),
+            torch.tensor(rng.random((N, M) + T), **dev), plan)
+
+
+def _k2_float64_and_determinism():
+    """K2 at the flagship against per-sample float64 ``corr_W`` sums on the
+    card, and two launches bit for bit."""
+    f = FLAGSHIP
+    X2, H, plan = _k2_problem(f['N'], f['C'], f['S'], f['M'], f['A'], f['mode'], seed=0)
+    got = gw.grad_w(X2, H, plan)
+    want = gw.grad_w_plain(X2.double(), H.double(), plan)
+    scale = max(float(w.abs().max()) for w in want)
+    rel = max(float((g.double() - w).abs().max()) for g, w in zip(got, want)) / scale
+    log(f'  {"grad_w":14s} {"flagship against float64":34s} rel={rel:.3e}')
+    if not rel <= F64_TOL:
+        raise AssertionError(f'grad_w at the flagship: {rel:.3e} off float64 > {F64_TOL}')
+    again = gw.grad_w(X2, H, plan)
+    sync()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError('grad_w: two launches on the same inputs differ')
+    log(f'  {"grad_w":14s} {"flagship, two launches":34s} bit-identical')
 
 
 def _image_2d() -> np.ndarray:
@@ -437,7 +545,7 @@ def phase_times(nmf) -> dict:
     for name, (kernel, plain, library, work) in fns.items():
         p1, k1, k2, p2 = (time_ms(fn) for fn in (plain, kernel, kernel, plain))
         lib = None if library is None else time_ms(library)
-        bound_ms, bound_by = bound(*work)
+        bound_ms, bound_by = bound(*work, OPS_PER_S[name])
         ms = (k1 + k2) / 2
         times[name] = dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=lib)
@@ -445,7 +553,41 @@ def phase_times(nmf) -> dict:
             f'library {"none" if lib is None else f"{lib:.4f} ms"}  bound {bound_ms:.4f} ms '
             f'({bound_by}; {work[0] / 1e9:.4f} GB, {work[1] / 1e9:.4f} GFLOP), '
             f'{100 * bound_ms / ms:.1f} % of bound')
+    same = _problem(f['N'], f['C'], f['S'], f['M'], f['A'], f['mode'], seed=0,
+                    use_cross=False)['inhibited_mu_h'][0]
+    k1, k2 = time_ms(same), time_ms(same)
+    times['inhibited_mu_h']['same_atom_ms'] = (k1 + k2) / 2
+    log(f'  inhibited_mu_h same-atom only: kernel {k1:.4f}/{k2:.4f} ms')
+    # the 17 compiled taps against the runtime tap loop, in turns
+    both = fns['inhibited_mu_h'][0]
+    with runtime_taps():
+        r = [time_ms(fn) for fn in (both, same, same, both)]
+    c = [time_ms(fn) for fn in (both, same, same, both)]
+    with runtime_taps():
+        r += [time_ms(fn) for fn in (both, same, same, both)]
+    times['inhibited_mu_h'].update(runtime_taps_ms=(r[0] + r[3] + r[4] + r[7]) / 4,
+                                   runtime_taps_same_atom_ms=(r[1] + r[2] + r[5] + r[6]) / 4,
+                                   compiled_taps_ms=(c[0] + c[3]) / 2,
+                                   compiled_taps_same_atom_ms=(c[1] + c[2]) / 2)
+    log(f'  inhibited_mu_h runtime tap loop: same + cross {r[0]:.4f}/{r[3]:.4f}/{r[4]:.4f}/'
+        f'{r[7]:.4f} ms, same-atom {r[1]:.4f}/{r[2]:.4f}/{r[5]:.4f}/{r[6]:.4f} ms; '
+        f'17 taps compiled in between: {c[0]:.4f}/{c[3]:.4f}, {c[1]:.4f}/{c[2]:.4f} ms')
     W, H, plan = nmf._W, nmf._H, nmf._plan
+    big = [torch.rand_like(H) for _ in range(3)]
+    # 13 x 13 taps (atoms of 7 x 7) at the same size, same-atom: centred in
+    # zeros for the compiled 17, against the runtime loop at 13
+    ks13 = [torch.tensor(k, device=DEVICE, dtype=torch.float32)
+            for k in inhibition_kernels((6, 6))]
+
+    def k13():
+        return inhibit.inhibited_mu_h(*big, ks13, 0.1, 0.05, engine.EPS + 0.1)
+    with runtime_taps():
+        r = [time_ms(k13)]
+    c = [time_ms(k13), time_ms(k13)]
+    with runtime_taps():
+        r.append(time_ms(k13))
+    log(f'  inhibited_mu_h 13 x 13 taps, same-atom: padded to 17 compiled {c[0]:.4f}/'
+        f'{c[1]:.4f} ms, runtime tap loop {r[0]:.4f}/{r[1]:.4f} ms')
     rec = time_ms(lambda: conv.reconstruct(W, H, plan))
     ext = time_ms(lambda: torch.cat([nmf._Vp, conv.extend_data(conv.reconstruct(W, H, plan),
                                                                 plan)], dim=1)) - rec
@@ -455,7 +597,6 @@ def phase_times(nmf) -> dict:
     log(f'  extend + H gradient pair of the inhibited path (cuDNN, TF32 off, 2N batch) '
         f'{pair:.4f} ms')
     # K1 at the size of H, for its bandwidth (the main path calls it on W)
-    big = [torch.rand_like(H) for _ in range(3)]
     k1 = time_ms(lambda: mu.mu_ratio(*big, 0.1))
     log(f'  mu_ratio at H size {tuple(H.shape)}: {k1:.4f} ms '
         f'({4 * 4 * H.numel() / k1 / 1e6:.0f} GB/s)')

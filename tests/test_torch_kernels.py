@@ -151,17 +151,101 @@ def test_mu_h_matches_engine_mu_H(mode, S, A):
 # --------------------------------------------------------------- geometry
 
 def test_grad_w_geometry_flagship():
-    """64 x 1 x 256 x 256, 16 atoms 9x9: near-equal chunks that cover the
-    transform grid, all 2,592 outputs in one 256-thread tile group, and a
-    chunk that fits the shared-memory budget."""
+    """64 x 1 x 256 x 256, 16 atoms 9x9: one row tile of 16 atoms, the
+    2 x 81 (channel, offset) columns flattened and padded to 168 (21 column
+    tiles), 3 tiles per warp on 7 warps, chunks of 4 rows x 88 columns that
+    cover the 264 x 264 transform grid exactly, two blocks per SM."""
     g = gw._geometry(N=64, M=16, C2=2, Tx=264, Ty=264, Ax=9, Ay=9, n_sm=132)
-    assert (g['tile_rows'], g['tile_cols']) == (8, 53)
-    assert g['grid_y'] == 1 and g['grid_x'] == 4 * 132
-    assert g['smem_bytes'] <= gw._SMEM_BUDGET
-    # many atoms and channels shrink the chunk rows instead of failing
+    assert (g['n_mt'], g['m_rows'], g['n_ct'], g['col_pad']) == (1, 16, 21, 6)
+    assert (g['nt'], g['n_items'], g['ksplit'], g['grid_y']) == (3, 7, 1, 1)
+    assert (g['tile_rows'], g['tile_cols'], g['blocks_per_sm'], g['planes']) == (4, 88, 2, 3)
+    assert g['n_chunks'] == 64 * 66 * 3 and g['grid_x'] == 2 * 132
+    # pitches that keep the fragment loads off each other's banks
+    assert g['hp'] % 8 == 4 and g['xp'] >= 88 + 8
+    assert gw._b_conflicts(g['xp'], 4 + 8, 9, 9, 2, 21) == 0
+    assert 2 * (g['smem_bytes'] + 1024) <= 233472
+    # many atoms and channels: more row tiles and y blocks, still in budget
     g = gw._geometry(N=4, M=64, C2=6, Tx=100, Ty=100, Ax=9, Ay=9, n_sm=132)
-    assert g['tile_rows'] < 8 and g['smem_bytes'] <= gw._SMEM_BUDGET
-    assert g['grid_y'] == -(-(16 * 6 * 9 * 3) // 256)
+    assert g['n_mt'] == 4 and g['smem_bytes'] <= gw._SMEM_BUDGET
+    assert g['grid_y'] == -(-g['n_items'] // 8)
+
+
+@pytest.mark.parametrize('M', [3, 16, 17, 64])
+@pytest.mark.parametrize('C2', [2, 6])
+def test_grad_w_geometry_tiles(M, C2):
+    """Row tiles of 16 atoms and column tiles of 8 (channel, offset) columns
+    with their padding, every tile owned by one work item, shared memory in
+    budget, an X2 pitch with no more bank conflicts than any other."""
+    g = gw._geometry(N=8, M=M, C2=C2, Tx=60, Ty=70, Ax=7, Ay=7, n_sm=132)
+    assert g['n_mt'] == -(-M // 16)
+    # a block stages the atoms of its items' row tiles: all of them when it holds every item
+    assert min(M, 16) <= g['m_rows'] <= M and (g['grid_y'] > 1 or g['m_rows'] == M)
+    assert g['n_ct'] == -(-(C2 * 49) // 8) and g['col_pad'] == 8 * g['n_ct'] - C2 * 49
+    xr = g['tile_rows'] + 6
+    first = -(-g['xw'] // 4) * 4
+    best = min(gw._b_conflicts(p, xr, 7, 7, C2, g['n_ct']) for p in range(first, first + 32, 4))
+    assert g['xp'] % 4 == 0
+    assert gw._b_conflicts(g['xp'], xr, 7, 7, C2, g['n_ct']) == best
+    assert g['n_items'] == g['n_mt'] * -(-g['n_ct'] // g['nt'])
+    assert g['nt'] in gw._TILES_PER_WARP
+    assert g['ipb'] * g['ksplit'] <= 8 and g['ipb'] * g['grid_y'] >= g['n_items']
+    assert g['tile_cols'] % 8 == 0 and g['tile_rows'] in (1, 2, 4)
+    assert g['smem_bytes'] <= _build.MAX_SMEM_BYTES
+    # three planes: the raw chunk and its big and small TF32 halves
+    assert g['planes'] == 3 and g['smem_bytes'] == 4 * 3 * (
+        g['tile_rows'] * g['m_rows'] * g['hp'] + C2 * (g['tile_rows'] + 6) * g['xp'])
+
+
+def test_grad_w_geometry_1d_and_limits():
+    # the 1-D pulse train: one row, 20 offsets -> 24 per channel
+    g = gw._geometry(N=1, M=3, C2=2, Tx=1, Ty=81, Ax=1, Ay=20, n_sm=132, vec=False)
+    assert (g['tile_rows'], g['tile_cols'], g['n_ct'], g['col_pad']) == (1, 88, 5, 0)
+    assert g['xw'] == 88 + 19 and g['vec'] == 1
+    # a ragged ty: near-equal chunks of whole MMA steps
+    g = gw._geometry(N=3, M=5, C2=4, Tx=26, Ty=92, Ax=4, Ay=6, n_sm=132)
+    assert g['tile_cols'] == 48 and g['n_chunks'] == 3 * 7 * 2
+    # a chunk that cannot fit raises before any launch
+    with pytest.raises(ValueError, match='shared memory'):
+        gw._geometry(N=1, M=5, C2=2, Tx=100, Ty=100, Ax=200, Ay=200, n_sm=132)
+
+
+def test_grad_w_geometry_many_atoms():
+    """With more work items than warps each block stages only the atoms of
+    its own row tiles, so shared memory stops growing with M."""
+    g = gw._geometry(N=1, M=5000, C2=2, Tx=100, Ty=100, Ax=9, Ay=9, n_sm=132)
+    assert g['grid_y'] > 1 and g['m_rows'] <= 16 * (8 + 1)
+    assert g == {**gw._geometry(N=1, M=4000, C2=2, Tx=100, Ty=100, Ax=9, Ay=9, n_sm=132),
+                 'n_mt': g['n_mt'], 'n_items': g['n_items'], 'grid_y': g['grid_y'],
+                 'grid_x': g['grid_x']}
+
+
+def _first_design_fits(M, C2, Tx, Ty, Ax, Ay):
+    """Whether the first CUDA design of K2 (a 4-atom x 4-offset register tile
+    per thread over chunks of at most 64 ty columns) could stage a chunk."""
+    tc = -(-Ty // -(-Ty // 64))
+    floats = min(-(-M // 4) * 4 * tr * tc + C2 * (tr + Ax - 1) * (tc + 4 * -(-Ay // 4) - 1)
+                 for tr in {-(-Tx // -(-Tx // r)) for r in (8, 4, 2, 1)})
+    return 4 * floats <= _build.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize('M,C2,Tx,Ty,Ay', [
+    (1, 2, 200, 200, 100), (16, 6, 200, 200, 57), (3, 2, 8, 8, 9), (17, 6, 40, 9, 5),
+    (5, 2, 3, 3, 4), (16, 2, 1, 4, 61), (300, 32, 200, 12, 20), (7000, 2, 200, 8, 1)])
+def test_grad_w_geometry_takes_first_design_shapes(M, C2, Tx, Ty, Ay):
+    """Every shape the first design could stage still runs: at the widest
+    atom it took, the split layout or, failing that, the compact one (one
+    plane split as it loads, the tightest pitches, ty < 8 as a narrow chunk)
+    fits."""
+    Ax = max(a for a in range(1, 400) if _first_design_fits(M, C2, Tx, Ty, a, Ay))
+    for vec in (False, True):
+        if vec and (Ty % 4 or (Ty + Ay - 1) % 4):
+            continue
+        g = gw._geometry(N=2, M=M, C2=C2, Tx=Tx, Ty=Ty, Ax=Ax, Ay=Ay, n_sm=132, vec=vec)
+        assert g['smem_bytes'] <= _build.MAX_SMEM_BYTES
+        assert g['smem_bytes'] == 4 * g['planes'] * (
+            g['tile_rows'] * g['m_rows'] * g['hp'] + C2 * (g['tile_rows'] + Ax - 1) * g['xp'])
+        assert g['hw'] == (Ty if g['planes'] == 1 and Ty < 8 and g['hp'] == g['hw']
+                           else g['tile_cols'])
 
 
 def test_mu_h_geometry():

@@ -11,25 +11,63 @@
 // comes in with Ax = 1.
 //
 // Bound: a contraction over a huge axis (N*Tx*Ty = 4.5 M at the flagship
-// 64 x 1 x 256 x 256 with 16 atoms of 9 x 9) into a tiny output
-// (2*M*C*Ax*Ay = 2,592): 23 GFLOP against about 0.37 GB of reads, so FP32 FMA
-// issue and shared-memory load bandwidth bound it, not device memory.
+// 64 x 1 x 256 x 256 with 16 atoms of 9 x 9) into a tiny output (2,592
+// values): 23 GFLOP against 0.33 GB of reads.  It is a GEMM, so the tensor
+// cores bound it: with three TF32 products per product (below) 69 GFLOP at
+// 495 TFLOP/s, 0.14 ms, against 0.10 ms of HBM time.  The FP32 FMA kernel of
+// the first port was bound by shared-memory bank conflicts instead (its
+// 64-float X row pitch put a warp's loads in three banks).  Here the
+// fragment loads from shared memory take most of the time: mma.sync needs
+// its operands in registers, and the B operand (a sliding window of X2) is
+// loaded per k step.
 //
-// Design.  Pass 1 splits the contraction into chunks of (n, TR rows of tx,
-// TC columns of ty).  A persistent grid walks the chunks; for each one the
-// block stages H (all atoms) and the X2 window with its Ax-1 / Ay-1 halo in
-// shared memory.  Each thread owns a fixed register tile of 4 atoms x 4
-// consecutive ay offsets of one (c2, ax) and keeps it across all of the
-// block's chunks.  Along ty the X values slide through a 4-register window,
-// so each step costs 1 + 4 shared loads (the H loads are broadcasts within a
-// warp) for 16 FMAs.  blockIdx.y splits the tiles when there are more than
-// 256.  Each block writes its partial sums to scratch[blockIdx.x]; pass 2
-// adds the partials in block order, so the result is deterministic and no
-// float atomics are used.
+// Design: an implicit GEMM on mma.sync.m16n8k8 TF32.  Rows are the atoms
+// (16 per row tile; rows past the last atom read the last atom's H and
+// their sums are dropped); columns are the (c2, ax, ay) offsets flattened
+// over all channels and padded to a multiple of 8 (162 -> 168 at the
+// flagship); the contraction runs along ty within one tx row of one sample.
+// The B fragment is a sliding window of the staged X2 row: element
+// (k, (c2, ax, ay)) is Xs[c2][r + ax][k + ay], one shared load per value at
+// a per-column offset fixed for the whole kernel.
 //
-// The tile sizes TR, TC, the grid and the shared-memory size come from the
-// wrapper (tnmf_tpu_torch/kernels/gw.py, _geometry), which must use the
-// same kMT, kAT and kThreads as here.
+// Accuracy (3xTF32): each operand x is split into big = tf32_rna(x) and
+// small = tf32_rna(x - big), so x = big + small + e with |e| <= 2^-22 |x|.
+// The product is accumulated as small*big + big*small + big*big; the dropped
+// small*small and the two rounding errors are each at most 2^-22 of |a*b|, so
+// every product is within about 3 * 2^-22 = 7e-7 of exact, near float32's own
+// 6e-8.  Every term is accumulated in float32.  The tensor cores' float32
+// accumulation loses low bits over long sums, so the MMA sums restart from
+// zero for each tx row (at most 3 * Tc / 8 = 33 accumulations) and are added
+// to a float32 register total with round-to-nearest; the cross-block pass
+// sums in float64.  Inputs here are non-negative, so there is no
+// cancellation and the result is within a few 1e-6 of float64 relative to
+// its largest value.
+//
+// Staging: a persistent grid walks chunks of (n, Tr rows of tx, Tc columns of
+// ty).  cp.async copies (16 bytes when the rows allow it, zero-filled outside
+// the arrays) bring the chunk's H tile ([Tr][rows][Hp]: the atoms of the
+// block's own row tiles, so that shared memory does not grow with M; a row
+// pitch of 4 mod 8 floats keeps the A loads free of bank conflicts) and X2
+// window ([C2][Tr+Ax-1][Xp], Xp picked by the wrapper for the fewest B-load
+// conflicts) into a raw buffer.  In the split layout all threads then split
+// it once into big and small planes, and the next chunk's copies into the
+// raw buffer overlap this chunk's MMAs.  A chunk whose three planes no block
+// can hold (large atoms or many channels) takes the compact layout: the raw
+// buffer alone, split as the fragments load, the next chunk copied after
+// this one's MMAs, the tightest pitches, and when ty < 8 a narrow chunk of
+// ty columns whose missing k columns read column 0 with A zeroed.  Each
+// warp owns one work item: a row tile and kNT column tiles, with kNT * 4
+// accumulators; when there are fewer than 8 items the spare warps split the
+// ty steps.  Within a row the fragment loads of one k step overlap the MMAs
+// of the other (a two-step software pipeline).  Chunk indices are
+// decomposed once per chunk and staging loops hold no division.  Each warp
+// writes its partial sums to its own scratch slot; pass 2 adds the slots in
+// a fixed order, so two launches give identical bits and no float atomics
+// are used.
+//
+// The chunk sizes, pitches, layout, work split, grid and shared memory come
+// from the wrapper (tnmf_tpu_torch/kernels/gw.py, _geometry), which must use
+// the same tile sizes, thread count and shared layout as here.
 
 #include <cuda_runtime.h>
 
@@ -39,115 +77,309 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMT = 4;  // atoms per thread tile
-constexpr int kAT = 4;  // ay offsets per thread tile (the sliding window below is written for 4)
-static_assert(kAT == 4, "the register window in grad_w_partial holds 4 values");
+constexpr int kWarps = kThreads / 32;
 
 struct GradWShape {
   int n, m, c2, ex, ey, tx, ty, ax, ay;
-  int tr, tc;  // chunk rows (along tx) and columns (along ty)
+  int tr, tc;           // chunk rows (along tx) and columns (along ty, multiple of 8)
+  int hp, hw;           // H row pitch and staged width (hw = tc, or ty < 8 when narrow)
+  int xw, xp;           // staged X2 width and X2 row pitch (floats)
+  int n_ct;             // column tiles of 8 over the flattened (c2, ax, ay)
+  int n_groups;         // column-tile groups of kNT
+  int n_items, ipb;     // work items (row tile, group) and items per block
+  int ksplit;           // warps per item (ty-step split)
+  int m_rows;           // H rows (atoms) a block stages: those of its row tiles
 };
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// copy kVec floats to shared memory, or zeros when !valid
+template <int kVec>
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
+  const int n = valid ? 4 * kVec : 0;
+  if constexpr (kVec == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(n));
+  }
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// x = big + small, both TF32 values (round to nearest, ties away)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// stage chunk q = (n, rx, ry) of H and X2 into buf; warps take whole rows,
+// lanes the vectors of a row
+template <int kVec>
+__device__ __forceinline__ void stage(const float* __restrict__ x2,
+                                      const float* __restrict__ h, float* buf,
+                                      int64_t q, int m_lo, int m_hi, const GradWShape& s) {
+  const int n_rx = (s.tx + s.tr - 1) / s.tr;
+  const int n_ry = (s.ty + s.tc - 1) / s.tc;
+  const int ry = static_cast<int>(q % n_ry);
+  const int rx = static_cast<int>((q / n_ry) % n_rx);
+  const int n = static_cast<int>(q / (static_cast<int64_t>(n_ry) * n_rx));
+  const int tx0 = rx * s.tr, ty0 = ry * s.tc;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int xr = s.tr + s.ax - 1;
+
+  float* hs = buf;  // [tr][m_rows][hp]: the atoms m_lo .. m_hi - 1
+  const int hv = s.hw / kVec;
+  for (int r = 0; r < s.tr; ++r) {
+    const bool row_ok = tx0 + r < s.tx;
+    for (int mm = m_lo + warp; mm < m_hi; mm += kWarps) {
+      const float* src = h + ((static_cast<int64_t>(n) * s.m + mm) * s.tx + tx0 + r) * s.ty + ty0;
+      float* dst = hs + (r * s.m_rows + mm - m_lo) * s.hp;
+      for (int v = lane; v < hv; v += 32) {
+        const bool ok = row_ok && ty0 + v * kVec < s.ty;
+        copy_async<kVec>(dst + v * kVec, ok ? src + v * kVec : h, ok);
+      }
+    }
+  }
+  float* xs = buf + s.tr * s.m_rows * s.hp;  // [c2][xr][xp]
+  const int xv = s.xw / kVec;
+  for (int c = 0; c < s.c2; ++c) {
+    for (int r = warp; r < xr; r += kWarps) {
+      const bool row_ok = tx0 + r < s.ex;
+      const float* src = x2 + ((static_cast<int64_t>(n) * s.c2 + c) * s.ex + tx0 + r) * s.ey + ty0;
+      float* dst = xs + (c * xr + r) * s.xp;
+      for (int v = lane; v < xv; v += 32) {
+        const bool ok = row_ok && ty0 + v * kVec < s.ey;
+        copy_async<kVec>(dst + v * kVec, ok ? src + v * kVec : x2, ok);
+      }
+    }
+  }
+}
+
+// x as big + small TF32 halves, four at a time
+__device__ __forceinline__ void split4(const float4 x, float4& big, float4& small) {
+  uint32_t b, l;
+  split_tf32(x.x, b, l); big.x = __uint_as_float(b); small.x = __uint_as_float(l);
+  split_tf32(x.y, b, l); big.y = __uint_as_float(b); small.y = __uint_as_float(l);
+  split_tf32(x.z, b, l); big.z = __uint_as_float(b); small.z = __uint_as_float(l);
+  split_tf32(x.w, b, l); big.w = __uint_as_float(b); small.w = __uint_as_float(l);
+}
+
+// one warp's operands for one k step of 8: the A fragment and kNT B
+// fragments, each as big and small TF32 halves
+template <int kNT>
+struct Frags {
+  uint32_t ab[4], as[4];
+  uint32_t bb[kNT][2], bs[kNT][2];
+};
+
+// the fragments of the k step at offset off from the A offset a (rows g and
+// g + 8 are hb apart) and the B offsets b
+template <int kNT>
+__device__ __forceinline__ void load_frags(const float* __restrict__ big,
+                                           const float* __restrict__ small, int a, int hb,
+                                           const int (&b)[kNT], int off, Frags<kNT>& f) {
+  a += off;
+  f.ab[0] = __float_as_uint(big[a]);
+  f.ab[1] = __float_as_uint(big[a + hb]);
+  f.ab[2] = __float_as_uint(big[a + 4]);
+  f.ab[3] = __float_as_uint(big[a + hb + 4]);
+  f.as[0] = __float_as_uint(small[a]);
+  f.as[1] = __float_as_uint(small[a + hb]);
+  f.as[2] = __float_as_uint(small[a + 4]);
+  f.as[3] = __float_as_uint(small[a + hb + 4]);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    f.bb[j][0] = __float_as_uint(big[b[j] + off]);
+    f.bb[j][1] = __float_as_uint(big[b[j] + off + 4]);
+    f.bs[j][0] = __float_as_uint(small[b[j] + off]);
+    f.bs[j][1] = __float_as_uint(small[b[j] + off + 4]);
+  }
+}
+
+// the same from the one raw plane of the compact layout, split as they load;
+// the lane's k columns are c0 and c1 (its own, or column 0 past the valid
+// width of a narrow chunk, where ok0 / ok1 zero A so that B needs no mask)
+template <int kNT>
+__device__ __forceinline__ void load_frags_raw(const float* __restrict__ raw, int a, int hb,
+                                               const int (&b)[kNT], int off, int c0, int c1,
+                                               bool ok0, bool ok1, Frags<kNT>& f) {
+  a += off;
+  split_tf32(ok0 ? raw[a + c0] : 0.f, f.ab[0], f.as[0]);
+  split_tf32(ok0 ? raw[a + hb + c0] : 0.f, f.ab[1], f.as[1]);
+  split_tf32(ok1 ? raw[a + c1] : 0.f, f.ab[2], f.as[2]);
+  split_tf32(ok1 ? raw[a + hb + c1] : 0.f, f.ab[3], f.as[3]);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    split_tf32(raw[b[j] + off + c0], f.bb[j][0], f.bs[j][0]);
+    split_tf32(raw[b[j] + off + c1], f.bb[j][1], f.bs[j][1]);
+  }
+}
+
+// 3xTF32: the small terms first, the big product last; the tiles
+// interleave so that kNT independent MMAs are in flight
+template <int kNT>
+__device__ __forceinline__ void mma_step(float (&d)[kNT][4], const Frags<kNT>& f) {
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) mma_tf32(d[j], f.as, f.bb[j][0], f.bb[j][1]);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) mma_tf32(d[j], f.ab, f.bs[j][0], f.bs[j][1]);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) mma_tf32(d[j], f.ab, f.bb[j][0], f.bb[j][1]);
+}
+
+template <int kNT, int kVec, bool kSplit>
+__global__ void __launch_bounds__(kThreads, 2)
 grad_w_partial(const float* __restrict__ x2, const float* __restrict__ h,
                float* __restrict__ scratch, GradWShape s) {
   extern __shared__ float4 smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  const int n_mt = (s.m + kMT - 1) / kMT;
-  const int n_at = (s.ay + kAT - 1) / kAT;
-  const int mp = n_mt * kMT;
-  const int xr = s.tr + s.ax - 1;        // staged X2 rows per channel
-  const int xw = s.tc + n_at * kAT - 1;  // staged X2 columns
-  const int hsz = mp * s.tr * s.tc;
-  float* hs = smem;        // [mp][tr][tc]
-  float* xs = smem + hsz;  // [c2][xr][xw]
+  // kSplit: three planes of one chunk with the same layout, raw (the
+  // cp.async target) and its big and small TF32 halves, split once per
+  // chunk; else the compact layout, raw alone, split as fragments load
+  const int xr = s.tr + s.ax - 1;
+  const int hsz = s.tr * s.m_rows * s.hp;
+  const int plane = hsz + s.c2 * xr * s.xp;  // a multiple of 4 when kSplit
+  float* raw = reinterpret_cast<float*>(smem_raw);
+  const float* big = raw + plane;
+  const float* small = big + plane;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int a_sz = s.ax * s.ay;
+  const int n_cols = s.c2 * a_sz;
 
-  // this thread's output tile: atoms mt*4.., channel c2, row offset axo,
-  // column offsets at*4..
-  const int n_tiles = n_mt * s.c2 * s.ax * n_at;
-  int t = blockIdx.y * kThreads + threadIdx.x;
-  const bool active = t < n_tiles;
-  const int at = t % n_at;
-  t /= n_at;
-  const int axo = t % s.ax;
-  t /= s.ax;
-  const int c2 = t % s.c2;
-  const int mt = t / s.c2;
+  // this warp's work item: row tile mt, column tiles ct0 .. ct0 + kNT - 1,
+  // and its share (slice) of the ty steps; the block stages the atoms of
+  // its items' row tiles, m_lo .. m_hi - 1
+  const int item = blockIdx.y * s.ipb + warp % s.ipb;
+  const int slice = warp / s.ipb;
+  const bool active = item < s.n_items && slice < s.ksplit;
+  const int mt = item / s.n_groups;
+  const int ct0 = (item % s.n_groups) * kNT;
+  const int m0 = mt * 16 + g;
+  const int m_lo = (blockIdx.y * s.ipb / s.n_groups) * 16;
+  const int m_hi = min(s.m, m_lo + s.m_rows);
+  // the lane's k columns: tig and tig + 4, folded into the offsets when
+  // kSplit; the compact layout's narrow chunk (ty < 8) has fewer
+  const int kw = min(8, s.hw);
+  const bool ok0 = tig < kw, ok1 = tig + 4 < kw;
+  const int c0 = ok0 ? tig : 0, c1 = ok1 ? tig + 4 : 0;
+  const int lane_k = kSplit ? tig : 0;
+  // shared offsets of this lane's A elements (rows g and g + 8; rows past
+  // the last atom read the last atom's, and their sums are never written
+  // back) and of its B column g in each tile, at the warp's first k step;
+  // tiles past the last one read column 0 and are never written back
+  const int r0 = min(m0, s.m - 1) - m_lo, r1 = min(m0 + 8, s.m - 1) - m_lo;
+  const int ha = r0 * s.hp + lane_k + slice * 8;
+  const int hb = (r1 - r0) * s.hp;
+  int boff[kNT];
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    const int col = (ct0 + j) * 8 + g;
+    const int c2 = col / a_sz, w = col % a_sz;
+    boff[j] = hsz + lane_k + slice * 8 +
+              (col < n_cols ? (c2 * xr + w / s.ay) * s.xp + w % s.ay : 0);
+  }
+  auto load = [&](int a, const int (&b)[kNT], int off, Frags<kNT>& f) {
+    if constexpr (kSplit) {
+      load_frags<kNT>(big, small, a, hb, b, off, f);
+    } else {
+      load_frags_raw<kNT>(raw, a, hb, b, off, c0, c1, ok0, ok1, f);
+    }
+  };
 
-  float acc[kMT][kAT];
+  float acc[kNT][4];
 #pragma unroll
-  for (int i = 0; i < kMT; ++i)
+  for (int j = 0; j < kNT; ++j)
 #pragma unroll
-    for (int k = 0; k < kAT; ++k) acc[i][k] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
   const int n_rx = (s.tx + s.tr - 1) / s.tr;
   const int n_ry = (s.ty + s.tc - 1) / s.tc;
   const int64_t n_chunks = static_cast<int64_t>(s.n) * n_rx * n_ry;
-  const int xsz = s.c2 * xr * xw;
-  for (int64_t q = blockIdx.x; q < n_chunks; q += gridDim.x) {
-    const int ry = static_cast<int>(q % n_ry);
-    const int rx = static_cast<int>((q / n_ry) % n_rx);
-    const int n = static_cast<int>(q / (static_cast<int64_t>(n_ry) * n_rx));
-    const int tx0 = rx * s.tr;
-    const int ty0 = ry * s.tc;
+  const int n_steps = (s.tc / 8 - slice + s.ksplit - 1) / s.ksplit;  // this warp's k steps
+  const int kstep = 8 * s.ksplit;
 
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = threadIdx.x; i < hsz; i += kThreads) {
-      const int j = i % s.tc;
-      const int r = (i / s.tc) % s.tr;
-      const int mm = i / (s.tc * s.tr);
-      const int gx = tx0 + r, gy = ty0 + j;
-      float v = 0.f;
-      if (mm < s.m && gx < s.tx && gy < s.ty)
-        v = h[((static_cast<int64_t>(n) * s.m + mm) * s.tx + gx) * s.ty + gy];
-      hs[i] = v;
+  if (blockIdx.x < n_chunks) stage<kVec>(x2, h, raw, blockIdx.x, m_lo, m_hi, s);
+  commit();
+  for (int64_t q = blockIdx.x; q < n_chunks; q += gridDim.x) {
+    wait_copies();
+    __syncthreads();  // the chunk is in raw, and the last chunk's MMAs are done
+    if constexpr (kSplit) {
+      for (int i = 4 * threadIdx.x; i < plane; i += 4 * kThreads) {
+        float4 b, l;
+        split4(*reinterpret_cast<const float4*>(raw + i), b, l);
+        *reinterpret_cast<float4*>(raw + plane + i) = b;
+        *reinterpret_cast<float4*>(raw + 2 * plane + i) = l;
+      }
+      __syncthreads();  // raw may be refilled: the next chunk's copies overlap the MMAs
+      if (q + gridDim.x < n_chunks) stage<kVec>(x2, h, raw, q + gridDim.x, m_lo, m_hi, s);
+      commit();
     }
-    for (int i = threadIdx.x; i < xsz; i += kThreads) {
-      const int j = i % xw;
-      const int r = (i / xw) % xr;
-      const int c = i / (xw * xr);
-      const int gx = tx0 + r, gy = ty0 + j;
-      float v = 0.f;
-      if (gx < s.ex && gy < s.ey)
-        v = x2[((static_cast<int64_t>(n) * s.c2 + c) * s.ex + gx) * s.ey + gy];
-      xs[i] = v;
-    }
-    __syncthreads();
 
     if (active) {
-      const int hstride = s.tr * s.tc;
       for (int r = 0; r < s.tr; ++r) {
-        const float* xrow = xs + (c2 * xr + r + axo) * xw + at * kAT;
-        const float* hrow = hs + (mt * kMT * s.tr + r) * s.tc;
-        float x0 = xrow[0], x1 = xrow[1], x2v = xrow[2];
-        for (int j = 0; j < s.tc; ++j) {
-          const float x3 = xrow[j + 3];
+        int a = ha + r * s.m_rows * s.hp;
+        int b[kNT];
 #pragma unroll
-          for (int i = 0; i < kMT; ++i) {
-            const float hv = hrow[i * hstride + j];
-            acc[i][0] = fmaf(hv, x0, acc[i][0]);
-            acc[i][1] = fmaf(hv, x1, acc[i][1]);
-            acc[i][2] = fmaf(hv, x2v, acc[i][2]);
-            acc[i][3] = fmaf(hv, x3, acc[i][3]);
-          }
-          x0 = x1;
-          x1 = x2v;
-          x2v = x3;
+        for (int j = 0; j < kNT; ++j) b[j] = boff[j] + r * s.xp;
+        float d[kNT][4];
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+        // software pipeline over pairs of k steps: one step's fragments load
+        // while the other step's MMAs run
+        Frags<kNT> f0, f1;
+        if (n_steps > 0) load(a, b, 0, f0);
+        for (int i = 0; i + 1 < n_steps; i += 2) {
+          load(a, b, kstep, f1);
+          mma_step<kNT>(d, f0);
+          a += 2 * kstep;
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) b[j] += 2 * kstep;
+          if (i + 2 < n_steps) load(a, b, 0, f0);
+          mma_step<kNT>(d, f1);
         }
+        if (n_steps & 1) mma_step<kNT>(d, f0);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] += d[j][e];
       }
+    }
+
+    if constexpr (!kSplit) {
+      __syncthreads();  // the MMAs are done with raw: stage the next chunk
+      if (q + gridDim.x < n_chunks) stage<kVec>(x2, h, raw, q + gridDim.x, m_lo, m_hi, s);
+      commit();
     }
   }
 
   if (active) {
-    const int64_t n_out = static_cast<int64_t>(s.m) * s.c2 * s.ax * s.ay;
-    float* part = scratch + blockIdx.x * n_out;
+    const int64_t n_out = static_cast<int64_t>(s.m) * n_cols;
+    float* part = scratch + (static_cast<int64_t>(blockIdx.x) * s.ksplit + slice) * n_out;
 #pragma unroll
-    for (int i = 0; i < kMT; ++i) {
-      const int m = mt * kMT + i;
+    for (int j = 0; j < kNT; ++j) {
 #pragma unroll
-      for (int k = 0; k < kAT; ++k) {
-        const int a = at * kAT + k;
-        if (m < s.m && a < s.ay) part[((m * s.c2 + c2) * s.ax + axo) * s.ay + a] = acc[i][k];
+      for (int e = 0; e < 4; ++e) {
+        // accumulator e: row g (+8 for e >= 2), column 2 * tig + (e & 1);
+        // the flattened column (c2, ax, ay) is the output's own order
+        const int mm = m0 + (e >> 1) * 8;
+        const int col = (ct0 + j) * 8 + 2 * tig + (e & 1);
+        if (mm < s.m && col < n_cols) part[mm * n_cols + col] = acc[j][e];
       }
     }
   }
@@ -162,34 +394,71 @@ __global__ void grad_w_reduce(const float* __restrict__ scratch,
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        o < n_out; o += stride) {
-    float sum = 0.f;
+    double sum = 0.;
     for (int b = 0; b < n_parts; ++b) sum += scratch[b * n_out + o];
     // o = ((m * c2 + cc) * ax + axo) * ay + ayo  ->  out[half][m][ch][axo][ayo]
     const int64_t sp = o % a_sz;
     const int cc = static_cast<int>((o / a_sz) % s.c2);
     const int m = static_cast<int>(o / (a_sz * s.c2));
     const int half = cc / c, ch = cc % c;
-    out[((static_cast<int64_t>(half) * s.m + m) * c + ch) * a_sz + sp] = sum;
+    out[((static_cast<int64_t>(half) * s.m + m) * c + ch) * a_sz + sp] = static_cast<float>(sum);
   }
+}
+
+template <int kNT, int kVec, bool kSplit>
+cudaError_t launch_partial(const float* x2, const float* h, float* scratch,
+                           const GradWShape& s, int grid_x, int grid_y, int smem_bytes,
+                           cudaStream_t st) {
+  auto kernel = grad_w_partial<kNT, kVec, kSplit>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(grid_x, grid_y), kThreads, smem_bytes, st>>>(x2, h, scratch, s);
+  return cudaGetLastError();
+}
+
+template <int kVec, bool kSplit>
+cudaError_t launch_nt(int nt, const float* x2, const float* h, float* scratch,
+                      const GradWShape& s, int grid_x, int grid_y, int smem_bytes,
+                      cudaStream_t st) {
+  switch (nt) {
+    case 1: return launch_partial<1, kVec, kSplit>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 2: return launch_partial<2, kVec, kSplit>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 3: return launch_partial<3, kVec, kSplit>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 4: return launch_partial<4, kVec, kSplit>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int kVec>
+cudaError_t launch_layout(bool split, int nt, const float* x2, const float* h, float* scratch,
+                          const GradWShape& s, int grid_x, int grid_y, int smem_bytes,
+                          cudaStream_t st) {
+  return split ? launch_nt<kVec, true>(nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st)
+               : launch_nt<kVec, false>(nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
 }
 
 }  // namespace
 
-extern "C" int tnmf_grad_w(const float* x2, const float* h, float* out,
-                           float* scratch, int n, int m, int c2, int ex, int ey,
-                           int tx, int ty, int ax, int ay, int tile_rows,
-                           int tile_cols, int grid_x, int grid_y, int smem_bytes,
+extern "C" int tnmf_grad_w(const float* x2, const float* h, float* out, float* scratch,
+                           int n, int m, int c2, int tx, int ty, int ax, int ay,
+                           const int* geometry, int grid_x, int grid_y, int smem_bytes,
                            void* stream) {
+  // geometry: tr, tc, hp, hw, xw, xp, n_ct, nt, n_items, ipb, ksplit, m_rows,
+  // vec, planes
+  const int* g = geometry;
+  const int nt = g[7], vec = g[12];
+  const bool split = g[13] == 3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const GradWShape s{n, m, c2, ex, ey, tx, ty, ax, ay, tile_rows, tile_cols};
-  cudaError_t err = cudaFuncSetAttribute(
-      grad_w_partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  grad_w_partial<<<dim3(grid_x, grid_y), kThreads, smem_bytes, st>>>(x2, h, scratch, s);
-  err = cudaGetLastError();
+  const GradWShape s{n, m, c2, tx + ax - 1, ty + ay - 1, tx, ty, ax, ay,
+                     g[0], g[1], g[2], g[3], g[4], g[5], g[6], (g[6] + nt - 1) / nt,
+                     g[8], g[9], g[10], g[11]};
+  cudaError_t err = vec == 4
+      ? launch_layout<4>(split, nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st)
+      : launch_layout<1>(split, nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n_out = static_cast<int64_t>(m) * c2 * ax * ay;
   const int blocks = static_cast<int>(std::min<int64_t>((n_out + 255) / 256, 1024));
-  grad_w_reduce<<<blocks, 256, 0, st>>>(scratch, out, grid_x, s);
+  grad_w_reduce<<<blocks, 256, 0, st>>>(scratch, out, grid_x * s.ksplit, s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,15 +36,16 @@ _P, _F, _I, _I64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     # arr, neg, pos, reg, out, n, stream
     'tnmf_mu_ratio': (_P, _P, _P, _F, _P, _I64, _P),
-    # x2, h, out, scratch, n, m, c2, ex, ey, tx, ty, ax, ay,
-    # tile_rows, tile_cols, grid_x, grid_y, smem_bytes, stream
-    'tnmf_grad_w': (_P, _P, _P, _P) + (_I,) * 14 + (_P,),
+    # x2, h, out, scratch, n, m, c2, tx, ty, ax, ay, geometry (int[14]),
+    # grid_x, grid_y, smem_bytes, stream
+    'tnmf_grad_w': (_P,) * 4 + (_I,) * 7 + (_P,) + (_I,) * 3 + (_P,),
     # vp, rx, w, h, pos_extra, denom_add, out, n, m, c, ex, ey, tx, ty, ax, ay,
     # pitch, smem_bytes, stream
     'tnmf_mu_h': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 11 + (_P,),
-    # h, neg, pos, taps, out, n, m, x, y, tx, ty, tile_x, tile_y, inh, cross,
-    # reg, use_same, use_cross, two_d, smem_bytes, stream
-    'tnmf_inhibited_mu_h': (_P,) * 5 + (_I,) * 8 + (_F,) * 3 + (_I,) * 4 + (_P,),
+    # h, neg, pos, taps, out, n, m, x, y, tx, ty, tile_x, tile_y, hp, xtp, npp,
+    # inh, cross, reg, use_same, use_cross, two_d, vec, h_vec, h_bufs, compiled,
+    # smem_bytes, stream
+    'tnmf_inhibited_mu_h': (_P,) * 5 + (_I,) * 11 + (_F,) * 3 + (_I,) * 8 + (_P,),
 }
 
 #: the largest dynamic shared memory a Hopper block may opt in to (bytes)

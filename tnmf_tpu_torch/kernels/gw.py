@@ -8,19 +8,33 @@ mode-extended data and reconstruction stacked along channels) it computes
 
 and returns ``(neg, pos) = (G[:, :C], G[:, C:])``, each ``(M, C, *atom)``.
 
-A contraction over a huge axis (``N*Tx*Ty``, 4.5 M at the flagship
+A GEMM with a huge contraction (``N*Tx*Ty``, 4.5 M at the flagship
 64 x 1 x 256 x 256 with 16 atoms of 9 x 9) into a tiny output (2,592
-values): 23 GFLOP against about 0.37 GB of reads, so FP32 FMA issue and
-shared-memory loads bound it.  The kernel splits the contraction over
-chunks of ``(n, tx rows, ty columns)`` staged in shared memory, keeps a
-4-atom x 4-offset register tile per thread across all of a block's chunks,
-and reduces the per-block partial sums in a second pass in a fixed order
-(deterministic, no float atomics).  It is not the TPU kernel's lane-rolled
-GEMM, which only served the TPU's matrix unit.
+values): 23 GFLOP against 0.33 GB of reads, a GEMM for the tensor cores.
+The kernel is an implicit GEMM on ``mma.sync`` TF32 tiles (16 atoms x 8
+offsets x 8 positions) with 3xTF32 splitting, which keeps float32 accuracy
+(``ConvPlan.precision`` is ``None``: full float32) at three tensor-core
+products per product: 69 GFLOP at 495 TFLOP/s, a bound of 0.14 ms on an
+H100.  What bounds it on the card is feeding the MMAs: the fragment loads
+from shared memory.  Rows are the atoms, columns the ``(c2, ax, ay)``
+offsets flattened and padded to a multiple of 8, and the contraction runs
+along ``ty`` of one ``tx`` row; the H and X2 row pitches keep the fragment
+loads on distinct banks.  A persistent grid walks chunks of
+``(n, tx rows, ty columns)``: ``cp.async`` brings each into a raw buffer
+during the previous chunk's MMAs, and the block splits it once into big and
+small TF32 planes (the split layout).  A block stages only the atoms of its
+own row tiles, so shared memory does not grow with M, and a chunk whose
+three planes do not fit takes the compact layout (one plane, split as the
+fragments load), so every shape the first CUDA design took still runs.
+Per-warp partial sums are reduced in a second pass in a fixed order
+(deterministic, no float atomics).  The TPU kernel's own fold (rows
+``(ax, m)``, columns ``(ay, c)``) served the TPU's 128 x 128 matrix unit.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Tuple
 
@@ -32,12 +46,18 @@ from . import _build
 
 # must match grad_w.cu
 _THREADS = 256
-_MT = 4
-_AT = 4
-#: shared-memory budget for one block's staged chunk (bytes); 2-3 blocks
-#: stay resident per SM
-_SMEM_BUDGET = 96 * 1024
-_BLOCKS_PER_SM = 4
+_WARPS = _THREADS // 32
+_TILE_M, _TILE_N, _TILE_K = 16, 8, 8  # mma.sync.m16n8k8
+#: column tiles per warp: the kernel is instantiated for these
+_TILES_PER_WARP = (1, 2, 3, 4)
+#: chunk rows along tx, in order of preference
+_CHUNK_ROWS = (4, 2, 1)
+#: the most chunk columns along ty (11 MMA steps)
+_MAX_CHUNK_COLS = 88
+#: blocks per SM the kernel is built for (``__launch_bounds__``); two
+#: blocks' chunks must fit the SM's 228 KB, 1 KB per block reserved
+_BLOCKS_PER_SM = 2
+_SMEM_BUDGET = (233472 - _BLOCKS_PER_SM * 1024) // _BLOCKS_PER_SM
 
 
 def grad_w_plain(X2: torch.Tensor, H: torch.Tensor,
@@ -54,28 +74,129 @@ def grad_w_plain(X2: torch.Tensor, H: torch.Tensor,
     return G[:, :c], G[:, c:]
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _warp_split(n_mt: int, n_ct: int) -> dict:
+    """The column tiles per warp, the work items (row tile, tile group), the
+    blocks along y and the warps that split one item's ty steps.  Picks the
+    tiles per warp with the fewest fragment loads per block and ty step
+    (they bound the kernel): ``8 + 4 * nt`` per warp (A and B, big and
+    small), divided over the warps that share an item and multiplied by the
+    blocks that each stage the whole chunk; ties go to more tiles."""
+    best = None
+    for nt in _TILES_PER_WARP:
+        n_items = n_mt * -(-n_ct // nt)
+        ksplit = _WARPS // n_items if n_items <= _WARPS else 1
+        grid_y = -(-n_items // _WARPS)
+        cost = grid_y * (8 + 4 * nt) / ksplit
+        if best is None or cost <= best[0]:
+            best = (cost, dict(nt=nt, n_items=n_items, ipb=min(n_items, _WARPS),
+                               ksplit=ksplit, grid_y=grid_y))
+    return best[1]
+
+
+def _b_conflicts(xp: int, xr: int, Ax: int, Ay: int, C2: int, n_ct: int) -> int:
+    """Extra shared-memory wavefronts of one k step's B-fragment loads (one
+    float per lane, 32 banks) over the column tiles (the first 64 stand for
+    all), for X2 row pitch ``xp``."""
+    a_sz, extra = Ax * Ay, 0
+    for ct in range(min(n_ct, 64)):
+        banks = {}
+        for lane in range(32):
+            col = ct * _TILE_N + (lane >> 2)
+            c2, w = divmod(col, a_sz) if col < C2 * a_sz else (0, 0)
+            addr = (c2 * xr + w // Ay) * xp + w % Ay + (lane & 3)
+            banks.setdefault(addr % 32, set()).add(addr)
+        extra += max(len(a) for a in banks.values()) - 1
+    return extra
+
+
+@functools.lru_cache(maxsize=256)
+def _x_pitch(xw: int, xr: int, Ax: int, Ay: int, C2: int, n_ct: int) -> int:
+    """The X2 row pitch (at least ``xw``, a multiple of 4 so that the shared
+    planes stay 16-byte aligned) whose B-fragment loads have the fewest bank
+    conflicts."""
+    first = _round_up(xw, 4)
+    pitches = range(first, first + 32, 4)
+    return min(pitches, key=lambda p: (_b_conflicts(p, xr, Ax, Ay, C2, n_ct), p))
+
+
+def _rows_per_block(M: int, split: dict, n_groups: int) -> int:
+    """The most atoms one block stages: those of the row tiles its work
+    items cover (all of them only when one block holds every item)."""
+    rows = 0
+    for y in range(split['grid_y']):
+        first = y * split['ipb'] // n_groups
+        last = (min((y + 1) * split['ipb'], split['n_items']) - 1) // n_groups
+        rows = max(rows, min(M, _TILE_M * (last + 1)) - _TILE_M * first)
+    return rows
+
+
+def _pitches(planes: int, tc: int, Ty: int, xr: int, Ax: int, Ay: int, C2: int, n_ct: int,
+             vec: bool):
+    """``(hp, hw, xw, xp)`` choices for chunks of ``tc`` columns: an H row
+    pitch of 4 mod 8 floats (A loads on distinct banks) and the X2 pitch
+    with the fewest B-load conflicts; for the compact layout also the
+    tightest pitches, with a narrow chunk of ``Ty < 8`` columns."""
+    xw = _round_up(tc + Ay - 1, 4 if vec else 1)
+    yield tc + 4, tc, xw, _x_pitch(xw, xr, Ax, Ay, C2, n_ct)
+    if planes == 1:
+        hw = Ty if Ty < _TILE_K else tc
+        xw = _round_up(hw + Ay - 1, 4 if vec else 1)
+        yield hw, hw, xw, xw
+
+
+@functools.lru_cache(maxsize=64)
 def _geometry(N: int, M: int, C2: int, Tx: int, Ty: int, Ax: int, Ay: int,
-              n_sm: int) -> dict:
-    """Chunk sizes, grid and shared memory of the kernel for one problem."""
-    n_mt = -(-M // _MT)
-    n_at = -(-Ay // _AT)
-    tc = -(-Ty // -(-Ty // 64))  # <= 64 columns, near-equal chunks
-    for rows in (8, 4, 2, 1):
-        tr = -(-Tx // -(-Tx // rows))
-        xw = tc + n_at * _AT - 1
-        floats = n_mt * _MT * tr * tc + C2 * (tr + Ax - 1) * xw
-        if 4 * floats <= _SMEM_BUDGET:
+              n_sm: int, vec: bool = True) -> dict:
+    """Tiles, chunk sizes, work split, grid and shared memory of the kernel
+    for one problem: the split layout (three planes) for two blocks per SM,
+    else for one, else the compact layout (one plane, its tightest pitches
+    last); raises ``ValueError`` when no chunk can fit."""
+    n_mt = -(-M // _TILE_M)
+    n_ct = -(-(C2 * Ax * Ay) // _TILE_N)  # over the flattened (c2, ax, ay)
+    split = _warp_split(n_mt, n_ct)
+    m_rows = _rows_per_block(M, split, -(-n_ct // split['nt']))
+    n_cy = -(-Ty // _MAX_CHUNK_COLS)
+    tc0 = _round_up(-(-Ty // n_cy), _TILE_K)  # near-equal chunks of whole MMA steps
+    cols = [tc0] + [c for c in (64, 48, 32, 16, 8) if c < tc0]
+    choice = None
+    for planes, limit in ((3, _SMEM_BUDGET), (3, _build.MAX_SMEM_BYTES),
+                          (1, _build.MAX_SMEM_BYTES)):
+        for tr in sorted({min(r, Tx) for r in _CHUNK_ROWS}, reverse=True):
+            for tc in cols:
+                for hp, hw, xw, xp in _pitches(planes, tc, Ty, tr + Ax - 1, Ax, Ay, C2, n_ct,
+                                               vec):
+                    smem = 4 * planes * (tr * m_rows * hp + C2 * (tr + Ax - 1) * xp)
+                    if smem <= limit:
+                        choice = dict(tile_rows=tr, tile_cols=tc, hp=hp, hw=hw, xw=xw, xp=xp,
+                                      planes=planes, smem_bytes=smem,
+                                      blocks_per_sm=min(_BLOCKS_PER_SM, 233472 // (smem + 1024)))
+                        break
+                if choice:
+                    break
+            if choice:
+                break
+        if choice:
             break
-    smem = 4 * floats
-    if smem > _build.MAX_SMEM_BYTES:
+    if choice is None:
         raise ValueError(
-            f'grad_w: a chunk of {M} atoms x {C2} channels needs {smem} bytes of '
-            'shared memory, more than a block can hold')
-    n_chunks = N * -(-Tx // tr) * -(-Ty // tc)
-    n_tiles = n_mt * C2 * Ax * n_at
-    return dict(tile_rows=tr, tile_cols=tc, smem_bytes=smem,
-                grid_x=min(n_chunks, _BLOCKS_PER_SM * n_sm),
-                grid_y=-(-n_tiles // _THREADS))
+            f'grad_w: a chunk of {M} atoms x {C2} channels with {Ax}x{Ay} offsets needs '
+            'more shared memory than a block can hold')
+    n_chunks = N * -(-Tx // choice['tile_rows']) * -(-Ty // choice['tile_cols'])
+    grid_x = max(1, min(n_chunks, choice['blocks_per_sm'] * n_sm // split['grid_y']))
+    return dict(choice, **split, n_mt=n_mt, m_rows=m_rows, n_ct=n_ct,
+                col_pad=n_ct * _TILE_N - C2 * Ax * Ay, vec=4 if vec else 1, n_chunks=n_chunks,
+                grid_x=grid_x)
+
+
+def _geometry_args(g: dict) -> ctypes.Array:
+    """The geometry array of ``tnmf_grad_w``, in its order."""
+    keys = ('tile_rows', 'tile_cols', 'hp', 'hw', 'xw', 'xp', 'n_ct', 'nt', 'n_items', 'ipb',
+            'ksplit', 'm_rows', 'vec', 'planes')
+    return (ctypes.c_int * len(keys))(*(g[k] for k in keys))
 
 
 def grad_w(X2: torch.Tensor, H: torch.Tensor,
@@ -98,18 +219,18 @@ def grad_w(X2: torch.Tensor, H: torch.Tensor,
     if plan.ndim == 1:  # a 1-D problem is a 2-D one with one row
         T, A = (1,) + T, (1,) + A
     (Tx, Ty), (Ax, Ay) = T, A
+    vec = Ty % 4 == 0 and (Ty + Ay - 1) % 4 == 0 and (X2.data_ptr() | H.data_ptr()) % 16 == 0
     n_sm = torch.cuda.get_device_properties(X2.device).multi_processor_count
-    g = _geometry(N, M, C2, Tx, Ty, Ax, Ay, n_sm)
+    g = _geometry(N, M, C2, Tx, Ty, Ax, Ay, n_sm, vec)
     C = C2 // 2
     out = torch.empty((2, M, C) + plan.atom_shape, device=X2.device, dtype=torch.float32)
-    scratch = torch.empty((g['grid_x'], M * C2 * math.prod(A)), device=X2.device,
-                          dtype=torch.float32)
+    scratch = torch.empty((g['grid_x'] * g['ksplit'], M * C2 * math.prod(A)),
+                          device=X2.device, dtype=torch.float32)
     lib = _build.library()
     with torch.cuda.device(X2.device):
         err = lib.tnmf_grad_w(
             X2.data_ptr(), H.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            N, M, C2, Tx + Ax - 1, Ty + Ay - 1, Tx, Ty, Ax, Ay,
-            g['tile_rows'], g['tile_cols'], g['grid_x'], g['grid_y'],
+            N, M, C2, Tx, Ty, Ax, Ay, _geometry_args(g), g['grid_x'], g['grid_y'],
             g['smem_bytes'], _build.stream_of(X2))
     _build.check_launch(err, 'grad_w')
     grad_w.launches += 1

@@ -10,8 +10,9 @@ failure (exit code != 0, no result line):
 1. device: the card's name and power limit (``nvidia-smi``), torch and nvcc;
 2. build: compiles ``tnmf_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
    ``tnmf_tpu_torch/_build/`` (set-up time), prints ptxas' resource report
-   and counts the tensor-core (HMMA) instructions of K2 in the library's
-   SASS (``cuobjdump -sass``); none fails the run;
+   and counts the tensor-core (HMMA) instructions of K2 and of K3's
+   tensor-core kernel in the library's SASS (``cuobjdump -sass``); none
+   fails the run;
 3. kernels: K1 ``mu_ratio``, K2 ``grad_w``, K3 ``mu_h`` and K4
    ``inhibited_mu_h`` against their plain PyTorch versions on the card, at
    the flagship shapes and at small ragged ones (K2 also at the edges of its
@@ -19,9 +20,12 @@ failure (exit code != 0, no result line):
    train's 20-tap atoms, a ragged ty, all four modes; K4 also at the
    repository's long 1-D shape, each small one with same-atom, cross-atom
    and both terms, and same-atom only at the flagship, also with the
-   runtime tap loop in place of the compiled taps), within
-   max|kernel - plain| / max|plain| <= 1e-4; K2 at the flagship also
-   against float64 within 1e-5, and two K2 launches bit-identical;
+   runtime tap loop in place of the compiled taps; K3 on each side of its
+   route choice: the golden 2-D fixture's shapes, 17 atoms, a ragged ty,
+   pos_extra, 1-D, atoms only the FP32 route holds, and the flagship with
+   the FP32 route forced), within max|kernel - plain| / max|plain| <= 1e-4;
+   K2 and K3 at the flagship also against float64 within 1e-5, and two K2
+   launches bit-identical;
 4. golden: the seeded golden fits of tests/golden_values.json in float32 on
    the card: the 2-D fixture ('2d'/'valid'), the 1-D pulse train with
    inhibition ('1d', four modes) and the regularizer sweep
@@ -37,8 +41,9 @@ failure (exit code != 0, no result line):
 6. a small 3-D fit, which the rank gate sends to the plain operators (no
    kernel launch), against the same fit in float64 on the CPU;
 7. per-kernel times at the flagship shapes: kernel, plain version and the
-   nearest single PyTorch call, with each kernel's bound; K4 also
-   same-atom only, and with its runtime tap loop against the compiled taps.
+   nearest single PyTorch call, with each kernel's bound; K3's two routes
+   in turns; K4 also same-atom only, and with its runtime tap loop against
+   the compiled taps.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths, error, times and bound; the last line is
@@ -68,7 +73,7 @@ from tnmf_tpu_torch.utils.signals import generate_pulse_train
 
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-4            # max|kernel - plain| / max|plain|, float32 on the card
-F64_TOL = 1e-5        # K2 (3xTF32) against float64 at the flagship
+F64_TOL = 1e-5        # K2 and K3 (3xTF32) against float64 at the flagship
 GOLDEN_RTOL = 1e-4    # float32 fit on the card against the float64 golden
 N_ITER = 20
 SEED = 0
@@ -80,10 +85,11 @@ FLAGSHIP = dict(N=64, C=1, S=(256, 256), M=16, A=(9, 9), mode='valid', sparsity=
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
-# the rate each kernel's operations run at: K2 does three TF32 products per
-# float32 product (3xTF32), the others FP32 FMAs
+# the rate each kernel's operations run at: K2 and K3 (on its tensor-core
+# route, the flagship's) do three TF32 products per float32 product
+# (3xTF32), the others FP32 FMAs
 OPS_PER_S = dict(mu_ratio=FP32_FLOP_PER_S, grad_w=TF32_FLOP_PER_S / 3,
-                 mu_h=FP32_FLOP_PER_S, inhibited_mu_h=FP32_FLOP_PER_S)
+                 mu_h=TF32_FLOP_PER_S / 3, inhibited_mu_h=FP32_FLOP_PER_S)
 KERNELS = {
     'mu_ratio': dict(wrapper=mu.mu_ratio, source='tnmf_tpu_torch/csrc/mu_ratio.cu',
                      replaces='tnmf_tpu/experimental/pallas_mu.py:62'),
@@ -123,6 +129,18 @@ K2_CASES = [
     ('2-D C=3 57x57 atoms', (1, 3, (160, 160), 4, (57, 57), 'full')),
     ('2-D narrow Ty=5 168x168 atoms', (1, 1, (171, 172), 3, (168, 168), 'full')),
     ('2-D narrow Ty=4 169x165 atoms', (1, 1, (172, 168), 3, (169, 165), 'full')),
+]
+# K3 on each side of its route choice: (where, (N, C, S, M, A, mode),
+# with pos_extra, the route it takes)
+K3_CASES = [
+    ('2-D golden fixture C=3 7x7 M=10', (2, 3, (76, 102), 10, (7, 7), 'valid'), False, 'mma'),
+    ('2-D 17 atoms', (2, 1, (40, 37), 17, (9, 9), 'valid'), False, 'mma'),
+    ('2-D ragged Ty=93 full', (3, 2, (29, 88), 5, (4, 6), 'full'), False, 'mma'),
+    ('2-D with pos_extra', (2, 2, (40, 44), 3, (9, 9), 'valid'), True, 'mma'),
+    ('1-D pulse train Ay=20', (1, 1, (100,), 3, (20,), 'valid'), False, 'mma'),
+    ('1-D 2x3x301/7 with pos_extra', (2, 3, (301,), 7, (7,), 'valid'), True, 'mma'),
+    # the split dictionary (235 k steps) does not fit a block beside the windows
+    ('2-D C=3 25x25 atoms', (1, 3, (60, 70), 5, (25, 25), 'valid'), False, 'fma'),
 ]
 # tests/test_sparsity_inhibition.py's settings
 SPARSITY_INHIBITION = [
@@ -175,6 +193,17 @@ def counts() -> dict:
 
 
 @contextlib.contextmanager
+def fma_route():
+    """Inside the block K3 takes the first port's FP32 route for every
+    shape: the comparison of its two designs at the flagship."""
+    routes, mu_h._ROUTES = mu_h._ROUTES, ('fma',)
+    try:
+        yield
+    finally:
+        mu_h._ROUTES = routes
+
+
+@contextlib.contextmanager
 def runtime_taps():
     """Inside the block K4 runs its runtime tap loop for every tap count (no
     compiled one): the comparison of the two at the flagship."""
@@ -215,6 +244,10 @@ def phase_build():
     log(f'  K2 SASS: {hmma} HMMA instructions over its grad_w_partial instances')
     if not hmma:
         raise AssertionError('K2 grad_w_partial has no tensor-core (HMMA) instruction')
+    hmma = sass_counts(so, 'mu_h_mma_kernel', 'HMMA')
+    log(f'  K3 SASS: {hmma} HMMA instructions over its mu_h_mma_kernel instances')
+    if not hmma:
+        raise AssertionError('K3 mu_h_mma_kernel has no tensor-core (HMMA) instruction')
 
 
 def sass_counts(so: Path, function: str, opcode: str) -> int:
@@ -314,6 +347,7 @@ def phase_kernels() -> dict:
         k2 = _k2_problem(*args, seed=10 + i)
         _compare('grad_w', lambda: gw.grad_w(*k2), lambda: gw.grad_w_plain(*k2), where)
     _k2_float64_and_determinism()
+    _k3_routes_and_float64()
     rng = np.random.default_rng(SEED)
     for where, dims, ranges in K4_CASES:
         H, neg, pos = (torch.tensor(rng.random(dims), device=DEVICE, dtype=torch.float32)
@@ -363,6 +397,47 @@ def _k2_float64_and_determinism():
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError('grad_w: two launches on the same inputs differ')
     log(f'  {"grad_w":14s} {"flagship, two launches":34s} bit-identical')
+
+
+def _k3_problem(N, C, S, M, A, mode, seed, with_extra=False):
+    """Random non-negative inputs of one K3 problem: Vp, Rx, W, H,
+    denom_add and pos_extra (or None)."""
+    rng = np.random.default_rng(seed)
+    T = ConvPlan.create(mode, S, A).transform_shape
+    E = tuple(t + a - 1 for t, a in zip(T, A))
+
+    def t(shape):
+        return torch.tensor(rng.random(shape), device=DEVICE, dtype=torch.float32)
+    return (t((N, C) + E), t((N, C) + E), t((M, C) + A), t((N, M) + T), engine.EPS + 0.1,
+            t((N, M) + T) if with_extra else None)
+
+
+def _k3_routes_and_float64():
+    """K3 on each side of its route choice (each case asserts its route),
+    the flagship with the FP32 route forced, and the flagship against
+    ``mu_h_plain`` in float64 on the card."""
+    def check(where, p, route):
+        took = mu_h.launch_geometry(*p[:4])[2]['route']
+        if took != route:
+            raise AssertionError(f'mu_h at {where}: took the {took} route, not {route}')
+        _compare('mu_h', lambda: mu_h.mu_h(*p), lambda: mu_h.mu_h_plain(*p),
+                 f'{where} ({route})')
+
+    f = FLAGSHIP
+    flagship = (f['N'], f['C'], f['S'], f['M'], f['A'], f['mode'])
+    for i, (where, args, with_extra, route) in enumerate(K3_CASES):
+        check(where, _k3_problem(*args, seed=20 + i, with_extra=with_extra), route)
+    with fma_route():
+        check('flagship, FP32 route forced', _k3_problem(*flagship, seed=19), 'fma')
+    Vp, Rx, W, H, denom, _ = _k3_problem(*flagship, seed=0)
+    if mu_h.launch_geometry(Vp, Rx, W, H)[2]['route'] != 'mma':
+        raise AssertionError('mu_h at the flagship: not on the tensor-core route')
+    got = mu_h.mu_h(Vp, Rx, W, H, denom).double()
+    want = mu_h.mu_h_plain(Vp.double(), Rx.double(), W.double(), H.double(), denom)
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f'  {"mu_h":14s} {"flagship against float64":34s} rel={rel:.3e}')
+    if not rel <= F64_TOL:
+        raise AssertionError(f'mu_h at the flagship: {rel:.3e} off float64 > {F64_TOL}')
 
 
 def _image_2d() -> np.ndarray:
@@ -553,6 +628,16 @@ def phase_times(nmf) -> dict:
             f'library {"none" if lib is None else f"{lib:.4f} ms"}  bound {bound_ms:.4f} ms '
             f'({bound_by}; {work[0] / 1e9:.4f} GB, {work[1] / 1e9:.4f} GFLOP), '
             f'{100 * bound_ms / ms:.1f} % of bound')
+    # K3's two designs at the flagship, in turns: the FP32 route of the
+    # first port (forced) and the tensor-core route the shape takes
+    k3 = fns['mu_h'][0]
+    with fma_route():
+        f1 = time_ms(k3)
+    m1, m2 = time_ms(k3), time_ms(k3)
+    with fma_route():
+        f2 = time_ms(k3)
+    log(f'  mu_h tensor-core route {m1:.4f}/{m2:.4f} ms, FP32 route (first port) '
+        f'{f1:.4f}/{f2:.4f} ms, in turns')
     same = _problem(f['N'], f['C'], f['S'], f['M'], f['A'], f['mode'], seed=0,
                     use_cross=False)['inhibited_mu_h'][0]
     k1, k2 = time_ms(same), time_ms(same)

@@ -249,9 +249,103 @@ def test_grad_w_geometry_takes_first_design_shapes(M, C2, Tx, Ty, Ay):
 
 
 def test_mu_h_geometry():
-    g = mu_h._geometry(C=1, Ax=9, Ay=9)
+    """The FP32 route keeps the first port's geometry; a shape neither route
+    holds raises before any launch."""
+    g = mu_h._fma_geometry(C=1, Ax=9, Ay=9)
     assert g['pitch'] % 32 == 16 and g['pitch'] >= 64 + 8
     assert g['smem_bytes'] == 4 * (2 * 24 * g['pitch'] + 81 * 8)
     with pytest.raises(ValueError, match='shared memory'):
-        mu_h._geometry(C=16, Ax=31, Ay=31)
+        mu_h._fma_geometry(C=16, Ax=31, Ay=31)
     assert _build.MAX_SMEM_BYTES == 227 * 1024
+
+
+def test_mu_h_geometry_flagship():
+    """64 x 1 x 256 x 256, 16 atoms 9x9: the tensor-core route, one row tile
+    of 16 atoms, 81 taps padded to 88 (11 k steps), chunks of 8 rows x 88
+    columns that cover the 264 x 264 positions exactly, 3 work items per
+    chunk row (4, 4 and 3 column tiles), two blocks per SM."""
+    g = mu_h._geometry(N=64, M=16, C=1, Tx=264, Ty=264, Ax=9, Ay=9, n_sm=132)
+    assert g['route'] == 'mma'
+    assert (g['n_mt'], g['ks']) == (1, 11)  # 81 taps padded to 88
+    assert (g['tile_rows'], g['tile_cols'], g['n_groups']) == (8, 88, 3)
+    assert (g['xr'], g['xw'], g['vec']) == (16, 96, 4)
+    assert g['n_chunks'] == 64 * 33 * 3 and g['grid_x'] == 2 * 132
+    assert g['blocks_per_sm'] == 2 and 2 * (g['smem_bytes'] + 1024) <= 233472
+    # a pitch that keeps the sliding-window B loads off each other's banks
+    assert mu_h._b_conflicts(g['xp'], 16, 1, 9, 9, 11) == 0
+
+
+@pytest.mark.parametrize('where,dims,route,k_pad', [
+    ('flagship', (64, 16, 1, 264, 264, 9, 9), 'mma', 88),
+    ('golden 2-D fixture', (2, 10, 3, 70, 96, 7, 7), 'mma', 152),
+    ('17 atoms: two row tiles', (2, 17, 1, 32, 29, 9, 9), 'mma', 88),
+    ('1-D pulse train as one row', (1, 3, 1, 1, 81, 1, 20), 'mma', 24),
+    ('C=3 25x25: split W too large', (1, 5, 3, 36, 46, 25, 25), 'fma', None),
+    ('100 atoms C=3 15x15', (1, 100, 3, 30, 30, 15, 15), 'fma', None),
+])
+def test_mu_h_geometry_routes(where, dims, route, k_pad):
+    """The route is chosen from the shapes: the tensor-core route when its
+    three window planes and split dictionary fit a block, else the first
+    port's FP32 kernel with its geometry as it was."""
+    N, M, C, Tx, Ty, Ax, Ay = dims
+    g = mu_h._geometry(N, M, C, Tx, Ty, Ax, Ay, n_sm=132)
+    assert g['route'] == route, where
+    if route == 'mma':
+        assert 8 * g['ks'] == k_pad == 8 * -(-(C * Ax * Ay) // 8)
+        assert g['n_mt'] == -(-M // 16)
+    else:
+        assert g == dict(route='fma', **mu_h._fma_geometry(C, Ax, Ay))
+    # forcing the FP32 route (chip_smoke.py's comparison) takes the same geometry
+    assert (mu_h._geometry(N, M, C, Tx, Ty, Ax, Ay, 132, True, ('fma',))
+            == dict(route='fma', **mu_h._fma_geometry(C, Ax, Ay)))
+
+
+def test_mu_h_geometry_neither_route_raises():
+    with pytest.raises(ValueError, match='shared memory'):
+        mu_h._geometry(N=1, M=5, C=16, Tx=100, Ty=100, Ax=31, Ay=31, n_sm=132)
+
+
+@pytest.mark.parametrize('M', [3, 16, 17, 64])
+@pytest.mark.parametrize('C,A,T', [(1, (9, 9), (40, 37)), (3, (7, 7), (70, 96)),
+                                   (2, (4, 6), (32, 93)), (1, (1, 20), (1, 81)),
+                                   (3, (1, 7), (1, 295))])
+@pytest.mark.parametrize('vec', [False, True])
+def test_mu_h_geometry_mma_tiles(M, C, A, T, vec):
+    """The tensor-core route's chunk, pitch and shared memory: within a
+    block, the layout mu_h.cu computes (A fragments big and small, the tap
+    offsets, raw, big and small planes of the Vp and Rx windows), a pitch
+    with no more bank conflicts than any other, whole column tiles."""
+    (Ax, Ay), (Tx, Ty) = A, T
+    g = mu_h._geometry(2, M, C, Tx, Ty, Ax, Ay, n_sm=132, vec=vec)
+    assert g['route'] == 'mma'
+    ks, n_mt = g['ks'], g['n_mt']
+    assert g['smem_bytes'] <= _build.MAX_SMEM_BYTES
+    assert g['smem_bytes'] == 4 * (2 * n_mt * ks * 128 + 8 * ks
+                                   + 3 * 2 * C * g['xr'] * g['xp'])
+    assert g['tile_cols'] % 8 == 0 and g['tile_rows'] <= min(8, Tx)
+    assert g['xr'] == g['tile_rows'] + Ax - 1
+    assert g['xw'] >= g['tile_cols'] + Ay - 1 and g['xp'] >= g['xw'] and g['xp'] % 4 == 0
+    assert g['xw'] % g['vec'] == 0 and g['vec'] == (4 if vec else 1)
+    assert g['n_groups'] * 4 >= g['tile_cols'] // 8 > (g['n_groups'] - 1) * 4
+    first = -(-g['xw'] // 4) * 4
+    best = min(mu_h._b_conflicts(p, g['xr'], C, Ax, Ay, ks) for p in range(first, first + 32, 4))
+    assert mu_h._b_conflicts(g['xp'], g['xr'], C, Ax, Ay, ks) == best
+    assert g['grid_x'] == min(g['n_chunks'], g['blocks_per_sm'] * 132)
+
+
+@pytest.mark.parametrize('M,C,Tx,Ty,Ay', [
+    (1, 1, 200, 200, 100), (16, 3, 200, 200, 57), (3, 1, 8, 8, 9), (17, 3, 40, 9, 5),
+    (5, 1, 3, 3, 4), (16, 1, 1, 4, 61), (300, 8, 200, 12, 20), (7000, 1, 200, 8, 1),
+    (64, 8, 100, 100, 9), (100, 3, 50, 50, 15)])
+def test_mu_h_geometry_takes_first_design_shapes(M, C, Tx, Ty, Ay):
+    """Every shape the first port's kernel took still runs: at the widest
+    atom it took, one of the two routes holds the problem within a block."""
+    Ax = max(a for a in range(1, 400) if 4 * (
+        2 * C * (16 + a - 1) * (64 + Ay - 1 + (16 - (64 + Ay - 1)) % 32) + C * a * Ay * 8)
+        <= _build.MAX_SMEM_BYTES)
+    for ax in (1, Ax // 2, Ax):
+        for vec in (False, True):
+            g = mu_h._geometry(2, M, C, Tx, Ty, ax, Ay, n_sm=132, vec=vec)
+            assert g['smem_bytes'] <= _build.MAX_SMEM_BYTES
+            if g['route'] == 'fma':
+                assert g == dict(route='fma', **mu_h._fma_geometry(C, ax, Ay))

@@ -74,6 +74,8 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -90,41 +92,6 @@ struct GradWShape {
   int ksplit;           // warps per item (ty-step split)
   int m_rows;           // H rows (atoms) a block stages: those of its row tiles
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// copy kVec floats to shared memory, or zeros when !valid
-template <int kVec>
-__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
-  const int n = valid ? 4 * kVec : 0;
-  if constexpr (kVec == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(n));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(smem_addr(dst)), "l"(src), "r"(n));
-  }
-}
-
-__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::); }
-
-// x = big + small, both TF32 values (round to nearest, ties away)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // stage chunk q = (n, rx, ry) of H and X2 into buf; warps take whole rows,
 // lanes the vectors of a row

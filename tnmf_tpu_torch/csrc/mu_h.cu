@@ -15,11 +15,36 @@
 // a 1-D problem comes in with Ax = 1.  The TPU kernel's phase-blocked
 // layout and im2col scratch are not carried over: they exist for Mosaic.
 //
-// Bound: 23 GFLOP of FP32 FMAs at the flagship (64 x 1 x 256 x 256, 16 atoms
-// of 9 x 9) against about 0.72 GB of traffic (H in, H' out, the two data
-// windows with their halos), so FP32 FMA issue bounds it.
+// Two kernels; the wrapper (tnmf_tpu_torch/kernels/mu_h.py, _geometry)
+// picks one from the shapes before the launch:
 //
-// Design.  A block computes a 16 x 64 tile of (tx, ty) positions of one
+// mu_h_mma_kernel, the tensor-core route (whenever its windows and the
+// split dictionary fit a block).  Per sample the update is a GEMM:
+// (atoms) x (C*Ax*Ay taps) x (positions), 23 GFLOP at the flagship
+// (64 x 1 x 256 x 256, 16 atoms of 9 x 9).  On mma.sync m16n8k8 TF32 with
+// 3xTF32 (tf32_mma.cuh) that is 69 GFLOP at 495 TFLOP/s, 0.14 ms, under
+// the 0.18 ms that its 609 MB of traffic take at 3.35 TB/s, so bytes bound
+// it.  Rows are the atoms (16 per row tile; atoms past M are zero), k the
+// flattened (c, ax, ay) taps padded to a multiple of 8 (81 -> 88), columns
+// runs of 8 consecutive ty positions.  The block splits W once into big and
+// small TF32 planes stored in fragment order (two float4 loads per lane and
+// k step).  The B fragments are sliding-window reads of the staged Vp and
+// Rx windows at per-tap offsets fixed for the whole kernel (a table in
+// shared memory); the two correlations share the A fragment, so each k step
+// makes 6 MMAs per column tile, and the MMA sums run over all k steps in
+// float32 (3 * 11 accumulations at the flagship).  The ratio is taken
+// straight from the accumulators.  A persistent grid walks chunks of
+// (n, Tr rows of tx, Tc columns of ty) with every channel and every atom in
+// one block, so each window is staged once: cp.async copies (16 bytes when
+// the rows allow it, zero-filled outside the arrays) bring it into a raw
+// plane, the block splits it once into big and small TF32 planes (splitting
+// at every fragment load cost more than the MMAs), and the next chunk's
+// copies into the raw plane overlap this chunk's MMAs.  A warp owns work
+// items of one tx row and up to kNT column tiles.
+//
+// mu_h_kernel, the FP32 route of the first port (kept for shapes whose
+// windows and split dictionary no block can hold: it stages 8 atoms per
+// block).  A block computes a 16 x 64 tile of (tx, ty) positions of one
 // sample for 8 atoms (blockIdx.z walks the atom groups).  It stages the
 // (16 + Ax - 1) x (64 + Ay - 1) windows of Vp and Rx for all channels and
 // its 8 atoms of W (transposed to [c][ax][ay][8], so each thread reads its
@@ -29,13 +54,14 @@
 // loads of data and 2 of weights for 64 FMAs.  The window pitch is padded
 // to 16 mod 32 words so the two rows a warp spans fall on disjoint banks.
 //
-// The shared-memory size and pitch come from the wrapper
-// (tnmf_tpu_torch/kernels/mu_h.py, _geometry), which must use the same
-// tile constants as here.
+// The shared-memory sizes, pitches and tiles come from the wrapper, which
+// must use the same tile constants and shared layouts as here.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
@@ -149,7 +175,266 @@ mu_h_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
   }
 }
 
+// ------------------------------------------------------ tensor-core route
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kNT = 4;  // column tiles (8 ty positions each) per work item
+
+struct MuHMmaShape {
+  int n, m, c, ex, ey, tx, ty, ax, ay;
+  int tr, tc;      // chunk rows (along tx) and columns (along ty, a multiple of 8)
+  int xr, xw, xp;  // staged window rows (tr + ax - 1), width and row pitch (floats)
+  int ks;          // k steps of 8 over the flattened (c, ax, ay) taps
+  int n_mt;        // row tiles of 16 atoms
+  int n_groups;    // work items per chunk row: groups of up to kNT column tiles
+  int pair;        // H, pos_extra and out rows take float2 accesses
+};
+
+// stage the Vp and Rx windows of chunk q = (n, rx, ry) into buf
+// ([2][c][xr][xp]); warps take whole rows, lanes the vectors of a row
+template <int kVec>
+__device__ __forceinline__ void stage_windows(const float* __restrict__ vp,
+                                              const float* __restrict__ rx, float* buf,
+                                              int64_t q, const MuHMmaShape& s) {
+  const int n_rx = (s.tx + s.tr - 1) / s.tr;
+  const int n_ry = (s.ty + s.tc - 1) / s.tc;
+  const int ty0 = static_cast<int>(q % n_ry) * s.tc;
+  const int tx0 = static_cast<int>((q / n_ry) % n_rx) * s.tr;
+  const int64_t n = q / (static_cast<int64_t>(n_ry) * n_rx);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nv = s.xw / kVec;
+  for (int t = 0; t < 2; ++t) {
+    const float* x = t ? rx : vp;
+    for (int c = 0; c < s.c; ++c) {
+      for (int r = warp; r < s.xr; r += kWarps) {
+        const bool row_ok = tx0 + r < s.ex;
+        const float* src = x + ((n * s.c + c) * s.ex + tx0 + r) * s.ey + ty0;
+        float* dst = buf + ((t * s.c + c) * s.xr + r) * s.xp;
+        for (int v = lane; v < nv; v += 32) {
+          const bool ok = row_ok && ty0 + v * kVec < s.ey;
+          copy_async<kVec>(dst + v * kVec, ok ? src + v * kVec : x, ok);
+        }
+      }
+    }
+  }
+}
+
+// where tap k = (c, ax, ay) starts in a staged window; the padding taps
+// past the last one read offset 0 (their A elements are zero)
+__device__ __forceinline__ int tap_offset(int k, const MuHMmaShape& s) {
+  const int a_sz = s.ax * s.ay;
+  if (k >= s.c * a_sz) return 0;
+  const int c = k / a_sz, a = k % a_sz;
+  return (c * s.xr + a / s.ay) * s.xp + a % s.ay;
+}
+
+template <int kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+mu_h_mma_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
+                const float* __restrict__ w, const float* __restrict__ h,
+                const float* __restrict__ pos_extra, float denom_add,
+                float* __restrict__ out, MuHMmaShape s) {
+  extern __shared__ float4 smem_raw[];
+  // the A fragments [n_mt][ks][32 lanes] as big and small TF32 halves, the
+  // tap offset table [ks][4 lanes] (taps 8 st + tig and + 4), and three
+  // window planes of the same layout [2 (Vp, Rx)][c][xr][xp]: raw (the
+  // cp.async target) and this chunk's big and small TF32 halves
+  const int frags = s.n_mt * s.ks * 32;
+  float4* a_big = smem_raw;
+  float4* a_small = a_big + frags;
+  int2* offs = reinterpret_cast<int2*>(a_small + frags);
+  float* raw = reinterpret_cast<float*>(offs + 4 * s.ks);
+  const int win = s.c * s.xr * s.xp;  // one tensor's window
+  const int plane = 2 * win;          // a multiple of 4
+  float* big = raw + plane;
+  float* small = big + plane;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int taps = s.c * s.ax * s.ay;
+  const int n_rx = (s.tx + s.tr - 1) / s.tr;
+  const int n_ry = (s.ty + s.tc - 1) / s.tc;
+  const int64_t n_chunks = static_cast<int64_t>(s.n) * n_rx * n_ry;
+
+  if (blockIdx.x < n_chunks) stage_windows<kVec>(vp, rx, raw, blockIdx.x, s);
+  commit();
+  // while the first windows arrive: W split once, in fragment order (lane
+  // (g, tig) of k step st holds atoms g and g + 8, taps 8 st + tig and + 4)
+  for (int i = threadIdx.x; i < frags; i += kThreads) {
+    const int ln = i & 31, st = (i >> 5) % s.ks, mt = (i >> 5) / s.ks;
+    float hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int mm = mt * 16 + (ln >> 2) + 8 * (e & 1);
+      const int k = 8 * st + (ln & 3) + 4 * (e >> 1);
+      uint32_t b, l;
+      split_tf32(mm < s.m && k < taps ? w[static_cast<int64_t>(mm) * taps + k] : 0.f, b, l);
+      hi[e] = __uint_as_float(b);
+      lo[e] = __uint_as_float(l);
+    }
+    a_big[i] = make_float4(hi[0], hi[1], hi[2], hi[3]);
+    a_small[i] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+  }
+  for (int i = threadIdx.x; i < 4 * s.ks; i += kThreads) {
+    const int k = 8 * (i >> 2) + (i & 3);
+    offs[i] = make_int2(tap_offset(k, s), tap_offset(k + 4, s));
+  }
+
+  for (int64_t q = blockIdx.x; q < n_chunks; q += gridDim.x) {
+    wait_copies();
+    __syncthreads();  // the chunk is in raw, and the last chunk's MMAs are done
+    // split once per chunk rather than at every fragment load
+    for (int i = 4 * threadIdx.x; i < plane; i += 4 * kThreads) {
+      const float4 x = *reinterpret_cast<const float4*>(raw + i);
+      uint32_t b[4], l[4];
+      split_tf32(x.x, b[0], l[0]);
+      split_tf32(x.y, b[1], l[1]);
+      split_tf32(x.z, b[2], l[2]);
+      split_tf32(x.w, b[3], l[3]);
+      *reinterpret_cast<float4*>(big + i) = make_float4(
+          __uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]), __uint_as_float(b[3]));
+      *reinterpret_cast<float4*>(small + i) = make_float4(
+          __uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+    }
+    __syncthreads();  // raw may be refilled: the next chunk's copies overlap the MMAs
+    if (q + gridDim.x < n_chunks) stage_windows<kVec>(vp, rx, raw, q + gridDim.x, s);
+    commit();
+    const int ty0 = static_cast<int>(q % n_ry) * s.tc;
+    const int tx0 = static_cast<int>((q / n_ry) % n_rx) * s.tr;
+    const int64_t n = q / (static_cast<int64_t>(n_ry) * n_rx);
+    const int n_ct = (min(s.tc, s.ty - ty0) + 7) / 8;  // column tiles holding a position
+
+    for (int item = warp; item < s.tr * s.n_groups; item += kWarps) {
+      const int r = item / s.n_groups;
+      const int j0 = (item % s.n_groups) * kNT;
+      const int nt = min(kNT, n_ct - j0);
+      const int gx = tx0 + r;
+      if (gx >= s.tx || nt <= 0) continue;
+      // B element (k, col g) of column tile j: at offs(k) + 8 j from xb (Vp's
+      // big half), + win (Rx), + plane (the small halves)
+      const float* xb = big + r * s.xp + 8 * j0 + g;
+      for (int mt = 0; mt < s.n_mt; ++mt) {
+        float neg[kNT][4], pos[kNT][4];
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) neg[j][e] = pos[j][e] = 0.f;
+        const float4* fb = a_big + mt * s.ks * 32 + lane;
+        const float4* fs = a_small + mt * s.ks * 32 + lane;
+        for (int st = 0; st < s.ks; ++st) {
+          const int2 o = offs[4 * st + tig];
+          const float4 wb = fb[32 * st], wl = fs[32 * st];
+          const uint32_t ab[4] = {__float_as_uint(wb.x), __float_as_uint(wb.y),
+                                  __float_as_uint(wb.z), __float_as_uint(wb.w)};
+          const uint32_t as[4] = {__float_as_uint(wl.x), __float_as_uint(wl.y),
+                                  __float_as_uint(wl.z), __float_as_uint(wl.w)};
+          uint32_t vb[kNT][2], vs[kNT][2], rb[kNT][2], rs[kNT][2];
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            if (j < nt) {
+              const float* x0 = xb + o.x + 8 * j;
+              const float* x1 = xb + o.y + 8 * j;
+              vb[j][0] = __float_as_uint(x0[0]);
+              vb[j][1] = __float_as_uint(x1[0]);
+              rb[j][0] = __float_as_uint(x0[win]);
+              rb[j][1] = __float_as_uint(x1[win]);
+              vs[j][0] = __float_as_uint(x0[plane]);
+              vs[j][1] = __float_as_uint(x1[plane]);
+              rs[j][0] = __float_as_uint(x0[plane + win]);
+              rs[j][1] = __float_as_uint(x1[plane + win]);
+            }
+          }
+          // 3xTF32, the small terms first; the tiles and the two
+          // correlations interleave so that independent MMAs are in flight
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            if (j < nt) {
+              mma_tf32(neg[j], as, vb[j][0], vb[j][1]);
+              mma_tf32(pos[j], as, rb[j][0], rb[j][1]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            if (j < nt) {
+              mma_tf32(neg[j], ab, vs[j][0], vs[j][1]);
+              mma_tf32(pos[j], ab, rs[j][0], rs[j][1]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kNT; ++j) {
+            if (j < nt) {
+              mma_tf32(neg[j], ab, vb[j][0], vb[j][1]);
+              mma_tf32(pos[j], ab, rb[j][0], rb[j][1]);
+            }
+          }
+        }
+
+        // the ratio from the accumulators: element e of tile j is atom
+        // g (+ 8 for e >= 2), position 8 j + 2 tig (+ 1 for odd e)
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const int y = ty0 + 8 * (j0 + j) + 2 * tig;
+          if (j >= nt || y >= s.ty) continue;
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int mm = mt * 16 + g + 8 * hr;
+            if (mm >= s.m) continue;
+            const int64_t o = ((n * s.m + mm) * s.tx + gx) * s.ty + y;
+            const float n0 = neg[j][2 * hr], n1 = neg[j][2 * hr + 1];
+            float p0 = pos[j][2 * hr], p1 = pos[j][2 * hr + 1];
+            if (s.pair) {  // ty is even, so y + 1 < ty too
+              const float2 hv = *reinterpret_cast<const float2*>(h + o);
+              if (pos_extra != nullptr) {
+                const float2 pe = *reinterpret_cast<const float2*>(pos_extra + o);
+                p0 += pe.x;
+                p1 += pe.y;
+              }
+              *reinterpret_cast<float2*>(out + o) =
+                  make_float2(hv.x * n0 / (p0 + denom_add), hv.y * n1 / (p1 + denom_add));
+            } else {
+              if (pos_extra != nullptr) p0 += pos_extra[o];
+              out[o] = h[o] * n0 / (p0 + denom_add);
+              if (y + 1 < s.ty) {
+                if (pos_extra != nullptr) p1 += pos_extra[o + 1];
+                out[o + 1] = h[o + 1] * n1 / (p1 + denom_add);
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int kVec>
+cudaError_t launch_mma(const float* vp, const float* rx, const float* w, const float* h,
+                       const float* pos_extra, float denom_add, float* out,
+                       const MuHMmaShape& s, int grid_x, int smem_bytes, cudaStream_t st) {
+  auto kernel = mu_h_mma_kernel<kVec>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid_x, kThreads, smem_bytes, st>>>(vp, rx, w, h, pos_extra, denom_add, out, s);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int tnmf_mu_h_mma(const float* vp, const float* rx, const float* w,
+                             const float* h, const float* pos_extra, float denom_add,
+                             float* out, int n, int m, int c, int tx, int ty, int ax,
+                             int ay, const int* geometry, int grid_x, int smem_bytes,
+                             void* stream) {
+  // geometry: tr, tc, xr, xw, xp, ks, n_mt, n_groups, vec, pair
+  const int* g = geometry;
+  const MuHMmaShape s{n, m, c, tx + ax - 1, ty + ay - 1, tx, ty, ax, ay,
+                      g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7], g[9]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      g[8] == 4 ? launch_mma<4>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st)
+                : launch_mma<1>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st);
+  return static_cast<int>(err);
+}
 
 extern "C" int tnmf_mu_h(const float* vp, const float* rx, const float* w,
                          const float* h, const float* pos_extra, float denom_add,

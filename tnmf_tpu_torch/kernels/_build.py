@@ -42,6 +42,9 @@ SIGNATURES = {
     # vp, rx, w, h, pos_extra, denom_add, out, n, m, c, ex, ey, tx, ty, ax, ay,
     # pitch, smem_bytes, stream
     'tnmf_mu_h': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 11 + (_P,),
+    # vp, rx, w, h, pos_extra, denom_add, out, n, m, c, tx, ty, ax, ay,
+    # geometry (int[10]), grid_x, smem_bytes, stream
+    'tnmf_mu_h_mma': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 7 + (_P,) + (_I,) * 2 + (_P,),
     # h, neg, pos, taps, out, n, m, x, y, tx, ty, tile_x, tile_y, hp, xtp, npp,
     # inh, cross, reg, use_same, use_cross, two_d, vec, h_vec, h_bufs, compiled,
     # smem_bytes, stream

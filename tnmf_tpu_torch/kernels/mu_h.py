@@ -1,8 +1,8 @@
 """K3: the fused multiplicative H update.
 
-Replaces ``tnmf_tpu/experimental/pallas_phased.py::mu_h``; the CUDA kernel
-is ``tnmf_tpu_torch/csrc/mu_h.cu``.  For the mode-extended data ``Vp`` and
-reconstruction ``Rx`` it computes
+Replaces ``tnmf_tpu/experimental/pallas_phased.py::mu_h``; the CUDA kernels
+are in ``tnmf_tpu_torch/csrc/mu_h.cu``.  For the mode-extended data ``Vp``
+and reconstruction ``Rx`` it computes
 
     H' = H * corr(Vp, W) / (corr(Rx, W) [+ pos_extra] + denom_add)
 
@@ -11,15 +11,32 @@ in the canonical ``(N, M, *T)`` layout (not the TPU kernel's phase-blocked
 one).  The two gradient maps never reach device memory: only H is read and
 H' written at activation size.
 
-23 GFLOP of FP32 FMAs at the flagship (64 x 1 x 256 x 256, 16 atoms of
-9 x 9), so FMA issue bounds it.  A block computes a 16 x 64 position tile
-of one sample for 8 atoms from shared-memory windows of Vp and Rx and a
-transposed copy of its atoms; each thread holds 4 positions x 8 atoms of
-both correlations in registers.
+Per sample the update is a GEMM (atoms x ``C*Ax*Ay`` taps x positions):
+23 GFLOP at the flagship (64 x 1 x 256 x 256, 16 atoms of 9 x 9).  Two
+routes, chosen from the shapes before the launch (``_geometry``):
+
+- ``'mma'``, the tensor-core route: an implicit GEMM on ``mma.sync``
+  m16n8k8 TF32 with 3xTF32 splitting (full float32 accuracy at three
+  tensor-core products per product: 69 GFLOP, 0.14 ms at 495 TFLOP/s, under
+  the 0.18 ms its 609 MB take at 3.35 TB/s).  Rows are the atoms, k the
+  flattened ``(c, ax, ay)`` taps padded to a multiple of 8, columns runs of
+  8 ``ty`` positions; the B fragments are sliding-window reads of the staged
+  Vp and Rx windows.  A persistent grid walks chunks of ``(n, tx rows, ty
+  columns)`` holding every channel and atom: ``cp.async`` brings each into a
+  raw plane during the previous chunk's MMAs, and the block splits it once
+  into big and small TF32 planes.  Taken whenever the three planes and the
+  split dictionary fit a block.
+- ``'fma'``, the first port's FP32 kernel: 16 x 64 position tiles for 8
+  atoms per block.  It stages only 8 atoms, so it holds dictionaries the
+  tensor-core route cannot; it is kept unchanged for them.
+
+Shapes that neither holds raise ``ValueError`` before any launch.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -27,10 +44,25 @@ import torch
 from ..ops import conv
 from . import _build
 
-# must match mu_h.cu
+# the FP32 route's tiles; must match mu_h.cu (mu_h_kernel)
 _TILE_X = 16
 _TILE_Y = 64
 _ATOMS_PER_BLOCK = 8
+
+# the tensor-core route's tiles; must match mu_h.cu (mu_h_mma_kernel)
+_TILE_M, _TILE_N, _TILE_K = 16, 8, 8  # mma.sync.m16n8k8
+_TILES_PER_ITEM = 4                     # kNT: column tiles per work item
+#: chunk rows along tx, in order of preference (8 warps, one row each)
+_CHUNK_ROWS = (8, 4, 2, 1)
+#: the most chunk columns along ty (11 column tiles)
+_MAX_CHUNK_COLS = 88
+#: blocks per SM the kernel is built for (``__launch_bounds__``); two
+#: blocks' shared memory must fit the SM's 228 KB, 1 KB per block reserved
+_BLOCKS_PER_SM = 2
+_SMEM_BUDGET = (233472 - _BLOCKS_PER_SM * 1024) // _BLOCKS_PER_SM
+
+#: the routes ``mu_h`` may take, in order of preference
+_ROUTES = ('mma', 'fma')
 
 
 def mu_h_plain(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor,
@@ -44,8 +76,12 @@ def mu_h_plain(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor,
     return H * neg / (pos + denom_add)
 
 
-def _geometry(C: int, Ax: int, Ay: int) -> dict:
-    """Window pitch and shared memory of the kernel for one problem."""
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _fma_geometry(C: int, Ax: int, Ay: int) -> dict:
+    """Window pitch and shared memory of the FP32 route for one problem."""
     xw = _TILE_Y + Ay - 1
     pitch = xw + (16 - xw) % 32  # 16 mod 32: a warp's two rows hit disjoint banks
     floats = 2 * C * (_TILE_X + Ax - 1) * pitch + C * Ax * Ay * _ATOMS_PER_BLOCK
@@ -53,14 +89,116 @@ def _geometry(C: int, Ax: int, Ay: int) -> dict:
     if smem > _build.MAX_SMEM_BYTES:
         raise ValueError(
             f'mu_h: {C} channels with {Ax}x{Ay} atoms need {smem} bytes of shared '
-            'memory, more than a block can hold')
+            'memory, more than a block can hold (on either route)')
     return dict(pitch=pitch, smem_bytes=smem)
+
+
+def _tap_offsets(xp: int, xr: int, C: int, Ax: int, Ay: int, n_taps: int) -> list:
+    """Where each of the first ``n_taps`` (padded) taps ``(c, ax, ay)``
+    starts in a staged window of ``xr`` rows of pitch ``xp`` (as
+    ``tap_offset`` in mu_h.cu: 0 past the last tap)."""
+    a_sz, taps = Ax * Ay, C * Ax * Ay
+    return [((k // a_sz) * xr + k % a_sz // Ay) * xp + k % Ay if k < taps else 0
+            for k in range(n_taps)]
+
+
+def _b_conflicts(xp: int, xr: int, C: int, Ax: int, Ay: int, ks: int) -> int:
+    """Extra shared-memory wavefronts of the B-fragment loads (lane (g, tig)
+    reads tap ``8 st + tig`` (+ 4) at column ``g``; 32 banks) over the k
+    steps (the first 64 stand for all), for window row pitch ``xp``."""
+    off, extra = _tap_offsets(xp, xr, C, Ax, Ay, 8 * min(ks, 64)), 0
+    for st in range(min(ks, 64)):
+        for half in (0, 4):
+            banks = {}
+            for lane in range(32):
+                addr = off[8 * st + (lane & 3) + half] + (lane >> 2)
+                banks.setdefault(addr % 32, set()).add(addr)
+            extra += max(len(a) for a in banks.values()) - 1
+    return extra
+
+
+@functools.lru_cache(maxsize=256)
+def _x_pitch(xw: int, xr: int, C: int, Ax: int, Ay: int, ks: int) -> int:
+    """The window row pitch (at least ``xw``, a multiple of 4 so that the
+    windows stay 16-byte aligned) whose B-fragment loads have the fewest
+    bank conflicts."""
+    first = _round_up(xw, 4)
+    return min(range(first, first + 32, 4),
+               key=lambda p: (_b_conflicts(p, xr, C, Ax, Ay, ks), p))
+
+
+def _mma_geometry(N: int, M: int, C: int, Tx: int, Ty: int, Ax: int, Ay: int,
+                  n_sm: int, vec: bool) -> Optional[dict]:
+    """Chunk, pitches, work split, grid and shared memory of the tensor-core
+    route: the largest chunk whose three window planes and split dictionary
+    fit two blocks per SM, else one; ``None`` when none fits a block."""
+    ks = -(-(C * Ax * Ay) // _TILE_K)
+    n_mt = -(-M // _TILE_M)
+    fixed = 2 * n_mt * ks * _TILE_M * _TILE_K + 8 * ks  # A fragments, big and small; offsets
+    n_cy = -(-Ty // _MAX_CHUNK_COLS)
+    tc0 = _round_up(-(-Ty // n_cy), _TILE_N)  # near-equal chunks of whole column tiles
+    cols = [tc0] + [c for c in (64, 48, 32, 16, 8) if c < tc0]
+    for limit in (_SMEM_BUDGET, _build.MAX_SMEM_BYTES):
+        for tr in sorted({min(r, Tx) for r in _CHUNK_ROWS}, reverse=True):
+            for tc in cols:
+                xr = tr + Ax - 1
+                xw = _round_up(tc + Ay - 1, 4 if vec else 1)
+                xp = _x_pitch(xw, xr, C, Ax, Ay, ks)
+                smem = 4 * (fixed + 3 * 2 * C * xr * xp)  # raw, big and small planes
+                if smem > limit:
+                    continue
+                n_chunks = N * -(-Tx // tr) * -(-Ty // tc)
+                blocks_per_sm = min(_BLOCKS_PER_SM, 233472 // (smem + 1024))
+                return dict(route='mma', tile_rows=tr, tile_cols=tc, xr=xr, xw=xw, xp=xp,
+                            ks=ks, n_mt=n_mt,
+                            n_groups=-(-(tc // _TILE_N) // _TILES_PER_ITEM),
+                            vec=4 if vec else 1, smem_bytes=smem,
+                            blocks_per_sm=blocks_per_sm, n_chunks=n_chunks,
+                            grid_x=max(1, min(n_chunks, blocks_per_sm * n_sm)))
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def _geometry(N: int, M: int, C: int, Tx: int, Ty: int, Ax: int, Ay: int, n_sm: int,
+              vec: bool = True, routes: tuple = _ROUTES) -> dict:
+    """The route and its geometry for one problem: the tensor-core route
+    when its chunk fits a block, else the FP32 route when its tile does;
+    raises ``ValueError`` when neither does."""
+    if 'mma' in routes:
+        g = _mma_geometry(N, M, C, Tx, Ty, Ax, Ay, n_sm, vec)
+        if g is not None:
+            return g
+    if 'fma' not in routes:
+        raise ValueError(f'mu_h: no route of {routes} holds {C} channels with {Ax}x{Ay} atoms')
+    return dict(route='fma', **_fma_geometry(C, Ax, Ay))
+
+
+def _mma_args(g: dict, pair: bool) -> ctypes.Array:
+    """The geometry array of ``tnmf_mu_h_mma``, in its order."""
+    vals = [g[k] for k in ('tile_rows', 'tile_cols', 'xr', 'xw', 'xp', 'ks', 'n_mt',
+                           'n_groups', 'vec')] + [int(pair)]
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def launch_geometry(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor,
+                    H: torch.Tensor) -> tuple:
+    """``((Tx, Ty), (Ax, Ay), geometry)`` of a launch on these CUDA tensors,
+    with the route it takes; a 1-D problem is a 2-D one with one row."""
+    N, M = H.shape[:2]
+    C = W.shape[1]
+    T, A = tuple(H.shape[2:]), tuple(W.shape[2:])
+    if len(T) == 1:
+        T, A = (1,) + T, (1,) + A
+    (Tx, Ty), (Ax, Ay) = T, A
+    vec = (Ty + Ay - 1) % 4 == 0 and (Vp.data_ptr() | Rx.data_ptr()) % 16 == 0
+    n_sm = torch.cuda.get_device_properties(H.device).multi_processor_count
+    return T, A, _geometry(N, M, C, Tx, Ty, Ax, Ay, n_sm, vec, _ROUTES)
 
 
 def mu_h(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
          denom_add: float, pos_extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Fused H update: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors (float32, contiguous, 1-D or 2-D shifts)."""
+    """Fused H update: the plain version for CPU tensors, a CUDA kernel for
+    CUDA tensors (float32, contiguous, 1-D or 2-D shifts)."""
     if Vp.device.type == 'cpu':
         return mu_h_plain(Vp, Rx, W, H, denom_add, pos_extra)
     extra = () if pos_extra is None else (pos_extra,)
@@ -77,20 +215,24 @@ def mu_h(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
         raise ValueError(
             f'mu_h: shapes Vp {tuple(Vp.shape)}, Rx {tuple(Rx.shape)}, '
             f'W {tuple(W.shape)}, H {tuple(H.shape)} do not fit together')
-    if N > 65535:
+    (Tx, Ty), (Ax, Ay), g = launch_geometry(Vp, Rx, W, H)
+    if g['route'] == 'fma' and N > 65535:
         raise ValueError(f'mu_h: at most 65535 samples per launch, got {N}')
-    if nd == 1:  # a 1-D problem is a 2-D one with one row
-        T, A = (1,) + T, (1,) + A
-    (Tx, Ty), (Ax, Ay) = T, A
-    g = _geometry(C, Ax, Ay)
     out = torch.empty_like(H)
+    pe = None if pos_extra is None else pos_extra.data_ptr()
     lib = _build.library()
     with torch.cuda.device(H.device):
-        err = lib.tnmf_mu_h(
-            Vp.data_ptr(), Rx.data_ptr(), W.data_ptr(), H.data_ptr(),
-            None if pos_extra is None else pos_extra.data_ptr(),
-            float(denom_add), out.data_ptr(), N, M, C, Tx + Ax - 1, Ty + Ay - 1,
-            Tx, Ty, Ax, Ay, g['pitch'], g['smem_bytes'], _build.stream_of(H))
+        if g['route'] == 'mma':
+            pair = Ty % 2 == 0 and (H.data_ptr() | out.data_ptr() | (pe or 0)) % 8 == 0
+            err = lib.tnmf_mu_h_mma(
+                Vp.data_ptr(), Rx.data_ptr(), W.data_ptr(), H.data_ptr(), pe,
+                float(denom_add), out.data_ptr(), N, M, C, Tx, Ty, Ax, Ay,
+                _mma_args(g, pair), g['grid_x'], g['smem_bytes'], _build.stream_of(H))
+        else:
+            err = lib.tnmf_mu_h(
+                Vp.data_ptr(), Rx.data_ptr(), W.data_ptr(), H.data_ptr(), pe,
+                float(denom_add), out.data_ptr(), N, M, C, Tx + Ax - 1, Ty + Ay - 1,
+                Tx, Ty, Ax, Ay, g['pitch'], g['smem_bytes'], _build.stream_of(H))
     _build.check_launch(err, 'mu_h')
     mu_h.launches += 1
     return out

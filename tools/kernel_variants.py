@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""Time source variants of the PyTorch port's kernels in turns on one CUDA card.
+
+    python3 tools/kernel_variants.py [--variants base,k3_no_staging,...] [--parent DIR]
+
+Run from the repository root on a machine with one CUDA card and ``nvcc``.
+Each variant is a copy of ``tnmf_tpu_torch/`` under ``_variants/``
+(git-ignored) with named edits to its CUDA sources (``VARIANTS``);
+``--parent DIR`` adds the package of another checkout (for example the
+parent commit unpacked with ``git archive``) as the variant ``parent``.
+Each variant runs in its own process, which builds its own library and
+times K3 ``mu_h`` and K2 ``grad_w`` at the flagship shapes (64 x 1 x 256 x
+256, 16 atoms 9 x 9; CUDA events, two windows of 20 launches).  The
+variants run in the order given and then in reverse, so each one is timed
+twice around the others.  Each process also prints the registers of K3's
+tensor-core kernel and a digest of its library's K2 SASS, which shows
+whether a change meant to leave K2 alone did.
+
+The ablations compute wrong values: they are for finding what bounds a
+kernel, never for its results.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+WORK = ROOT / '_variants'
+MARK = '// ------------------------------------------------------ tensor-core route'
+_STAGE = 'if (q + gridDim.x < n_chunks) stage_windows<kVec>(vp, rx, raw, q + gridDim.x, s);'
+_B_LOADS = [(f'{b}[j][{i}] = __float_as_uint(x{i}[{off}]);',
+             f'{b}[j][{i}] = o.{"xy"[i]} + 8 * j + {off};')
+            for b, off in (('vb', 0), ('rb', 'win'), ('vs', 'plane'), ('rs', 'plane + win'))
+            for i in (0, 1)]
+_XOR = '''__device__ __forceinline__ void xor_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  d[0] = __uint_as_float(__float_as_uint(d[0]) ^ a[0] ^ b0);
+  d[1] = __uint_as_float(__float_as_uint(d[1]) ^ a[1] ^ b1);
+}
+
+''' + MARK
+
+_SPLIT = 'for (int i = 4 * threadIdx.x; i < plane; i += 4 * kThreads) {'
+_SPLIT_PER_LOAD = ('\n'.join(' ' * 14 + old for old, _ in _B_LOADS),
+                   '\n'.join(' ' * 14 + f'split_tf32(x{i}[{off} - plane], {b}b[j][{i}], {b}s[j][{i}]);'
+                             for b, off in (('v', 0), ('r', 'win')) for i in (0, 1)))
+
+#: name -> edits (text, replacement) of the package's csrc/mu_h.cu, each
+#: applied to every occurrence (and each must occur)
+VARIANTS = {
+    'base': [],
+    # each MMA of the tensor-core kernel becomes two three-input XORs
+    'k3_mma_as_xor': [(MARK, _XOR), ('mma_tf32(neg', 'xor_tf32(neg'),
+                      ('mma_tf32(pos', 'xor_tf32(pos')],
+    # the first version's design: the B values split into TF32 halves as
+    # they load (here from the raw plane, which the next chunk refills)
+    'k3_split_per_load': [
+        (_SPLIT, _SPLIT.replace('i < plane', 'false && i < plane')), _SPLIT_PER_LOAD],
+    # the B fragments come from registers instead of shared memory
+    'k3_b_from_registers': _B_LOADS,
+    # no epilogue (only neg[j][0] stays live, so the pos MMAs go too)
+    'k3_no_epilogue': [('if (j >= nt || y >= s.ty) continue;',
+                        'if (j >= nt || y >= s.ty || neg[j][0] != -1.f) continue;')],
+    # every chunk computes on the first chunk's windows
+    'k3_no_staging': [(_STAGE, _STAGE.replace('if (', 'if (false && '))],
+    'k3_no_staging_no_split': [
+        (_STAGE, _STAGE.replace('if (', 'if (false && ')),
+        (_SPLIT, _SPLIT.replace('i < plane', 'q == blockIdx.x && i < plane'))],
+}
+
+
+def make_copy(name: str) -> Path:
+    """``_variants/<name>/tnmf_tpu_torch`` with the variant's edits."""
+    dst = WORK / name
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(ROOT / 'tnmf_tpu_torch', dst / 'tnmf_tpu_torch',
+                    ignore=shutil.ignore_patterns('_build', '__pycache__'))
+    path = dst / 'tnmf_tpu_torch' / 'csrc' / 'mu_h.cu'
+    src = path.read_text()
+    for old, new in VARIANTS[name]:
+        if old not in src:
+            raise SystemExit(f'{name}: an edit of mu_h.cu no longer applies: {old!r}')
+        src = src.replace(old, new)
+    path.write_text(src)
+    return dst
+
+
+def time_package(root: Path) -> dict:
+    """In this process: K3 and K2 at the flagship from the package in
+    ``root``, its K3 registers and its K2 SASS digest."""
+    sys.path.insert(0, str(root))
+    import numpy as np
+    import torch
+    import tnmf_tpu_torch
+    if not Path(tnmf_tpu_torch.__file__).resolve().is_relative_to(root.resolve()):
+        raise SystemExit(f'imported {tnmf_tpu_torch.__file__}, not the package in {root}')
+    from tnmf_tpu_torch.kernels import _build, gw, mu_h
+    from tnmf_tpu_torch.ops.modes import ConvPlan
+    so = _build.build()
+    _build.library()
+    rng = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.tensor(rng.random(shape), device='cuda', dtype=torch.float32)
+    Vp, Rx, W, H = t(64, 1, 272, 272), t(64, 1, 272, 272), t(16, 1, 9, 9), t(64, 16, 264, 264)
+    X2, plan = torch.cat([Vp, Rx], dim=1), ConvPlan.create('valid', (256, 256), (9, 9))
+
+    def ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(2):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(20):
+                fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end) / 20)
+        return out
+    sass = subprocess.run([str(Path(_build.nvcc()).with_name('cuobjdump')), '-sass', str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    digest, inside = hashlib.sha256(), False
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            inside = 'grad_w' in line
+        elif inside and '/*' in line:
+            digest.update(line.split(';')[0].strip().encode())
+    regs, entry = None, ''
+    for line in so.with_name(so.name + '.log').read_text().splitlines():
+        if 'Compiling entry' in line:
+            entry = line
+        elif 'Used ' in line and 'mu_h_mma_kernelILi4' in entry:
+            regs = int(line.split('Used ')[1].split()[0])
+    return dict(mu_h_ms=ms(lambda: mu_h.mu_h(Vp, Rx, W, H, 0.1)),
+                grad_w_ms=ms(lambda: gw.grad_w(X2, H, plan)),
+                mu_h_mma_registers=regs,
+                grad_w_sass=digest.hexdigest()[:16])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--variants', default=','.join(VARIANTS))
+    ap.add_argument('--parent', type=Path, help='a checkout whose package runs as "parent"')
+    ap.add_argument('--time', type=Path, help=argparse.SUPPRESS)  # worker: one package
+    args = ap.parse_args()
+    if args.time:
+        print(json.dumps(time_package(args.time)), flush=True)
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('kernel_variants: this script needs a CUDA card')
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    dirs = {name: make_copy(name) for name in args.variants.split(',')}
+    if args.parent:
+        dirs['parent'] = args.parent.resolve()
+    order = list(dirs) + list(dirs)[::-1]
+    results = {name: [] for name in dirs}
+    for name in order:
+        proc = subprocess.run([sys.executable, __file__, '--time', str(dirs[name])],
+                              capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            raise SystemExit(f'{name} failed:\n{proc.stdout}{proc.stderr}')
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        results[name].append(r)
+        print(f'{name:24s} mu_h {r["mu_h_ms"][0]:.4f}/{r["mu_h_ms"][1]:.4f} ms  grad_w '
+              f'{r["grad_w_ms"][0]:.4f}/{r["grad_w_ms"][1]:.4f} ms  K3 registers '
+              f'{r["mu_h_mma_registers"]}  K2 SASS {r["grad_w_sass"]}', flush=True)
+    print(json.dumps(results))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

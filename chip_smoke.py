@@ -20,10 +20,13 @@ failure (exit code != 0, no result line):
    train's 20-tap atoms, a ragged ty, all four modes; K4 also at the
    repository's long 1-D shape, each small one with same-atom, cross-atom
    and both terms, and same-atom only at the flagship, also with the
-   runtime tap loop in place of the compiled taps; K3 on each side of its
-   route choice: the golden 2-D fixture's shapes, 17 atoms, a ragged ty,
-   pos_extra, 1-D, atoms only the FP32 route holds, and the flagship with
-   the FP32 route forced), within max|kernel - plain| / max|plain| <= 1e-4;
+   runtime tap loop in place of the compiled taps, and at 70,000 samples;
+   K2 also in groups of channels, of atom rows and of atom columns; K3 on
+   each side of its route choice: the golden 2-D fixture's shapes, 17
+   atoms, a ragged ty, pos_extra, 1-D, atoms only the FP32 route holds, 16
+   channels of 31 x 31 atoms streamed in segments (also against the sums in
+   the kernel's own order), and the FP32 route forced at the flagship and
+   at 70,000 1-D samples), within max|kernel - plain| / max|plain| <= 1e-4;
    K2 and K3 at the flagship also against float64 within 1e-5, and two K2
    launches bit-identical;
 4. golden: the seeded golden fits of tests/golden_values.json in float32 on
@@ -38,9 +41,21 @@ failure (exit code != 0, no result line):
    below the initial one, unit-sum atoms, each kernel of the path launched
    at least once per iteration; then MU ms/iteration (CUDA events) and peak
    device memory;
-6. a small 3-D fit, which the rank gate sends to the plain operators (no
+6. a small 3-D fit, which the kernel gate sends to the plain operators (no
    kernel launch), against the same fit in float64 on the CPU;
-7. per-kernel times at the flagship shapes: kernel, plain version and the
+7. large atoms: ``TransformInvariantNMF(16, (31, 31))`` on 4 x 16 x 256 x
+   256 for 3 iterations, plain (K1, K2, K3 on its streamed FP32 route) and
+   with ``inhibition_strength=0.1`` (K1, K2, K4), counts reset before each
+   fit and read after it, no plain version called; W and H against the
+   same seeded fit in float64, which the gate sends to the plain versions
+   on the card, within max|W - W64| / max|W64| <= 1e-4 (and for H), the
+   same fit on the plain versions in float32 printed beside it; then
+   ms/iteration and K3's and K2's times at these shapes;
+8. float64 on the card: the golden 2-D fit and the 1-D pulse train (four
+   modes) in float64, which the gate sends to the plain versions (its
+   reason is printed, no kernel launches); energy within rtol 1e-8 of
+   tests/golden_values.json;
+9. per-kernel times at the flagship shapes: kernel, plain version and the
    nearest single PyTorch call, with each kernel's bound; K3's two routes
    in turns; K4 also same-atom only, and with its runtime tap loop against
    the compiled taps.
@@ -75,11 +90,16 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-4            # max|kernel - plain| / max|plain|, float32 on the card
 F64_TOL = 1e-5        # K2 and K3 (3xTF32) against float64 at the flagship
 GOLDEN_RTOL = 1e-4    # float32 fit on the card against the float64 golden
+F64_GOLDEN_RTOL = 1e-8  # float64 fit on the card against the float64 golden
 N_ITER = 20
 SEED = 0
 DEVICE = 'cuda'
 FLAGSHIP = dict(N=64, C=1, S=(256, 256), M=16, A=(9, 9), mode='valid', sparsity=0.1,
                 inhibition=0.1, cross=0.05)
+# 16 channels of 31 x 31 atoms: no kernel geometry of the first ports held
+# them; the JAX rule still picks the direct-conv path for them
+LARGE = dict(N=4, C=16, S=(256, 256), M=16, A=(31, 31), sparsity=0.1, inhibition=0.1,
+             n_iter=3)
 # published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, FP32 outside
 # the tensor cores, and dense TF32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -113,6 +133,8 @@ K4_CASES = [
     ('2-D wide 1x3x200x200 r(82)', (1, 3, 200, 200), (82, 82)),
     ('2-D rows 1x2x12x4500 r(1,2000)', (1, 2, 12, 4500), (1, 2000)),
     ('1-D one buffer 1x2x20000 r(9700)', (1, 2, 20000), (9700,)),
+    # more samples than a grid's y axis holds (65535)
+    ('1-D 70000x3x64 r(4)', (70000, 3, 64), (4,)),
 ]
 # K2 at the edges of its tiling: (where, (N, C, S, M, A, mode))
 K2_CASES = [
@@ -130,6 +152,12 @@ K2_CASES = [
     ('2-D narrow Ty=5 168x168 atoms', (1, 1, (171, 172), 3, (168, 168), 'full')),
     ('2-D narrow Ty=4 169x165 atoms', (1, 1, (172, 168), 3, (169, 165), 'full')),
 ]
+# K2 where no chunk over all of X2 fits a block: (where, problem, launches)
+K2_GROUP_CASES = [
+    ('2-D C=32 31x31: channel groups', (1, 32, (64, 72), 4, (31, 31), 'valid'), 2),
+    ('2-D 300x300 atoms: row groups', (1, 1, (310, 310), 3, (300, 300), 'valid'), 4),
+    ('1-D 70000-tap atoms: column groups', (1, 1, (70100,), 3, (70000,), 'valid'), 4),
+]
 # K3 on each side of its route choice: (where, (N, C, S, M, A, mode),
 # with pos_extra, the route it takes)
 K3_CASES = [
@@ -141,6 +169,10 @@ K3_CASES = [
     ('1-D 2x3x301/7 with pos_extra', (2, 3, (301,), 7, (7,), 'valid'), True, 'mma'),
     # the split dictionary (235 k steps) does not fit a block beside the windows
     ('2-D C=3 25x25 atoms', (1, 3, (60, 70), 5, (25, 25), 'valid'), False, 'fma'),
+    # neither the split dictionary nor one FP32 segment of all the taps fits
+    ('2-D C=16 31x31 atoms, streamed', (2, 16, (64, 72), 16, (31, 31), 'valid'), True, 'fma'),
+    # more samples than a grid's y axis holds (65535)
+    ('1-D 70000x2x64/4x9', (70000, 2, (64,), 4, (9,), 'valid'), False, 'mma'),
 ]
 # tests/test_sparsity_inhibition.py's settings
 SPARSITY_INHIBITION = [
@@ -190,6 +222,27 @@ def reset_counts():
 
 def counts() -> dict:
     return {name: k['wrapper'].launches for name, k in KERNELS.items()}
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Inside the block the engine's plain versions of the kernels count
+    their calls: yields the counts (a dict), read after the block."""
+    calls = dict.fromkeys(KERNELS, 0)
+    saved = {name: getattr(engine, name + '_plain') for name in KERNELS}
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+    for name, fn in saved.items():
+        setattr(engine, name + '_plain', counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(engine, name + '_plain', fn)
 
 
 @contextlib.contextmanager
@@ -346,6 +399,23 @@ def phase_kernels() -> dict:
     for i, (where, args) in enumerate(K2_CASES):
         k2 = _k2_problem(*args, seed=10 + i)
         _compare('grad_w', lambda: gw.grad_w(*k2), lambda: gw.grad_w_plain(*k2), where)
+    for i, (where, args, n_groups) in enumerate(K2_GROUP_CASES):
+        X2, H, plan = _k2_problem(*args, seed=30 + i)
+        gw.grad_w.launches = 0
+        _compare('grad_w', lambda: gw.grad_w(X2, H, plan), lambda: gw.grad_w_plain(X2, H, plan),
+                 f'{where} ({n_groups})')
+        if gw.grad_w.launches != n_groups:
+            raise AssertionError(f'grad_w at {where}: {gw.grad_w.launches} launches, '
+                                 f'not {n_groups} groups')
+        # sums over up to 371 k positions: which of the two is off float64
+        f64 = gw.grad_w_plain(X2.double(), H.double(), plan)
+        scale = max(float(w.abs().max()) for w in f64)
+        rel = [max(float((g.double() - w).abs().max()) for g, w in zip(fn(X2, H, plan), f64))
+               / scale for fn in (gw.grad_w, gw.grad_w_plain)]
+        log(f'  {"grad_w":14s} {where + " against float64":34s} kernel rel={rel[0]:.3e}, '
+            f'plain rel={rel[1]:.3e}')
+        if not rel[0] <= TOL:
+            raise AssertionError(f'grad_w at {where}: {rel[0]:.3e} off float64 > {TOL}')
     _k2_float64_and_determinism()
     _k3_routes_and_float64()
     rng = np.random.default_rng(SEED)
@@ -429,6 +499,22 @@ def _k3_routes_and_float64():
         check(where, _k3_problem(*args, seed=20 + i, with_extra=with_extra), route)
     with fma_route():
         check('flagship, FP32 route forced', _k3_problem(*flagship, seed=19), 'fma')
+        check('1-D 70000 samples, FP32 route forced',
+              _k3_problem(70000, 2, (64,), 4, (9,), 'valid', seed=18), 'fma')
+    # the streamed FP32 route against its sums in its own order, and float64
+    p = _k3_problem(2, 16, (64, 72), 16, (31, 31), 'valid', seed=17, with_extra=True)
+    g = mu_h.launch_geometry(*p[:4])[2]
+    segment = (g['seg_c'], g['seg_ax'], g['seg_ay'])
+    got = mu_h.mu_h(*p)
+    want = mu_h.mu_h_segments_plain(*p[:5], segment, p[5])
+    f64 = mu_h.mu_h_plain(*(t.double() for t in p[:4]), p[4], p[5].double())
+    rel = float((got - want).abs().max() / want.abs().max())
+    rel64 = float((got.double() - f64).abs().max() / f64.abs().max())
+    log(f'  {"mu_h":14s} {"C=16 31x31, " + str(g["n_segments"]) + " segments":34s} '
+        f'rel={rel:.3e} against its own order, {rel64:.3e} against float64')
+    if not (g['n_segments'] > 1 and rel <= TOL and rel64 <= TOL):
+        raise AssertionError(f'mu_h streamed over {g["n_segments"]} segments: {rel:.3e} off '
+                             f'its own order, {rel64:.3e} off float64 (> {TOL})')
     Vp, Rx, W, H, denom, _ = _k3_problem(*flagship, seed=0)
     if mu_h.launch_geometry(Vp, Rx, W, H)[2]['route'] != 'mma':
         raise AssertionError('mu_h at the flagship: not on the tensor-core route')
@@ -591,8 +677,9 @@ def phase_3d():
     fit = dict(n_iterations=5, sparsity_H=0.1, inhibition_strength=0.1,
                cross_atom_inhibition_strength=0.05)
     gpu = TransformInvariantNMF(n_atoms=4, atom_shape=(3, 3, 3), seed=SEED, device=DEVICE)
-    if engine.uses_kernels(ConvPlan.create('valid', V.shape[2:], (3, 3, 3))):
-        raise AssertionError('3-D: the rank gate sends the problem to the kernels')
+    reason = engine.plain_reason(ConvPlan.create('valid', V.shape[2:], (3, 3, 3)), torch.float32)
+    if reason is None:
+        raise AssertionError('3-D: the kernel gate sends the problem to the kernels')
     reset_counts()
     gpu.fit(V, **fit)
     sync()
@@ -602,12 +689,143 @@ def phase_3d():
     cpu.fit(V, **fit)
     rel = max(float(np.abs(gpu.W - cpu.W).max() / np.abs(cpu.W).max()),
               float(np.abs(gpu.H - cpu.H).max() / np.abs(cpu.H).max()))
-    log(f'3-D 2x1x12x12x12/4x3x3x3 (plain operators): launches {launches}; W and H '
+    log(f'3-D 2x1x12x12x12/4x3x3x3 (plain versions: {reason}): launches {launches}; W and H '
         f'{rel:.3e} off float64 on the CPU')
     if any(launches.values()):
         raise AssertionError(f'3-D fit launched kernels: {launches}')
     if not rel <= TOL:
         raise AssertionError(f'3-D fit off float64 by {rel:.3e} > {TOL}')
+
+
+def _rel(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside the block the engine runs the plain versions of the kernels on
+    every problem: the float32 comparator of a fit on the kernels."""
+    saved = {name: getattr(engine, name) for name in KERNELS}
+    for name in KERNELS:
+        setattr(engine, name, getattr(engine, name + '_plain'))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(engine, name, fn)
+
+
+def phase_large():
+    """16 channels of 31 x 31 atoms, plain and inhibited, 3 iterations on
+    the kernels: no plain version called, each kernel of the path launched
+    every iteration, K3 on its streamed FP32 route.  W and H against the
+    same seeded fit in float64 (which the gate sends to the plain versions)
+    within the float32 tolerance 1e-4, with the same fit on the plain
+    versions in float32 beside it: at these 15,376-term sums float32 itself
+    is about 2e-5 off float64.  Then ms/iteration per path and K3's and
+    K2's times."""
+    f = LARGE
+    V = np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    paths = [('plain', ('mu_ratio', 'grad_w', 'mu_h'), dict(sparsity_H=f['sparsity'])),
+             ('inhibited', ('mu_ratio', 'grad_w', 'inhibited_mu_h'),
+              dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition']))]
+    out = {}
+    for label, required, fit in paths:
+        def fitted(dtype):
+            model = TransformInvariantNMF(f['M'], f['A'], dtype=dtype, seed=SEED, device=DEVICE)
+            model.fit(V, n_iterations=f['n_iter'], **fit)
+            sync()
+            return model
+        reset_counts()
+        ref = fitted(torch.float64)
+        if any(counts().values()):
+            raise AssertionError(f'large {label}: the float64 fit launched {counts()}')
+        with plain_versions():
+            plain32 = fitted(torch.float32)
+        reset_counts()
+        with plain_calls() as plain:
+            nmf = fitted(torch.float32)
+        launches = counts()
+        log(f'large {label}: launches {launches}, plain calls {plain}')
+        if any(plain.values()):
+            raise AssertionError(f'large {label}: the float32 fit called plain versions {plain}')
+        for name in required:
+            if launches[name] < f['n_iter']:
+                raise AssertionError(f'large {label}: {name} launched {launches[name]} times '
+                                     f'in {f["n_iter"]} iterations')
+        rel = {k: (_rel(m.W, r.W), _rel(m.H, r.H))
+               for k, m, r in (('kernels-plain32', nmf, plain32), ('kernels-float64', nmf, ref),
+                               ('plain32-float64', plain32, ref))}
+        log(f'large {label}: W, H off: ' + ', '.join(f'{k} {w:.3e} {h:.3e}'
+                                                     for k, (w, h) in rel.items())
+            + f' (float64: {engine.plain_reason(ref._plan, ref.dtype)}); '
+            f'energy {nmf._energy_function()!r}')
+        if not max(rel['kernels-float64']) <= TOL:
+            raise AssertionError(f'large {label}: W, H {rel["kernels-float64"]} off float64 '
+                                 f'> {TOL}')
+        del ref, plain32
+        out[label] = _ms_per_iteration(nmf, fit, n=2)
+        log(f'large {label}: {out[label]:.2f} ms/iteration')
+        if label == 'plain':
+            Vp, W, H = nmf._Vp, nmf._W, nmf._H
+            Rx = conv.extend_data(conv.reconstruct(W, H, nmf._plan), nmf._plan)
+            g = mu_h.launch_geometry(Vp, Rx, W, H)[2]
+            if g['route'] != 'fma' or g['n_segments'] < 2:
+                raise AssertionError(f'large: K3 is not on its streamed FP32 route: {g}')
+            groups = len(gw._geometry(*gw_dims(nmf._plan, H, 2 * f['C']))['groups'])
+            out['mu_h_ms'] = time_ms(lambda: mu_h.mu_h(Vp, Rx, W, H, engine.EPS + 0.1), reps=3)
+            X2 = torch.cat([Vp, Rx], dim=1)
+            out['grad_w_ms'] = time_ms(lambda: gw.grad_w(X2, H, nmf._plan), reps=3)
+            # each kernel: two correlations of N*M*C*prod(T)*prod(A) multiply-adds
+            flops = 4 * H.numel() * f['C'] * math.prod(f['A'])
+            rates = dict(mu_h=FP32_FLOP_PER_S, grad_w=OPS_PER_S['grad_w'])  # K3: FP32 route
+            bound_ms = {name: bound(0, flops, rate)[0] for name, rate in rates.items()}
+            log(f'large: mu_h {out["mu_h_ms"]:.2f} ms (FP32 route, {g["n_segments"]} '
+                f'segments of {g["seg_c"]} channels), grad_w {out["grad_w_ms"]:.2f} ms '
+                f'({groups} launch{"es" if groups > 1 else ""}); {flops / 1e12:.4f} TFLOP '
+                'each: ' + ', '.join(f'{k} {flops / out[k + "_ms"] / 1e9:.2f} TFLOP/s, '
+                                     f'{100 * bound_ms[k] / out[k + "_ms"]:.1f} % of its '
+                                     f'{bound_ms[k]:.4f} ms operations bound'
+                                     for k in ('mu_h', 'grad_w')))
+            del Vp, Rx, X2, W, H
+        del nmf
+
+
+def gw_dims(plan: ConvPlan, H: torch.Tensor, C2: int) -> tuple:
+    """``gw._geometry``'s arguments for a K2 launch on ``H`` (one card)."""
+    T, A = plan.transform_shape, plan.atom_shape
+    if plan.ndim == 1:
+        T, A = (1,) + T, (1,) + A
+    n_sm = torch.cuda.get_device_properties(H.device).multi_processor_count
+    return (H.shape[0], H.shape[1], C2) + T + A + (n_sm,)
+
+
+def phase_float64():
+    """The golden fits in float64 on the card: the gate sends them to the
+    plain versions (no kernel launch); energies within rtol 1e-8."""
+    goldens = json.loads((ROOT / 'tests' / 'golden_values.json').read_text())
+    # the data as phase_golden makes it: the pulse train reseeds the global
+    # NumPy stream, so it is made right before its fit draws W and H
+    fits = [('2d/valid', _image_2d, dict(n_atoms=10, atom_shape=(7, 7)),
+             dict(sparsity_H=0.1), goldens['2d']['valid'])]
+    fits += [(f'1d/{mode}', _signal_1d,
+              dict(n_atoms=3, atom_shape=(20,), reconstruction_mode=mode),
+              dict(inhibition_strength=0.1), golden) for mode, golden in goldens['1d'].items()]
+    for key, data, init, fit, golden in fits:
+        np.random.seed(42)
+        nmf = TransformInvariantNMF(**init, dtype=torch.float64, device=DEVICE)
+        reset_counts()
+        nmf.fit(data(), n_iterations=10, **fit)
+        sync()
+        launches = counts()
+        energy = nmf._energy_function()
+        rel = abs(energy - golden) / abs(golden)
+        log(f'  float64 {key}: energy {energy!r} vs golden {golden!r} (rel {rel:.3e}); '
+            f'plain versions: {engine.plain_reason(nmf._plan, nmf.dtype)}; launches {launches}')
+        if any(launches.values()):
+            raise AssertionError(f'float64 {key}: kernels launched {launches}')
+        if not rel <= F64_GOLDEN_RTOL:
+            raise AssertionError(f'float64 {key}: energy off by {rel:.3e} > {F64_GOLDEN_RTOL}')
 
 
 def phase_times(nmf) -> dict:
@@ -696,6 +914,10 @@ def main() -> int:
     phase_golden()
     launches, iterations, _, nmf = phase_flagship()
     phase_3d()
+    log('large atoms (16 channels, 31 x 31):')
+    phase_large()
+    log('float64 goldens on the card:')
+    phase_float64()
     log('per-kernel times at the flagship shapes:')
     times = phase_times(nmf)
     rows = [dict(name=name, route='cuda', source=k['source'], replaces=k['replaces'],

@@ -246,7 +246,7 @@ def test_rank_gate_3d_runs_plain_operators(launched, inhibited):
     JAX package's; 1-D and 2-D problems go through the wrappers."""
     S, A, ranges = (7, 6, 8), (2, 3, 2), (1, 2, 1)
     jplan, plan, V, W, H, ks = _problem('valid', S, A, ranges, seed=3)
-    assert not engine.uses_kernels(plan)
+    assert engine.plain_reason(plan, torch.float32) == '3-D shifts (the kernels take 1-D and 2-D)'
     flags = dict(use_inhibition=inhibited, use_cross=inhibited)
     Vp = engine.prepare_data(torch.tensor(V), plan=plan)
     Wt, Ht = engine.fit_loop(Vp, torch.tensor(W), torch.tensor(H), 2, 0.1, 0.3, 0.2,
@@ -261,9 +261,10 @@ def test_rank_gate_3d_runs_plain_operators(launched, inhibited):
 
     for S, A, ranges in (((30,), (6,), (5,)), ((12, 10), (3, 4), (2, 3))):
         _, plan, V, W, H, ks = _problem('valid', S, A, ranges)
-        assert engine.uses_kernels(plan)
-        engine.update_step(engine.prepare_data(torch.tensor(V), plan=plan), torch.tensor(W),
-                           torch.tensor(H), 0.1, 0.3, 0.2, tuple(torch.tensor(k) for k in ks),
+        assert engine.plain_reason(plan, torch.float32) is None
+        f32 = [torch.tensor(x, dtype=torch.float32) for x in (V, W, H)]
+        engine.update_step(engine.prepare_data(f32[0], plan=plan), f32[1], f32[2], 0.1, 0.3,
+                           0.2, tuple(torch.tensor(k, dtype=torch.float32) for k in ks),
                            plan=plan, **flags)
     h_update = 'inhibited_mu_h' if inhibited else 'mu_h'
     assert launched == [h_update, 'grad_w', 'mu_ratio'] * 2

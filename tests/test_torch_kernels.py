@@ -204,9 +204,10 @@ def test_grad_w_geometry_1d_and_limits():
     # a ragged ty: near-equal chunks of whole MMA steps
     g = gw._geometry(N=3, M=5, C2=4, Tx=26, Ty=92, Ax=4, Ay=6, n_sm=132)
     assert g['tile_cols'] == 48 and g['n_chunks'] == 3 * 7 * 2
-    # a chunk that cannot fit raises before any launch
-    with pytest.raises(ValueError, match='shared memory'):
-        gw._geometry(N=1, M=5, C2=2, Tx=100, Ty=100, Ax=200, Ay=200, n_sm=132)
+    # a chunk that cannot fit over both channels runs as one launch per channel
+    g = gw._geometry(N=1, M=5, C2=2, Tx=100, Ty=100, Ax=200, Ay=200, n_sm=132)
+    assert g['groups'] == ((0, 1, 0, 200, 0, 200), (1, 1, 0, 200, 0, 200))
+    assert g['smem_bytes'] <= _build.MAX_SMEM_BYTES
 
 
 def test_grad_w_geometry_many_atoms():
@@ -249,13 +250,17 @@ def test_grad_w_geometry_takes_first_design_shapes(M, C2, Tx, Ty, Ay):
 
 
 def test_mu_h_geometry():
-    """The FP32 route keeps the first port's geometry; a shape neither route
-    holds raises before any launch."""
+    """The FP32 route keeps the first port's geometry (one segment of all
+    the taps) where it fits; taps that do not fit a block stream through
+    it in segments of whole channels."""
     g = mu_h._fma_geometry(C=1, Ax=9, Ay=9)
     assert g['pitch'] % 32 == 16 and g['pitch'] >= 64 + 8
     assert g['smem_bytes'] == 4 * (2 * 24 * g['pitch'] + 81 * 8)
-    with pytest.raises(ValueError, match='shared memory'):
-        mu_h._fma_geometry(C=16, Ax=31, Ay=31)
+    assert (g['seg_c'], g['seg_ax'], g['seg_ay'], g['n_segments']) == (1, 9, 9, 1)
+    g = mu_h._fma_geometry(C=16, Ax=31, Ay=31)
+    assert (g['seg_c'], g['seg_ax'], g['seg_ay'], g['n_segments']) == (3, 31, 31, 6)
+    assert g['smem_bytes'] == 4 * (2 * 3 * 46 * g['pitch'] + 3 * 961 * 8)
+    assert g['smem_bytes'] <= _build.MAX_SMEM_BYTES
     assert _build.MAX_SMEM_BYTES == 227 * 1024
 
 
@@ -301,8 +306,11 @@ def test_mu_h_geometry_routes(where, dims, route, k_pad):
 
 
 def test_mu_h_geometry_neither_route_raises():
-    with pytest.raises(ValueError, match='shared memory'):
-        mu_h._geometry(N=1, M=5, C=16, Tx=100, Ty=100, Ax=31, Ay=31, n_sm=132)
+    """A shape whose taps neither the tensor-core route nor one FP32
+    segment holds no longer raises: it streams through the FP32 route."""
+    g = mu_h._geometry(N=1, M=5, C=16, Tx=100, Ty=100, Ax=31, Ay=31, n_sm=132)
+    assert g == dict(route='fma', **mu_h._fma_geometry(16, 31, 31))
+    assert g['n_segments'] > 1
 
 
 @pytest.mark.parametrize('M', [3, 16, 17, 64])

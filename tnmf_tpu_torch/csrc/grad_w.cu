@@ -65,8 +65,15 @@
 // a fixed order, so two launches give identical bits and no float atomics
 // are used.
 //
-// The chunk sizes, pitches, layout, work split, grid and shared memory come
-// from the wrapper (tnmf_tpu_torch/kernels/gw.py, _geometry), which must use
+// Groups: every output G[m, c2, ax, ay] is independent of the other channels
+// and offsets, so a problem whose chunk no block can hold is launched as
+// groups of channels (then of atom rows, then of atom columns) that fit.  A
+// group reads X2 in place, from its first channel and offset on, with X2's
+// own strides, and the reduction pass writes its block of the output; a
+// problem that fits runs as one group, the whole of X2.
+//
+// The chunk sizes, pitches, layout, work split, grid, shared memory and
+// groups come from the wrapper (tnmf_tpu_torch/kernels/gw.py, _geometry), which must use
 // the same tile sizes, thread count and shared layout as here.
 
 #include <cuda_runtime.h>
@@ -82,7 +89,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
 struct GradWShape {
-  int n, m, c2, ex, ey, tx, ty, ax, ay;
+  int n, m, c2, ex, ey, tx, ty, ax, ay;  // this group's channels, window and offsets
   int tr, tc;           // chunk rows (along tx) and columns (along ty, multiple of 8)
   int hp, hw;           // H row pitch and staged width (hw = tc, or ty < 8 when narrow)
   int xw, xp;           // staged X2 width and X2 row pitch (floats)
@@ -91,6 +98,8 @@ struct GradWShape {
   int n_items, ipb;     // work items (row tile, group) and items per block
   int ksplit;           // warps per item (ty-step split)
   int m_rows;           // H rows (atoms) a block stages: those of its row tiles
+  int x_c2, x_ex, x_ey; // X2's own channels and extents (its strides)
+  int c_off, a_off, b_off, x_ax, x_ay;  // where the group starts; the atoms' shape
 };
 
 // stage chunk q = (n, rx, ry) of H and X2 into buf; warps take whole rows,
@@ -126,7 +135,8 @@ __device__ __forceinline__ void stage(const float* __restrict__ x2,
   for (int c = 0; c < s.c2; ++c) {
     for (int r = warp; r < xr; r += kWarps) {
       const bool row_ok = tx0 + r < s.ex;
-      const float* src = x2 + ((static_cast<int64_t>(n) * s.c2 + c) * s.ex + tx0 + r) * s.ey + ty0;
+      const float* src =
+          x2 + ((static_cast<int64_t>(n) * s.x_c2 + c) * s.x_ex + tx0 + r) * s.x_ey + ty0;
       float* dst = xs + (c * xr + r) * s.xp;
       for (int v = lane; v < xv; v += 32) {
         const bool ok = row_ok && ty0 + v * kVec < s.ey;
@@ -357,18 +367,21 @@ __global__ void grad_w_reduce(const float* __restrict__ scratch,
                               GradWShape s) {
   const int64_t a_sz = static_cast<int64_t>(s.ax) * s.ay;
   const int64_t n_out = static_cast<int64_t>(s.m) * s.c2 * a_sz;
-  const int c = s.c2 / 2;
+  const int c = s.x_c2 / 2;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        o < n_out; o += stride) {
     double sum = 0.;
     for (int b = 0; b < n_parts; ++b) sum += scratch[b * n_out + o];
-    // o = ((m * c2 + cc) * ax + axo) * ay + ayo  ->  out[half][m][ch][axo][ayo]
-    const int64_t sp = o % a_sz;
-    const int cc = static_cast<int>((o / a_sz) % s.c2);
+    // o = ((m * c2 + cc) * ax + axo) * ay + ayo over the group  ->
+    // out[half][m][ch][a_off + axo][b_off + ayo] for its channel c_off + cc
+    const int sp = static_cast<int>(o % a_sz);
+    const int cc = s.c_off + static_cast<int>((o / a_sz) % s.c2);
     const int m = static_cast<int>(o / (a_sz * s.c2));
     const int half = cc / c, ch = cc % c;
-    out[((static_cast<int64_t>(half) * s.m + m) * c + ch) * a_sz + sp] = static_cast<float>(sum);
+    const int64_t at = static_cast<int64_t>(s.a_off + sp / s.ay) * s.x_ay + s.b_off + sp % s.ay;
+    out[((static_cast<int64_t>(half) * s.m + m) * c + ch) * s.x_ax * s.x_ay + at] =
+        static_cast<float>(sum);
   }
 }
 
@@ -409,22 +422,26 @@ cudaError_t launch_layout(bool split, int nt, const float* x2, const float* h, f
 
 extern "C" int tnmf_grad_w(const float* x2, const float* h, float* out, float* scratch,
                            int n, int m, int c2, int tx, int ty, int ax, int ay,
-                           const int* geometry, int grid_x, int grid_y, int smem_bytes,
-                           void* stream) {
+                           const int* geometry, const int* group, int grid_x, int grid_y,
+                           int smem_bytes, void* stream) {
   // geometry: tr, tc, hp, hw, xw, xp, n_ct, nt, n_items, ipb, ksplit, m_rows,
-  // vec, planes
+  // vec, planes; group: c_off, channels, a_off, atom rows, b_off, atom columns
   const int* g = geometry;
+  const int* gr = group;
   const int nt = g[7], vec = g[12];
   const bool split = g[13] == 3;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const GradWShape s{n, m, c2, tx + ax - 1, ty + ay - 1, tx, ty, ax, ay,
+  const int ex = tx + ax - 1, ey = ty + ay - 1;
+  const GradWShape s{n, m, gr[1], tx + gr[3] - 1, ty + gr[5] - 1, tx, ty, gr[3], gr[5],
                      g[0], g[1], g[2], g[3], g[4], g[5], g[6], (g[6] + nt - 1) / nt,
-                     g[8], g[9], g[10], g[11]};
+                     g[8], g[9], g[10], g[11],
+                     c2, ex, ey, gr[0], gr[2], gr[4], ax, ay};
+  const float* xg = x2 + (static_cast<int64_t>(gr[0]) * ex + gr[2]) * ey + gr[4];
   cudaError_t err = vec == 4
-      ? launch_layout<4>(split, nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st)
-      : launch_layout<1>(split, nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+      ? launch_layout<4>(split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st)
+      : launch_layout<1>(split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t n_out = static_cast<int64_t>(m) * c2 * ax * ay;
+  const int64_t n_out = static_cast<int64_t>(m) * s.c2 * s.ax * s.ay;
   const int blocks = static_cast<int>(std::min<int64_t>((n_out + 255) / 256, 1024));
   grad_w_reduce<<<blocks, 256, 0, st>>>(scratch, out, grid_x * s.ksplit, s);
   return static_cast<int>(cudaGetLastError());

@@ -195,11 +195,14 @@ inhibited_mu_h_kernel(const float* __restrict__ h, const float* __restrict__ neg
   const float* ky = ks + s.tx;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the samples run along y, and on along z past a grid's 65535 rows
+  const int64_t n = static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+  if (n >= s.n) return;
   const int n_ty = (s.y + s.tile_y - 1) / s.tile_y;
   const int x0 = (blockIdx.x / n_ty) * s.tile_x;
   const int y0 = (blockIdx.x % n_ty) * s.tile_y;
   const int64_t plane = static_cast<int64_t>(s.x) * s.y;
-  const int64_t sample = static_cast<int64_t>(blockIdx.y) * s.m * plane;
+  const int64_t sample = n * s.m * plane;
 
   for (int i = tid; i < s.tx + s.ty; i += kThreads) ks[i] = taps[i];
 
@@ -429,7 +432,9 @@ cudaError_t launch(const float* h, const float* neg, const float* pos,
   if (err != cudaSuccess) return err;
   const int n_tiles =
       ((s.x + s.tile_x - 1) / s.tile_x) * ((s.y + s.tile_y - 1) / s.tile_y);
-  kernel<<<dim3(n_tiles, s.n), kThreads, smem_bytes, st>>>(h, neg, pos, taps, out, s);
+  const int ny = s.n < 65535 ? s.n : 65535;
+  kernel<<<dim3(n_tiles, ny, (s.n + ny - 1) / ny), kThreads, smem_bytes, st>>>(h, neg, pos,
+                                                                              taps, out, s);
   return cudaGetLastError();
 }
 

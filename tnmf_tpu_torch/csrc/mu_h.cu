@@ -42,17 +42,23 @@
 // copies into the raw plane overlap this chunk's MMAs.  A warp owns work
 // items of one tx row and up to kNT column tiles.
 //
-// mu_h_kernel, the FP32 route of the first port (kept for shapes whose
-// windows and split dictionary no block can hold: it stages 8 atoms per
-// block).  A block computes a 16 x 64 tile of (tx, ty) positions of one
-// sample for 8 atoms (blockIdx.z walks the atom groups).  It stages the
-// (16 + Ax - 1) x (64 + Ay - 1) windows of Vp and Rx for all channels and
-// its 8 atoms of W (transposed to [c][ax][ay][8], so each thread reads its
-// 8 weights as two broadcast float4 loads) in shared memory.  Each thread
-// owns 4 positions strided by 16 along ty (conflict-free shared loads,
-// coalesced global stores) for the 8 atoms: per tap it makes 8 shared
-// loads of data and 2 of weights for 64 FMAs.  The window pitch is padded
-// to 16 mod 32 words so the two rows a warp spans fall on disjoint banks.
+// mu_h_kernel, the FP32 route of the first port (for shapes whose windows
+// and split dictionary no block can hold).  A block computes a 16 x 64 tile
+// of (tx, ty) positions of one sample for 8 atoms (blockIdx.z walks the atom
+// groups; blockIdx.x the tiles of every sample, so any number of samples
+// launches).  Its reduction streams over the taps k = (c, ax, ay) in
+// segments: each segment stages its channels' (16 + rows - 1) x (64 + cols - 1)
+// windows of Vp and Rx and its 8 atoms' slice of W (transposed to
+// [c][ax][ay][8], so each thread reads its 8 weights as two broadcast float4
+// loads) in shared memory, and accumulates into the same registers; the
+// ratio is taken once, after the last segment.  A segment is all the taps
+// when they fit a block (the first port's kernel), else whole channels, else
+// whole atom rows of one channel, else a stretch of one atom row: the taps
+// stay in (c, ax, ay) order, so every segmentation sums in the same order.
+// Each thread owns 4 positions strided by 16 along ty (conflict-free shared
+// loads, coalesced global stores) for the 8 atoms: per tap it makes 8 shared
+// loads of data and 2 of weights for 64 FMAs.  The window pitch is padded to
+// 16 mod 32 words so the two rows a warp spans fall on disjoint banks.
 //
 // The shared-memory sizes, pitches and tiles come from the wrapper, which
 // must use the same tile constants and shared layouts as here.
@@ -74,7 +80,8 @@ constexpr int kTileY = kCols * kPT;    // block tile along ty
 
 struct MuHShape {
   int n, m, c, ex, ey, tx, ty, ax, ay;
-  int pitch;  // staged window row pitch (floats)
+  int pitch;       // staged window row pitch (floats)
+  int sc, sa, sb;  // a segment's channels, atom rows and atom columns
 };
 
 __global__ void __launch_bounds__(kCols * kRows, 2)
@@ -84,43 +91,21 @@ mu_h_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
             float* __restrict__ out, MuHShape s) {
   extern __shared__ float4 smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
-  const int xr = kTileX + s.ax - 1;
-  const int xw = kTileY + s.ay - 1;
-  const int win = s.c * xr * s.pitch;
-  float* vs = smem;            // [c][xr][pitch]
-  float* rs = smem + win;      // [c][xr][pitch]
-  float* wt = smem + 2 * win;  // [c][ax][ay][kMB]
+  const int xr = kTileX + s.sa - 1;  // window rows of a segment (the row stride)
+  const int win = s.sc * xr * s.pitch;
+  float* vs = smem;            // [sc][xr][pitch]
+  float* rs = smem + win;      // [sc][xr][pitch]
+  float* wt = smem + 2 * win;  // [sc][sa][sb][kMB]
 
   const int tid = threadIdx.y * kCols + threadIdx.x;
   const int n_ty = (s.ty + kTileY - 1) / kTileY;
-  const int tx0 = (blockIdx.x / n_ty) * kTileX;
-  const int ty0 = (blockIdx.x % n_ty) * kTileY;
-  const int n = blockIdx.y;
+  const int n_tiles = ((s.tx + kTileX - 1) / kTileX) * n_ty;
+  const int n = blockIdx.x / n_tiles;
+  const int tile = blockIdx.x % n_tiles;
+  const int tx0 = (tile / n_ty) * kTileX;
+  const int ty0 = (tile % n_ty) * kTileY;
   const int m0 = blockIdx.z * kMB;
-
   const int taps = s.c * s.ax * s.ay;
-  for (int i = tid; i < taps * kMB; i += kCols * kRows) {
-    const int k = i % kMB;
-    const int tap = i / kMB;
-    const int mm = m0 + k;
-    wt[i] = mm < s.m ? w[static_cast<int64_t>(mm) * taps + tap] : 0.f;
-  }
-  for (int i = tid; i < s.c * xr * xw; i += kCols * kRows) {
-    const int j = i % xw;
-    const int r = (i / xw) % xr;
-    const int cc = i / (xw * xr);
-    const int gx = tx0 + r, gy = ty0 + j;
-    float v = 0.f, q = 0.f;
-    if (gx < s.ex && gy < s.ey) {
-      const int64_t g = ((static_cast<int64_t>(n) * s.c + cc) * s.ex + gx) * s.ey + gy;
-      v = vp[g];
-      q = rx[g];
-    }
-    const int d = (cc * xr + r) * s.pitch + j;
-    vs[d] = v;
-    rs[d] = q;
-  }
-  __syncthreads();
 
   float neg[kMB][kPT], pos[kMB][kPT];
 #pragma unroll
@@ -132,27 +117,65 @@ mu_h_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
     }
 
   const int row = threadIdx.y, col = threadIdx.x;
-  for (int cc = 0; cc < s.c; ++cc) {
-    for (int a = 0; a < s.ax; ++a) {
-      const float* vrow = vs + (cc * xr + row + a) * s.pitch + col;
-      const float* rrow = rs + (cc * xr + row + a) * s.pitch + col;
-      const float4* wrow = reinterpret_cast<const float4*>(wt + (cc * s.ax + a) * s.ay * kMB);
-      for (int b = 0; b < s.ay; ++b) {
-        float v[kPT], r[kPT];
-#pragma unroll
-        for (int p = 0; p < kPT; ++p) {
-          v[p] = vrow[b + p * kCols];
-          r[p] = rrow[b + p * kCols];
+  for (int c0 = 0; c0 < s.c; c0 += s.sc) {
+    const int nc = min(s.sc, s.c - c0);
+    for (int a0 = 0; a0 < s.ax; a0 += s.sa) {
+      const int na = min(s.sa, s.ax - a0);
+      for (int b0 = 0; b0 < s.ay; b0 += s.sb) {
+        const int nb = min(s.sb, s.ay - b0);
+        __syncthreads();  // the last segment's taps are done with the shared tiles
+        for (int i = tid; i < nc * na * nb * kMB; i += kCols * kRows) {
+          const int k = i % kMB;
+          const int t = i / kMB;
+          const int b = t % nb, a = (t / nb) % na, cc = t / (nb * na);
+          const int mm = m0 + k;
+          wt[i] = mm < s.m
+              ? w[static_cast<int64_t>(mm) * taps + ((c0 + cc) * s.ax + a0 + a) * s.ay + b0 + b]
+              : 0.f;
         }
-        const float4 w0 = wrow[2 * b], w1 = wrow[2 * b + 1];
-        const float wv[kMB] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-        for (int k = 0; k < kMB; ++k)
-#pragma unroll
-          for (int p = 0; p < kPT; ++p) {
-            neg[k][p] = fmaf(wv[k], v[p], neg[k][p]);
-            pos[k][p] = fmaf(wv[k], r[p], pos[k][p]);
+        const int rows = kTileX + na - 1, xw = kTileY + nb - 1;
+        for (int i = tid; i < nc * rows * xw; i += kCols * kRows) {
+          const int j = i % xw;
+          const int r = (i / xw) % rows;
+          const int cc = i / (xw * rows);
+          const int gx = tx0 + a0 + r, gy = ty0 + b0 + j;
+          float v = 0.f, q = 0.f;
+          if (gx < s.ex && gy < s.ey) {
+            const int64_t g =
+                ((static_cast<int64_t>(n) * s.c + c0 + cc) * s.ex + gx) * s.ey + gy;
+            v = vp[g];
+            q = rx[g];
           }
+          const int d = (cc * xr + r) * s.pitch + j;
+          vs[d] = v;
+          rs[d] = q;
+        }
+        __syncthreads();
+
+        for (int cc = 0; cc < nc; ++cc) {
+          for (int a = 0; a < na; ++a) {
+            const float* vrow = vs + (cc * xr + row + a) * s.pitch + col;
+            const float* rrow = rs + (cc * xr + row + a) * s.pitch + col;
+            const float4* wrow = reinterpret_cast<const float4*>(wt + (cc * na + a) * nb * kMB);
+            for (int b = 0; b < nb; ++b) {
+              float v[kPT], r[kPT];
+#pragma unroll
+              for (int p = 0; p < kPT; ++p) {
+                v[p] = vrow[b + p * kCols];
+                r[p] = rrow[b + p * kCols];
+              }
+              const float4 w0 = wrow[2 * b], w1 = wrow[2 * b + 1];
+              const float wv[kMB] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+              for (int k = 0; k < kMB; ++k)
+#pragma unroll
+                for (int p = 0; p < kPT; ++p) {
+                  neg[k][p] = fmaf(wv[k], v[p], neg[k][p]);
+                  pos[k][p] = fmaf(wv[k], r[p], pos[k][p]);
+                }
+            }
+          }
+        }
       }
     }
   }
@@ -439,15 +462,19 @@ extern "C" int tnmf_mu_h_mma(const float* vp, const float* rx, const float* w,
 extern "C" int tnmf_mu_h(const float* vp, const float* rx, const float* w,
                          const float* h, const float* pos_extra, float denom_add,
                          float* out, int n, int m, int c, int ex, int ey, int tx,
-                         int ty, int ax, int ay, int pitch, int smem_bytes,
-                         void* stream) {
+                         int ty, int ax, int ay, int pitch, int seg_c, int seg_ax,
+                         int seg_ay, int smem_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const MuHShape s{n, m, c, ex, ey, tx, ty, ax, ay, pitch};
+  const MuHShape s{n, m, c, ex, ey, tx, ty, ax, ay, pitch, seg_c, seg_ax, seg_ay};
+  // the tiles of every sample along x (at most 2^31 - 1 blocks), the atom groups along z
+  const int64_t blocks = static_cast<int64_t>((tx + kTileX - 1) / kTileX) *
+                         ((ty + kTileY - 1) / kTileY) * n;
+  if (blocks > 2147483647 || (m + kMB - 1) / kMB > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t err = cudaFuncSetAttribute(
       mu_h_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(((tx + kTileX - 1) / kTileX) * ((ty + kTileY - 1) / kTileY), n,
-                  (m + kMB - 1) / kMB);
+  const dim3 grid(static_cast<unsigned>(blocks), 1, (m + kMB - 1) / kMB);
   mu_h_kernel<<<grid, dim3(kCols, kRows), smem_bytes, st>>>(vp, rx, w, h, pos_extra,
                                                             denom_add, out, s);
   return static_cast<int>(cudaGetLastError());

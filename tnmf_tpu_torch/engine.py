@@ -17,16 +17,19 @@ the inhibited H update (lateral inhibition on) through K4
 the same wrappers run their plain versions.  The reconstruction stays a
 convolution (cuDNN, TF32 off), as the JAX package left it to XLA.
 
-Rank gate: the kernels serve 1-D and 2-D shifts, the rank scope of the
-JAX package's own kernels.  ``_mu_H`` and ``_mu_W`` choose by
-``plan.ndim`` before any launch (:func:`uses_kernels`): a 3-D problem runs
-the plain versions (cuDNN ``conv3d``, TF32 off) on every device.
+Kernel gate: the kernels serve float32 problems with 1-D and 2-D shifts,
+the scope of the JAX package's own kernels (their ``supported`` gates take
+float32 and 1-2 shift axes).  ``_mu_H`` and ``_mu_W`` ask
+:func:`plain_reason` before any launch: a 3-D problem, or float64 (the
+port's reference precision, not its throughput path), runs the plain
+versions (cuDNN, TF32 off) on every device.  Every other problem goes to
+the kernels, whatever its shapes.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -107,11 +110,16 @@ def energy(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
     return beta_ops.divergence(V, reconstruct(W, H, plan=plan))
 
 
-def uses_kernels(plan: ConvPlan) -> bool:
-    """Whether the MU step of ``plan`` goes to the hand-written kernels
-    (1-D and 2-D shifts) or to their plain versions (3-D).  Decided from
-    the plan alone, never from a failed launch."""
-    return plan.ndim in KERNEL_RANKS
+def plain_reason(plan: ConvPlan, dtype: torch.dtype) -> Optional[str]:
+    """Why the MU step of ``plan`` on ``dtype`` tensors runs the plain
+    versions of the kernels, or ``None`` when it runs the hand-written
+    kernels (float32, 1-D and 2-D shifts).  Decided from the plan and the
+    dtype before any launch, never from a failed one."""
+    if plan.ndim not in KERNEL_RANKS:
+        return f'{plan.ndim}-D shifts (the kernels take 1-D and 2-D)'
+    if dtype != torch.float32:
+        return f'{str(dtype).removeprefix("torch.")} tensors (the kernels take float32)'
+    return None
 
 
 def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
@@ -126,10 +134,11 @@ def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
     inhibition term and forms the ratio."""
     Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
     reg = EPS + float(sparsity)
+    kernels_on = plain_reason(plan, H.dtype) is None
     if not (use_inhibition or use_cross):
-        return (mu_h if uses_kernels(plan) else mu_h_plain)(Vp, Rx, W, H, reg)
+        return (mu_h if kernels_on else mu_h_plain)(Vp, Rx, W, H, reg)
     neg, pos = conv_ops.grad_H_pair_prepared(Vp, Rx, W)
-    update = inhibited_mu_h if uses_kernels(plan) else inhibited_mu_h_plain
+    update = inhibited_mu_h if kernels_on else inhibited_mu_h_plain
     return update(H, neg, pos, kernels, float(inhibition), float(cross_inhibition), reg,
                   use_same=use_inhibition, use_cross=use_cross)
 
@@ -146,7 +155,8 @@ def _mu_W(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
     (reference ``_update_W`` + ``normalize``, ``TransformInvariantNMF.py:240-244``):
     the statistics in K2, the ratio ``W * neg / (pos + EPS)`` in K1."""
     Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
-    stats, ratio = (grad_w, mu_ratio) if uses_kernels(plan) else (grad_w_plain, mu_ratio_plain)
+    stats, ratio = ((grad_w, mu_ratio) if plain_reason(plan, H.dtype) is None
+                    else (grad_w_plain, mu_ratio_plain))
     neg, pos = stats(torch.cat([Vp, Rx], dim=1), H, plan)
     return _normalize_W(ratio(W, neg, pos, EPS), plan.ndim)
 

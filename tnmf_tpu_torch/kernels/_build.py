@@ -37,11 +37,11 @@ SIGNATURES = {
     # arr, neg, pos, reg, out, n, stream
     'tnmf_mu_ratio': (_P, _P, _P, _F, _P, _I64, _P),
     # x2, h, out, scratch, n, m, c2, tx, ty, ax, ay, geometry (int[14]),
-    # grid_x, grid_y, smem_bytes, stream
-    'tnmf_grad_w': (_P,) * 4 + (_I,) * 7 + (_P,) + (_I,) * 3 + (_P,),
+    # group (int[6]), grid_x, grid_y, smem_bytes, stream
+    'tnmf_grad_w': (_P,) * 4 + (_I,) * 7 + (_P, _P) + (_I,) * 3 + (_P,),
     # vp, rx, w, h, pos_extra, denom_add, out, n, m, c, ex, ey, tx, ty, ax, ay,
-    # pitch, smem_bytes, stream
-    'tnmf_mu_h': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 11 + (_P,),
+    # pitch, seg_c, seg_ax, seg_ay, smem_bytes, stream
+    'tnmf_mu_h': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 14 + (_P,),
     # vp, rx, w, h, pos_extra, denom_add, out, n, m, c, tx, ty, ax, ay,
     # geometry (int[10]), grid_x, smem_bytes, stream
     'tnmf_mu_h_mma': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 7 + (_P,) + (_I,) * 2 + (_P,),
@@ -55,6 +55,31 @@ SIGNATURES = {
 MAX_SMEM_BYTES = 232448
 
 _lib = None
+
+
+def segments(C: int, Ax: int, Ay: int, fits) -> tuple:
+    """``(channels, atom rows, atom columns)`` of the segments, or launch
+    groups, that a kernel splits ``C`` channels of ``Ax x Ay`` taps into so
+    that each ``fits(channels, rows, columns)`` a block: all the taps when
+    they fit, else whole channels, else whole atom rows of one channel,
+    else a stretch of one atom row, the fewest near-equal pieces that fit
+    (``fits`` grows false with each size).  The taps stay in ``(c, ax,
+    ay)`` order either way."""
+    def size(n, ok):
+        lo, hi = 1, n  # the largest size that fits, by bisection
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if ok(mid) else (lo, mid - 1)
+        return -(-n // -(-n // lo))  # the same count of near-equal pieces
+
+    sc, sa, sb = C, Ax, Ay
+    if not fits(C, Ax, Ay):
+        sc = size(C, lambda k: fits(k, Ax, Ay))
+        if not fits(1, Ax, Ay):
+            sa = size(Ax, lambda k: fits(1, k, Ay))
+            if not fits(1, 1, Ay):
+                sb = size(Ay, lambda k: fits(1, 1, k))
+    return sc, sa, sb
 
 
 def nvcc() -> str:

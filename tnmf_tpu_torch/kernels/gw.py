@@ -25,7 +25,10 @@ during the previous chunk's MMAs, and the block splits it once into big and
 small TF32 planes (the split layout).  A block stages only the atoms of its
 own row tiles, so shared memory does not grow with M, and a chunk whose
 three planes do not fit takes the compact layout (one plane, split as the
-fragments load), so every shape the first CUDA design took still runs.
+fragments load).  A problem whose chunk no block can hold either way runs
+as groups of channels (then of atom rows, then of atom columns), each a
+launch that reads X2 in place and writes its block of the output, so every
+shape runs.
 Per-warp partial sums are reduced in a second pass in a fixed order
 (deterministic, no float atomics).  The TPU kernel's own fold (rows
 ``(ax, m)``, columns ``(ay, c)``) served the TPU's 128 x 128 matrix unit.
@@ -35,8 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -148,13 +150,13 @@ def _pitches(planes: int, tc: int, Ty: int, xr: int, Ax: int, Ay: int, C2: int, 
         yield hw, hw, xw, xw
 
 
-@functools.lru_cache(maxsize=64)
-def _geometry(N: int, M: int, C2: int, Tx: int, Ty: int, Ax: int, Ay: int,
-              n_sm: int, vec: bool = True) -> dict:
-    """Tiles, chunk sizes, work split, grid and shared memory of the kernel
-    for one problem: the split layout (three planes) for two blocks per SM,
-    else for one, else the compact layout (one plane, its tightest pitches
-    last); raises ``ValueError`` when no chunk can fit."""
+@functools.lru_cache(maxsize=256)
+def _chunk(N: int, M: int, C2: int, Tx: int, Ty: int, Ax: int, Ay: int,
+           n_sm: int, vec: bool) -> Optional[dict]:
+    """Tiles, chunk sizes, work split, grid and shared memory of one launch
+    over ``C2`` channels and ``Ax x Ay`` offsets: the split layout (three
+    planes) for two blocks per SM, else for one, else the compact layout
+    (one plane, its tightest pitches last); ``None`` when no chunk fits."""
     n_mt = -(-M // _TILE_M)
     n_ct = -(-(C2 * Ax * Ay) // _TILE_N)  # over the flattened (c2, ax, ay)
     split = _warp_split(n_mt, n_ct)
@@ -162,7 +164,6 @@ def _geometry(N: int, M: int, C2: int, Tx: int, Ty: int, Ax: int, Ay: int,
     n_cy = -(-Ty // _MAX_CHUNK_COLS)
     tc0 = _round_up(-(-Ty // n_cy), _TILE_K)  # near-equal chunks of whole MMA steps
     cols = [tc0] + [c for c in (64, 48, 32, 16, 8) if c < tc0]
-    choice = None
     for planes, limit in ((3, _SMEM_BUDGET), (3, _build.MAX_SMEM_BYTES),
                           (1, _build.MAX_SMEM_BYTES)):
         for tr in sorted({min(r, Tx) for r in _CHUNK_ROWS}, reverse=True):
@@ -170,26 +171,46 @@ def _geometry(N: int, M: int, C2: int, Tx: int, Ty: int, Ax: int, Ay: int,
                 for hp, hw, xw, xp in _pitches(planes, tc, Ty, tr + Ax - 1, Ax, Ay, C2, n_ct,
                                                vec):
                     smem = 4 * planes * (tr * m_rows * hp + C2 * (tr + Ax - 1) * xp)
-                    if smem <= limit:
-                        choice = dict(tile_rows=tr, tile_cols=tc, hp=hp, hw=hw, xw=xw, xp=xp,
-                                      planes=planes, smem_bytes=smem,
-                                      blocks_per_sm=min(_BLOCKS_PER_SM, 233472 // (smem + 1024)))
-                        break
-                if choice:
-                    break
-            if choice:
-                break
-        if choice:
-            break
-    if choice is None:
-        raise ValueError(
-            f'grad_w: a chunk of {M} atoms x {C2} channels with {Ax}x{Ay} offsets needs '
-            'more shared memory than a block can hold')
-    n_chunks = N * -(-Tx // choice['tile_rows']) * -(-Ty // choice['tile_cols'])
-    grid_x = max(1, min(n_chunks, choice['blocks_per_sm'] * n_sm // split['grid_y']))
-    return dict(choice, **split, n_mt=n_mt, m_rows=m_rows, n_ct=n_ct,
-                col_pad=n_ct * _TILE_N - C2 * Ax * Ay, vec=4 if vec else 1, n_chunks=n_chunks,
-                grid_x=grid_x)
+                    if smem > limit:
+                        continue
+                    n_chunks = N * -(-Tx // tr) * -(-Ty // tc)
+                    blocks_per_sm = min(_BLOCKS_PER_SM, 233472 // (smem + 1024))
+                    return dict(tile_rows=tr, tile_cols=tc, hp=hp, hw=hw, xw=xw, xp=xp,
+                                planes=planes, smem_bytes=smem, blocks_per_sm=blocks_per_sm,
+                                **split, n_mt=n_mt, m_rows=m_rows, n_ct=n_ct,
+                                col_pad=n_ct * _TILE_N - C2 * Ax * Ay, vec=4 if vec else 1,
+                                n_chunks=n_chunks,
+                                grid_x=max(1, min(n_chunks,
+                                                  blocks_per_sm * n_sm // split['grid_y'])))
+    return None
+
+
+def _group_chunk(N: int, M: int, Tx: int, Ty: int, group: tuple, n_sm: int,
+                 vec: bool) -> Optional[dict]:
+    """:func:`_chunk` of one launch over ``group = (c_off, channels, a_off,
+    rows, b_off, columns)`` of X2: its 16-byte copies need the group's first
+    column at a multiple of 4 and whole vectors per row."""
+    _, c2, _, ax, b_off, ay = group
+    return _chunk(N, M, c2, Tx, Ty, ax, ay, n_sm,
+                  vec and b_off % 4 == 0 and (Ty + ay - 1) % 4 == 0)
+
+
+@functools.lru_cache(maxsize=64)
+def _geometry(N: int, M: int, C2: int, Tx: int, Ty: int, Ax: int, Ay: int,
+              n_sm: int, vec: bool = True) -> dict:
+    """The launches of the kernel for one problem: one over all of X2 when
+    its chunk fits a block, else groups of it (:func:`_build.segments`; one
+    atom column of one channel always fits).  Returns the first launch's
+    geometry (:func:`_group_chunk`) with ``groups``, each launch's
+    ``(c_off, channels, a_off, rows, b_off, columns)``."""
+    def fits(c2, ax, ay):
+        return _group_chunk(N, M, Tx, Ty, (0, c2, 0, ax, 0, ay), n_sm, vec) is not None
+
+    sc, sa, sb = _build.segments(C2, Ax, Ay, fits)
+    groups = tuple((c0, min(sc, C2 - c0), a0, min(sa, Ax - a0), b0, min(sb, Ay - b0))
+                   for c0 in range(0, C2, sc) for a0 in range(0, Ax, sa)
+                   for b0 in range(0, Ay, sb))
+    return dict(_group_chunk(N, M, Tx, Ty, groups[0], n_sm, vec), groups=groups)
 
 
 def _geometry_args(g: dict) -> ctypes.Array:
@@ -197,6 +218,12 @@ def _geometry_args(g: dict) -> ctypes.Array:
     keys = ('tile_rows', 'tile_cols', 'hp', 'hw', 'xw', 'xp', 'n_ct', 'nt', 'n_items', 'ipb',
             'ksplit', 'm_rows', 'vec', 'planes')
     return (ctypes.c_int * len(keys))(*(g[k] for k in keys))
+
+
+def _group_args(group: tuple) -> ctypes.Array:
+    """The group array of ``tnmf_grad_w``: ``(c_off, channels, a_off,
+    rows, b_off, columns)``."""
+    return (ctypes.c_int * 6)(*group)
 
 
 def grad_w(X2: torch.Tensor, H: torch.Tensor,
@@ -224,16 +251,19 @@ def grad_w(X2: torch.Tensor, H: torch.Tensor,
     g = _geometry(N, M, C2, Tx, Ty, Ax, Ay, n_sm, vec)
     C = C2 // 2
     out = torch.empty((2, M, C) + plan.atom_shape, device=X2.device, dtype=torch.float32)
-    scratch = torch.empty((g['grid_x'] * g['ksplit'], M * C2 * math.prod(A)),
+    launches = [(grp, _group_chunk(N, M, Tx, Ty, grp, n_sm, vec)) for grp in g['groups']]
+    scratch = torch.empty(max(gg['grid_x'] * gg['ksplit'] * M * grp[1] * grp[3] * grp[5]
+                              for grp, gg in launches),
                           device=X2.device, dtype=torch.float32)
     lib = _build.library()
     with torch.cuda.device(X2.device):
-        err = lib.tnmf_grad_w(
-            X2.data_ptr(), H.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-            N, M, C2, Tx, Ty, Ax, Ay, _geometry_args(g), g['grid_x'], g['grid_y'],
-            g['smem_bytes'], _build.stream_of(X2))
-    _build.check_launch(err, 'grad_w')
-    grad_w.launches += 1
+        for grp, gg in launches:
+            err = lib.tnmf_grad_w(
+                X2.data_ptr(), H.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                N, M, C2, Tx, Ty, Ax, Ay, _geometry_args(gg), _group_args(grp), gg['grid_x'],
+                gg['grid_y'], gg['smem_bytes'], _build.stream_of(X2))
+            _build.check_launch(err, 'grad_w')
+            grad_w.launches += 1
     return out[0], out[1]
 
 

@@ -194,8 +194,6 @@ def inhibited_mu_h(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
         raise ValueError(f'inhibited_mu_h: expected {nd} kernels of odd length, '
                          f'got lengths {[k.numel() for k in ks]}')
     N, M = H.shape[:2]
-    if N > 65535:
-        raise ValueError(f'inhibited_mu_h: at most 65535 samples per launch, got {N}')
     cross = cross_scale(cross_inhibition, M) if use_cross else 0.
     if nd == 1:  # a 1-D problem is a 2-D one with one row and one x tap
         ks = [torch.ones(1, dtype=torch.float32, device=H.device)] + ks

@@ -27,10 +27,13 @@ routes, chosen from the shapes before the launch (``_geometry``):
   into big and small TF32 planes.  Taken whenever the three planes and the
   split dictionary fit a block.
 - ``'fma'``, the first port's FP32 kernel: 16 x 64 position tiles for 8
-  atoms per block.  It stages only 8 atoms, so it holds dictionaries the
-  tensor-core route cannot; it is kept unchanged for them.
+  atoms per block, its reduction streamed over the taps in segments that fit
+  a block (:func:`_fma_geometry`), so it holds every shape the tensor-core
+  route cannot.  A shape whose taps fit one segment runs the first port's
+  kernel as it was.
 
-Shapes that neither holds raise ``ValueError`` before any launch.
+Every 1-D and 2-D shape takes one of the two; any number of samples
+launches.
 """
 
 from __future__ import annotations
@@ -80,17 +83,53 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def _fma_geometry(C: int, Ax: int, Ay: int) -> dict:
-    """Window pitch and shared memory of the FP32 route for one problem."""
-    xw = _TILE_Y + Ay - 1
+def _fma_smem(sc: int, sa: int, sb: int) -> tuple:
+    """Window pitch and shared memory (bytes) of an FP32-route segment of
+    ``sc`` channels, ``sa`` atom rows and ``sb`` atom columns."""
+    xw = _TILE_Y + sb - 1
     pitch = xw + (16 - xw) % 32  # 16 mod 32: a warp's two rows hit disjoint banks
-    floats = 2 * C * (_TILE_X + Ax - 1) * pitch + C * Ax * Ay * _ATOMS_PER_BLOCK
-    smem = 4 * floats
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(
-            f'mu_h: {C} channels with {Ax}x{Ay} atoms need {smem} bytes of shared '
-            'memory, more than a block can hold (on either route)')
-    return dict(pitch=pitch, smem_bytes=smem)
+    return pitch, 4 * (2 * sc * (_TILE_X + sa - 1) * pitch + sc * sa * sb * _ATOMS_PER_BLOCK)
+
+
+def _fma_geometry(C: int, Ax: int, Ay: int) -> dict:
+    """Segment (:func:`_build.segments`), window pitch and shared memory of
+    the FP32 route: one segment of all the taps, the first port's kernel,
+    whenever they fit a block."""
+    sc, sa, sb = _build.segments(
+        C, Ax, Ay, lambda *seg: _fma_smem(*seg)[1] <= _build.MAX_SMEM_BYTES)
+    pitch, smem = _fma_smem(sc, sa, sb)
+    return dict(pitch=pitch, smem_bytes=smem, seg_c=sc, seg_ax=sa, seg_ay=sb,
+                n_segments=-(-C // sc) * -(-Ax // sa) * -(-Ay // sb))
+
+
+def mu_h_segments_plain(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor,
+                        H: torch.Tensor, denom_add: float, segment: tuple,
+                        pos_extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The FP32 route's sums in its own order: segment by segment of
+    ``segment = (channels, atom rows, atom columns)`` taps, and tap by tap
+    ``(c, ax, ay)`` within each, every product added to one running sum per
+    output.  The comparator of the streamed kernel; slow (two tensor
+    operations per tap)."""
+    if H.dim() == 3:  # a 1-D problem is a 2-D one with one row
+        Vp, Rx, W, H = Vp[:, :, None], Rx[:, :, None], W[:, :, None], H[:, :, None]
+        pos_extra = None if pos_extra is None else pos_extra[:, :, None]
+        return mu_h_segments_plain(Vp, Rx, W, H, denom_add, segment, pos_extra)[:, :, 0]
+    _, C, Ax, Ay = W.shape
+    Tx, Ty = H.shape[2:]
+    sc, sa, sb = segment
+    neg, pos = torch.zeros_like(H), torch.zeros_like(H)
+    for c0 in range(0, C, sc):
+        for a0 in range(0, Ax, sa):
+            for b0 in range(0, Ay, sb):
+                for c in range(c0, min(c0 + sc, C)):
+                    for a in range(a0, min(a0 + sa, Ax)):
+                        for b in range(b0, min(b0 + sb, Ay)):
+                            w = W[None, :, c, a, b, None, None]
+                            neg += w * Vp[:, None, c, a:a + Tx, b:b + Ty]
+                            pos += w * Rx[:, None, c, a:a + Tx, b:b + Ty]
+    if pos_extra is not None:
+        pos = pos + pos_extra
+    return H * neg / (pos + denom_add)
 
 
 def _tap_offsets(xp: int, xr: int, C: int, Ax: int, Ay: int, n_taps: int) -> list:
@@ -162,14 +201,12 @@ def _mma_geometry(N: int, M: int, C: int, Tx: int, Ty: int, Ax: int, Ay: int,
 def _geometry(N: int, M: int, C: int, Tx: int, Ty: int, Ax: int, Ay: int, n_sm: int,
               vec: bool = True, routes: tuple = _ROUTES) -> dict:
     """The route and its geometry for one problem: the tensor-core route
-    when its chunk fits a block, else the FP32 route when its tile does;
-    raises ``ValueError`` when neither does."""
+    when its chunk fits a block (and ``routes`` offers it), else the
+    streamed FP32 route, which holds every shape."""
     if 'mma' in routes:
         g = _mma_geometry(N, M, C, Tx, Ty, Ax, Ay, n_sm, vec)
         if g is not None:
             return g
-    if 'fma' not in routes:
-        raise ValueError(f'mu_h: no route of {routes} holds {C} channels with {Ax}x{Ay} atoms')
     return dict(route='fma', **_fma_geometry(C, Ax, Ay))
 
 
@@ -216,8 +253,6 @@ def mu_h(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
             f'mu_h: shapes Vp {tuple(Vp.shape)}, Rx {tuple(Rx.shape)}, '
             f'W {tuple(W.shape)}, H {tuple(H.shape)} do not fit together')
     (Tx, Ty), (Ax, Ay), g = launch_geometry(Vp, Rx, W, H)
-    if g['route'] == 'fma' and N > 65535:
-        raise ValueError(f'mu_h: at most 65535 samples per launch, got {N}')
     out = torch.empty_like(H)
     pe = None if pos_extra is None else pos_extra.data_ptr()
     lib = _build.library()
@@ -232,7 +267,8 @@ def mu_h(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
             err = lib.tnmf_mu_h(
                 Vp.data_ptr(), Rx.data_ptr(), W.data_ptr(), H.data_ptr(), pe,
                 float(denom_add), out.data_ptr(), N, M, C, Tx + Ax - 1, Ty + Ay - 1,
-                Tx, Ty, Ax, Ay, g['pitch'], g['smem_bytes'], _build.stream_of(H))
+                Tx, Ty, Ax, Ay, g['pitch'], g['seg_c'], g['seg_ax'], g['seg_ay'],
+                g['smem_bytes'], _build.stream_of(H))
     _build.check_launch(err, 'mu_h')
     mu_h.launches += 1
     return out

@@ -9,7 +9,8 @@ accessors, ``R_partial``, the energy, and loading the JAX package's ``.npz``
 checkpoints.  Arguments of the JAX API that select parts not ported yet
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 
-The model lives on an explicit ``device`` (default ``'cuda'``, no automatic
+The constructor takes the JAX package's positional order.  The model lives
+on an explicit ``device`` (keyword-only, default ``'cuda'``, no automatic
 choice) in an explicit ``dtype`` (default float32).
 """
 
@@ -105,8 +106,10 @@ def _reject_unported(where: str, kwargs: dict, table: dict) -> None:
                 f'see {item}')
 
 
-def _torch_dtype(name: str) -> torch.dtype:
-    """The torch dtype of a checkpoint's dtype string."""
+def _torch_dtype(name) -> torch.dtype:
+    """The torch dtype of a ``torch.dtype`` or of the JAX package's dtype
+    strings (a constructor argument or a checkpoint's ``dtype``)."""
+    name = str(name).removeprefix('torch.')
     if name == 'float32':
         return torch.float32
     if name == 'float64':
@@ -135,7 +138,6 @@ class TransformInvariantNMF:
         ``(n_atoms, n_channels, *atom_shape)``.
     atom_shape : Tuple[int, ...]
         Spatial shape of the atoms.
-    reconstruction_mode : {'valid', 'full', 'circular', 'reflect'}, default 'valid'
     inhibition_range : int or Tuple[int, ...], optional
         Lateral inhibition range per shift axis; defaults to
         ``atom_shape - 1`` (reference ``TransformInvariantNMF.py:154-160``).
@@ -143,24 +145,39 @@ class TransformInvariantNMF:
         A backend name of the JAX package.  Only the direct-convolution
         strategy is ported: names (or an ``'auto'`` choice) that resolve to
         another strategy raise ``NotImplementedError``.
+    logger, verbose
+        Not ported yet: any value but the default (``None``, ``0``) raises
+        ``NotImplementedError``.
+    reconstruction_mode : {'valid', 'full', 'circular', 'reflect'}, default 'valid'
+    dtype : torch.dtype or {'float32', 'float64'}, default torch.float32
+        Compute dtype.  On CUDA float32 runs the hand-written kernels;
+        float64, the reference precision, runs their plain versions (the
+        JAX kernels' own dtype gate).
+    mesh
+        Not ported yet: any value but ``None`` raises ``NotImplementedError``.
     seed : int, optional
         If given, W/H initialization draws from a private
         ``np.random.default_rng(seed)``; otherwise from the global NumPy
         stream in the reference's order (H, then W).
     device : str or torch.device, default 'cuda'
-        Where the factors live and the updates run.  On CUDA the hot
-        operators are the hand-written kernels; on the CPU their plain
-        versions.
-    dtype : torch.dtype, default torch.float32
-        Compute dtype (the CUDA kernels take float32).
+        Keyword-only.  Where the factors live and the updates run.  On CUDA
+        the hot operators are the hand-written kernels; on the CPU their
+        plain versions.
+
+    The JAX package's later parameters (``fft_policy`` … ``h_init``) are
+    taken by keyword; those whose code is not ported raise
+    ``NotImplementedError`` unless they hold their default.
     """
 
     def __init__(self, n_atoms: int, atom_shape: Tuple[int, ...],
-                 reconstruction_mode: str = 'valid',
                  inhibition_range: Union[int, Tuple[int, ...], None] = None,
-                 backend: str = 'auto', seed: Optional[int] = None, device='cuda',
-                 dtype: torch.dtype = torch.float32, **unported):
-        _reject_unported('TransformInvariantNMF', unported, _UNPORTED_INIT)
+                 backend: str = 'auto', logger=None, verbose: int = 0,
+                 reconstruction_mode: str = 'valid',
+                 dtype: Union[torch.dtype, str] = torch.float32, mesh=None,
+                 seed: Optional[int] = None, *, device='cuda', **unported):
+        _reject_unported('TransformInvariantNMF',
+                         dict(logger=logger, verbose=verbose, mesh=mesh, **unported),
+                         _UNPORTED_INIT)
         self.n_atoms = int(n_atoms)
         self.atom_shape = tuple(int(a) for a in atom_shape)
         self._inhibition_range = resolve_inhibition_range(inhibition_range, self.atom_shape)
@@ -174,7 +191,7 @@ class TransformInvariantNMF:
                 f'unknown backend {backend!r}; choose one of {sorted(_BACKEND_STRATEGY)}') from e
         self._reconstruction_mode = reconstruction_mode
         self.device = torch.device(device)
-        self.dtype = dtype
+        self.dtype = _torch_dtype(dtype)
         self._rng = np.random.default_rng(seed) if seed is not None else np.random
 
         self._plan: Optional[ConvPlan] = None

@@ -9,12 +9,18 @@ Each variant is a copy of ``tnmf_tpu_torch/`` under ``_variants/``
 ``--parent DIR`` adds the package of another checkout (for example the
 parent commit unpacked with ``git archive``) as the variant ``parent``.
 Each variant runs in its own process, which builds its own library and
-times K3 ``mu_h`` and K2 ``grad_w`` at the flagship shapes (64 x 1 x 256 x
-256, 16 atoms 9 x 9; CUDA events, two windows of 20 launches).  The
-variants run in the order given and then in reverse, so each one is timed
-twice around the others.  Each process also prints the registers of K3's
-tensor-core kernel and a digest of its library's K2 SASS, which shows
-whether a change meant to leave K2 alone did.
+times K3 ``mu_h`` (on the route the flagship takes and with its FP32 route
+forced) and K2 ``grad_w`` at the flagship shapes (64 x 1 x 256 x 256, 16
+atoms 9 x 9), and K4 ``inhibited_mu_h`` at the inhibited flagship's (64 x
+16 x 264 x 264, 17 x 17 taps, same + cross and same-atom only; CUDA
+events, two windows of 20 launches).  The variants run
+in the order given and then in reverse, so each one is timed twice around
+the others.  Each process also prints the registers of K3's tensor-core
+kernel, a digest of its library's K2 SASS, which shows whether a change
+meant to leave K2 alone did, and digests of the bits of K3's and K2's
+outputs at the flagship and of the golden 2-D and 1-D fits (W, H and the
+energy, seeded as tests/fixtures.py seeds them), which show whether two
+packages compute the same bits.
 
 The ablations compute wrong values: they are for finding what bounds a
 kernel, never for its results.
@@ -100,7 +106,8 @@ def time_package(root: Path) -> dict:
     import tnmf_tpu_torch
     if not Path(tnmf_tpu_torch.__file__).resolve().is_relative_to(root.resolve()):
         raise SystemExit(f'imported {tnmf_tpu_torch.__file__}, not the package in {root}')
-    from tnmf_tpu_torch.kernels import _build, gw, mu_h
+    from tnmf_tpu_torch.kernels import _build, gw, inhibit, mu_h
+    from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
     from tnmf_tpu_torch.ops.modes import ConvPlan
     so = _build.build()
     _build.library()
@@ -138,10 +145,57 @@ def time_package(root: Path) -> dict:
             entry = line
         elif 'Used ' in line and 'mu_h_mma_kernelILi4' in entry:
             regs = int(line.split('Used ')[1].split()[0])
+    routes = mu_h._ROUTES
+    mu_h._ROUTES = ('fma',)
+    fma_ms, fma_out = ms(lambda: mu_h.mu_h(Vp, Rx, W, H, 0.1)), mu_h.mu_h(Vp, Rx, W, H, 0.1)
+    mu_h._ROUTES = routes
+    Hi, neg, pos = t(64, 16, 264, 264), t(64, 16, 264, 264), t(64, 16, 264, 264)
+    ks = [torch.tensor(k, device='cuda', dtype=torch.float32) for k in inhibition_kernels((8, 8))]
+
+    def k4(cross):
+        return inhibit.inhibited_mu_h(Hi, neg, pos, ks, 0.1, 0.05, 0.1, use_cross=cross)
     return dict(mu_h_ms=ms(lambda: mu_h.mu_h(Vp, Rx, W, H, 0.1)),
+                inhibited_mu_h_ms=ms(lambda: k4(True)),
+                inhibited_mu_h_same_ms=ms(lambda: k4(False)),
+                mu_h_fma_ms=fma_ms,
                 grad_w_ms=ms(lambda: gw.grad_w(X2, H, plan)),
                 mu_h_mma_registers=regs,
-                grad_w_sass=digest.hexdigest()[:16])
+                grad_w_sass=digest.hexdigest()[:16],
+                bits=dict(mu_h=bits(mu_h.mu_h(Vp, Rx, W, H, 0.1)), mu_h_fma=bits(fma_out),
+                          grad_w=bits(*gw.grad_w(X2, H, plan)),
+                inhibited_mu_h=bits(k4(True), k4(False)), **golden_bits()))
+
+
+def bits(*tensors) -> str:
+    """A digest of the bytes of ``tensors`` (on any device)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def golden_bits() -> dict:
+    """Digests of the golden 2-D fit and the inhibited 1-D pulse-train fit
+    ('valid') on the card, in float32, seeded as tests/fixtures.py seeds
+    them, with their energies."""
+    import numpy as np
+    import torch
+    from tnmf_tpu_torch import TransformInvariantNMF
+    from tnmf_tpu_torch.utils.data_loading import synthetic_face
+    from tnmf_tpu_torch.utils.signals import generate_pulse_train
+    out = {}
+    image = np.repeat(synthetic_face(gray=False)[::10, ::10].transpose((2, 0, 1))[None], 2, 0)
+    np.random.seed(42)
+    nmf = TransformInvariantNMF(n_atoms=10, atom_shape=(7, 7), device='cuda')
+    nmf.fit(image, sparsity_H=0.1, n_iterations=10)
+    out['golden_2d'] = (bits(nmf._W, nmf._H), repr(nmf._energy_function()))
+    nmf = TransformInvariantNMF(n_atoms=3, atom_shape=(20,), device='cuda')
+    np.random.seed(42)  # the pulse train reseeds; the fit draws after it
+    signal, _ = generate_pulse_train(pulse_length=20, n_pulses=5)
+    nmf.fit(signal[None], n_iterations=10, inhibition_strength=0.1)
+    out['golden_1d'] = (bits(nmf._W, nmf._H), repr(nmf._energy_function()))
+    torch.cuda.synchronize()
+    return out
 
 
 def main() -> int:
@@ -170,9 +224,14 @@ def main() -> int:
             raise SystemExit(f'{name} failed:\n{proc.stdout}{proc.stderr}')
         r = json.loads(proc.stdout.strip().splitlines()[-1])
         results[name].append(r)
-        print(f'{name:24s} mu_h {r["mu_h_ms"][0]:.4f}/{r["mu_h_ms"][1]:.4f} ms  grad_w '
-              f'{r["grad_w_ms"][0]:.4f}/{r["grad_w_ms"][1]:.4f} ms  K3 registers '
-              f'{r["mu_h_mma_registers"]}  K2 SASS {r["grad_w_sass"]}', flush=True)
+        print(f'{name:24s} mu_h {r["mu_h_ms"][0]:.4f}/{r["mu_h_ms"][1]:.4f} ms  FP32 route '
+              f'{r["mu_h_fma_ms"][0]:.4f}/{r["mu_h_fma_ms"][1]:.4f} ms  grad_w '
+              f'{r["grad_w_ms"][0]:.4f}/{r["grad_w_ms"][1]:.4f} ms  K4 '
+              f'{r["inhibited_mu_h_ms"][0]:.4f}/{r["inhibited_mu_h_ms"][1]:.4f} ms, same-atom '
+              f'{r["inhibited_mu_h_same_ms"][0]:.4f}/{r["inhibited_mu_h_same_ms"][1]:.4f} ms  '
+              f'K3 registers '
+              f'{r["mu_h_mma_registers"]}  K2 SASS {r["grad_w_sass"]}  bits {r["bits"]}',
+              flush=True)
     print(json.dumps(results))
     return 0
 

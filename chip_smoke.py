@@ -13,30 +13,35 @@ failure (exit code != 0, no result line):
    and counts the tensor-core (HMMA) instructions of K2 and of K3's
    tensor-core kernel in the library's SASS (``cuobjdump -sass``); none
    fails the run;
-3. kernels: K1 ``mu_ratio``, K2 ``grad_w``, K3 ``mu_h`` and K4
-   ``inhibited_mu_h`` against their plain PyTorch versions on the card, at
-   the flagship shapes and at small ragged ones (K2 also at the edges of its
-   tiling: 3, 17 and 64 atoms, 3 channels with 7 x 7 atoms, the 1-D pulse
-   train's 20-tap atoms, a ragged ty, all four modes; K4 also at the
-   repository's long 1-D shape, each small one with same-atom, cross-atom
-   and both terms, and same-atom only at the flagship, also with the
-   runtime tap loop in place of the compiled taps, and at 70,000 samples;
-   K2 also in groups of channels, of atom rows and of atom columns; K3 on
-   each side of its route choice: the golden 2-D fixture's shapes, 17
+3. kernels: K1 ``mu_ratio`` and its W epilogue ``mu_w``, K2 ``grad_w``, K3
+   ``mu_h`` and K4 ``inhibited_mu_h`` against their plain PyTorch versions
+   on the card, at the flagship shapes and at small ragged ones (K2 also at
+   the edges of its tiling: 3, 17 and 64 atoms, 3 channels with 7 x 7 atoms,
+   the 1-D pulse train's 20-tap atoms, a ragged ty, all four modes; K4 also
+   at the repository's long 1-D shape, each small one with same-atom,
+   cross-atom and both terms, and same-atom only at the flagship, also with
+   the runtime tap loop in place of the compiled taps, at 70,000 samples,
+   and streamed for stencils no tile holds in one piece (2-D 241 and 401
+   taps a side, 1-D 40,001 taps), also against the sums in the streamed
+   order; K2 also in groups of channels, of atom rows and of atom columns;
+   K3 on each side of its route choice: the golden 2-D fixture's shapes, 17
    atoms, a ragged ty, pos_extra, 1-D, atoms only the FP32 route holds, 16
    channels of 31 x 31 atoms streamed in segments (also against the sums in
-   the kernel's own order), and the FP32 route forced at the flagship and
-   at 70,000 1-D samples), within max|kernel - plain| / max|plain| <= 1e-4;
-   K2 and K3 at the flagship also against float64 within 1e-5, and two K2
-   launches bit-identical;
+   the kernel's own order), and the FP32 route forced at the flagship and at
+   70,000 1-D samples), within max|kernel - plain| / max|plain| <= 1e-4; K2
+   and K3 at the flagship also against float64 within 1e-5, and two K2
+   launches bit-identical; ``mu_w`` within 1e-6 of its plain version (the
+   flagship W, a zero atom, 100 atoms of 3 x 15 x 15, 1-D atoms of 1024), a
+   zero atom kept zero and two launches bit-identical;
 4. golden: the seeded golden fits of tests/golden_values.json in float32 on
    the card: the 2-D fixture ('2d'/'valid'), the 1-D pulse train with
    inhibition ('1d', four modes) and the regularizer sweep
    ('sparsity_inhibition', seven settings); energy (and L1) within rtol
    1e-4, L0 printed beside its golden;
 5. flagship: ``TransformInvariantNMF(16, (9, 9)).fit`` on 64 x 1 x 256 x 256
-   for 20 iterations, plain (K1, K2, K3), with ``inhibition_strength=0.1``
-   and with ``cross_atom_inhibition_strength=0.05`` added (K1, K2, K4), every
+   for 20 iterations, plain (``mu_w``, K2, K3), with
+   ``inhibition_strength=0.1`` and with
+   ``cross_atom_inhibition_strength=0.05`` added (``mu_w``, K2, K4), every
    launch counter reset before each fit and read after it; energy finite and
    below the initial one, unit-sum atoms, each kernel of the path launched
    at least once per iteration; then MU ms/iteration (CUDA events) and peak
@@ -44,21 +49,25 @@ failure (exit code != 0, no result line):
 6. a small 3-D fit, which the kernel gate sends to the plain operators (no
    kernel launch), against the same fit in float64 on the CPU;
 7. large atoms: ``TransformInvariantNMF(16, (31, 31))`` on 4 x 16 x 256 x
-   256 for 3 iterations, plain (K1, K2, K3 on its streamed FP32 route) and
-   with ``inhibition_strength=0.1`` (K1, K2, K4), counts reset before each
-   fit and read after it, no plain version called; W and H against the
-   same seeded fit in float64, which the gate sends to the plain versions
-   on the card, within max|W - W64| / max|W64| <= 1e-4 (and for H), the
-   same fit on the plain versions in float32 printed beside it; then
-   ms/iteration and K3's and K2's times at these shapes;
+   256 for 3 iterations, plain (``mu_w``, K2, K3 on its streamed FP32 route)
+   and with ``inhibition_strength=0.1`` (``mu_w``, K2, K4), counts reset
+   before each fit and read after it, no plain version called; W and H
+   against the same seeded fit in float64, which the gate sends to the plain
+   versions on the card, within max|W - W64| / max|W64| <= 1e-4 (and for H),
+   the same fit on the plain versions in float32 printed beside it; then
+   ms/iteration, K3's and K2's times at these shapes and the cuDNN calls
+   beside them; then the flagship with ``inhibition_range=120`` (241 x 241
+   taps, K4 streamed) for 3 iterations, energy falling, and K4's time and
+   bound there;
 8. float64 on the card: the golden 2-D fit and the 1-D pulse train (four
-   modes) in float64, which the gate sends to the plain versions (its
-   reason is printed, no kernel launches); energy within rtol 1e-8 of
+   modes) in float64, which the gate sends to the plain versions (its reason
+   is printed, no kernel launches); energy within rtol 1e-8 of
    tests/golden_values.json;
 9. per-kernel times at the flagship shapes: kernel, plain version and the
-   nearest single PyTorch call, with each kernel's bound; K3's two routes
-   in turns; K4 also same-atom only, and with its runtime tap loop against
-   the compiled taps.
+   nearest single PyTorch call, with each kernel's bound; K3's two routes in
+   turns; K4 also same-atom only, and with its runtime tap loop against the
+   compiled taps; ``mu_w`` against the ratio kernel and the normalisation it
+   replaces, in turns.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths, error, times and bound; the last line is
@@ -108,11 +117,16 @@ TF32_FLOP_PER_S = 495e12
 # the rate each kernel's operations run at: K2 and K3 (on its tensor-core
 # route, the flagship's) do three TF32 products per float32 product
 # (3xTF32), the others FP32 FMAs
-OPS_PER_S = dict(mu_ratio=FP32_FLOP_PER_S, grad_w=TF32_FLOP_PER_S / 3,
-                 mu_h=TF32_FLOP_PER_S / 3, inhibited_mu_h=FP32_FLOP_PER_S)
+OPS_PER_S = dict(mu_ratio=FP32_FLOP_PER_S, mu_w=FP32_FLOP_PER_S,
+                 grad_w=TF32_FLOP_PER_S / 3, mu_h=TF32_FLOP_PER_S / 3,
+                 inhibited_mu_h=FP32_FLOP_PER_S)
 KERNELS = {
     'mu_ratio': dict(wrapper=mu.mu_ratio, source='tnmf_tpu_torch/csrc/mu_ratio.cu',
                      replaces='tnmf_tpu/experimental/pallas_mu.py:62'),
+    # the W epilogue: K1's ratio fused with the JAX package's _normalize_W
+    # (tnmf_tpu/engine.py:482), which has no Pallas kernel of its own
+    'mu_w': dict(wrapper=mu.mu_w, source='tnmf_tpu_torch/csrc/mu_ratio.cu',
+                 replaces='tnmf_tpu/experimental/pallas_mu.py:62'),
     'grad_w': dict(wrapper=gw.grad_w, source='tnmf_tpu_torch/csrc/grad_w.cu',
                    replaces='tnmf_tpu/experimental/pallas_gw.py:163'),
     'mu_h': dict(wrapper=mu_h.mu_h, source='tnmf_tpu_torch/csrc/mu_h.cu',
@@ -121,6 +135,8 @@ KERNELS = {
                            source='tnmf_tpu_torch/csrc/inhibited_mu_h.cu',
                            replaces='tnmf_tpu/experimental/pallas_mu.py:213'),
 }
+#: the engine's kernel wrappers (``mu_ratio`` is off the main path)
+ENGINE_KERNELS = ('mu_w', 'grad_w', 'mu_h', 'inhibited_mu_h')
 COMBOS = [(True, False), (False, True), (True, True)]
 # K4 alone: (where, H shape, inhibition range), random H, neg and pos
 K4_CASES = [
@@ -136,6 +152,16 @@ K4_CASES = [
     # more samples than a grid's y axis holds (65535)
     ('1-D 70000x3x64 r(4)', (70000, 3, 64), (4,)),
 ]
+# K4 on stencils no tile holds in one piece: its streamed route
+K4_STREAMED_CASES = [
+    ('2-D 1x4x300x300 r(120)', (1, 4, 300, 300), (120, 120)),
+    ('2-D 1x4x300x300 r(200)', (1, 4, 300, 300), (200, 200)),
+    ('1-D 1x2x60000 r(20000)', (1, 2, 60000), (20000,)),
+]
+#: the flagship fit with a wide inhibition range (241 x 241 taps)
+WIDE_RANGE = 120
+#: mu_w against its plain version (max|kernel - plain| / max|plain|)
+MU_W_TOL = 1e-6
 # K2 at the edges of its tiling: (where, (N, C, S, M, A, mode))
 K2_CASES = [
     ('2-D 3 atoms valid', (2, 1, (40, 37), 3, (9, 9), 'valid')),
@@ -228,8 +254,8 @@ def counts() -> dict:
 def plain_calls():
     """Inside the block the engine's plain versions of the kernels count
     their calls: yields the counts (a dict), read after the block."""
-    calls = dict.fromkeys(KERNELS, 0)
-    saved = {name: getattr(engine, name + '_plain') for name in KERNELS}
+    calls = dict.fromkeys(ENGINE_KERNELS, 0)
+    saved = {name: getattr(engine, name + '_plain') for name in ENGINE_KERNELS}
 
     def counting(name, fn):
         def call(*args, **kwargs):
@@ -347,6 +373,10 @@ def _problem(N, C, S, M, A, mode, seed, use_cross=True):
         'mu_ratio': (lambda: mu.mu_ratio(W, neg, pos, engine.EPS),
                      lambda: mu.mu_ratio_plain(W, neg, pos, engine.EPS), None,
                      (4 * 4 * W.numel(), 3 * W.numel())),
+        # the ratio (3 operations), the row sum and the division per element
+        'mu_w': (lambda: mu.mu_w(W, neg, pos, engine.EPS, plan.ndim),
+                 lambda: mu.mu_w_plain(W, neg, pos, engine.EPS, plan.ndim), None,
+                 (4 * 4 * W.numel(), 5 * W.numel())),
         'grad_w': (lambda: gw.grad_w(X2, H, plan), lambda: gw.grad_w_plain(X2, H, plan),
                    lambda: conv.corr_W(X2, H),
                    (4 * (X2.numel() + nH + 2 * W.numel()), 2 * M * 2 * C * nA * N * nT)),
@@ -435,7 +465,61 @@ def phase_kernels() -> dict:
     _compare('inhibited_mu_h', same[0], same[1], 'flagship same-atom only')
     with runtime_taps():
         _compare('inhibited_mu_h', same[0], same[1], 'flagship, runtime tap loop')
+    _k4_streamed()
+    _mu_w_cases()
     return errors
+
+
+def _k4_streamed():
+    """K4's streamed route (each case asserts it streams) against the plain
+    version and against its sums in the streamed order."""
+    rng = np.random.default_rng(SEED + 1)
+    for where, dims, ranges in K4_STREAMED_CASES:
+        H, neg, pos = (torch.tensor(rng.random(dims), device=DEVICE, dtype=torch.float32)
+                       for _ in range(3))
+        ks = inhibition_kernels(ranges)
+        for use_same, use_cross in COMBOS:
+            kw = dict(use_same=use_same, use_cross=use_cross)
+            args = (H, neg, pos, ks, 0.3, 0.2, engine.EPS + 0.1)
+            g = inhibit.launch_geometry(dims, tuple(k.size for k in ks), use_cross)
+            label = (f'{where} {"s" if use_same else ""}{"c" if use_cross else ""}, '
+                     f'{g["n_segments"]} seg')
+            if g['n_segments'] < 2:
+                raise AssertionError(f'inhibited_mu_h at {label}: not streamed: {g}')
+            _compare('inhibited_mu_h', lambda: inhibit.inhibited_mu_h(*args, **kw),
+                     lambda: inhibit.inhibited_mu_h_plain(*args, **kw), label)
+            segment = (g['two_d'], g['seg_x'], g['seg_y'])
+            _compare('inhibited_mu_h', lambda: inhibit.inhibited_mu_h(*args, **kw),
+                     lambda: inhibit.inhibited_mu_h_segments_plain(*args, segment, **kw),
+                     label + ' (order)')
+
+
+def _mu_w_cases():
+    """K1's W epilogue against its plain version within 1e-6, a zero atom
+    kept zero, two launches bit-identical."""
+    rng = np.random.default_rng(SEED + 2)
+    f = FLAGSHIP
+    cases = [('flagship W 16x1x9x9', (f['M'], f['C']) + f['A'], None),
+             ('zero atom 16x1x9x9', (f['M'], f['C']) + f['A'], 3),
+             ('100 atoms 3x15x15', (100, 3, 15, 15), 7),
+             ('1-D atoms 8x2x1024', (8, 2, 1024), 0)]
+    for where, shape, zero in cases:
+        W, neg, pos = (torch.tensor(rng.random(shape), device=DEVICE, dtype=torch.float32)
+                       for _ in range(3))
+        if zero is not None:
+            W[zero] = 0.
+        args = (W, neg, pos, engine.EPS, len(shape) - 2)
+        got, again, want = mu.mu_w(*args), mu.mu_w(*args), mu.mu_w_plain(*args)
+        sync()
+        rel = float((got - want).abs().max() / want.abs().max())
+        same = torch.equal(got, again)
+        zero_ok = zero is None or not bool(got[zero].any())
+        log(f'  {"mu_w":14s} {where:34s} rel={rel:.3e}, two launches '
+            f'{"bit-identical" if same else "DIFFER"}'
+            + ('' if zero is None else f', zero atom {"zero" if zero_ok else "NOT zero"}'))
+        if not (rel <= MU_W_TOL and same and zero_ok):
+            raise AssertionError(f'mu_w at {where}: rel {rel:.3e} (> {MU_W_TOL}?), '
+                                 f'bit-identical {same}, zero atom kept {zero_ok}')
 
 
 
@@ -573,8 +657,10 @@ def phase_golden() -> dict:
     nmf = TransformInvariantNMF(n_atoms=10, atom_shape=(7, 7), device=DEVICE)
     nmf.fit(image, sparsity_H=0.1, n_iterations=10)
     _check_rel('2d/valid energy', nmf._energy_function(), goldens['2d']['valid'])
-    ms['2d'] = _ms_per_iteration(nmf, dict(sparsity_H=0.1))
-    log(f'  2-D fixture: {ms["2d"]:.4f} ms/iteration')
+    spread = [_ms_per_iteration(nmf, dict(sparsity_H=0.1)) for _ in range(5)]
+    ms['2d'] = float(np.median(spread))
+    log(f'  2-D fixture: {ms["2d"]:.4f} ms/iteration (median of 5 windows of 10: '
+        + '/'.join(f'{t:.4f}' for t in spread) + ')')
 
     log('golden 1-D pulse train (inhibition_strength=0.1):')
     for mode, golden in goldens['1d'].items():
@@ -624,12 +710,12 @@ def phase_flagship() -> tuple:
     # the plain path last: its model stays alive for phase 7 and would
     # count in the other paths' peak memory
     paths = [
-        ('inhibited', ('mu_ratio', 'grad_w', 'inhibited_mu_h'),
+        ('inhibited', ('mu_w', 'grad_w', 'inhibited_mu_h'),
          dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition'])),
-        ('inhibited+cross', ('mu_ratio', 'grad_w', 'inhibited_mu_h'),
+        ('inhibited+cross', ('mu_w', 'grad_w', 'inhibited_mu_h'),
          dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition'],
               cross_atom_inhibition_strength=f['cross'])),
-        ('plain', ('mu_ratio', 'grad_w', 'mu_h'), dict(sparsity_H=f['sparsity'])),
+        ('plain', ('mu_w', 'grad_w', 'mu_h'), dict(sparsity_H=f['sparsity'])),
     ]
     total = dict.fromkeys(KERNELS, 0)
     iterations = dict.fromkeys(KERNELS, 0)
@@ -705,8 +791,8 @@ def _rel(a: np.ndarray, b: np.ndarray) -> float:
 def plain_versions():
     """Inside the block the engine runs the plain versions of the kernels on
     every problem: the float32 comparator of a fit on the kernels."""
-    saved = {name: getattr(engine, name) for name in KERNELS}
-    for name in KERNELS:
+    saved = {name: getattr(engine, name) for name in ENGINE_KERNELS}
+    for name in ENGINE_KERNELS:
         setattr(engine, name, getattr(engine, name + '_plain'))
     try:
         yield
@@ -726,8 +812,8 @@ def phase_large():
     K2's times."""
     f = LARGE
     V = np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'], dtype=np.float32)
-    paths = [('plain', ('mu_ratio', 'grad_w', 'mu_h'), dict(sparsity_H=f['sparsity'])),
-             ('inhibited', ('mu_ratio', 'grad_w', 'inhibited_mu_h'),
+    paths = [('plain', ('mu_w', 'grad_w', 'mu_h'), dict(sparsity_H=f['sparsity'])),
+             ('inhibited', ('mu_w', 'grad_w', 'inhibited_mu_h'),
               dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition']))]
     out = {}
     for label, required, fit in paths:
@@ -776,6 +862,13 @@ def phase_large():
             out['mu_h_ms'] = time_ms(lambda: mu_h.mu_h(Vp, Rx, W, H, engine.EPS + 0.1), reps=3)
             X2 = torch.cat([Vp, Rx], dim=1)
             out['grad_w_ms'] = time_ms(lambda: gw.grad_w(X2, H, nmf._plan), reps=3)
+            # the nearest single PyTorch calls (cuDNN, TF32 off), as in phase 9
+            lib_w = time_ms(lambda: conv.corr_W(X2, H), reps=1)
+            VR = torch.cat([Vp, Rx], dim=0)
+            lib_h = time_ms(lambda: conv.corr_H(VR, W), reps=3)
+            log(f'large: library calls: conv.corr_W {lib_w:.2f} ms (grad_w {out["grad_w_ms"]:.2f}), '
+                f'conv.corr_H {lib_h:.2f} ms (mu_h {out["mu_h_ms"]:.2f})')
+            del VR
             # each kernel: two correlations of N*M*C*prod(T)*prod(A) multiply-adds
             flops = 4 * H.numel() * f['C'] * math.prod(f['A'])
             rates = dict(mu_h=FP32_FLOP_PER_S, grad_w=OPS_PER_S['grad_w'])  # K3: FP32 route
@@ -789,6 +882,58 @@ def phase_large():
                                      for k in ('mu_h', 'grad_w')))
             del Vp, Rx, X2, W, H
         del nmf
+    _wide_range()
+
+
+def _wide_range():
+    """The flagship fit with ``inhibition_range=120`` (241 x 241 taps, which
+    no K4 tile holds in one piece) for 3 iterations on the kernels: energy
+    finite and falling, each kernel of the inhibited path launched every
+    iteration, no plain version called; then K4 at that shape against its
+    plain version, its time and its bound."""
+    f = FLAGSHIP
+    V = np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    n_iter = 3
+    fit = dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition'])
+    nmf = TransformInvariantNMF(f['M'], f['A'], inhibition_range=WIDE_RANGE, seed=SEED,
+                                device=DEVICE)
+    nmf.fit(V, n_iterations=0)
+    e0 = nmf._energy_function()
+    reset_counts()
+    with plain_calls() as plain:
+        nmf.fit(V, n_iterations=n_iter, **fit)
+        sync()
+    launches = counts()
+    e = nmf._energy_function()
+    Vp, W, H, plan, ks = nmf._Vp, nmf._W, nmf._H, nmf._plan, nmf._kernels
+    g = inhibit.launch_geometry(tuple(H.shape), tuple(k.numel() for k in ks))
+    log(f'wide range {WIDE_RANGE} ({g["tx"]} x {g["ty"]} taps): energy {e0!r} -> {e!r} after '
+        f'{n_iter} iterations; launches {launches}, plain calls {plain}; K4 {g["n_segments"]} '
+        f'segments of {g["seg_x"]} x taps, tile {g["tile_x"]} x {g["tile_y"]}')
+    if not (math.isfinite(e) and e < e0):
+        raise AssertionError(f'wide range: energy {e} is not finite and below {e0}')
+    if any(plain.values()) or g['n_segments'] < 2:
+        raise AssertionError(f'wide range: plain calls {plain}, K4 geometry {g}')
+    for name in ('mu_w', 'grad_w', 'inhibited_mu_h'):
+        if launches[name] < n_iter:
+            raise AssertionError(f'wide range: {name} launched {launches[name]} times in '
+                                 f'{n_iter} iterations')
+    Rx = conv.extend_data(conv.reconstruct(W, H, plan), plan)
+    neg, pos = (t.contiguous() for t in conv.grad_H_pair_prepared(Vp, Rx, W))
+    del Rx
+    args = (H, neg, pos, ks, f['inhibition'], 0., engine.EPS + f['sparsity'])
+    _compare('inhibited_mu_h', lambda: inhibit.inhibited_mu_h(*args),
+             lambda: inhibit.inhibited_mu_h_plain(*args), f'flagship range {WIDE_RANGE}')
+    k1, plain_ms, k2 = (time_ms(fn, reps=3) for fn in (
+        lambda: inhibit.inhibited_mu_h(*args), lambda: inhibit.inhibited_mu_h_plain(*args),
+        lambda: inhibit.inhibited_mu_h(*args)))
+    nH = H.numel()
+    flops = nH * (2 * (g['tx'] + g['ty']) + 10)
+    bound_ms, bound_by = bound(4 * 4 * nH, flops, OPS_PER_S['inhibited_mu_h'])
+    per_it = _ms_per_iteration(nmf, fit, n=2)
+    log(f'wide range: inhibited_mu_h {k1:.4f}/{k2:.4f} ms, plain {plain_ms:.4f} ms, bound '
+        f'{bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.2f} GFLOP), '
+        f'{100 * bound_ms / ((k1 + k2) / 2):.1f} % of bound; {per_it:.4f} ms/iteration')
 
 
 def gw_dims(plan: ConvPlan, H: torch.Tensor, C2: int) -> tuple:
@@ -903,6 +1048,20 @@ def phase_times(nmf) -> dict:
     k1 = time_ms(lambda: mu.mu_ratio(*big, 0.1))
     log(f'  mu_ratio at H size {tuple(H.shape)}: {k1:.4f} ms '
         f'({4 * 4 * H.numel() / k1 / 1e6:.0f} GB/s)')
+    # the W epilogue fused (mu_w) against the pair it replaced (K1's ratio,
+    # then the normalisation's sum, compare, ones, where and divide), in turns
+    neg, pos = gw.grad_w(torch.cat([nmf._Vp, conv.extend_data(conv.reconstruct(W, H, plan),
+                                                              plan)], dim=1), H, plan)
+
+    def pair():
+        return engine._normalize_W(mu.mu_ratio(W, neg, pos, engine.EPS), plan.ndim)
+
+    def fused():
+        return mu.mu_w(W, neg, pos, engine.EPS, plan.ndim)
+    p1, f1, f2, p2 = (time_ms(fn) for fn in (pair, fused, fused, pair))
+    times['mu_w']['pair_ms'] = (p1 + p2) / 2
+    log(f'  W epilogue: mu_w {f1:.4f}/{f2:.4f} ms (one launch), mu_ratio + normalisation '
+        f'{p1:.4f}/{p2:.4f} ms (K1 and five PyTorch operations), in turns')
     return times
 
 
@@ -922,7 +1081,7 @@ def main() -> int:
     times = phase_times(nmf)
     rows = [dict(name=name, route='cuda', source=k['source'], replaces=k['replaces'],
                  launches=launches[name],
-                 launches_per_iteration=launches[name] / iterations[name],
+                 launches_per_iteration=launches[name] / max(iterations[name], 1),
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     print(json.dumps({'kernels': rows}))

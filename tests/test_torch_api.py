@@ -17,7 +17,7 @@ import tnmf_tpu_torch
 from tnmf_tpu_torch import engine
 from tnmf_tpu_torch.ops.modes import ConvPlan
 
-KERNELS = ('mu_h', 'grad_w', 'mu_ratio', 'inhibited_mu_h')
+KERNELS = ('mu_h', 'grad_w', 'mu_w', 'inhibited_mu_h')
 
 
 @pytest.mark.parametrize('dtype,S,A,reason', [
@@ -57,7 +57,7 @@ def test_fit_goes_through_the_gate(kernels_called, dtype, inhibition):
     nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 4), dtype=dtype, seed=0, device='cpu')
     nmf.fit(V, n_iterations=2, sparsity_H=0.1, inhibition_strength=inhibition)
     h_update = 'inhibited_mu_h' if inhibition else 'mu_h'
-    assert kernels_called == ([h_update, 'grad_w', 'mu_ratio'] * 2 if dtype == 'float32'
+    assert kernels_called == ([h_update, 'grad_w', 'mu_w'] * 2 if dtype == 'float32'
                               else [])
     assert nmf._W.dtype == getattr(torch, dtype) and np.isfinite(nmf._energy_function())
 

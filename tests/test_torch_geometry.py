@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tnmf_tpu_torch.kernels import _build, gw, inhibit, mu_h
+from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
 from tnmf_tpu_torch.ops.modes import ConvPlan
 
 N_SM = 132
@@ -108,4 +109,108 @@ def test_streamed_reference_1d():
     W, H = torch.tensor(rng.random((4, 3, 20))), torch.tensor(rng.random((2, 4, 21)))
     want = mu_h.mu_h_plain(Vp, Rx, W, H, 0.1)
     got = mu_h.mu_h_segments_plain(Vp, Rx, W, H, 0.1, (1, 1, 7))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12)
+
+
+# ------------------------------------------------------- K4, wide stencils
+
+def _k4(shape, ranges, cross, aligned=True):
+    """K4's launch geometry for H of ``shape`` with the default kernels of
+    ``ranges`` (``2 r + 1`` taps per axis)."""
+    return inhibit.launch_geometry(shape, tuple(2 * r + 1 for r in ranges), cross, aligned)
+
+
+@pytest.mark.parametrize('aligned', [False, True])
+@pytest.mark.parametrize('cross', [False, True])
+@pytest.mark.parametrize('shape,taps', [
+    # 2-D: no tile holds the halo from 239 taps a side on (the row route's
+    # limit was 237); the flagship's 264 x 264 plane and a 300 x 300 one
+    ((64, 16, 264, 264), 239), ((64, 16, 264, 264), 241), ((1, 4, 300, 300), 241),
+    ((1, 4, 300, 300), 301), ((1, 4, 300, 300), 401), ((2, 3, 20, 24), 401),
+    # 1-D: no row holds more than 29,049 taps
+    ((1, 2, 60000), 29051), ((1, 2, 60000), 40001), ((1, 2, 60000), 60001),
+    ((16, 8, 4159), 60001),
+])
+def test_inhibited_mu_h_wide_stencils_stream(shape, taps, cross, aligned):
+    """Stencils wider than a block holds in one piece get a streamed
+    geometry: segments that cover every tap, one H buffer copied by 4
+    bytes, all y taps in each segment of a 2-D tile, within a block's
+    shared memory."""
+    g = inhibit.launch_geometry(shape, (taps,) * (len(shape) - 2), cross, aligned)
+    assert g['smem_bytes'] <= _build.MAX_SMEM_BYTES
+    assert (g['h_bufs'], g['h_vec'], g['compiled']) == (1, False, 0)
+    assert g['n_segments'] == -(-g['tx'] // g['seg_x']) * -(-g['ty'] // g['seg_y']) > 1
+    assert 1 <= g['seg_x'] <= g['tx'] and 1 <= g['seg_y'] <= g['ty']
+    assert g['two_d'] == (len(shape) == 4)  # 2-D tiles keep the stencil separable
+    if g['two_d']:
+        assert g['seg_y'] == g['ty']
+        assert g['smem_bytes'] == 4 * (2 * g['tile_x'] * g['npp']
+                                       + (g['tile_x'] + g['seg_x'] - 1) * g['hp']
+                                       + (g['tile_y'] + g['ty'] - 1) * g['xtp']
+                                       + 8 * inhibit._THREADS * cross + g['tx'] + g['ty'])
+    else:
+        assert g['tile_x'] == 1 and g['smem_bytes'] == 4 * (
+            2 * g['tile_y'] + g['seg_x'] * g['hp'] + g['seg_x'] + g['seg_y'])
+    assert g['hp'] % 2 == 1 and g['hp'] >= g['tile_y'] + g['seg_y'] - 1
+
+
+@pytest.mark.parametrize('cross', [False, True])
+@pytest.mark.parametrize('shape,ranges,tile', [
+    # the inhibited flagship (17 x 17 taps, compiled)
+    ((64, 16, 264, 264), (8, 8), (16, 88, True, 2, 108)),
+    # chip_smoke.py's K4 cases: (tile_x, tile_y, 2-D tiles, H buffers, H pitch)
+    ((3, 5, 37, 29), (6, 2), (8, 32, True, 2, 49)),
+    ((1, 3, 300, 40), (4, 3), (24, 40, True, 2, 52)),
+    ((3, 4, 40), (5,), (1, 40, False, 2, 51)),
+    ((16, 8, 4159), (63,), (1, 208, False, 2, 335)),
+    ((1, 3, 200, 200), (82, 82), None),
+    ((1, 2, 12, 4500), (1, 2000), (1, 180, False, 2, 4180)),
+    ((1, 2, 20000), (9700,), (1, 244, False, 1, 19644)),
+    ((70000, 3, 64), (4,), (1, 64, False, 2, 76)),
+    # the widest stencils one piece holds
+    ((1, 4, 264, 264), (118, 118), (1, 4, False, 1, 241)),
+    ((1, 2, 60000), (14524,), (1, 4, False, 1, 29052)),
+])
+def test_inhibited_mu_h_stencils_that_fit_keep_their_tile(shape, ranges, cross, tile):
+    """A stencil that one piece holds runs in one segment on the tile it
+    had before the streamed route (the compiled taps where it had them)."""
+    g = _k4(shape, ranges, cross)
+    assert g['n_segments'] == 1 and (g['seg_x'], g['seg_y']) == (g['tx'], g['ty'])
+    if tile is None:  # 165 x 165 taps: the tile depends on the cross-atom sums
+        tile = (8, 104, True, 1, 269) if cross else (16, 104, True, 1, 269)
+    assert (g['tile_x'], g['tile_y'], g['two_d'], g['h_bufs'], g['hp']) == tile
+    if shape[2:] == (264, 264) and ranges == (8, 8):
+        assert g['compiled'] == 17
+
+
+COMBOS = [(True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize('use_same,use_cross', COMBOS)
+@pytest.mark.parametrize('dims,ranges,segment', [
+    # 2-D tiles: segments of x taps (the geometry's, then others)
+    ((2, 3, 20, 24), (120, 120), None),
+    ((2, 3, 20, 24), (150, 200), (True, 7, 401)),
+    ((1, 4, 13, 17), (9, 4), (True, 1, 9)),
+    # rows: whole x rows, or one x row and a stretch of y taps
+    ((2, 3, 9, 30), (3, 20), (False, 2, 41)),
+    ((2, 3, 9, 30), (3, 20), (False, 1, 6)),
+    # 1-D: stretches of the taps (the geometry's, then others)
+    ((2, 3, 70), (14600,), None),
+    ((2, 3, 70), (40,), (False, 1, 9)),
+])
+def test_streamed_k4_reference_matches_plain(dims, ranges, segment, use_same, use_cross):
+    """The streamed K4 route's comparator, its sums segment by segment in
+    the kernel's order, agrees with ``inhibited_mu_h_plain`` in float64."""
+    ks = [torch.tensor(k) for k in inhibition_kernels(ranges)]
+    if segment is None:
+        g = inhibit.launch_geometry(dims, tuple(k.numel() for k in ks), use_cross)
+        assert g['n_segments'] > 1
+        segment = (g['two_d'], g['seg_x'], g['seg_y'])
+    rng = np.random.default_rng(7)
+    H, neg, pos = (torch.tensor(rng.random(dims)) for _ in range(3))
+    args = (H, neg, pos, ks, 0.3, 0.2, 0.1)
+    kw = dict(use_same=use_same, use_cross=use_cross)
+    want = inhibit.inhibited_mu_h_plain(*args, **kw)
+    got = inhibit.inhibited_mu_h_segments_plain(*args, segment, **kw)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12)

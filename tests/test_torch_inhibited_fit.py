@@ -235,7 +235,7 @@ def fixture_launched(monkeypatch):
             calls.append(name)
             return plain(*args, **kwargs)
         return fn
-    for name in ('mu_h', 'grad_w', 'mu_ratio', 'inhibited_mu_h'):
+    for name in ('mu_h', 'grad_w', 'mu_w', 'inhibited_mu_h'):
         monkeypatch.setattr(engine, name, record(name, getattr(engine, name + '_plain')))
     return calls
 
@@ -267,4 +267,4 @@ def test_rank_gate_3d_runs_plain_operators(launched, inhibited):
                            0.2, tuple(torch.tensor(k, dtype=torch.float32) for k in ks),
                            plan=plan, **flags)
     h_update = 'inhibited_mu_h' if inhibited else 'mu_h'
-    assert launched == [h_update, 'grad_w', 'mu_ratio'] * 2
+    assert launched == [h_update, 'grad_w', 'mu_w'] * 2

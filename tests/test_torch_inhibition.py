@@ -195,9 +195,12 @@ def test_inhibited_mu_h_geometry():
     # on tiles of one row, each output the y pass of its tx staged rows
     g = inhibit._geometry(M=16, tx=3, ty=4001, two_d=True, X=40, Y=5000)
     assert (g['two_d'], g['tile_x']) == (False, 1) and g['smem_bytes'] <= _build.MAX_SMEM_BYTES
-    # a tap count no tile can hold raises before any launch
-    with pytest.raises(ValueError, match='shared memory'):
-        inhibit._geometry(M=4, tx=401, ty=401, two_d=True, X=500, Y=500)
+    # a stencil no tile holds in one piece streams its x taps through 2-D
+    # tiles in segments, one H buffer
+    g = inhibit._geometry(M=4, tx=401, ty=401, two_d=True, X=500, Y=500)
+    assert (g['two_d'], g['h_bufs'], g['seg_y']) == (True, 1, 401)
+    assert g['n_segments'] == -(-401 // g['seg_x']) > 1
+    assert g['smem_bytes'] <= _build.MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize('ranges', [(0, 1), (4, 3), (6, 2), (8, 8), (9, 3)])

@@ -51,6 +51,26 @@ def test_mu_ratio_float32_matches_pallas():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
 
 
+@pytest.mark.parametrize('dtype,rtol', [(torch.float64, 1e-12), (torch.float32, 1e-6)])
+@pytest.mark.parametrize('M,C,A', [(4, 1, (9, 9)), (5, 3, (4, 6)), (3, 1, (20,)), (6, 3, (33,))])
+def test_mu_w_plain_matches_jax_epilogue(M, C, A, dtype, rtol):
+    """K1's W epilogue: the ratio ``W * neg / (pos + EPS)``, then the JAX
+    package's ``_normalize_W``; an all-zero atom stays zero."""
+    rng = np.random.default_rng(M)
+    W, neg, pos = (rng.random((M, C) + A) for _ in range(3))
+    W[1] = 0.
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    W, neg, pos = (x.astype(np_dtype) for x in (W, neg, pos))
+    want = jengine._normalize_W(jnp.asarray(W) * jnp.asarray(neg)
+                                / (jnp.asarray(pos) + jengine.EPS), len(A))
+    got = mu.mu_w(*(_t(x, dtype) for x in (W, neg, pos)), jengine.EPS, len(A))
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=rtol, atol=0)
+    assert not got[1].any()
+    sums = got.sum(dim=tuple(range(2, 2 + len(A))))
+    np.testing.assert_allclose(sums[[0] + list(range(2, M))].numpy(), 1., rtol=10 * rtol)
+
+
 # --------------------------------------------------------------------- K2
 
 def _gw_problem(mode, S, A, N, C, M, seed=0):

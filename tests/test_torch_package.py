@@ -88,7 +88,7 @@ def _kernel_inputs(device):
 
 
 def _launches():
-    return (mu.mu_ratio.launches, gw.grad_w.launches, mu_h.mu_h.launches,
+    return (mu.mu_ratio.launches, mu.mu_w.launches, gw.grad_w.launches, mu_h.mu_h.launches,
             inhibit.inhibited_mu_h.launches)
 
 
@@ -96,6 +96,7 @@ def test_cpu_tensors_take_plain_versions():
     plan, Vp, Rx, W, H = _kernel_inputs('cpu')
     before = _launches()
     assert torch.equal(mu.mu_ratio(W, W, W, 0.5), mu.mu_ratio_plain(W, W, W, 0.5))
+    assert torch.equal(mu.mu_w(W, W, W, 0.5, 2), mu.mu_w_plain(W, W, W, 0.5, 2))
     X2 = torch.cat([Vp, Rx], dim=1)
     for a, b in zip(gw.grad_w(X2, H, plan), gw.grad_w_plain(X2, H, plan)):
         assert torch.equal(a, b)
@@ -112,6 +113,8 @@ def test_non_cpu_tensors_never_take_plain_versions():
     plan, Vp, Rx, W, H = _kernel_inputs('meta')
     with pytest.raises(ValueError, match='expected CUDA'):
         mu.mu_ratio(W, W, W, 0.5)
+    with pytest.raises(ValueError, match='expected CUDA'):
+        mu.mu_w(W, W, W, 0.5, 2)
     with pytest.raises(ValueError, match='expected CUDA'):
         gw.grad_w(torch.cat([Vp, Rx], dim=1), H, plan)
     with pytest.raises(ValueError, match='expected CUDA'):

@@ -53,10 +53,27 @@
 // is copied after this one's epilogue); when no 8-row tile fits, the
 // stencil runs on tiles of one row (also the 1-D kernel: no x pass, one
 // output per thread, the y pass of each of the tx staged rows weighted by
-// its x tap).  So every shape the first CUDA design took still runs.  The
-// tile sizes, pitches, buffers and shared memory come from the wrapper
-// (tnmf_tpu_torch/kernels/inhibit.py, _geometry), which must use the same
-// layout and items as here.
+// its x tap).  So every shape the first CUDA design took still runs.
+//
+// Streamed route (kStream, runtime taps, one H buffer): for a stencil whose
+// halo tile no block holds in one piece, the taps are walked in segments and
+// each segment stages only its part of the halo.  2-D tiles: a segment of
+// seg_x x taps stages the tile_x + seg_x - 1 halo rows it reads (all hw
+// columns) and adds its x pass into the transposed buffer, which holds
+// tile_x x hw whatever tx is; the y pass and the ratio run once, after the
+// last segment.  Rows: a segment of seg_x x taps and seg_y y taps stages
+// those rows, the tile_y + seg_y - 1 columns they read and the two slices
+// of the taps, and each thread adds its output's share in a register.  The
+// cross-atom field is the same walk over the atoms' summed segment tiles.
+// H at the outputs comes from device memory in the epilogue (the staged
+// rows are the last segment's).  Only the streamed route sums in another
+// order than one piece (tnmf_tpu_torch/kernels/inhibit.py,
+// inhibited_mu_h_segments_plain, sums in its order); every stencil that
+// fits in one piece runs the kernel above.
+//
+// The tile sizes, pitches, buffers, segments and shared memory come from
+// the wrapper (tnmf_tpu_torch/kernels/inhibit.py, _geometry), which must use
+// the same layout and items as here.
 
 #include <cuda_runtime.h>
 
@@ -77,6 +94,7 @@ struct InhShape {
   int h_vec;             // stage H with 16-byte copies (hp = 4 mod 8; else hp odd)
   int h_bufs;            // H tile buffers: 2 (the next atom's copied during this one's
                          // passes) or 1 (copied after its epilogue)
+  int seg_x, seg_y;      // taps of a segment along x and y (tx and ty: one piece)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -167,14 +185,199 @@ struct Tiling {
   static constexpr int kSY = kTwoD ? 8 : 1;
 };
 
+// The streamed route (see the header): one block's tile, the taps walked in
+// segments through one H buffer.
+template <bool kTwoD, int kVec, bool kCross>
+__device__ __forceinline__ void streamed(const float* __restrict__ h,
+                                         const float* __restrict__ neg,
+                                         const float* __restrict__ pos,
+                                         const float* __restrict__ taps,
+                                         float* __restrict__ out, const InhShape& s) {
+  constexpr int kSX = Tiling<kTwoD>::kSX;
+  constexpr int kSY = Tiling<kTwoD>::kSY;
+  extern __shared__ float4 smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int rx = s.tx / 2, ry = s.ty / 2;
+  const int hw = s.tile_y + 2 * ry;        // the tile's halo columns (2-D)
+  const int seg_rows = kTwoD ? s.tile_x + s.seg_x - 1 : s.seg_x;
+  const int nps_sz = s.tile_x * s.npp;
+  float* nps = smem;                       // [2][tile_x][npp] neg, pos
+  float* hs = nps + 2 * nps_sz;            // [seg_rows][hp] one segment of H
+  float* xst = hs + seg_rows * s.hp;       // [hw][xtp] x pass, transposed (2-D)
+  float* ssum = xst + (kTwoD ? hw * s.xtp : 0);  // [kSY][threads] cross-atom sums (2-D)
+  float* ks = ssum + (kTwoD && kCross ? kSY * kThreads : 0);  // 2-D: kx, ky; rows:
+                                                              // the segment's slices
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t n = static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
+  if (n >= s.n) return;
+  const int n_ty = (s.y + s.tile_y - 1) / s.tile_y;
+  const int x0 = (blockIdx.x / n_ty) * s.tile_x;
+  const int y0 = (blockIdx.x % n_ty) * s.tile_y;
+  const int64_t plane = static_cast<int64_t>(s.x) * s.y;
+  const int64_t sample = n * s.m * plane;
+  const int n_sx = (s.tx + s.seg_x - 1) / s.seg_x;
+  const int n_sy = (s.ty + s.seg_y - 1) / s.seg_y;  // 1 in 2-D tiles
+
+  if constexpr (kTwoD) {
+    for (int i = tid; i < s.tx + s.ty; i += kThreads) ks[i] = taps[i];
+  }
+  const int n_xseg = s.tile_x / kSX;
+  const int x_c0 = tid % hw, x_s0 = tid / hw;
+  const int x_dc = kThreads % hw, x_ds = kThreads / hw;
+  const int yr = tid % s.tile_x, yu = tid / s.tile_x;
+  const bool y_on = yu < s.tile_y / kSY;
+  const int yc0 = yu * kSY;
+
+  auto stage_np = [&](int mm) {
+    const int64_t base = sample + mm * plane;
+    for (int r = warp; r < s.tile_x; r += kWarps) {
+      const int gx = x0 + r;
+      const int64_t row = base + static_cast<int64_t>(gx) * s.y + y0;
+      for (int v = lane; v < s.tile_y / kVec; v += 32) {
+        const int gy = y0 + v * kVec;
+        const bool ok = gx < s.x && gy < s.y;  // kVec = 4: Y % 4 == 0, whole vectors
+        copy_async<4 * kVec>(nps + r * s.npp + v * kVec, ok ? neg + row + v * kVec : neg, ok);
+        copy_async<4 * kVec>(nps + nps_sz + r * s.npp + v * kVec,
+                             ok ? pos + row + v * kVec : pos, ok);
+      }
+    }
+  };
+  // rows [r0, r0 + nr) and columns [c0, c0 + nc) of the halo tile of atom
+  // mm (mm < 0: summed over the atoms) into hs, zero outside the sample;
+  // the threads walk the elements row by row with carries (no division)
+  auto stage = [&](int mm, int r0, int nr, int c0, int nc) {
+    const int dc = kThreads % nc, dr = kThreads / nc;
+    for (int i = tid, r = tid / nc, c = tid % nc; i < nr * nc; i += kThreads) {
+      const int gx = x0 - rx + r0 + r, gy = y0 - ry + c0 + c;
+      const bool ok = gx >= 0 && gx < s.x && gy >= 0 && gy < s.y;
+      const float* src = h + sample + static_cast<int64_t>(gx) * s.y + gy;
+      if (mm >= 0) {
+        copy_async<4>(hs + r * s.hp + c, ok ? src + mm * plane : h, ok);
+      } else {
+        float v = 0.f;
+        if (ok) {
+#pragma unroll 8
+          for (int m = 0; m < s.m; ++m) v += __ldg(src + m * plane);
+        }
+        hs[r * s.hp + c] = v;
+      }
+      r += dr;
+      c += dc;
+      if (c >= nc) { c -= nc; ++r; }
+    }
+  };
+  // every segment of atom mm (or of the atoms' sum): 2-D tiles add their x
+  // pass into xst, rows the field at this thread's output into g
+  auto walk = [&](int mm, float& g) {
+    for (int qx = 0; qx < n_sx; ++qx) {
+      const int t0x = qx * s.seg_x, nx = min(s.seg_x, s.tx - t0x);
+      for (int qy = 0; qy < n_sy; ++qy) {
+        const int t0y = qy * s.seg_y, ny = min(s.seg_y, s.ty - t0y);
+        __syncthreads();  // the last segment's passes are done with hs and the taps
+        if constexpr (!kTwoD) {
+          for (int i = tid; i < nx; i += kThreads) ks[i] = taps[t0x + i];
+          for (int i = tid; i < ny; i += kThreads) ks[s.seg_x + i] = taps[s.tx + t0y + i];
+        }
+        stage(mm, t0x, kTwoD ? s.tile_x + nx - 1 : nx, t0y, kTwoD ? hw : s.tile_y + ny - 1);
+        commit();
+        asm volatile("cp.async.wait_group 0;\n" ::);
+        __syncthreads();
+        if constexpr (kTwoD) {
+          int c = x_c0, sg = x_s0;
+          while (sg < n_xseg) {
+            float acc[kSX];
+            stencil_line<kSX, 0>(hs + sg * kSX * s.hp + c, s.hp, ks + t0x, nx, acc);
+            float* d = xst + c * s.xtp + sg * kSX;
+#pragma unroll
+            for (int j = 0; j < kSX; ++j) d[j] = qx == 0 ? acc[j] : d[j] + acc[j];
+            c += x_dc;
+            sg += x_ds;
+            if (c >= hw) { c -= hw; ++sg; }
+          }
+        } else if (y_on) {
+          for (int i = 0; i < nx; ++i) {
+            float r[1];
+            stencil_line<1, 0>(hs + i * s.hp + yc0, 1, ks + s.seg_x, ny, r);
+            g = fmaf(ks[i], r[0], g);
+          }
+        }
+      }
+    }
+    if constexpr (kTwoD) __syncthreads();  // xst complete for the y pass
+  };
+  // y pass of xst at this thread's kSY outputs (2-D)
+  auto pass_y = [&](float (&g)[kSY]) {
+    if (y_on) stencil_line<kSY, 0>(xst + yc0 * s.xtp + yr, s.xtp, ks + s.tx, s.ty, g);
+  };
+
+  float rsum = 0.f;  // rows: the cross-atom sum of the fields at this thread's output
+  if constexpr (kCross) {
+    walk(-1, rsum);
+    if constexpr (kTwoD) {
+      float sum[kSY];
+      pass_y(sum);
+#pragma unroll
+      for (int j = 0; j < kSY; ++j) ssum[j * kThreads + tid] = sum[j];  // read back by tid
+    }
+  }
+  for (int mm = 0; mm < s.m; ++mm) {
+    __syncthreads();  // the last atom's epilogue is done with neg and pos
+    stage_np(mm);
+    commit();  // lands with the first segment
+    float g[kSY], g_row = 0.f;
+    walk(mm, g_row);
+    if constexpr (kTwoD) {
+      pass_y(g);
+    } else {
+      g[0] = g_row;
+    }
+    const int gx = x0 + yr, gy0 = y0 + yc0;
+    if (y_on && gx < s.x) {
+      const int64_t at = sample + mm * plane + static_cast<int64_t>(gx) * s.y + gy0;
+      const float* nr = nps + yr * s.npp + yc0;
+      float o[kSY];
+#pragma unroll
+      for (int j = 0; j < kSY; ++j) {
+        const float hv = gy0 + j < s.y ? __ldg(h + at + j) : 0.f;
+        float p = nr[nps_sz + j];
+        if (s.use_same) p += s.inh * (g[j] - hv);
+        if constexpr (kCross) {
+          if constexpr (kTwoD) {
+            p += s.cross * (ssum[j * kThreads + tid] - g[j]);
+          } else {
+            p += s.cross * (rsum - g[j]);
+          }
+        }
+        o[j] = hv * nr[j] / (p + s.reg);
+      }
+      float* dst = out + at;
+#pragma unroll
+      for (int j = 0; j < kSY; j += (kVec == 4 && kSY % 4 == 0) ? 4 : 1) {
+        if constexpr (kVec == 4 && kSY % 4 == 0) {
+          // Y % 4 == 0 and gy0 % 4 == 0: a quad is wholly inside or outside
+          if (gy0 + j < s.y)
+            *reinterpret_cast<float4*>(dst + j) = make_float4(o[j], o[j + 1], o[j + 2], o[j + 3]);
+        } else {
+          if (gy0 + j < s.y) dst[j] = o[j];
+        }
+      }
+    }
+  }
+}
+
 // four blocks per SM (64 registers a thread) with the tap count compiled
 // in; three (up to 85 registers) for the runtime tap loop, whose window
 // spills at 64 (its 2-D cross-atom instances still spill a few words)
-template <bool kTwoD, int kVec, bool kCross, int kTaps>
+template <bool kTwoD, int kVec, bool kCross, int kTaps, bool kStream>
 __global__ void __launch_bounds__(kThreads, kTaps > 0 ? 4 : 3)
 inhibited_mu_h_kernel(const float* __restrict__ h, const float* __restrict__ neg,
                       const float* __restrict__ pos, const float* __restrict__ taps,
                       float* __restrict__ out, InhShape s) {
+  if constexpr (kStream) {
+    streamed<kTwoD, kVec, kCross>(h, neg, pos, taps, out, s);
+    return;
+  }
   constexpr int kSX = Tiling<kTwoD>::kSX;
   constexpr int kSY = Tiling<kTwoD>::kSY;
   extern __shared__ float4 smem_raw[];
@@ -422,11 +625,11 @@ inhibited_mu_h_kernel(const float* __restrict__ h, const float* __restrict__ neg
   }
 }
 
-template <bool kTwoD, int kVec, bool kCross, int kTaps>
+template <bool kTwoD, int kVec, bool kCross, int kTaps, bool kStream = false>
 cudaError_t launch(const float* h, const float* neg, const float* pos,
                    const float* taps, float* out, const InhShape& s,
                    int smem_bytes, cudaStream_t st) {
-  auto kernel = inhibited_mu_h_kernel<kTwoD, kVec, kCross, kTaps>;
+  auto kernel = inhibited_mu_h_kernel<kTwoD, kVec, kCross, kTaps, kStream>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return err;
@@ -439,11 +642,13 @@ cudaError_t launch(const float* h, const float* neg, const float* pos,
 }
 
 // 2-D tiles with a tap count compiled in (the wrapper pads the taps of both
-// axes with zeros to it), else the runtime tap loop
+// axes with zeros to it), else the runtime tap loop, in one piece or streamed
 template <bool kTwoD, int kVec, bool kCross>
 cudaError_t launch_taps(int compiled, const float* h, const float* neg, const float* pos,
                         const float* taps, float* out, const InhShape& s, int smem_bytes,
                         cudaStream_t st) {
+  if (s.seg_x < s.tx || s.seg_y < s.ty)
+    return launch<kTwoD, kVec, kCross, 0, true>(h, neg, pos, taps, out, s, smem_bytes, st);
   if constexpr (kTwoD) {
     if (compiled == 9) return launch<kTwoD, kVec, kCross, 9>(h, neg, pos, taps, out, s, smem_bytes, st);
     if (compiled == 17) return launch<kTwoD, kVec, kCross, 17>(h, neg, pos, taps, out, s, smem_bytes, st);
@@ -468,16 +673,22 @@ extern "C" int tnmf_inhibited_mu_h(const float* h, const float* neg, const float
                                    int y, int tx, int ty, int tile_x, int tile_y, int hp,
                                    int xtp, int npp, float inh, float cross, float reg,
                                    int use_same, int use_cross, int two_d, int vec,
-                                   int h_vec, int h_bufs, int compiled, int smem_bytes,
-                                   void* stream) {
+                                   int h_vec, int h_bufs, int compiled, int seg_x, int seg_y,
+                                   int smem_bytes, void* stream) {
   // vec: Y % 4 == 0 and 16-byte aligned tensors (neg/pos copies, H' stores);
   // h_vec: vec and ry % 4 == 0 as well (H tile copies); compiled: 0, or the
-  // tap count of both axes (2-D tiles)
+  // tap count of both axes (2-D tiles); seg_x, seg_y: the taps of a segment
+  // (tx and ty: one piece; else the streamed route, one H buffer, 4-byte H
+  // copies, and 2-D tiles take every y tap in each segment)
   if (compiled && (!two_d || tx != compiled || ty != compiled || h_bufs != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool segmented = seg_x < tx || seg_y < ty;
+  if (seg_x < 1 || seg_y < 1 || seg_x > tx || seg_y > ty ||
+      (segmented && (compiled || h_vec || h_bufs != 1 || (two_d && seg_y != ty))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const InhShape s{n, m, x, y, tx, ty, tile_x, tile_y, hp, xtp, npp, inh, cross, reg,
-                   use_same, h_vec, h_bufs};
+                   use_same, h_vec, h_bufs, seg_x, seg_y};
   const bool c = use_cross != 0;
   cudaError_t err;
   if (two_d) {

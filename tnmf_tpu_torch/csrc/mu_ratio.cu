@@ -1,14 +1,29 @@
-// K1: the elementwise multiplicative-update ratio  out = arr * neg / (pos + reg).
+// K1: the elementwise multiplicative-update ratio  out = arr * neg / (pos + reg),
+// and the W epilogue of the MU step built on it.
 //
 // Replaces tnmf_tpu/experimental/pallas_mu.py::mu_ratio (body _ratio_kernel).
-// The port uses it for the W epilogue W * neg / (pos + EPS) of the MU step
-// (the H epilogue is fused into K3, mu_h.cu).
+// The H epilogue is fused into K3 (mu_h.cu) and K4 (inhibited_mu_h.cu).
 //
-// Bound: device-memory bandwidth (three reads and one write of 4 bytes per
-// element, no reuse).  Design: a grid-stride loop with 16-byte vector loads
-// and stores when all four pointers are 16-byte aligned, and a scalar loop
-// for the remainder.  The division is IEEE (no fast-math), in the same
-// order as the plain version, (arr * neg) / (pos + reg).
+// tnmf_mu_ratio: the ratio alone, the direct counterpart of the Pallas
+// kernel.  Bound: device-memory bandwidth (three reads and one write of 4
+// bytes per element, no reuse).  Design: a grid-stride loop with 16-byte
+// vector loads and stores when all four pointers are 16-byte aligned, and a
+// scalar loop for the remainder.
+//
+// tnmf_mu_w: the whole W epilogue of tnmf_tpu_torch/engine.py::_mu_W in one
+// launch, the ratio W * neg / (pos + EPS) and the atom normalisation of the
+// JAX package's _normalize_W: each (atom, channel) row is divided by its
+// sum over the shift axes, an all-zero row stays zero.  W is small (16 x 1 x
+// 9 x 9 at the flagship), so the launch bounds it, and the five launches of
+// the sum, compare, where and divide that followed the ratio are the cost
+// it removes.  Design: one block per row; the threads form the ratio in a
+// strided loop, write it out and keep a float32 partial sum; the block
+// reduces in a fixed order (warp shuffles, then the warp sums in shared
+// memory by one warp), so two launches give the same bits; each thread then
+// divides the elements it wrote.  Any row length runs.
+//
+// Both divisions are IEEE (no fast-math), in the plain version's order,
+// (arr * neg) / (pos + reg).
 
 #include <cuda_runtime.h>
 
@@ -49,6 +64,36 @@ __global__ void mu_ratio_scalar(const float* __restrict__ arr,
   }
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+mu_w_kernel(const float* __restrict__ w, const float* __restrict__ neg,
+            const float* __restrict__ pos, float reg, float* __restrict__ out,
+            int64_t row_len) {
+  __shared__ float partial[kThreads / 32];
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * row_len;
+  float sum = 0.f;
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) {
+    const float r = w[base + i] * neg[base + i] / (pos[base + i] + reg);
+    out[base + i] = r;
+    sum += r;
+  }
+  sum = warp_sum(sum);
+  if ((threadIdx.x & 31) == 0) partial[threadIdx.x >> 5] = sum;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    sum = warp_sum(threadIdx.x < kThreads / 32 ? partial[threadIdx.x] : 0.f);
+    if (threadIdx.x == 0) partial[0] = sum;
+  }
+  __syncthreads();
+  const float s = partial[0] == 0.f ? 1.f : partial[0];
+  for (int64_t i = threadIdx.x; i < row_len; i += kThreads) out[base + i] = out[base + i] / s;
+}
+
 int blocks_for(int64_t work) {
   return static_cast<int>(std::min((work + kThreads - 1) / kThreads, kMaxBlocks));
 }
@@ -76,6 +121,14 @@ extern "C" int tnmf_mu_ratio(const float* arr, const float* neg,
     mu_ratio_scalar<<<blocks_for(rest), kThreads, 0, st>>>(arr, neg, pos, reg, out,
                                                            4 * n4, n);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tnmf_mu_w(const float* w, const float* neg, const float* pos, float reg,
+                         float* out, int64_t rows, int64_t row_len, void* stream) {
+  if (rows > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
+  mu_w_kernel<<<static_cast<unsigned>(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      w, neg, pos, reg, out, row_len);
   return static_cast<int>(cudaGetLastError());
 }
 

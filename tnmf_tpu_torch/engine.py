@@ -11,7 +11,8 @@ the strategy a fit resolves to with :func:`require_ported`.  On CUDA
 tensors the hot operators run through the hand-written kernels: the H
 update through K3 (:func:`~tnmf_tpu_torch.kernels.mu_h.mu_h`),
 the W statistics through K2 (:func:`~tnmf_tpu_torch.kernels.gw.grad_w`) and
-the W ratio through K1 (:func:`~tnmf_tpu_torch.kernels.mu.mu_ratio`), and
+the W ratio with the atom normalisation through K1's W epilogue
+(:func:`~tnmf_tpu_torch.kernels.mu.mu_w`), and
 the inhibited H update (lateral inhibition on) through K4
 (:func:`~tnmf_tpu_torch.kernels.inhibit.inhibited_mu_h`).  On CPU tensors
 the same wrappers run their plain versions.  The reconstruction stays a
@@ -35,7 +36,7 @@ import torch
 
 from .kernels.gw import grad_w, grad_w_plain
 from .kernels.inhibit import inhibited_mu_h, inhibited_mu_h_plain
-from .kernels.mu import mu_ratio, mu_ratio_plain
+from .kernels.mu import mu_w, mu_w_plain
 from .kernels.mu_h import mu_h, mu_h_plain
 from .ops import beta as beta_ops
 from .ops import conv as conv_ops
@@ -153,12 +154,13 @@ def _mu_W(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
           plan: ConvPlan) -> torch.Tensor:
     """One multiplicative W update with atom-wise sum normalization
     (reference ``_update_W`` + ``normalize``, ``TransformInvariantNMF.py:240-244``):
-    the statistics in K2, the ratio ``W * neg / (pos + EPS)`` in K1."""
+    the statistics in K2, the ratio ``W * neg / (pos + EPS)`` and
+    :func:`_normalize_W` in one launch of K1's W epilogue."""
     Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
-    stats, ratio = ((grad_w, mu_ratio) if plain_reason(plan, H.dtype) is None
-                    else (grad_w_plain, mu_ratio_plain))
+    stats, epilogue = ((grad_w, mu_w) if plain_reason(plan, H.dtype) is None
+                       else (grad_w_plain, mu_w_plain))
     neg, pos = stats(torch.cat([Vp, Rx], dim=1), H, plan)
-    return _normalize_W(ratio(W, neg, pos, EPS), plan.ndim)
+    return epilogue(W, neg, pos, EPS, plan.ndim)
 
 
 def update_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,

@@ -36,6 +36,8 @@ _P, _F, _I, _I64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     # arr, neg, pos, reg, out, n, stream
     'tnmf_mu_ratio': (_P, _P, _P, _F, _P, _I64, _P),
+    # w, neg, pos, reg, out, rows, row_len, stream
+    'tnmf_mu_w': (_P, _P, _P, _F, _P, _I64, _I64, _P),
     # x2, h, out, scratch, n, m, c2, tx, ty, ax, ay, geometry (int[14]),
     # group (int[6]), grid_x, grid_y, smem_bytes, stream
     'tnmf_grad_w': (_P,) * 4 + (_I,) * 7 + (_P, _P) + (_I,) * 3 + (_P,),
@@ -47,8 +49,8 @@ SIGNATURES = {
     'tnmf_mu_h_mma': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 7 + (_P,) + (_I,) * 2 + (_P,),
     # h, neg, pos, taps, out, n, m, x, y, tx, ty, tile_x, tile_y, hp, xtp, npp,
     # inh, cross, reg, use_same, use_cross, two_d, vec, h_vec, h_bufs, compiled,
-    # smem_bytes, stream
-    'tnmf_inhibited_mu_h': (_P,) * 5 + (_I,) * 11 + (_F,) * 3 + (_I,) * 8 + (_P,),
+    # seg_x, seg_y, smem_bytes, stream
+    'tnmf_inhibited_mu_h': (_P,) * 5 + (_I,) * 11 + (_F,) * 3 + (_I,) * 10 + (_P,),
 }
 
 #: the largest dynamic shared memory a Hopper block may opt in to (bytes)

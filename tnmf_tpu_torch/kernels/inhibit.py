@@ -29,6 +29,15 @@ zeros), wider ones with a runtime tap loop.  The wrapper picks the tile
 one H buffer when two do not fit and tiles of one row when no 2-D tile
 fits, and the pitches (for bank-conflict free loads, counted in
 :func:`_xst_conflicts`).
+
+A stencil whose halo tile no block can hold in one piece takes the streamed
+route of the same kernel: the taps are walked in segments, each segment
+stages only its part of the halo (and, in rows, its slice of the taps) in
+one H buffer, and its contribution is added to the x pass (2-D tiles) or to
+each thread's output (rows) before the ratio is taken once.  Every stencil
+that fits in one piece runs as before, so :func:`_geometry` never raises
+for a 1-D or 2-D stencil.  Only the streamed route sums in another order:
+:func:`inhibited_mu_h_segments_plain` sums in its order.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import functools
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.inhibition import cross_scale, inhibition_positive_term
 from . import _build
@@ -54,6 +64,10 @@ _COMPILED_TAPS = (9, 17)
 #: blocks share the SM's 228 KB, 1 KB per block reserved
 _BLOCKS_PER_SM = 4
 _SMEM_BUDGET = (233472 - _BLOCKS_PER_SM * 1024) // _BLOCKS_PER_SM
+#: the streamed route's budget: two blocks per SM.  Its blocks wait on each
+#: segment's copies, and two blocks with longer segments beat four with
+#: shorter ones (tools/k4_streamed_tiles.py)
+_STREAM_BUDGET = (233472 - 2 * 1024) // 2
 
 
 def inhibited_mu_h_plain(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
@@ -66,6 +80,68 @@ def inhibited_mu_h_plain(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
     term = inhibition_positive_term(H, kernels, H.dim() - 2, inhibition, cross_inhibition,
                                     H.shape[1], use_same, use_cross)
     return H * neg / (pos + term + reg)
+
+
+def _corr(A: torch.Tensor, k: torch.Tensor, axis: int) -> torch.Tensor:
+    """``'valid'`` correlation of ``A`` (N, M, X, Y) with taps ``k`` along
+    ``axis`` (2: x, 3: y), TF32 off."""
+    shape = (1, 1, k.numel(), 1) if axis == 2 else (1, 1, 1, k.numel())
+    N, M = A.shape[:2]
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out = F.conv2d(A.reshape((N * M, 1) + A.shape[2:]), k.reshape(shape))
+    return out.reshape((N, M) + out.shape[2:])
+
+
+def inhibited_mu_h_segments_plain(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
+                                  kernels: Sequence, inhibition: float,
+                                  cross_inhibition: float, reg: float, segment: tuple, *,
+                                  use_same: bool = True,
+                                  use_cross: bool = False) -> torch.Tensor:
+    """The streamed route's sums in its own order, ``segment = (two_d,
+    seg_x, seg_y)`` of the geometry.  2-D tiles: the x pass of each segment
+    of ``seg_x`` x taps, added in segment order, then the y pass of all the
+    taps.  Rows: for each segment of ``seg_x`` x taps and ``seg_y`` y taps,
+    in that order, each x tap's y pass of the segment's y taps, weighted by
+    the x tap and added to the field.  Then ``pos`` plus the inhibition
+    terms (the cross-atom field is the stencil of the atoms' sum) and the
+    ratio.  The comparator of the streamed kernel."""
+    nd = H.dim() - 2
+    ks = [torch.as_tensor(k, dtype=H.dtype, device=H.device).reshape(-1) for k in kernels]
+    if nd == 1:  # a 1-D problem is a 2-D one with one row and one x tap
+        out = inhibited_mu_h_segments_plain(
+            H[:, :, None], neg[:, :, None], pos[:, :, None],
+            [torch.ones(1, dtype=H.dtype, device=H.device)] + ks, inhibition,
+            cross_inhibition, reg, segment, use_same=use_same, use_cross=use_cross)
+        return out[:, :, 0]
+    two_d, sx, sy = segment
+    kx, ky = ks
+    tx, ty = kx.numel(), ky.numel()
+    X, Y = H.shape[2:]
+
+    def field(A):
+        P = F.pad(A, (ty // 2, ty // 2, tx // 2, tx // 2))
+        if two_d:
+            xs = None
+            for t0 in range(0, tx, sx):
+                n = min(sx, tx - t0)
+                part = _corr(P[:, :, t0:t0 + X + n - 1], kx[t0:t0 + n], 2)
+                xs = part if xs is None else xs + part
+            return _corr(xs, ky, 3)
+        g = torch.zeros_like(A)
+        for t0x in range(0, tx, sx):
+            for t0y in range(0, ty, sy):
+                n = min(sy, ty - t0y)
+                for i in range(t0x, min(t0x + sx, tx)):
+                    r = _corr(P[:, :, i:i + X, t0y:t0y + Y + n - 1], ky[t0y:t0y + n], 3)
+                    g = g + kx[i] * r
+        return g
+    g = field(H)
+    p = pos
+    if use_same:
+        p = p + inhibition * (g - H)
+    if use_cross:
+        p = p + cross_scale(cross_inhibition, H.shape[1]) * (field(H.sum(1, keepdim=True)) - g)
+    return H * neg / (p + reg)
 
 
 def _xst_conflicts(xtp: int, tile_x: int, tile_y: int, hw: int, tx: int, ty: int) -> int:
@@ -88,29 +164,35 @@ def _xst_conflicts(xtp: int, tile_x: int, tile_y: int, hw: int, tx: int, ty: int
 
 
 def _layout(tile_x: int, tile_y: int, tx: int, ty: int, two_d: bool, h_vec: bool,
-            h_bufs: int, cross: bool, limit: int = _build.MAX_SMEM_BYTES):
+            h_bufs: int, cross: bool, limit: int = _build.MAX_SMEM_BYTES,
+            seg_x: int = 0, seg_y: int = 0, xtp: int = 0):
     """Pitches and shared memory of one tile, or None above ``limit`` bytes:
     neg and pos tiles (rows of 4 mod 8 floats for the y pass's float4
     loads), ``h_bufs`` H tiles with halo (rows of 4 mod 8 floats when they
     are copied and read as float4s, else odd), the transposed x pass (its
-    pitch with the fewest bank conflicts that fits) and each thread's
-    cross-atom sums (2-D tiles) and the taps."""
-    hr, hw = tile_x + tx - 1, tile_y + ty - 1
+    pitch with the fewest bank conflicts that fits, unless ``xtp`` is
+    given) and each thread's cross-atom sums (2-D tiles) and the taps.
+
+    Streamed (``seg_x`` x taps and, in rows, ``seg_y`` y taps a segment;
+    one H buffer, H copied by 4 bytes): the H buffer holds one segment's
+    rows of the halo tile (2-D tiles: all its columns), and in rows the
+    taps are the segment's slices."""
+    seg_x, seg_y = seg_x or tx, seg_y or ty
+    hr, hw = tile_x + seg_x - 1, tile_y + seg_y - 1
     hp = hw + (4 - hw) % 8 if h_vec else hw | 1
     npp = tile_y + 4 if two_d else tile_y
     sums = _SEG_Y_2D * _THREADS if two_d and cross else 0
-    floats = 2 * tile_x * npp + h_bufs * hr * hp + sums + tx + ty
-    xtp = 0
+    floats = 2 * tile_x * npp + h_bufs * hr * hp + sums + (tx + ty if two_d else seg_x + seg_y)
     if two_d:
         pitches = [p for p in range(tile_x, tile_x + 32) if 4 * (floats + hw * p) <= limit]
         if not pitches:
             return None
-        xtp = min(pitches, key=lambda p: (_xst_conflicts(p, tile_x, tile_y, hw, tx, ty), p))
+        xtp = xtp or min(pitches, key=lambda p: (_xst_conflicts(p, tile_x, tile_y, hw, tx, ty), p))
         floats += hw * xtp
     if 4 * floats > limit:
         return None
     return dict(tile_x=tile_x, tile_y=tile_y, hp=hp, xtp=xtp, npp=npp, two_d=two_d,
-                h_bufs=h_bufs, smem_bytes=4 * floats)
+                h_bufs=h_bufs, h_vec=h_vec, seg_x=seg_x, seg_y=seg_y, smem_bytes=4 * floats)
 
 
 def _tiles(tx: int, ty: int, two_d: bool, X: int, Y: int) -> list:
@@ -135,6 +217,29 @@ def _tiles(tx: int, ty: int, two_d: bool, X: int, Y: int) -> list:
     return [(tile_x, tile_y) for _, tile_x, tile_y in sorted(candidates)]
 
 
+def _streamed(tile_x: int, tile_y: int, tx: int, ty: int, two_d: bool, cross: bool,
+              limit: int):
+    """The streamed layout of one tile with the largest segments that fit
+    ``limit`` bytes, cut into near-equal pieces, or None.  2-D tiles:
+    segments of x taps, every y tap in each.  Rows: all the taps if they
+    fit, else segments of whole x rows, else one x row and a stretch of
+    its y taps (the first keeps the one-piece order of the sums)."""
+    if two_d:
+        g = _layout(tile_x, tile_y, tx, ty, True, False, 1, cross, limit, seg_x=1)
+        if g is None:
+            return None
+        fixed = g['smem_bytes'] // 4 - tile_x * g['hp']  # all but the H rows
+        rows = (limit // 4 - fixed) // g['hp']
+        n = -(-tx // (rows - tile_x + 1))
+        return _layout(tile_x, tile_y, tx, ty, True, False, 1, cross, limit,
+                       seg_x=-(-tx // n), xtp=g['xtp'])
+
+    def fits(_, rows, cols):
+        return _layout(1, tile_y, tx, ty, False, False, 1, cross, limit, rows, cols) is not None
+    _, seg_x, seg_y = _build.segments(1, tx, ty, fits)
+    return _layout(1, tile_y, tx, ty, False, False, 1, cross, limit, seg_x, seg_y)
+
+
 @functools.lru_cache(maxsize=64)
 def _geometry(M: int, tx: int, ty: int, two_d: bool, X: int, Y: int,
               h_vec: bool = False, cross: bool = False) -> dict:
@@ -142,7 +247,11 @@ def _geometry(M: int, tx: int, ty: int, two_d: bool, X: int, Y: int,
     the tile with the least work whose shared memory lets four blocks share
     an SM with two H buffers, else one block with two, else one with one;
     a 2-D stencil whose taps no 8-row tile can hold runs on tiles of one
-    row.  Shared memory does not depend on the number of atoms."""
+    row.  A stencil no tile holds in one piece is streamed (one H buffer,
+    H copied by 4 bytes): 2-D tiles in segments of x taps if the y extent
+    of a tile fits, else rows in segments, the tile and segments with the
+    least stencil and staging work at two blocks per SM, else at one.
+    Shared memory does not depend on the number of atoms."""
     del M  # the atoms stream through the tile
     kinds = ([True] if two_d else []) + [False]
     for kind in kinds:
@@ -152,10 +261,30 @@ def _geometry(M: int, tx: int, ty: int, two_d: bool, X: int, Y: int,
             for tile_x, tile_y in tiles:
                 g = _layout(tile_x, tile_y, tx, ty, kind, h_vec, h_bufs, cross, limit)
                 if g:
-                    return dict(g, blocks_per_sm=min(_BLOCKS_PER_SM,
-                                                     233472 // (g['smem_bytes'] + 1024)))
-    raise ValueError(
-        f'inhibited_mu_h: {tx}x{ty} taps need more shared memory than a block can hold')
+                    return _with_occupancy(g, 1)
+    for kind in kinds:
+        for limit in (_STREAM_BUDGET, _build.MAX_SMEM_BYTES):
+            best = None
+            for tile_x, tile_y in _tiles(tx, ty, kind, X, Y):
+                g = _streamed(tile_x, tile_y, tx, ty, kind, cross, limit)
+                if g is None:
+                    continue
+                n_x, n_y = -(-tx // g['seg_x']), -(-ty // g['seg_y'])
+                hw = tile_y + g['seg_y'] - 1
+                staged = n_x * n_y * (tile_x + g['seg_x'] - 1) * hw
+                stencil = (tile_x * (tile_y + ty - 1) * tx + tile_x * tile_y * ty if kind
+                           else tile_y * ty * tx)
+                cost = -(-X // tile_x) * -(-Y // tile_y) * (stencil + 4 * staged)
+                if best is None or cost < best[0]:
+                    best = (cost, g, n_x * n_y)
+            if best:
+                return _with_occupancy(best[1], best[2])
+    raise AssertionError(f'inhibited_mu_h: no layout for {tx}x{ty} taps')  # rows always fit
+
+
+def _with_occupancy(g: dict, n_segments: int) -> dict:
+    return dict(g, n_segments=n_segments,
+                blocks_per_sm=min(_BLOCKS_PER_SM, 233472 // (g['smem_bytes'] + 1024)))
 
 
 def _compiled_taps(tx: int, ty: int) -> int:
@@ -169,6 +298,29 @@ def _pad_taps(k: torch.Tensor, n: int) -> torch.Tensor:
     zero-padded correlation, with a wider halo of zero-weighted inputs."""
     z = (n - k.numel()) // 2
     return torch.nn.functional.pad(k, (z, z))
+
+
+def launch_geometry(shape: tuple, tap_counts: tuple, use_cross: bool = False,
+                    aligned: bool = True) -> dict:
+    """What a launch on tensors of ``shape`` (N, M, *T) with odd
+    ``tap_counts`` per shift axis runs: the plane ``X x Y`` and taps
+    ``tx x ty`` as the kernel sees them (1-D: one row, one x tap; a 2-D
+    stencil of at most 17 taps a side centred in its compiled tap count),
+    ``compiled`` (0: the runtime tap loop), ``vec`` (16-byte neg/pos copies
+    and H' stores; ``aligned``: all four tensors on 16 bytes) and the tile
+    of :func:`_geometry`."""
+    nd = len(shape) - 2
+    tx, ty = (1,) + tuple(tap_counts) if nd == 1 else tuple(tap_counts)
+    compiled = _compiled_taps(tx, ty) if nd == 2 else 0
+    if compiled:
+        tx = ty = compiled
+    X, Y = (1,) + tuple(shape[2:]) if nd == 1 else tuple(shape[2:])
+    vec = Y % 4 == 0 and aligned           # 16-byte neg/pos copies and H' stores
+    h_vec = vec and (ty // 2) % 4 == 0     # 16-byte H tile copies as well
+    g = _geometry(shape[1], tx, ty, nd == 2, X, Y, h_vec, use_cross)
+    if not g['two_d'] or g['h_bufs'] != 2:
+        compiled = 0  # the compiled taps come with 2-D tiles and two H buffers
+    return dict(g, X=X, Y=Y, tx=tx, ty=ty, compiled=compiled, vec=vec)
 
 
 def inhibited_mu_h(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
@@ -195,31 +347,23 @@ def inhibited_mu_h(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
                          f'got lengths {[k.numel() for k in ks]}')
     N, M = H.shape[:2]
     cross = cross_scale(cross_inhibition, M) if use_cross else 0.
-    if nd == 1:  # a 1-D problem is a 2-D one with one row and one x tap
-        ks = [torch.ones(1, dtype=torch.float32, device=H.device)] + ks
-    compiled = _compiled_taps(ks[0].numel(), ks[1].numel()) if nd == 2 else 0
-    if compiled:
-        ks = [_pad_taps(k, compiled) for k in ks]
-    X, Y = (1,) + tuple(H.shape[2:]) if nd == 1 else tuple(H.shape[2:])
-    tx, ty = ks[0].numel(), ks[1].numel()
     out = torch.empty_like(H)
     if out.numel() == 0:
         return out
     aligned = all(t.data_ptr() % 16 == 0 for t in (H, neg, pos, out))
-    vec = Y % 4 == 0 and aligned           # 16-byte neg/pos copies and H' stores
-    h_vec = vec and (ty // 2) % 4 == 0     # 16-byte H tile copies as well
-    g = _geometry(M, tx, ty, nd == 2, X, Y, h_vec, use_cross)
-    if not g['two_d'] or g['h_bufs'] != 2:
-        compiled = 0  # the compiled taps come with 2-D tiles and two H buffers
-    taps = torch.cat(ks)
+    g = launch_geometry(tuple(H.shape), tuple(k.numel() for k in ks), use_cross, aligned)
+    X, Y, tx, ty, compiled = g['X'], g['Y'], g['tx'], g['ty'], g['compiled']
+    if nd == 1:  # a 1-D problem is a 2-D one with one row and one x tap
+        ks = [torch.ones(1, dtype=torch.float32, device=H.device)] + ks
+    taps = torch.cat([_pad_taps(k, n) for k, n in zip(ks, (tx, ty))])
     lib = _build.library()
     with torch.cuda.device(H.device):
         err = lib.tnmf_inhibited_mu_h(
             H.data_ptr(), neg.data_ptr(), pos.data_ptr(), taps.data_ptr(), out.data_ptr(),
             N, M, X, Y, tx, ty, g['tile_x'], g['tile_y'], g['hp'], g['xtp'], g['npp'],
             float(inhibition), float(cross), float(reg), int(use_same), int(use_cross),
-            int(g['two_d']), int(vec), int(h_vec), g['h_bufs'], compiled, g['smem_bytes'],
-            _build.stream_of(H))
+            int(g['two_d']), int(g['vec']), int(g['h_vec']), g['h_bufs'], compiled, g['seg_x'],
+            g['seg_y'], g['smem_bytes'], _build.stream_of(H))
     _build.check_launch(err, 'inhibited_mu_h')
     inhibited_mu_h.launches += 1
     return out

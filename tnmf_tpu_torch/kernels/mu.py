@@ -1,16 +1,26 @@
-"""K1: the elementwise multiplicative-update ratio ``arr * neg / (pos + reg)``.
+"""K1: the elementwise multiplicative-update ratio ``arr * neg / (pos + reg)``,
+and the W epilogue of the MU step built on it.
 
-Replaces ``tnmf_tpu/experimental/pallas_mu.py::mu_ratio``; the CUDA kernel is
-``tnmf_tpu_torch/csrc/mu_ratio.cu``.  On the main path it forms the W
-epilogue ``W * neg / (pos + EPS)`` of :func:`tnmf_tpu_torch.engine._mu_W`.
+Replaces ``tnmf_tpu/experimental/pallas_mu.py::mu_ratio``; the CUDA kernels
+are in ``tnmf_tpu_torch/csrc/mu_ratio.cu``.
 
-Bound by device-memory bandwidth: three reads and one write per element and
-no reuse.  The kernel is a grid-stride loop with 16-byte vector accesses.
-At the flagship shape W has only 16 x 1 x 9 x 9 entries, so there the call
-costs its launch.
+:func:`mu_ratio` is the ratio alone, the direct counterpart of the Pallas
+kernel: bound by device-memory bandwidth (three reads and one write per
+element, no reuse), a grid-stride loop with 16-byte vector accesses.
+
+:func:`mu_w` is the W epilogue of :func:`tnmf_tpu_torch.engine._mu_W`: the
+ratio ``W * neg / (pos + EPS)`` and the atom normalisation of the JAX
+package's ``_normalize_W`` (each (atom, channel) row divided by its sum
+over the shift axes, an all-zero row kept zero) in one launch, one block
+per row.  At the flagship W has only 16 x 1 x 9 x 9 entries, so the launch
+is the cost, and the fusion makes one launch of the six the ratio and the
+normalisation took.  Its row sums run in another order than the plain
+version's, so the two agree to float32 rounding, not bit for bit.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -48,3 +58,44 @@ def mu_ratio(arr: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
 
 #: kernel launches since the last reset (a plain count, read by chip_smoke.py)
 mu_ratio.launches = 0
+
+
+def mu_w_plain(W: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor, reg: float,
+               n_shift_axes: int) -> torch.Tensor:
+    """The plain PyTorch version of :func:`mu_w`: the ratio, then each row
+    divided by its sum over the last ``n_shift_axes`` axes (a zero sum
+    divides by 1)."""
+    ratio = W * neg / (pos + reg)
+    s = ratio.sum(dim=tuple(range(-n_shift_axes, 0)), keepdim=True)
+    return ratio / torch.where(s == 0, torch.ones_like(s), s)
+
+
+def mu_w(W: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor, reg: float,
+         n_shift_axes: int) -> torch.Tensor:
+    """The W epilogue ``W * neg / (pos + reg)``, sum-normalised over the
+    last ``n_shift_axes`` axes: the plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors (float32, contiguous, same shape)."""
+    if W.device.type == 'cpu':
+        return mu_w_plain(W, neg, pos, reg, n_shift_axes)
+    _build.check_inputs('mu_w', W, neg, pos)
+    if neg.shape != W.shape or pos.shape != W.shape:
+        raise ValueError(f'mu_w: shapes {tuple(W.shape)}, '
+                         f'{tuple(neg.shape)}, {tuple(pos.shape)} differ')
+    if not 0 < n_shift_axes <= W.dim():
+        raise ValueError(f'mu_w: {n_shift_axes} shift axes of a {W.dim()}-D W')
+    out = torch.empty_like(W)
+    row_len = math.prod(W.shape[W.dim() - n_shift_axes:])
+    if out.numel() == 0:
+        return out
+    lib = _build.library()
+    with torch.cuda.device(W.device):
+        err = lib.tnmf_mu_w(W.data_ptr(), neg.data_ptr(), pos.data_ptr(), float(reg),
+                            out.data_ptr(), W.numel() // row_len, row_len,
+                            _build.stream_of(W))
+    _build.check_launch(err, 'mu_w')
+    mu_w.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (a plain count, read by chip_smoke.py)
+mu_w.launches = 0

@@ -15,12 +15,15 @@ atoms 9 x 9), and K4 ``inhibited_mu_h`` at the inhibited flagship's (64 x
 16 x 264 x 264, 17 x 17 taps, same + cross and same-atom only; CUDA
 events, two windows of 20 launches).  The variants run
 in the order given and then in reverse, so each one is timed twice around
-the others.  Each process also prints the registers of K3's tensor-core
-kernel, a digest of its library's K2 SASS, which shows whether a change
-meant to leave K2 alone did, and digests of the bits of K3's and K2's
-outputs at the flagship and of the golden 2-D and 1-D fits (W, H and the
-energy, seeded as tests/fixtures.py seeds them), which show whether two
-packages compute the same bits.
+the others.  Each process also times one MU iteration of the golden 2-D
+fit (five windows of 10 iterations) and prints the registers of K3's
+tensor-core kernel, a digest of its library's K2 SASS, which shows whether
+a change meant to leave K2 alone did, and digests of the bits of K3's, K2's
+and K4's outputs at the flagship, of the golden 2-D and 1-D fits (W, H and
+the energy, seeded as tests/fixtures.py seeds them) and of the H updates
+alone (W held) of the golden 1-D fit and of the inhibited settings of the
+``sparsity_inhibition`` sweep, which show whether two packages compute the
+same bits.
 
 The ablations compute wrong values: they are for finding what bounds a
 kernel, never for its results.
@@ -134,11 +137,16 @@ def time_package(root: Path) -> dict:
     sass = subprocess.run([str(Path(_build.nvcc()).with_name('cuobjdump')), '-sass', str(so)],
                           capture_output=True, text=True, check=True).stdout
     digest, inside = hashlib.sha256(), False
+    k4_digest, k4_inside = hashlib.sha256(), False
     for line in sass.splitlines():
         if 'Function :' in line:
             inside = 'grad_w' in line
-        elif inside and '/*' in line:
-            digest.update(line.split(';')[0].strip().encode())
+            k4_inside = 'inhibited_mu_h_kernel' in line and 'Li17E' in line
+        elif '/*' in line:
+            if inside:
+                digest.update(line.split(';')[0].strip().encode())
+            if k4_inside:
+                k4_digest.update(line.split(';')[0].strip().encode())
     regs, entry = None, ''
     for line in so.with_name(so.name + '.log').read_text().splitlines():
         if 'Compiling entry' in line:
@@ -161,6 +169,7 @@ def time_package(root: Path) -> dict:
                 grad_w_ms=ms(lambda: gw.grad_w(X2, H, plan)),
                 mu_h_mma_registers=regs,
                 grad_w_sass=digest.hexdigest()[:16],
+                inhibited_mu_h_17_sass=k4_digest.hexdigest()[:16],
                 bits=dict(mu_h=bits(mu_h.mu_h(Vp, Rx, W, H, 0.1)), mu_h_fma=bits(fma_out),
                           grad_w=bits(*gw.grad_w(X2, H, plan)),
                 inhibited_mu_h=bits(k4(True), k4(False)), **golden_bits()))
@@ -189,13 +198,42 @@ def golden_bits() -> dict:
     nmf = TransformInvariantNMF(n_atoms=10, atom_shape=(7, 7), device='cuda')
     nmf.fit(image, sparsity_H=0.1, n_iterations=10)
     out['golden_2d'] = (bits(nmf._W, nmf._H), repr(nmf._energy_function()))
-    nmf = TransformInvariantNMF(n_atoms=3, atom_shape=(20,), device='cuda')
-    np.random.seed(42)  # the pulse train reseeds; the fit draws after it
-    signal, _ = generate_pulse_train(pulse_length=20, n_pulses=5)
-    nmf.fit(signal[None], n_iterations=10, inhibition_strength=0.1)
-    out['golden_1d'] = (bits(nmf._W, nmf._H), repr(nmf._energy_function()))
+    out['golden_2d_ms'] = [golden_2d_ms(nmf) for _ in range(5)]
+    for key, update_W in (('golden_1d', True), ('golden_1d_H', False)):
+        nmf = TransformInvariantNMF(n_atoms=3, atom_shape=(20,), device='cuda')
+        np.random.seed(42)  # the pulse train reseeds; the fit draws after it
+        signal, _ = generate_pulse_train(pulse_length=20, n_pulses=5)
+        nmf.fit(signal[None], n_iterations=10, inhibition_strength=0.1, update_W=update_W)
+        out[key] = (bits(nmf._W, nmf._H), repr(nmf._energy_function()))
+    h = []
+    for fit in (dict(inhibition_strength=0.1), dict(inhibition_strength=1.0),
+                dict(cross_atom_inhibition_strength=0.5),
+                dict(sparsity_H=0.5, inhibition_strength=0.5, cross_atom_inhibition_strength=0.5)):
+        np.random.seed(42)
+        nmf = TransformInvariantNMF(n_atoms=5, atom_shape=(5, 5), device='cuda')
+        nmf.fit(image, n_iterations=10, update_W=False, **fit)
+        h.append(nmf._H)
+    out['sparsity_inhibition_H'] = bits(*h)
     torch.cuda.synchronize()
     return out
+
+
+def golden_2d_ms(nmf) -> float:
+    """Device time of one MU iteration of the fitted golden 2-D model (CUDA
+    events around 10 iterations, after one)."""
+    import torch
+    from tnmf_tpu_torch import engine
+
+    def run(n):
+        engine.fit_loop(nmf._Vp, nmf._W, nmf._H, n, 0.1, plan=nmf._plan)
+    run(1)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    run(10)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 10
 
 
 def main() -> int:
@@ -230,8 +268,10 @@ def main() -> int:
               f'{r["inhibited_mu_h_ms"][0]:.4f}/{r["inhibited_mu_h_ms"][1]:.4f} ms, same-atom '
               f'{r["inhibited_mu_h_same_ms"][0]:.4f}/{r["inhibited_mu_h_same_ms"][1]:.4f} ms  '
               f'K3 registers '
-              f'{r["mu_h_mma_registers"]}  K2 SASS {r["grad_w_sass"]}  bits {r["bits"]}',
-              flush=True)
+              f'{r["mu_h_mma_registers"]}  K2 SASS {r["grad_w_sass"]}  K4 17-tap SASS '
+              f'{r["inhibited_mu_h_17_sass"]}  golden 2-D ms/it '
+              + '/'.join(f'{t:.4f}' for t in r['bits'].pop('golden_2d_ms'))
+              + f'  bits {r["bits"]}', flush=True)
     print(json.dumps(results))
     return 0
 

@@ -67,7 +67,23 @@ failure (exit code != 0, no result line):
    nearest single PyTorch call, with each kernel's bound; K3's two routes in
    turns; K4 also same-atom only, and with its runtime tap loop against the
    compiled taps; ``mu_w`` against the ratio kernel and the normalisation it
-   replaces, in turns.
+   replaces, in turns;
+10. encoder: ``transform`` at the flagship with phase 5's fitted dictionary
+   on new data (seed + 1), 10 H-only iterations, ``h_init`` random and
+   correlate, plain (K3) and with ``inhibition_strength=0.1`` (K4), counts
+   reset before each call and read after it: K3 (or K4) launched once per
+   iteration, K2 and ``mu_w`` never; H within 1e-4 of the same call on the
+   plain versions; each call's wall time; ms per H-only iteration (CUDA
+   events); ``transform(batch_size=16)`` within 1e-5 of the whole batch;
+   then, on phase 5's data, the cost of ``record_energies`` and of ``tol``
+   (one block of 10) against the plain loop, in turns;
+11. fit loops on the golden 2-D fixture (float32): ``record_energies``
+   (the trace's last entry within 1e-4 of the golden energy, and without
+   sparsity a trace that never rises), a ``tol`` fit and an extrapolated
+   ``tol`` fit (iterations run and final energy printed), a callback that
+   aborts at iteration 4 against a fit of 5 iterations, and a
+   ``checkpoint_every`` run resumed from its checkpoint against the
+   uninterrupted fit (bits, or within 1e-6, printed).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths, error, times and bound; the last line is
@@ -81,6 +97,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1065,6 +1082,174 @@ def phase_times(nmf) -> dict:
     return times
 
 
+#: H-only iterations of each flagship ``transform`` call (phase 10)
+ENCODER_ITER = 10
+#: chunked against whole-batch ``transform`` (max|a - b| / max|b|)
+CHUNK_TOL = 1e-5
+
+
+def _h_only_ms(model, fit: dict, n=ENCODER_ITER) -> float:
+    """ms per H-only iteration (W frozen) on ``model``'s state, CUDA
+    events around ``engine.fit_loop(update_W=False)``."""
+    args, flags = _fit_kw(fit)
+
+    def run():
+        model._H = engine.fit_loop(model._Vp, model._W, model._H, n, *args, model._kernels,
+                                   plan=model._plan, update_W=False, **flags)[1]
+    return time_ms(run, reps=1) / n
+
+
+def phase_encoder(W: np.ndarray) -> tuple:
+    """``transform`` at the flagship against phase 5's dictionary, on the
+    kernels and on the plain versions; returns the launches and iterations
+    of each kernel and the encoder's times."""
+    f = FLAGSHIP
+    V = np.random.default_rng(SEED + 1).random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    paths = [('plain', 'mu_h', dict(sparsity_H=f['sparsity'])),
+             ('inhibited', 'inhibited_mu_h',
+              dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition']))]
+    total = dict.fromkeys(KERNELS, 0)
+    iterations = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for label, kernel, fit in paths:
+        for h_init in ('random', 'correlate'):
+            def encoder():
+                return TransformInvariantNMF(f['M'], f['A'], seed=SEED, h_init=h_init,
+                                             device=DEVICE).set_dictionary(W)
+            enc = encoder()
+            sync()
+            reset_counts()
+            t0 = time.perf_counter()
+            H = enc.transform(V, n_iterations=ENCODER_ITER, **fit)
+            wall = time.perf_counter() - t0
+            launches = counts()
+            with plain_versions():
+                want = encoder().transform(V, n_iterations=ENCODER_ITER, **fit)
+            rel = _rel(H, want)
+            log(f'encoder {label}, h_init={h_init}: transform of {ENCODER_ITER} iterations '
+                f'{wall:.3f} s wall (H to the host included); launches {launches}; H '
+                f'{rel:.3e} off the plain versions; energy {enc._energy_function()!r}')
+            expected = dict.fromkeys(KERNELS, 0)
+            expected[kernel] = ENCODER_ITER
+            if launches != expected:
+                raise AssertionError(f'encoder {label}: launches {launches}, not {expected}')
+            if not (np.isfinite(H).all() and rel <= TOL):
+                raise AssertionError(f'encoder {label}, h_init={h_init}: H off the plain '
+                                     f'versions by {rel:.3e} > {TOL}, or not finite')
+            total[kernel] += launches[kernel]
+            iterations[kernel] += ENCODER_ITER
+            out[f'{label}_{h_init}_wall_s'] = wall
+            if h_init == 'random':
+                out[f'{label}_ms'] = _h_only_ms(enc, fit)
+                log(f'encoder {label}: {out[label + "_ms"]:.4f} ms per H-only iteration')
+            if (label, h_init) == ('plain', 'random'):
+                chunked = encoder().transform(V, n_iterations=ENCODER_ITER, batch_size=16,
+                                              **fit)
+                rel = _rel(chunked, H)
+                log(f'encoder plain: transform(batch_size=16) {rel:.3e} off the whole batch')
+                if not rel <= CHUNK_TOL:
+                    raise AssertionError(f'transform(batch_size=16): {rel:.3e} off the '
+                                         f'whole batch > {CHUNK_TOL}')
+            del enc
+    out.update(_loop_costs(V))
+    return total, iterations, out
+
+
+def _loop_costs(V: np.ndarray) -> dict:
+    """Full MU iterations at the flagship: the plain loop against
+    ``record_energies`` (5 iterations) and against ``tol`` with one block of
+    10, in turns (plain, variant, variant, plain)."""
+    f = FLAGSHIP
+    nmf = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE)
+    nmf.fit(V, n_iterations=0)
+    common = (*_fit_kw(dict(sparsity_H=f['sparsity']))[0], nmf._kernels)
+
+    def loop(n):
+        return lambda: engine.fit_loop(nmf._Vp, nmf._W, nmf._H, n, *common, plan=nmf._plan)
+
+    def energies(n):
+        return lambda: engine.fit_loop_energies(nmf._Vp, nmf._Vd, nmf._W, nmf._H, *common,
+                                                n_iterations=n, plan=nmf._plan)
+
+    def tol(n):
+        return lambda: engine.fit_loop_tol(nmf._Vp, nmf._Vd, nmf._W, nmf._H, n, 0., *common,
+                                           check_every=10, plan=nmf._plan)
+    out = {}
+    for name, variant, n in (('record_energies', energies, 5), ('tol', tol, 10)):
+        p1, v1, v2, p2 = (time_ms(fn, reps=1) / n
+                          for fn in (loop(n), variant(n), variant(n), loop(n)))
+        out[f'{name}_ms'], out[f'{name}_plain_ms'] = (v1 + v2) / 2, (p1 + p2) / 2
+        log(f'flagship {name}: {v1:.4f}/{v2:.4f} ms per iteration against the plain loop '
+            f'{p1:.4f}/{p2:.4f}, in turns ({n} iterations a window)')
+    return out
+
+
+def _same_or_close(what: str, a, b, tol: float = 1e-6) -> str:
+    """``'bits'`` when the factors of ``a`` and ``b`` are identical, else
+    ``'within <rel>'`` when they agree within ``tol``; raises otherwise."""
+    if torch.equal(a._W, b._W) and torch.equal(a._H, b._H):
+        return 'bits'
+    rel = max(_rel(a.W, b.W), _rel(a.H, b.H))
+    if not rel <= tol:
+        raise AssertionError(f'{what}: W, H {rel:.3e} apart > {tol}')
+    return f'within {rel:.3e}'
+
+
+def phase_fit_loops():
+    """The fit loops and checkpoints on the golden 2-D fixture in float32 on the card."""
+    golden = json.loads((ROOT / 'tests' / 'golden_values.json').read_text())['2d']['valid']
+    image = _image_2d()
+
+    def model():
+        """The golden fit's model: it draws from the global NumPy stream,
+        seeded here, so fit it before making the next."""
+        np.random.seed(42)
+        return TransformInvariantNMF(n_atoms=10, atom_shape=(7, 7), device=DEVICE)
+    nmf = model()
+    nmf.fit(image, sparsity_H=0.1, n_iterations=10, record_energies=True)
+    log(f'  record_energies trace: {nmf.energies_.tolist()}')
+    if nmf.energies_.shape != (10,) or not np.isfinite(nmf.energies_).all():
+        raise AssertionError(f'record_energies: trace {nmf.energies_}')
+    _check_rel('record_energies last entry', float(nmf.energies_[-1]), golden)
+    nmf = model()
+    nmf.fit(image, n_iterations=10, record_energies=True)
+    rises = np.diff(nmf.energies_)
+    log(f'  record_energies without sparsity: largest step {rises.max():.4g}')
+    if not np.all(rises <= 0):
+        raise AssertionError(f'record_energies without sparsity rose: {nmf.energies_}')
+    for fit in (dict(), dict(extrapolate=True)):
+        nmf = model()
+        nmf.fit(image, sparsity_H=0.1, n_iterations=200, tol=1e-3, tol_check_every=10,
+                record_energies=True, **fit)
+        e = nmf._energy_function()
+        log(f'  tol=1e-3{" extrapolated" if fit else ""}: {nmf.n_iterations_} iterations, '
+            f'energy {e!r}')
+        if not (0 < nmf.n_iterations_ <= 200 and math.isfinite(e)
+                and nmf.energies_.shape == (nmf.n_iterations_,)):
+            raise AssertionError(f'tol fit {fit}: {nmf.n_iterations_} iterations, energy {e}')
+    k = 4
+    aborted = model()
+    aborted.fit(image, sparsity_H=0.1, n_iterations=10, progress_callback=lambda m, i: i < k)
+    plain = model()
+    plain.fit(image, sparsity_H=0.1, n_iterations=k + 1)
+    if aborted.n_iterations_ != k + 1:
+        raise AssertionError(f'callback abort at {k}: {aborted.n_iterations_} iterations')
+    log(f'  callback abort at iteration {k} against a fit of {k + 1}: '
+        + _same_or_close('callback abort', aborted, plain))
+    whole = model()
+    whole.fit(image, sparsity_H=0.1, n_iterations=8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / 'ckpt.npz')
+        interrupted = model()
+        interrupted.fit(image, sparsity_H=0.1, n_iterations=6, checkpoint_every=3,
+                        checkpoint_path=path)
+        resumed = TransformInvariantNMF.load(path, device=DEVICE)
+    done = resumed.last_checkpoint_iteration_
+    resumed.fit(image, sparsity_H=0.1, n_iterations=8 - done, keep_W=True, keep_H=True)
+    log(f'  checkpoint_every=3 at {done} iterations, resumed to 8, against 8 uninterrupted: '
+        + _same_or_close('checkpoint resume', resumed, whole))
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -1079,9 +1264,18 @@ def main() -> int:
     phase_float64()
     log('per-kernel times at the flagship shapes:')
     times = phase_times(nmf)
+    W = nmf.W
+    del nmf
+    log('encoder at the flagship (phase 5\'s dictionary, new data):')
+    enc_launches, enc_iterations, enc = phase_encoder(W)
+    log('encoder times: ' + json.dumps(enc))
+    log('fit loops on the golden 2-D fixture:')
+    phase_fit_loops()
     rows = [dict(name=name, route='cuda', source=k['source'], replaces=k['replaces'],
-                 launches=launches[name],
+                 launches=launches[name] + enc_launches[name],
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
+                 encoder_launches_per_iteration=(enc_launches[name]
+                                                 / max(enc_iterations[name], 1)),
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     print(json.dumps({'kernels': rows}))

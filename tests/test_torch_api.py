@@ -7,6 +7,7 @@ gates decide.  The constructor: the JAX package's positional order, with
 ``device`` keyword-only."""
 
 import inspect
+import logging
 
 import numpy as np
 import pytest
@@ -92,13 +93,19 @@ def test_constructor_dtype(value, dtype):
     assert nmf.dtype == dtype
 
 
-@pytest.mark.parametrize('args', [(None, 'auto', object()), (None, 'auto', None, 1),
-                                  (None, 'auto', None, 0, 'valid', 'float32', object())])
-def test_unported_positional_arguments_raise(args):
-    """``logger``, ``verbose`` and ``mesh`` are real parameters that raise
-    unless they hold the default."""
+@pytest.mark.parametrize('args,kwargs', [
+    ((None, 'auto', None, 0, 'valid', 'float32', None, 0), dict(fft_policy='pow2')),
+    ((None, 'auto', None, 2), dict(w_init='patches')),
+    ((None, 'auto', None, 0, 'valid', 'float32', object()), {}),
+])
+def test_unported_positional_arguments_raise(args, kwargs):
+    """``mesh`` is a real parameter that raises unless it holds the default,
+    as do the later keywords whose code is not ported (``fft_policy``,
+    ``w_init``); ``logger`` and ``verbose`` are ported."""
     with pytest.raises(NotImplementedError, match='ROADMAP.md queue 1, item'):
-        tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), *args, device='cpu')
-    # at their defaults they are accepted
+        tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), *args, device='cpu', **kwargs)
+    # at their defaults they are accepted, and so are a logger and a verbosity
     tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), None, 'auto', None, 0, 'valid', 'float32',
                                          None, 0, device='cpu')
+    tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), None, 'auto', logging.getLogger('t'), 3,
+                                         device='cpu')

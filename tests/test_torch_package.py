@@ -31,7 +31,8 @@ def test_import_leaves_jax_out():
     code = ('import sys, tnmf_tpu_torch, tnmf_tpu_torch.engine, tnmf_tpu_torch.kernels.mu, '
             'tnmf_tpu_torch.kernels.gw, tnmf_tpu_torch.kernels.mu_h, '
             'tnmf_tpu_torch.kernels.inhibit, tnmf_tpu_torch.ops.inhibition, '
-            'tnmf_tpu_torch.utils.data_loading, tnmf_tpu_torch.utils.signals\n'
+            'tnmf_tpu_torch.utils.data_loading, tnmf_tpu_torch.utils.signals, '
+            'tnmf_tpu_torch.utils.atoms\n'
             'bad = sorted(m for m in sys.modules\n'
             '             if m.split(".")[0] in ("jax", "jaxlib", "tnmf_tpu"))\n'
             'print(bad)')
@@ -146,10 +147,10 @@ def test_auto_large_atoms_and_plain_nmf_not_ported():
 
 
 @pytest.mark.parametrize('kwargs', [
-    dict(revive_every=5), dict(extrapolate=True),
+    dict(sparsity_W=0.1), dict(l2_W=0.1),
     dict(l2_H=0.1), dict(ortho_W=0.1), dict(mask=np.ones((1, 1, 8, 8))),
-    dict(tol=1e-3), dict(record_energies=True), dict(solver='hals'),
-    dict(progress_callback=lambda m, i: True), dict(keep_H=True),
+    dict(hals_inner=4), dict(batch_size=1), dict(solver='hals'),
+    dict(subsample_size=4), dict(max_subsamples=2),
 ])
 def test_unported_fit_arguments_raise(kwargs):
     nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu')

@@ -25,6 +25,14 @@ float32 and 1-2 shift axes).  ``_mu_H`` and ``_mu_W`` ask
 port's reference precision, not its throughput path), runs the plain
 versions (cuDNN, TF32 off) on every device.  Every other problem goes to
 the kernels, whatever its shapes.
+
+The fit-loop variants (:func:`fit_loop_energies`, :func:`fit_loop_tol`,
+:func:`fit_loop_extrapolated`), the single steps (:func:`update_H_step`,
+:func:`update_W_step`) and the encoder's start (:func:`correlate_init_H`)
+reach the kernels through :func:`_mu_H` and :func:`_mu_W`, which look the
+wrappers up by this module's names at every call.  The JAX package runs its
+adaptive loops as one on-device ``lax.while_loop``; here their stopping
+tests run on the host, one synchronisation per block.
 """
 
 from __future__ import annotations
@@ -190,3 +198,178 @@ def fit_loop(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                            plan=plan, update_H=update_H, update_W=update_W,
                            use_inhibition=use_inhibition, use_cross=use_cross)
     return W, H
+
+
+def energy_trace(V: torch.Tensor, n: int) -> torch.Tensor:
+    """An energy trace of ``n`` entries, NaN until written, on ``V``'s
+    device in the accumulation dtype of :func:`energy`."""
+    acc = torch.promote_types(V.dtype, torch.float32)
+    return torch.full((n,), math.nan, dtype=acc, device=V.device)
+
+
+def fit_loop_energies(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+                      sparsity: float, inhibition: float = 0., cross_inhibition: float = 0.,
+                      kernels: Sequence = (), *, n_iterations: int, plan: ConvPlan,
+                      **step) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``n_iterations`` MU iterations that also record the energy after
+    each one (one more reconstruction per iteration; reference
+    ``TransformInvariantNMF.py:346``).  The trace stays on the device: the
+    caller synchronises once when it reads it.  ``step`` holds
+    :func:`update_step`'s keywords.  Returns ``(W, H, energies)``."""
+    energies = energy_trace(V, int(n_iterations))
+    for i in range(int(n_iterations)):
+        W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
+                           plan=plan, **step)
+        energies[i] = energy(V, W, H, plan=plan)
+    return W, H, energies
+
+
+def _block_change(e_prev: torch.Tensor, e: torch.Tensor,
+                  scale: torch.Tensor) -> Tuple[float, float]:
+    """``(e_prev - e, (e_prev - e) / scale)`` in the accumulation dtype,
+    read to the host in one synchronisation."""
+    d = e_prev - e
+    diff, rel = torch.stack([d, d / scale]).tolist()
+    return diff, rel
+
+
+def _tol_start(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor, tol: float,
+               plan: ConvPlan) -> Tuple[torch.Tensor, torch.Tensor, float]:
+    """The initial energy, the scale ``max(e0, tiny)`` of the relative
+    improvement, and ``tol`` rounded to the accumulation dtype (the JAX
+    package compares in that dtype)."""
+    e0 = energy(V, W, H, plan=plan)
+    scale = torch.clamp(e0, min=torch.finfo(e0.dtype).tiny)
+    return e0, scale, float(torch.tensor(tol, dtype=e0.dtype))
+
+
+def fit_loop_tol(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+                 n_max: int, tol: float, sparsity: float, inhibition: float = 0.,
+                 cross_inhibition: float = 0., kernels: Sequence = (), *, check_every: int,
+                 n_buf: int = 0, plan: ConvPlan, **step):
+    """Adaptive fit (port of the JAX package's ``fit_loop_tol``): MU
+    iterations in blocks of ``min(check_every, n_max - i)``; after each
+    block the relative improvement ``(e_prev - e) / max(e0, tiny)`` is
+    read, and the fit stops at ``n_max`` iterations or once it drops below
+    ``tol``.
+
+    The JAX package runs the whole loop as one on-device ``while_loop``.
+    Here the stopping test runs on the host: one synchronisation per block,
+    between blocks; the iterates, the count and the trace are the same.
+
+    ``n_buf > 0`` (at least ``n_max``) also records the energy after every
+    iteration into a trace of ``n_buf`` entries, NaN past the iterations
+    run; a block's last entry then serves as its energy, with no second
+    reconstruction.  ``step`` holds :func:`update_step`'s keywords.
+
+    Returns ``(W, H, n_done, e_final, trace_or_None)``.
+    """
+    n_max, check_every = int(n_max), int(check_every)
+    trace = energy_trace(V, n_buf) if n_buf > 0 else None
+    e, scale, tol = _tol_start(V, W, H, tol, plan)
+    i, rel = 0, math.inf
+    while i < n_max and rel >= tol:
+        k = min(check_every, n_max - i)
+        for j in range(k):
+            W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
+                               plan=plan, **step)
+            if trace is not None:
+                trace[i + j] = energy(V, W, H, plan=plan)
+        e_prev, e = e, (trace[i + k - 1] if trace is not None else energy(V, W, H, plan=plan))
+        rel = _block_change(e_prev, e, scale)[1]
+        i += k
+    return W, H, i, e, trace
+
+
+# extrapolation safeguard of the JAX package (Ang & Gillis 2019-style): the
+# momentum weight grows while the energy falls, halves on a rise
+_XTR_GROW, _XTR_SHRINK, _XTR_MAX = 1.05, 0.5, 0.95
+
+
+def _extrapolate(Xn: torch.Tensor, Xold: torch.Tensor, bk: torch.Tensor) -> torch.Tensor:
+    """Multiplicative extrapolation ``Xn * clip((Xn+EPS)/(Xold+EPS), 1/8, 8)**bk``:
+    positive, with zeros kept fixed as under plain MU."""
+    r = torch.clamp((Xn + EPS) / (Xold + EPS), 0.125, 8.0)
+    return (Xn * r ** bk.to(Xn.dtype)).to(Xn.dtype)
+
+
+def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
+                          H: torch.Tensor, n_max: int, tol: float, beta0: float,
+                          sparsity: float, inhibition: float = 0.,
+                          cross_inhibition: float = 0., kernels: Sequence = (), *,
+                          check_every: int, n_buf: int = 0, plan: ConvPlan,
+                          update_H: bool = True, update_W: bool = True,
+                          use_inhibition: bool = False, use_cross: bool = False):
+    """Extrapolated MU with restarts (port of the JAX package's
+    ``fit_loop_extrapolated``): each update is taken at the extrapolated
+    point ``Y = X_new * clip(X_new / X_old)**beta_k`` (W's re-normalised).
+    After each block of ``check_every`` iterations the energy of the
+    accepted iterates is read: on a rise ``Y`` restarts from them and
+    ``beta_k`` halves; else it grows by 5 % up to 0.95.  Stopping as in
+    :func:`fit_loop_tol` (a restarted block never stops the fit), with the
+    same host-side test, one synchronisation per block; ``n_buf > 0``
+    records the accepted iterates' energies.
+
+    Returns ``(W, H, n_done, e_final, trace_or_None)``.
+    """
+    n_max, check_every = int(n_max), int(check_every)
+    trace = energy_trace(V, n_buf) if n_buf > 0 else None
+    e, scale, tol = _tol_start(V, W, H, tol, plan)
+    bk = torch.tensor(beta0, dtype=e.dtype, device=e.device)
+    Wy, Hy = W, H
+    i, rel = 0, math.inf
+    while i < n_max and rel >= tol:
+        k = min(check_every, n_max - i)
+        for j in range(k):
+            if update_H:
+                Hn = _mu_H(Vp, Wy, Hy, sparsity, inhibition, cross_inhibition, kernels,
+                           plan=plan, use_inhibition=use_inhibition, use_cross=use_cross)
+                Hy, H = _extrapolate(Hn, H, bk), Hn
+            if update_W:
+                Wn = _mu_W(Vp, Wy, Hy, plan=plan)
+                Wy, W = _normalize_W(_extrapolate(Wn, W, bk), plan.ndim).to(Wn.dtype), Wn
+            if trace is not None:
+                trace[i + j] = energy(V, W, H, plan=plan)
+        e_prev, e = e, (trace[i + k - 1] if trace is not None else energy(V, W, H, plan=plan))
+        diff, rel = _block_change(e_prev, e, scale)
+        if diff < 0:  # the energy rose: drop the momentum
+            bk = bk * _XTR_SHRINK
+            Wy, Hy, rel = W, H, math.inf
+        else:
+            bk = torch.clamp(bk * _XTR_GROW, max=_XTR_MAX)
+        i += k
+    return W, H, i, e, trace
+
+
+def update_H_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
+                  inhibition: float = 0., cross_inhibition: float = 0., kernels: Sequence = (),
+                  *, plan: ConvPlan, use_inhibition: bool = False,
+                  use_cross: bool = False) -> torch.Tensor:
+    """One H-only MU update (W frozen)."""
+    return _mu_H(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
+                 use_inhibition=use_inhibition, use_cross=use_cross)
+
+
+def update_W_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
+                  plan: ConvPlan) -> torch.Tensor:
+    """One W-only MU update (H frozen), atoms sum-normalised."""
+    return _mu_W(Vp, W, H, plan=plan)
+
+
+def correlate_init_H(Vp: torch.Tensor, Vd: torch.Tensor, W: torch.Tensor, *,
+                     plan: ConvPlan) -> torch.Tensor:
+    """Matched-filter activations ``H0 = c * corr(Vp, W)`` with the
+    least-squares scale ``c = <V, R0> / <R0, R0>``, ``R0 = reconstruct(W,
+    corr(Vp, W))``, accumulated in ``promote_types(V.dtype, float32)``; a
+    floor of 1 % of the mean keeps every entry positive (zero is absorbing
+    under MU).  Deterministic and on the device: no host draw of H.  The
+    JAX package takes the correlation as the ``neg`` half of
+    ``grad_H_pair(Vp, 0, W)``; here it is that half alone, one cuDNN
+    correlation."""
+    neg = conv_ops.corr_H(Vp, W)
+    R0 = reconstruct(W, neg.to(W.dtype), plan=plan)
+    acc = torch.promote_types(Vd.dtype, torch.float32)
+    num = torch.sum(Vd.to(acc) * R0.to(acc))
+    den = torch.clamp(torch.sum(R0.to(acc) ** 2), min=torch.finfo(acc).tiny)
+    H0 = (num / den).to(neg.dtype) * neg
+    return torch.maximum(H0, 0.01 * torch.mean(H0)).to(W.dtype)

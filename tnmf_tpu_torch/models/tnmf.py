@@ -1,22 +1,30 @@
 """Transform-Invariant Non-Negative Matrix Factorization in PyTorch (batch slice).
 
 Port of the full-batch multiplicative-update fit of
-:class:`tnmf_tpu.models.tnmf.TransformInvariantNMF`: the constructor, ``fit``
-/ ``fit_batch`` with the L1 and lateral-inhibition regularizers, the
-host-NumPy initialization (reference RNG stream, so seeded fits match the
-JAX package), the ``W`` / ``H`` / ``V`` / ``R``
-accessors, ``R_partial``, the energy, and loading the JAX package's ``.npz``
-checkpoints.  Arguments of the JAX API that select parts not ported yet
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+:class:`tnmf_tpu.models.tnmf.TransformInvariantNMF`: the constructor (with
+``logger`` / ``verbose`` and ``h_init``), ``fit`` / ``fit_batch`` with the
+L1 and lateral-inhibition regularizers and every MU branch of the JAX
+dispatch (progress callbacks, chunked callbacks, ``record_energies``,
+``tol``, ``extrapolate``, ``keep_H``, periodic checkpoints, dead-atom
+revival), the host-NumPy initialization (reference RNG stream, so seeded
+fits match the JAX package), the encoder API (``set_dictionary``,
+``transform``, ``fit_transform``, ``inverse_transform``), the ``W`` / ``H``
+/ ``V`` / ``R`` accessors, ``R_partial``, the energy, and ``.npz``
+checkpoints both packages read (``save`` / ``load``).  Arguments of the JAX
+API that select parts not ported yet raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 
-The constructor takes the JAX package's positional order.  The model lives
-on an explicit ``device`` (keyword-only, default ``'cuda'``, no automatic
-choice) in an explicit ``dtype`` (default float32).
+The constructor takes the JAX package's positional order, and ``fit_batch``
+the JAX ``fit_batch``'s.  The model lives on an explicit ``device``
+(keyword-only, default ``'cuda'``, no automatic choice) in an explicit
+``dtype`` (default float32).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import logging
+import os
+from typing import Callable, Iterable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,8 +51,6 @@ _ITEM = 'ROADMAP.md queue 1, item {}'
 
 #: constructor arguments of the JAX API not ported yet: (default, ROADMAP item)
 _UNPORTED_INIT = {
-    'logger': (None, _ITEM.format(4)),
-    'verbose': (0, _ITEM.format(4)),
     'mesh': (None, _ITEM.format(14)),
     'fft_policy': ('5-smooth', _ITEM.format(8)),
     'use_pallas': (None, 'ROADMAP.md queue 2 (kernel/plain switch)'),
@@ -54,7 +60,6 @@ _UNPORTED_INIT = {
     'beta_loss': (2.0, _ITEM.format(10)),
     'transform_type': ('shift', _ITEM.format(12)),
     'w_init': ('random', _ITEM.format(12)),
-    'h_init': ('random', _ITEM.format(12)),
 }
 
 #: fit_batch arguments of the JAX API not ported yet: (default, ROADMAP item)
@@ -62,17 +67,6 @@ _UNPORTED_FIT = {
     'l2_H': (0., _ITEM.format(10)),
     'ortho_W': (0., _ITEM.format(10)),
     'mask': (None, _ITEM.format(10)),
-    'progress_callback': (None, _ITEM.format(4)),
-    'callback_interval': (1, _ITEM.format(4)),
-    'record_energies': (False, _ITEM.format(9)),
-    'tol': (None, _ITEM.format(9)),
-    'tol_check_every': (10, _ITEM.format(9)),
-    'extrapolate': (False, _ITEM.format(9)),
-    'keep_H': (False, _ITEM.format(12)),
-    'checkpoint_every': (None, _ITEM.format(12)),
-    'checkpoint_path': (None, _ITEM.format(12)),
-    'revive_every': (None, _ITEM.format(12)),
-    'revive_threshold': (1e-4, _ITEM.format(12)),
     'solver': ('mu', _ITEM.format(13)),
     'hals_inner': ('auto', _ITEM.format(13)),
     'sparsity_W': (0., _ITEM.format(13)),
@@ -104,6 +98,35 @@ def _reject_unported(where: str, kwargs: dict, table: dict) -> None:
             raise NotImplementedError(
                 f'{where}({name}={value!r}) is not ported to tnmf_tpu_torch yet; '
                 f'see {item}')
+
+
+def _trace_buf(n_iterations: int) -> int:
+    """Trace length of the ``tol`` / ``extrapolate`` loops with
+    ``record_energies``: the JAX package's (the next power of two, at least
+    64), so both packages' untrimmed traces have the same length.  Entries
+    past the iterations run stay NaN and are trimmed off ``energies_``."""
+    return max(64, 1 << max(int(n_iterations) - 1, 0).bit_length())
+
+
+def _validate_tol(tol, tol_check_every):
+    """``ValueError`` for a negative ``tol`` or a block shorter than one
+    iteration."""
+    if not tol >= 0:
+        raise ValueError(f'tol must be >= 0, got {tol!r}')
+    if not int(tol_check_every) >= 1:
+        raise ValueError(
+            f'tol_check_every must be >= 1, got {tol_check_every!r}')
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _sequential_slices(length: int, batch_size: int) -> Iterable[slice]:
+    """Contiguous sample slices of at most ``batch_size``."""
+    for start in range(0, length, batch_size):
+        yield slice(start, min(length, start + batch_size))
 
 
 def _torch_dtype(name) -> torch.dtype:
@@ -145,9 +168,11 @@ class TransformInvariantNMF:
         A backend name of the JAX package.  Only the direct-convolution
         strategy is ported: names (or an ``'auto'`` choice) that resolve to
         another strategy raise ``NotImplementedError``.
-    logger, verbose
-        Not ported yet: any value but the default (``None``, ``0``) raises
-        ``NotImplementedError``.
+    logger : logging.Logger, optional
+        Defaults to ``logging.getLogger('TransformInvariantNMF')``.
+    verbose : {0, 1, 2, 3}, default 0
+        The logger's level: 0 errors, 1 warnings, 2 info (the per-iteration
+        energy lines; forces the per-iteration fit path), 3 debug.
     reconstruction_mode : {'valid', 'full', 'circular', 'reflect'}, default 'valid'
     dtype : torch.dtype or {'float32', 'float64'}, default torch.float32
         Compute dtype.  On CUDA float32 runs the hand-written kernels;
@@ -156,28 +181,32 @@ class TransformInvariantNMF:
     mesh
         Not ported yet: any value but ``None`` raises ``NotImplementedError``.
     seed : int, optional
-        If given, W/H initialization draws from a private
-        ``np.random.default_rng(seed)``; otherwise from the global NumPy
-        stream in the reference's order (H, then W).
+        If given, W/H initialization (and dead-atom revival) draws from a
+        private ``np.random.default_rng(seed)``; otherwise from the global
+        NumPy stream in the reference's order (H, then W).
+    h_init : {'random', 'correlate'}, default 'random'
+        Keyword.  ``'correlate'`` starts H at the matched filter
+        :func:`tnmf_tpu_torch.engine.correlate_init_H`, computed on the
+        device (no host draw, no RNG consumed for H); ``keep_H=True`` still
+        wins.
     device : str or torch.device, default 'cuda'
         Keyword-only.  Where the factors live and the updates run.  On CUDA
         the hot operators are the hand-written kernels; on the CPU their
         plain versions.
 
-    The JAX package's later parameters (``fft_policy`` … ``h_init``) are
-    taken by keyword; those whose code is not ported raise
+    The JAX package's other later parameters (``fft_policy`` …
+    ``w_init``) are taken by keyword; those whose code is not ported raise
     ``NotImplementedError`` unless they hold their default.
     """
 
     def __init__(self, n_atoms: int, atom_shape: Tuple[int, ...],
                  inhibition_range: Union[int, Tuple[int, ...], None] = None,
-                 backend: str = 'auto', logger=None, verbose: int = 0,
-                 reconstruction_mode: str = 'valid',
+                 backend: str = 'auto', logger: Optional[logging.Logger] = None,
+                 verbose: int = 0, reconstruction_mode: str = 'valid',
                  dtype: Union[torch.dtype, str] = torch.float32, mesh=None,
-                 seed: Optional[int] = None, *, device='cuda', **unported):
-        _reject_unported('TransformInvariantNMF',
-                         dict(logger=logger, verbose=verbose, mesh=mesh, **unported),
-                         _UNPORTED_INIT)
+                 seed: Optional[int] = None, *, h_init: str = 'random', device='cuda',
+                 **unported):
+        _reject_unported('TransformInvariantNMF', dict(mesh=mesh, **unported), _UNPORTED_INIT)
         self.n_atoms = int(n_atoms)
         self.atom_shape = tuple(int(a) for a in atom_shape)
         self._inhibition_range = resolve_inhibition_range(inhibition_range, self.atom_shape)
@@ -190,9 +219,20 @@ class TransformInvariantNMF:
             raise KeyError(
                 f'unknown backend {backend!r}; choose one of {sorted(_BACKEND_STRATEGY)}') from e
         self._reconstruction_mode = reconstruction_mode
+        if h_init not in ('random', 'correlate'):
+            raise ValueError(
+                f"h_init must be 'random' or 'correlate', got {h_init!r}")
+        self._h_init = h_init
         self.device = torch.device(device)
         self.dtype = _torch_dtype(dtype)
         self._rng = np.random.default_rng(seed) if seed is not None else np.random
+
+        self._logger = (logger if logger is not None
+                        else logging.getLogger(self.__class__.__name__))
+        self._logger.setLevel(
+            [logging.ERROR, logging.WARNING, logging.INFO, logging.DEBUG][verbose])
+        self._logger.debug('Using %s backend (strategy request: %s).', backend,
+                           self._strategy_request)
 
         self._plan: Optional[ConvPlan] = None
         self._W: Optional[torch.Tensor] = None
@@ -200,11 +240,28 @@ class TransformInvariantNMF:
         self._V: Optional[np.ndarray] = None   # host copy for the V property
         self._Vd: Optional[torch.Tensor] = None
         self._Vp: Optional[torch.Tensor] = None  # prepared (mode-extended) data
+        # iteration stamp of the checkpoint this model was loaded from
+        self.last_checkpoint_iteration_: Optional[int] = None
+        # iterations the last fit_batch ran (fewer than asked when tol or a
+        # callback stopped it)
         self.n_iterations_: Optional[int] = None
 
     # ------------------------------------------------------------------
     # accessors (reference TransformInvariantNMF.py:188-215)
     # ------------------------------------------------------------------
+
+    @property
+    def n_iter_(self) -> Optional[int]:
+        """sklearn-style alias of ``n_iterations_``."""
+        return self.n_iterations_
+
+    @property
+    def reconstruction_err_(self) -> float:
+        """sklearn ``NMF``'s reconstruction error of the last fit,
+        ``sqrt(2 * energy)`` = ``||V - R||_F`` (one reconstruction)."""
+        if self._plan is None:
+            raise RuntimeError('reconstruction_err_ requires a fitted model')
+        return float(np.sqrt(max(2.0 * self._energy_function(), 0.0)))
 
     @property
     def W(self) -> np.ndarray:
@@ -241,7 +298,10 @@ class TransformInvariantNMF:
             strategy = engine.choose_strategy(self._plan)
         engine.require_ported(engine.resolve_strategy(strategy, self._plan))
 
-    def _initialize_matrices(self, V: np.ndarray, keep_W: bool):
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    def _initialize_matrices(self, V: np.ndarray, keep_W: bool, keep_H: bool = False):
         self._V = V
         self._plan = ConvPlan.create(self._reconstruction_mode, V.shape[2:], self.atom_shape)
         self._check_strategy()
@@ -254,24 +314,40 @@ class TransformInvariantNMF:
                     f'keep_W: existing dictionary of shape {tuple(self._W.shape)} '
                     f'does not match the new data (expected {expected}); '
                     f'the channel count must stay constant across fits')
+        keep_h = keep_H and self._H is not None
+        if keep_h:
+            expected_h = (V.shape[0], self.n_atoms) + self._plan.transform_shape
+            if tuple(self._H.shape) != expected_h:
+                raise ValueError(
+                    f'keep_H: existing activations of shape {tuple(self._H.shape)} '
+                    f'do not match the new data (expected {expected_h}); '
+                    f'exact resume requires the same batch')
         # host-side init replicating the reference RNG stream exactly (H then
-        # W, 1 - U[0,1); _Backend.py:83-98) so seeded runs match
-        H = np.asarray(
-            1 - self._rng.random((V.shape[0], self.n_atoms) + self._plan.transform_shape),
-            dtype=V.dtype)
+        # W, 1 - U[0,1); _Backend.py:83-98) so seeded runs match; keep_H
+        # skips the H draw, and h_init='correlate' computes H on the device
+        # below
+        if keep_h:
+            H = self._H
+        elif self._h_init == 'correlate':
+            H = None
+        else:
+            H = np.asarray(
+                1 - self._rng.random((V.shape[0], self.n_atoms) + self._plan.transform_shape),
+                dtype=V.dtype)
         if keep:
-            W = self._W.cpu().numpy()
+            W = self._W
         else:
             W = np.asarray(
                 1 - self._rng.random((self.n_atoms, V.shape[1]) + self.atom_shape),
                 dtype=V.dtype)
             W /= W.sum(axis=self._axes_W_normalization, keepdims=True)
-        self._W, self._H = from_numpy(W, H, device=self.device, dtype=self.dtype)
-        self._Vd = torch.as_tensor(V, dtype=self.dtype, device=self.device)
+        self._W = self._tensor(W)
+        self._Vd = self._tensor(V)
         self._Vp = engine.prepare_data(self._Vd, plan=self._plan)
+        self._H = (engine.correlate_init_H(self._Vp, self._Vd, self._W, plan=self._plan)
+                   if H is None else self._tensor(H))
         # built in float64, cast to the compute dtype
-        self._kernels = tuple(torch.as_tensor(k, dtype=self.dtype, device=self.device)
-                              for k in self._inhibition_kernels_1D)
+        self._kernels = tuple(self._tensor(k) for k in self._inhibition_kernels_1D)
 
     # ------------------------------------------------------------------
     # batch fitting (reference fit_batch, TransformInvariantNMF.py:282-348)
@@ -280,20 +356,60 @@ class TransformInvariantNMF:
     def fit_batch(self, V, n_iterations: int = 1000, update_H: bool = True,
                   update_W: bool = True, keep_W: bool = False,
                   sparsity_H: float = 0., inhibition_strength: float = 0.,
-                  cross_atom_inhibition_strength: float = 0., **unported):
+                  cross_atom_inhibition_strength: float = 0., l2_H: float = 0.,
+                  ortho_W: float = 0.,
+                  progress_callback: Optional[Callable[['TransformInvariantNMF', int],
+                                                       bool]] = None,
+                  callback_interval: int = 1, record_energies: bool = False,
+                  keep_H: bool = False, checkpoint_every: Optional[int] = None,
+                  checkpoint_path: Optional[str] = None, tol: Optional[float] = None,
+                  tol_check_every: int = 10, mask=None, revive_every: Optional[int] = None,
+                  revive_threshold: float = 1e-4, extrapolate=False, solver: str = 'mu',
+                  hals_inner='auto', sparsity_W: float = 0., l2_W: float = 0.):
         """Full-batch multiplicative-update factorization of ``V``
-        (``(n_samples, n_channels, *sample_shape)``, nonnegative):
+        (``(n_samples, n_channels, *sample_shape)``, nonnegative), with the
+        JAX package's arguments in its order.
+
         ``n_iterations`` H+W updates; ``update_H`` / ``update_W`` freeze a
-        factor; ``keep_W`` warm-starts from the current dictionary;
+        factor; ``keep_W`` / ``keep_H`` continue from the current
+        dictionary / activations (``keep_H`` needs the same batch shape);
         ``sparsity_H`` is the L1 weight on the activations;
         ``inhibition_strength`` and ``cross_atom_inhibition_strength``
-        weight the same-atom and cross-atom lateral inhibition."""
-        _reject_unported('fit_batch', unported, _UNPORTED_FIT)
+        weight the same-atom and cross-atom lateral inhibition.
+
+        * ``progress_callback(model, iteration) -> bool`` runs after every
+          iteration and aborts the fit when it returns a false value; with
+          ``callback_interval=k > 1`` it runs after iterations k-1, 2k-1, …
+          only, with plain loops in between.
+        * ``record_energies`` stores the energy after every iteration in
+          ``energies_`` (one more reconstruction per iteration).
+        * ``tol`` stops once the relative energy improvement over a block of
+          ``tol_check_every`` iterations, ``(e_prev - e) / e_init``, drops
+          below it (:func:`tnmf_tpu_torch.engine.fit_loop_tol`).
+        * ``extrapolate`` (True, or an initial momentum weight in (0, 1);
+          True means 0.5) runs the extrapolated MU with restarts
+          (:func:`tnmf_tpu_torch.engine.fit_loop_extrapolated`), with or
+          without ``tol``.
+        * ``checkpoint_every=k`` with ``checkpoint_path`` saves W, H and the
+          iteration count atomically every k iterations; exact resume is
+          ``m = load(path); m.fit_batch(V, n_iterations=total -
+          m.last_checkpoint_iteration_, keep_W=True, keep_H=True)``.
+        * ``revive_every=k`` re-draws, every k iterations, the atoms whose
+          activation mass fell below ``revive_threshold`` times the mean
+          (:func:`tnmf_tpu_torch.utils.atoms.revive_dead_atoms`).
+
+        ``n_iterations_`` holds the count actually run.  ``l2_H``,
+        ``ortho_W``, ``mask``, ``solver``, ``hals_inner``, ``sparsity_W``
+        and ``l2_W`` are not ported yet and raise ``NotImplementedError``
+        unless they hold their default.
+        """
+        _reject_unported('fit_batch', dict(l2_H=l2_H, ortho_W=ortho_W, mask=mask,
+                                           solver=solver, hals_inner=hals_inner,
+                                           sparsity_W=sparsity_W, l2_W=l2_W), _UNPORTED_FIT)
         V = np.asarray(V)
         if not np.all(V >= 0):
             raise ValueError('The input data V must be non-negative.')
-        if not (update_H or update_W):
-            raise ValueError('at least one of update_H / update_W must be True')
+        _require(update_H or update_W, 'at least one of update_H / update_W must be True')
         for name, value in dict(
                 sparsity_H=sparsity_H, inhibition_strength=inhibition_strength,
                 cross_atom_inhibition_strength=cross_atom_inhibition_strength).items():
@@ -301,14 +417,150 @@ class TransformInvariantNMF:
                 raise ValueError(f'{name} must be >= 0, got {value!r}')
         if cross_atom_inhibition_strength > 0:
             cross_scale(cross_atom_inhibition_strength, self.n_atoms)  # raises for one atom
-        self._initialize_matrices(V, keep_W)
-        self._W, self._H = engine.fit_loop(
-            self._Vp, self._W, self._H, int(n_iterations), float(sparsity_H),
-            float(inhibition_strength), float(cross_atom_inhibition_strength), self._kernels,
-            plan=self._plan, update_H=update_H, update_W=update_W,
-            use_inhibition=inhibition_strength > 0,
-            use_cross=cross_atom_inhibition_strength > 0)
-        self.n_iterations_ = int(n_iterations)
+        _require(callback_interval >= 1, 'callback_interval must be >= 1')
+        if (checkpoint_every is None) != (checkpoint_path is None):
+            raise ValueError(
+                'checkpoint_every and checkpoint_path must be given together')
+        if tol is not None and checkpoint_every is not None:
+            raise ValueError(
+                'tol-based early stopping cannot combine with checkpoint_every '
+                '(as in the JAX package, whose tol loop runs on the device)')
+        if extrapolate:
+            if (progress_callback is not None or checkpoint_every is not None
+                    or revive_every is not None):
+                raise ValueError(
+                    'extrapolate cannot combine with progress_callback, '
+                    'checkpoint_every or revive_every (as in the JAX package, '
+                    'whose extrapolated loop runs on the device)')
+            xtr_beta0 = 0.5 if extrapolate is True else float(extrapolate)
+            if not 0.0 < xtr_beta0 < 1.0:
+                raise ValueError('extrapolate must be True or an initial '
+                                 'momentum weight in (0, 1)')
+        if checkpoint_every is not None:
+            _require(checkpoint_every >= 1, 'checkpoint_every must be >= 1')
+            if progress_callback is not None:
+                raise ValueError(
+                    'checkpoint_every uses the chunked loop and cannot combine '
+                    'with progress_callback; call save() from your callback instead')
+            ckpt_path = checkpoint_path
+
+            def progress_callback(model, iteration):  # noqa: F811
+                model.save(ckpt_path, include_H=True, completed_iterations=iteration + 1)
+                return True
+
+            callback_interval = int(checkpoint_every)
+        if revive_every is not None:
+            _require(revive_every >= 1, 'revive_every must be >= 1')
+            if progress_callback is not None or tol is not None:
+                raise ValueError(
+                    'revive_every uses the chunked loop and cannot combine with '
+                    'progress_callback / checkpoint_every / tol; call '
+                    'utils.atoms.revive_dead_atoms from your own callback instead')
+            if not (update_H and update_W):
+                raise ValueError('revive_every requires update_H and update_W '
+                                 '(revival re-draws both factors)')
+            from ..utils.atoms import revive_dead_atoms
+            thr = float(revive_threshold)
+
+            def progress_callback(model, iteration):  # noqa: F811
+                revived = revive_dead_atoms(model, thr)
+                if revived.size:
+                    model._logger.info('Revived %d dead atom(s) at iteration %d.',
+                                       revived.size, iteration + 1)
+                return True
+
+            callback_interval = int(revive_every)
+
+        self._initialize_matrices(V, keep_W, keep_H=keep_H)
+        n_iterations = int(n_iterations)
+        regs = (float(sparsity_H), float(inhibition_strength),
+                float(cross_atom_inhibition_strength), self._kernels)
+        flags = dict(plan=self._plan, update_H=update_H, update_W=update_W,
+                     use_inhibition=inhibition_strength > 0,
+                     use_cross=cross_atom_inhibition_strength > 0)
+        log_each = self._logger.isEnabledFor(logging.INFO)
+        self.energies_ = None
+        if extrapolate or tol is not None:
+            if extrapolate:
+                # the JAX package leaves the block length unchecked here (a
+                # length of 0 never ends its loop)
+                _validate_tol(0.0 if tol is None else tol, tol_check_every)
+                loop, extra = engine.fit_loop_extrapolated, (xtr_beta0,)
+            else:
+                if progress_callback is not None:
+                    raise ValueError(
+                        'tol-based early stopping cannot combine with progress_callback '
+                        '(as in the JAX package, whose tol loop runs on the device)')
+                _validate_tol(tol, tol_check_every)
+                loop, extra = engine.fit_loop_tol, ()
+            self._W, self._H, n_done, _, trace = loop(
+                self._Vp, self._Vd, self._W, self._H, n_iterations,
+                0.0 if tol is None else tol, *extra, *regs,
+                check_every=int(tol_check_every),
+                n_buf=_trace_buf(n_iterations) if record_energies else 0, **flags)
+            self.n_iterations_ = n_done
+            if record_energies:
+                self.energies_ = trace.cpu().numpy()[:n_done]
+        elif record_energies and progress_callback is None:
+            self._W, self._H, energies = engine.fit_loop_energies(
+                self._Vp, self._Vd, self._W, self._H, *regs, n_iterations=n_iterations,
+                **flags)
+            self.n_iterations_ = n_iterations
+            self.energies_ = energies.cpu().numpy()
+            if log_each:
+                for i, e in enumerate(self.energies_):
+                    self._logger.info('Iteration: %d\tEnergy function: %s', i, e)
+        elif progress_callback is None and not log_each:
+            self._W, self._H = engine.fit_loop(self._Vp, self._W, self._H, n_iterations,
+                                               *regs, **flags)
+            self.n_iterations_ = n_iterations
+        elif progress_callback is not None and callback_interval > 1:
+            self._fit_chunks(n_iterations, regs, flags, progress_callback,
+                             int(callback_interval), record_energies)
+        else:
+            self._fit_each(n_iterations, regs, flags, progress_callback, record_energies)
+        self._logger.info('TNMF finished.')
+
+    def _fit_chunks(self, n_iterations, regs, flags, callback, interval, record_energies):
+        """Plain loops of ``interval`` iterations with the callback after
+        each (it sees iterations k-1, 2k-1, …); ``record_energies`` records
+        every iteration."""
+        traces = []
+        done = 0
+        while done < n_iterations:
+            chunk = min(interval, n_iterations - done)
+            if record_energies:
+                self._W, self._H, es = engine.fit_loop_energies(
+                    self._Vp, self._Vd, self._W, self._H, *regs, n_iterations=chunk, **flags)
+                traces.append(es.cpu().numpy())
+            else:
+                self._W, self._H = engine.fit_loop(self._Vp, self._W, self._H, chunk,
+                                                   *regs, **flags)
+            done += chunk
+            if not callback(self, done - 1):
+                break
+        self.n_iterations_ = done
+        if record_energies:
+            self.energies_ = np.concatenate(traces) if traces else np.zeros((0,))
+
+    def _fit_each(self, n_iterations, regs, flags, callback, record_energies):
+        """One iteration at a time: the callback (or, without one, the
+        INFO energy line) after each."""
+        energies = []
+        self.n_iterations_ = n_iterations
+        for iteration in range(n_iterations):
+            self._W, self._H = engine.update_step(self._Vp, self._W, self._H, *regs, **flags)
+            self.n_iterations_ = iteration + 1
+            if record_energies:
+                energies.append(self._energy_function())
+            if callback is not None:
+                if not callback(self, iteration):
+                    break
+            else:
+                self._logger.info('Iteration: %d\tEnergy function: %s',
+                                  iteration, self._energy_function())
+        if record_energies:
+            self.energies_ = np.asarray(energies)
 
     def fit(self, V, y=None, **kwargs):
         """sklearn-style front door: ``fit_batch`` (``y`` is ignored).  The
@@ -322,34 +574,132 @@ class TransformInvariantNMF:
         self.fit_batch(V, **kwargs)
 
     # ------------------------------------------------------------------
-    # checkpoints of the JAX package (tnmf_tpu TransformInvariantNMF.save)
+    # the encoder: a frozen dictionary (tnmf_tpu TransformInvariantNMF.transform)
     # ------------------------------------------------------------------
 
+    def set_dictionary(self, W) -> 'TransformInvariantNMF':
+        """Install a dictionary (nonnegative, ``(n_atoms, n_channels,
+        *atom_shape)``) so that ``transform`` / ``fit(keep_W=True)`` run
+        against it; its atoms are sum-normalised.  Drops any earlier fit
+        state.  Returns ``self``."""
+        W = np.asarray(W)
+        if W.ndim != 2 + len(self.atom_shape) or W.shape[0] != self.n_atoms \
+                or W.shape[2:] != self.atom_shape:
+            raise ValueError(
+                f'dictionary shape {tuple(W.shape)} does not match the '
+                f'model: expected (n_atoms={self.n_atoms}, n_channels, '
+                f'*atom_shape={self.atom_shape})')
+        if np.any(W < 0):
+            raise ValueError('dictionary entries must be nonnegative')
+        s = W.sum(axis=self._axes_W_normalization, keepdims=True)
+        self._W = self._tensor(W / np.where(s == 0, 1, s))
+        self._H = None
+        self._plan = None
+        return self
+
+    def transform(self, V, n_iterations: int = 100, batch_size: Optional[int] = None,
+                  **kwargs) -> np.ndarray:
+        """Activations ``H`` of new data against the frozen dictionary:
+        ``fit_batch(V, update_W=False, keep_W=True, ...)`` (``kwargs`` are
+        ``fit_batch``'s), returned as a NumPy array.  With ``batch_size``
+        the samples are encoded in independent chunks of that many and the
+        chunks' H concatenated on the host; the model's ``V`` / ``H`` /
+        ``R`` then hold the last chunk."""
+        if self._W is None:
+            raise RuntimeError(
+                'transform() requires a fitted or loaded dictionary; '
+                'call fit() or load() first')
+        if batch_size is None:
+            self.fit_batch(V, n_iterations=n_iterations, update_W=False, keep_W=True,
+                           **kwargs)
+            return self.H
+        V = np.asarray(V)
+        out = []
+        for s in _sequential_slices(V.shape[0], batch_size):
+            self.fit_batch(V[s], n_iterations=n_iterations, update_W=False, keep_W=True,
+                           **kwargs)
+            out.append(self.H)
+        return np.concatenate(out, axis=0)
+
+    def fit_transform(self, V, y=None, **kwargs) -> np.ndarray:
+        """``fit(V, **kwargs)``, then the learned activations ``H``."""
+        self.fit(V, y, **kwargs)
+        return self.H
+
+    def inverse_transform(self, H: Optional[np.ndarray] = None) -> np.ndarray:
+        """The reconstruction of ``H`` (default: the last fit's or
+        transform's own activations, ``self.R``)."""
+        if self._plan is None:
+            raise RuntimeError(
+                'inverse_transform() requires a fitted model; call fit() '
+                '(or load a checkpoint that includes H) first')
+        if H is None:
+            return self.R
+        return engine.reconstruct(self._W, self._tensor(np.asarray(H)),
+                                  plan=self._plan).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # checkpoints, in the JAX package's .npz format
+    # ------------------------------------------------------------------
+
+    def save(self, path: str, include_H: bool = False,
+             completed_iterations: Optional[int] = None):
+        """Write the dictionary (and with ``include_H`` the activations)
+        with the constructor configuration to an ``.npz`` checkpoint the
+        JAX package's ``load`` reads; ``completed_iterations`` stamps the
+        iterations that produced it.  Written to ``<path>.tmp`` and moved
+        into place with ``os.replace``, so a crash never leaves a torn
+        checkpoint."""
+        if self._W is None:
+            raise ValueError('nothing to save: the model has not been fit yet')
+        payload = dict(
+            W=self._W.cpu().numpy(),
+            dtype=str(self._W.dtype).removeprefix('torch.'),
+            n_atoms=self.n_atoms,
+            atom_shape=np.asarray(self.atom_shape),
+            inhibition_range=np.asarray(self._inhibition_range),
+            reconstruction_mode=self._reconstruction_mode,
+            transform_type='shift',
+            version=1,
+        )
+        if include_H and self._H is not None:
+            payload['H'] = self._H.cpu().numpy()
+        if completed_iterations is not None:
+            payload['completed_iterations'] = int(completed_iterations)
+        final = path if path.endswith('.npz') else path + '.npz'
+        tmp = final + '.tmp'
+        with open(tmp, 'wb') as f:
+            np.savez(f, **payload)
+        os.replace(tmp, final)
+
     @classmethod
-    def load(cls, path: str, *, device='cuda',
-             dtype: Optional[torch.dtype] = None) -> 'TransformInvariantNMF':
-        """Restore a model from the JAX package's ``.npz`` checkpoint
-        (``W``, optional ``H``, ``n_atoms``, ``atom_shape``,
-        ``inhibition_range``, ``reconstruction_mode``, ``dtype``).  ``dtype``
-        defaults to the stored one.  Continue with ``fit(V, keep_W=True)``."""
+    def load(cls, path: str, *, device='cuda', dtype: Optional[torch.dtype] = None,
+             **kwargs) -> 'TransformInvariantNMF':
+        """Restore a model from a checkpoint of either package (``W``,
+        optional ``H`` and ``completed_iterations``, ``n_atoms``,
+        ``atom_shape``, ``inhibition_range``, ``reconstruction_mode``,
+        ``dtype``).  ``kwargs`` override constructor arguments, as in the
+        JAX package; ``dtype`` defaults to the stored one.  Continue with
+        ``fit(V, keep_W=True)``, or resume exactly with ``keep_H=True``."""
         with np.load(path, allow_pickle=False) as data:
-            if 'transform_type' in data and str(data['transform_type']) != 'shift':
-                raise NotImplementedError(
-                    f'transform_type={str(data["transform_type"])!r} is not ported to '
-                    f'tnmf_tpu_torch yet; see {_ITEM.format(12)}')
             if dtype is None:
                 dtype = _torch_dtype(str(data['dtype'])) if 'dtype' in data \
                     else _torch_dtype(str(data['W'].dtype))
-            model = cls(n_atoms=int(data['n_atoms']),
-                        atom_shape=tuple(int(a) for a in data['atom_shape']),
-                        reconstruction_mode=str(data['reconstruction_mode']),
-                        inhibition_range=(tuple(int(r) for r in data['inhibition_range'])
-                                          if 'inhibition_range' in data else None),
-                        device=device, dtype=dtype)
-            H = data['H'] if 'H' in data else None
-            model._W, model._H = from_numpy(data['W'], H, device=model.device, dtype=dtype)
-            if H is not None:
+            cfg = dict(n_atoms=int(data['n_atoms']),
+                       atom_shape=tuple(int(a) for a in data['atom_shape']),
+                       reconstruction_mode=str(data['reconstruction_mode']))
+            if 'inhibition_range' in data:
+                cfg['inhibition_range'] = tuple(int(r) for r in data['inhibition_range'])
+            if 'transform_type' in data:
+                cfg['transform_type'] = str(data['transform_type'])
+            cfg.update(kwargs)
+            model = cls(**cfg, device=device, dtype=dtype)
+            model._W = model._tensor(data['W'])
+            if 'H' in data:
+                model._H = model._tensor(data['H'])
                 model._restore_plan()
+            model.last_checkpoint_iteration_ = (
+                int(data['completed_iterations']) if 'completed_iterations' in data else None)
         return model
 
     def _restore_plan(self):

@@ -46,8 +46,9 @@ failure (exit code != 0, no result line):
    below the initial one, unit-sum atoms, each kernel of the path launched
    at least once per iteration; then MU ms/iteration (CUDA events) and peak
    device memory;
-6. a small 3-D fit, which the kernel gate sends to the plain operators (no
-   kernel launch), against the same fit in float64 on the CPU;
+6. a small 3-D fit, which the rank gate sends to the plain versions of K2,
+   K3 and K4 (``mu_w``, which takes any rank, once per iteration), against
+   the same fit in float64 on the CPU;
 7. large atoms: ``TransformInvariantNMF(16, (31, 31))`` on 4 x 16 x 256 x
    256 for 3 iterations, plain (``mu_w``, K2, K3 on its streamed FP32 route)
    and with ``inhibition_strength=0.1`` (``mu_w``, K2, K4), counts reset
@@ -83,7 +84,26 @@ failure (exit code != 0, no result line):
    ``tol`` fit (iterations run and final energy printed), a callback that
    aborts at iteration 4 against a fit of 5 iterations, and a
    ``checkpoint_every`` run resumed from its checkpoint against the
-   uninterrupted fit (bits, or within 1e-6, printed).
+   uninterrupted fit (bits, or within 1e-6, printed);
+12. the fft and dot strategies through ``fit``, counts reset before each fit
+   and read after it: the fft flagship (phase 5's problem on
+   ``backend='jax_fft'``, 20 iterations) plain (``mu_ratio`` and ``mu_w``
+   once per iteration, no other kernel) and inhibited (K4 and ``mu_w``),
+   each W and H within 1e-4 of the same fit under ``plain_versions()`` and
+   of the float64 fit, peak memory, an iteration under the caller's TF32
+   matmul setting bit-equal to one without, ms/iteration in turns with the
+   conv flagship and the time of each part; ``'auto'`` on 64 x 1 x 128 x 128
+   with 31 x 31 atoms (fft); the long 1-D fft problem (16 x 1 x 16000, 8
+   atoms of 64) plain and inhibited; fft fits of 3 and 4 shift axes
+   (``mu_ratio`` and ``mu_w``; inhibited rank 4: ``mu_w``, K4 plain under
+   the rank gate), each against ``plain_versions()`` and float64; plain NMF
+   at production scale (16384 x 1 x 4096, 256 atoms, the dot strategy)
+   against its matmul bound; the golden ``'2d'`` energies through
+   ``backend='numpy_fft'`` in float32 (rtol 1e-4) and float64 (1e-8); and
+   F5: the golden fit (conv and fft), ``set_dictionary``, ``transform`` and
+   ``inverse_transform`` of CUDA tensors, with no host copy of the data
+   (``set_dictionary`` copies the dictionary alone to the host, once, as
+   the JAX package normalises it in NumPy), bit-equal to the NumPy calls.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths, error, times and bound; the last line is
@@ -109,6 +129,7 @@ from tnmf_tpu_torch.kernels import _build, gw, inhibit, mu, mu_h
 from tnmf_tpu_torch.ops import conv
 from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
 from tnmf_tpu_torch.ops.modes import ConvPlan
+from tnmf_tpu_torch.ops.precision import full_fp32_matmul
 from tnmf_tpu_torch.utils.data_loading import synthetic_face
 from tnmf_tpu_torch.utils.signals import generate_pulse_train
 
@@ -152,8 +173,9 @@ KERNELS = {
                            source='tnmf_tpu_torch/csrc/inhibited_mu_h.cu',
                            replaces='tnmf_tpu/experimental/pallas_mu.py:213'),
 }
-#: the engine's kernel wrappers (``mu_ratio`` is off the main path)
-ENGINE_KERNELS = ('mu_w', 'grad_w', 'mu_h', 'inhibited_mu_h')
+#: the engine's kernel wrappers (``mu_ratio``: the H ratio of the fft and
+#: dot strategies)
+ENGINE_KERNELS = ('mu_ratio', 'mu_w', 'grad_w', 'mu_h', 'inhibited_mu_h')
 COMBOS = [(True, False), (False, True), (True, True)]
 # K4 alone: (where, H shape, inhibition range), random H, neg and pos
 K4_CASES = [
@@ -387,9 +409,10 @@ def _problem(N, C, S, M, A, mode, seed, use_cross=True):
                use_cross=use_cross)
     nT, nA, nH = math.prod(T), math.prod(A), H.numel()
     return {
-        'mu_ratio': (lambda: mu.mu_ratio(W, neg, pos, engine.EPS),
-                     lambda: mu.mu_ratio_plain(W, neg, pos, engine.EPS), None,
-                     (4 * 4 * W.numel(), 3 * W.numel())),
+        # at the size of H: the H ratio of the fft and dot strategies
+        'mu_ratio': (lambda: mu.mu_ratio(H, hneg, hpos, denom),
+                     lambda: mu.mu_ratio_plain(H, hneg, hpos, denom), None,
+                     (4 * 4 * nH, 3 * nH)),
         # the ratio (3 operations), the row sum and the division per element
         'mu_w': (lambda: mu.mu_w(W, neg, pos, engine.EPS, plan.ndim),
                  lambda: mu.mu_w_plain(W, neg, pos, engine.EPS, plan.ndim), None,
@@ -654,7 +677,8 @@ def _ms_per_iteration(model, fit: dict, n=10) -> float:
 
     def run():
         model._W, model._H = engine.fit_loop(model._Vp, model._W, model._H, n, *args,
-                                             model._kernels, plan=model._plan, **flags)
+                                             model._kernels, plan=model._plan,
+                                             strategy=model._strategy, **flags)
     return time_ms(run, reps=1) / n
 
 
@@ -774,15 +798,17 @@ def phase_flagship() -> tuple:
 
 
 def phase_3d():
-    """A small 3-D inhibited fit: the rank gate keeps it off the kernels;
-    its factors match the same seeded fit in float64 on the CPU."""
+    """A small 3-D inhibited fit: the rank gate keeps K2, K3 and K4 off it
+    and K1's W epilogue, which takes any rank, runs once per iteration; its
+    factors match the same seeded fit in float64 on the CPU."""
     V = np.random.default_rng(SEED).random((2, 1, 12, 12, 12))
     fit = dict(n_iterations=5, sparsity_H=0.1, inhibition_strength=0.1,
                cross_atom_inhibition_strength=0.05)
     gpu = TransformInvariantNMF(n_atoms=4, atom_shape=(3, 3, 3), seed=SEED, device=DEVICE)
     reason = engine.plain_reason(ConvPlan.create('valid', V.shape[2:], (3, 3, 3)), torch.float32)
-    if reason is None:
-        raise AssertionError('3-D: the kernel gate sends the problem to the kernels')
+    if reason is None or engine.dtype_reason(torch.float32) is not None:
+        raise AssertionError(f'3-D: the kernel gates say {reason!r} and '
+                             f'{engine.dtype_reason(torch.float32)!r}')
     reset_counts()
     gpu.fit(V, **fit)
     sync()
@@ -792,10 +818,12 @@ def phase_3d():
     cpu.fit(V, **fit)
     rel = max(float(np.abs(gpu.W - cpu.W).max() / np.abs(cpu.W).max()),
               float(np.abs(gpu.H - cpu.H).max() / np.abs(cpu.H).max()))
-    log(f'3-D 2x1x12x12x12/4x3x3x3 (plain versions: {reason}): launches {launches}; W and H '
+    log(f'3-D 2x1x12x12x12/4x3x3x3 (K2-K4 plain: {reason}): launches {launches}; W and H '
         f'{rel:.3e} off float64 on the CPU')
-    if any(launches.values()):
-        raise AssertionError(f'3-D fit launched kernels: {launches}')
+    expected = dict.fromkeys(KERNELS, 0)
+    expected['mu_w'] = fit['n_iterations']
+    if launches != expected:
+        raise AssertionError(f'3-D fit launched {launches}, not {expected}')
     if not rel <= TOL:
         raise AssertionError(f'3-D fit off float64 by {rel:.3e} > {TOL}')
 
@@ -1095,7 +1123,8 @@ def _h_only_ms(model, fit: dict, n=ENCODER_ITER) -> float:
 
     def run():
         model._H = engine.fit_loop(model._Vp, model._W, model._H, n, *args, model._kernels,
-                                   plan=model._plan, update_W=False, **flags)[1]
+                                   plan=model._plan, strategy=model._strategy,
+                                   update_W=False, **flags)[1]
     return time_ms(run, reps=1) / n
 
 
@@ -1250,6 +1279,346 @@ def phase_fit_loops():
         + _same_or_close('checkpoint resume', resumed, whole))
 
 
+# ------------------------------------------------ phase 12: fft and dot
+
+#: the fft flagship: phase 5's problem on the fft strategy
+FFT_ITER = 20
+#: 'auto' above the direct-conv threshold (the JAX rule's crossover)
+AUTO_FFT = dict(N=64, C=1, S=(128, 128), M=16, A=(31, 31), sparsity=0.1, n_iter=10)
+#: the long 1-D fft problem of benchmarks/large_scale.py:205-207
+LONG_1D = dict(N=16, C=1, S=(16000,), M=8, A=(64,), sparsity=0.1, inhibition=0.1, n_iter=10)
+#: fft fits of 3 and 4 shift axes (rank 4: 'auto' routes it to fft): K1
+#: takes every rank, so they run mu_ratio (or K4's plain version under the
+#: rank gate) and mu_w; (label, sample shape, atom shape, inhibited, backend)
+HIGH_RANK_FFT = [('3-D', (8, 1, 32, 32, 32), (5, 5, 5), False, 'jax_fft'),
+                 ('rank-4', (4, 1, 12, 12, 12, 12), (3, 3, 3, 3), False, 'auto'),
+                 ('rank-4 inhibited', (4, 1, 12, 12, 12, 12), (3, 3, 3, 3), True, 'auto')]
+HIGH_RANK_ITER = 5
+#: plain NMF at production scale (benchmarks/plain_nmf.py, BASELINE.md:59):
+#: 'full' mode with atoms as large as the samples, the matmul strategy
+DOT = dict(N=16384, C=1, S=(4096,), M=256, sparsity=0.1, n_iter=10)
+#: storage-sharing tensors whose host copies ``no_host_copy`` refuses
+_HOST_COPIES = ('numpy', 'cpu', 'tolist', '__array__')
+
+
+@contextlib.contextmanager
+def no_host_copy(*tensors, counted=()):
+    """Inside the block ``numpy()``, ``cpu()``, ``tolist()`` and
+    ``__array__`` of any tensor sharing memory with ``tensors`` raise; the
+    same calls on a tensor sharing memory with ``counted`` go through and
+    are recorded in the list the block receives."""
+    ptrs = {t.untyped_storage().data_ptr() for t in tensors}
+    counted_ptrs = {t.untyped_storage().data_ptr() for t in counted}
+    copies = []
+    saved = {name: getattr(torch.Tensor, name) for name in _HOST_COPIES}
+
+    def guard(name, fn):
+        def call(self, *args, **kwargs):
+            ptr = self.untyped_storage().data_ptr()
+            if ptr in ptrs:
+                raise AssertionError(f'{name}() of the input data')
+            if ptr in counted_ptrs:
+                copies.append(name)
+            return fn(self, *args, **kwargs)
+        return call
+    for name, fn in saved.items():
+        setattr(torch.Tensor, name, guard(name, fn))
+    try:
+        yield copies
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.Tensor, name, fn)
+
+
+def _strategy_fit(label, make, V, fit: dict, n_iter: int, kernels: tuple, strategy: str,
+                  refs=('plain', 'float64')) -> tuple:
+    """``make(dtype).fit(V, n_iter, **fit)`` on the kernels, counts reset
+    before and read after: each of ``kernels`` launched exactly once per
+    iteration and no other kernel.  W and H within 1e-4 of the same fit on
+    the plain versions (``plain_versions()``) and of the float64 fit (the
+    gate's plain versions) as ``refs`` ask.  Returns the float32 model, its
+    launches, wall time and peak device memory (MiB)."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    nmf = make(torch.float32)
+    nmf.fit(V, n_iterations=n_iter, **fit)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(dict.fromkeys(kernels, n_iter))
+    if nmf._strategy != strategy or launches != expected:
+        raise AssertionError(f'{label}: strategy {nmf._strategy}, launches {launches}, not '
+                             f'{strategy} and {expected}')
+    rel = {}
+    if 'plain' in refs:
+        with plain_versions():
+            ref = make(torch.float32)
+            ref.fit(V, n_iterations=n_iter, **fit)
+        rel['plain versions'] = max(_rel(nmf.W, ref.W), _rel(nmf.H, ref.H))
+        del ref
+    if 'float64' in refs:
+        reset_counts()
+        ref = make(torch.float64)
+        ref.fit(V, n_iterations=n_iter, **fit)
+        sync()
+        if any(counts().values()):
+            raise AssertionError(f'{label}: the float64 fit launched {counts()}')
+        rel['float64'] = max(_rel(nmf.W, ref.W), _rel(nmf.H, ref.H))
+        del ref
+    e = nmf._energy_function()
+    log(f'{label}: {n_iter} iterations, {wall:.2f} s wall incl. host init, peak {peak:.0f} MiB; '
+        f'launches {launches}; W, H off: '
+        + ', '.join(f'{k} {v:.3e}' for k, v in rel.items()) + f'; energy {e!r}')
+    if not (math.isfinite(e) and all(v <= TOL for v in rel.values())):
+        raise AssertionError(f'{label}: energy {e}, W and H off {rel} (> {TOL}?)')
+    return nmf, launches, wall, peak
+
+
+def _precision_flip(label, nmf, fit: dict):
+    """One MU iteration from the model's state under the caller's matmul
+    precision 'high' (TF32 allowed) has the bits of the same iteration under
+    'highest': the fft and dot products pin full float32."""
+    args, flags = _fit_kw(fit)
+
+    def step():
+        return engine.update_step(nmf._Vp, nmf._W, nmf._H, *args, nmf._kernels,
+                                  plan=nmf._plan, strategy=nmf._strategy, **flags)
+    want = step()
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision('high')
+    try:
+        got = step()
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    log(f'{label}: one iteration under set_float32_matmul_precision("high") '
+        f'{"has the bits of" if same else "DIFFERS from"} "highest"')
+    if not same:
+        raise AssertionError(f'{label}: the products follow the caller\'s TF32 setting')
+
+
+def _fft_parts(nmf) -> dict:
+    """Per-call times of an fft flagship iteration's parts (CUDA events):
+    the reconstruction, the gradient pairs and their pieces (a transform of
+    H, its frequency-major copy, one H-gradient stream's product and
+    inverse transform), and K1."""
+    from tnmf_tpu_torch.ops import fft
+    Vp, W, H, plan = nmf._Vp, nmf._W, nmf._H, nmf._plan
+    R = fft.reconstruct(W, H, plan)
+    neg, pos = (g.contiguous() for g in fft.grad_H_pair(Vp, R, W, plan))
+    Hf = fft._rfftn(H, plan)
+    Vfm, Wfm = fft._freq_major(Vp), fft._freq_major(fft._rfftn(W, plan))
+    Gf = torch.matmul(Vfm, Wfm.mH)
+    parts = {
+        'reconstruct': lambda: fft.reconstruct(W, H, plan),
+        'grad_H_pair + contiguous': lambda: [g.contiguous() for g in
+                                             fft.grad_H_pair(Vp, R, W, plan)],
+        'grad_W_pair': lambda: fft.grad_W_pair(Vp, R, H, plan),
+        'mu_ratio': lambda: mu.mu_ratio(H, neg, pos, engine.EPS + 0.1),
+        'rfftn(H)': lambda: fft._rfftn(H, plan),
+        # the layout the forward transforms do not use: the batch innermost
+        'rfftn(H), batch innermost': lambda: torch.fft.rfftn(
+            H.movedim((0, 1), (-2, -1)), s=plan.fft_shape, dim=tuple(range(plan.ndim))),
+        'frequency-major copy of F(H)': lambda: fft._freq_major(Hf),
+        'H-gradient product (one stream)': lambda: torch.matmul(Vfm, Wfm.mH),
+        'its inverse + crop + contiguous': lambda: fft._inverse(
+            Gf, (0,) * plan.ndim, plan.transform_shape, plan).contiguous(),
+    }
+    with full_fp32_matmul():
+        out = {name: time_ms(fn, reps=3) for name, fn in parts.items()}
+    log('  fft flagship parts (ms per call): '
+        + ', '.join(f'{k} {v:.4f}' for k, v in out.items()))
+    return out
+
+
+def _fft_golden() -> None:
+    """The golden '2d' energies through the 'numpy_fft' backend, float32 on
+    the kernels (rtol 1e-4) and float64 on the plain versions (rtol 1e-8)."""
+    goldens = json.loads((ROOT / 'tests' / 'golden_values.json').read_text())['2d']
+    image = _image_2d()
+    for dtype, rtol in ((torch.float32, GOLDEN_RTOL), (torch.float64, F64_GOLDEN_RTOL)):
+        for mode, golden in goldens.items():
+            np.random.seed(42)
+            nmf = TransformInvariantNMF(10, (7, 7), backend='numpy_fft', reconstruction_mode=mode,
+                                        dtype=dtype, device=DEVICE)
+            reset_counts()
+            nmf.fit(image, sparsity_H=0.1, n_iterations=10)
+            launches = counts()
+            e = nmf._energy_function()
+            rel = abs(e - golden) / abs(golden)
+            log(f'  golden 2d/{mode} on fft, {str(dtype)[6:]}: energy {e!r} vs {golden!r} '
+                f'(rel {rel:.3e}); launches {launches}')
+            want = 0 if dtype == torch.float64 else 10
+            if not (nmf._strategy == 'fft' and rel <= rtol and launches['mu_ratio'] == want
+                    and launches['mu_w'] == want):
+                raise AssertionError(f'golden 2d/{mode} on fft ({dtype}): rel {rel:.3e} > {rtol}'
+                                     f' or launches {launches}')
+
+
+def _f5() -> None:
+    """Fault F5 on the card: the golden 2-D fit (conv and fft), a
+    ``transform``, ``set_dictionary`` and ``inverse_transform`` take CUDA
+    tensors, with no host copy of the data, and give the bits of the same
+    calls on NumPy arrays."""
+    image = _image_2d()
+    for backend in ('auto', 'numpy_fft'):
+        def golden(data):
+            np.random.seed(42)
+            m = TransformInvariantNMF(10, (7, 7), backend=backend, device=DEVICE)
+            m.fit(data, sparsity_H=0.1, n_iterations=10)
+            return m
+        want = golden(image)
+        Vt = torch.tensor(image, device=DEVICE)
+        with no_host_copy(Vt):
+            got = golden(Vt)
+        same = torch.equal(got._W, want._W) and torch.equal(got._H, want._H)
+        log(f'  F5 golden 2-D fit ({got._strategy}) from a CUDA tensor: '
+            f'{"the bits" if same else "DIFFERS from"} of the NumPy fit')
+        if not same:
+            raise AssertionError(f'F5: the golden fit from a CUDA tensor ({backend}) differs')
+    W = want.W
+    new = np.random.default_rng(SEED + 3).random(image.shape)
+    out = []
+    H = None
+    for kind in ('array', 'tensor'):
+        enc = TransformInvariantNMF(10, (7, 7), seed=SEED, device=DEVICE)
+        if kind == 'array':
+            enc.set_dictionary(W)
+            H = enc.transform(new, n_iterations=10, sparsity_H=0.1)
+            out.append((enc.W, H, enc.inverse_transform(H)))
+            continue
+        # set_dictionary normalises on the host, as the JAX package does:
+        # the dictionary alone is copied there, once; the data never
+        data, Wt, Ht = (torch.tensor(x, device=DEVICE) for x in (new, W, H))
+        with no_host_copy(data, Ht, counted=(Wt,)) as copies:
+            enc.set_dictionary(Wt)
+            H_t = enc.transform(data, n_iterations=10, sparsity_H=0.1)
+            R_t = enc.inverse_transform(Ht)
+        out.append((enc.W, H_t, R_t))
+    same = all(np.array_equal(a, b) for a, b in zip(*out))
+    log(f'  F5 set_dictionary, transform and inverse_transform of CUDA tensors: '
+        f'{"the bits" if same else "DIFFER from"} of the NumPy calls; host copies of the '
+        f'dictionary {copies}, of the data none')
+    if not same:
+        raise AssertionError('F5: the encoder on CUDA tensors differs from NumPy input')
+    # cpu() copies it from the card; numpy() of a CPU tensor is a view
+    if copies.count('cpu') != 1 or not set(copies) <= {'cpu', 'numpy'}:
+        raise AssertionError(f'F5: set_dictionary read the dictionary on the host as {copies}')
+
+
+def phase_strategies() -> tuple:
+    """The fft and dot strategies at full width through ``fit``; returns the
+    launches and iterations per kernel, and the times."""
+    total = dict.fromkeys(KERNELS, 0)
+    iterations = dict.fromkeys(KERNELS, 0)
+    out = {}
+
+    def tally(launches, kernels, n):
+        for name, k in launches.items():
+            total[name] += k
+        for name in kernels:
+            iterations[name] += n
+
+    f = FLAGSHIP
+    V = np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    plain_fit = dict(sparsity_H=f['sparsity'])
+    inhibited_fit = dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition'])
+
+    def fft_model(dtype):
+        return TransformInvariantNMF(f['M'], f['A'], backend='jax_fft', dtype=dtype, seed=SEED,
+                                     device=DEVICE)
+    models = {}
+    for label, fit, kernels in (('plain', plain_fit, ('mu_ratio', 'mu_w')),
+                                ('inhibited', inhibited_fit, ('inhibited_mu_h', 'mu_w'))):
+        nmf, launches, wall, peak = _strategy_fit(f'fft flagship {label}', fft_model, V, fit,
+                                                  FFT_ITER, kernels, 'fft')
+        tally(launches, kernels, FFT_ITER)
+        out[f'fft_flagship_{label}_peak_mib'] = peak
+        models[label] = nmf
+    log(f'  fft flagship plan: fft_shape {models["plain"]._plan.fft_shape}')
+    _precision_flip('fft flagship', models['plain'], plain_fit)
+    # the conv flagship and the fft flagship in turns (conv, fft, fft, conv)
+    conv = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE)
+    conv.fit(V, n_iterations=0)
+    c1, f1, f2, c2 = (_ms_per_iteration(m, plain_fit)
+                      for m in (conv, models['plain'], models['plain'], conv))
+    out.update(fft_flagship_ms=(f1 + f2) / 2, conv_flagship_ms=(c1 + c2) / 2)
+    log(f'flagship in turns: conv {c1:.4f}/{c2:.4f} ms/iteration, fft {f1:.4f}/{f2:.4f}')
+    del conv
+    out['fft_flagship_inhibited_ms'] = _ms_per_iteration(models['inhibited'], inhibited_fit)
+    log(f'fft flagship inhibited: {out["fft_flagship_inhibited_ms"]:.4f} ms/iteration')
+    out['fft_parts'] = _fft_parts(models['plain'])
+    del models, V
+
+    a = AUTO_FFT
+    V = np.random.default_rng(SEED).random((a['N'], a['C']) + a['S'], dtype=np.float32)
+    fit = dict(sparsity_H=a['sparsity'])
+    nmf, launches, _, _ = _strategy_fit(
+        "auto 64x1x128x128/16x31x31", lambda dtype: TransformInvariantNMF(
+            a['M'], a['A'], dtype=dtype, seed=SEED, device=DEVICE),
+        V, fit, a['n_iter'], ('mu_ratio', 'mu_w'), 'fft', refs=('plain',))
+    tally(launches, ('mu_ratio', 'mu_w'), a['n_iter'])
+    out['auto_fft_ms'] = _ms_per_iteration(nmf, fit)
+    log(f'auto -> fft: {out["auto_fft_ms"]:.4f} ms/iteration')
+    del nmf, V
+
+    g = LONG_1D
+    V = np.random.default_rng(SEED).random((g['N'], g['C']) + g['S'], dtype=np.float32)
+    for label, fit, kernels in (
+            ('plain', dict(sparsity_H=g['sparsity']), ('mu_ratio', 'mu_w')),
+            ('inhibited', dict(sparsity_H=g['sparsity'], inhibition_strength=g['inhibition']),
+             ('inhibited_mu_h', 'mu_w'))):
+        nmf, launches, _, _ = _strategy_fit(
+            f'long 1-D fft 16x1x16000/8x64 {label}', lambda dtype: TransformInvariantNMF(
+                g['M'], g['A'], backend='jax_fft', dtype=dtype, seed=SEED, device=DEVICE),
+            V, fit, g['n_iter'], kernels, 'fft')
+        tally(launches, kernels, g['n_iter'])
+        out[f'long_1d_fft_{label}_ms'] = _ms_per_iteration(nmf, fit)
+        log(f'long 1-D fft {label}: {out[f"long_1d_fft_{label}_ms"]:.4f} ms/iteration')
+        del nmf
+    del V
+
+    for label, shape, A, inhibited, backend in HIGH_RANK_FFT:
+        V = np.random.default_rng(SEED).random(shape, dtype=np.float32)
+        fit = dict(sparsity_H=0.1, inhibition_strength=0.1 if inhibited else 0.)
+        kernels = ('mu_w',) if inhibited else ('mu_ratio', 'mu_w')
+        _, launches, _, _ = _strategy_fit(
+            f'{label} fft {"x".join(map(str, shape))}/4x{"x".join(map(str, A))}',
+            lambda dtype: TransformInvariantNMF(4, A, backend=backend, dtype=dtype, seed=SEED,
+                                                device=DEVICE),
+            V, fit, HIGH_RANK_ITER, kernels, 'fft')
+        tally(launches, kernels, HIGH_RANK_ITER)
+        del V
+
+    d = DOT
+    V = np.random.default_rng(SEED).random((d['N'], d['C']) + d['S'], dtype=np.float32)
+    fit = dict(sparsity_H=d['sparsity'])
+    nmf, launches, _, _ = _strategy_fit(
+        'dot 16384x1x4096/256', lambda dtype: TransformInvariantNMF(
+            d['M'], d['S'], reconstruction_mode='full', dtype=dtype, seed=SEED, device=DEVICE),
+        V, fit, d['n_iter'], ('mu_ratio', 'mu_w'), 'dot')
+    tally(launches, ('mu_ratio', 'mu_w'), d['n_iter'])
+    _precision_flip('dot', nmf, fit)
+    out['dot_ms'] = _ms_per_iteration(nmf, fit)
+    # per iteration: two reconstructions, the H pair (V and R stacked) and
+    # the W pair, each 2*N*M*C*prod(S) multiply-adds or twice that
+    flops = 12 * d['N'] * d['M'] * d['C'] * math.prod(d['S'])
+    out['dot_bound_ms'] = bound(0, flops, FP32_FLOP_PER_S)[0]
+    log(f'dot: {out["dot_ms"]:.4f} ms/iteration; {flops / 1e9:.1f} GFLOP at the FP32 peak '
+        f'{out["dot_bound_ms"]:.4f} ms ({100 * out["dot_bound_ms"] / out["dot_ms"]:.1f} %)')
+    del nmf, V
+
+    log('golden fits on the fft strategy:')
+    _fft_golden()
+    log('data already on the card (F5):')
+    _f5()
+    return total, iterations, out
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -1271,11 +1640,16 @@ def main() -> int:
     log('encoder times: ' + json.dumps(enc))
     log('fit loops on the golden 2-D fixture:')
     phase_fit_loops()
+    log('the fft and dot strategies:')
+    st_launches, st_iterations, st = phase_strategies()
+    log('strategy times: ' + json.dumps(st))
     rows = [dict(name=name, route='cuda', source=k['source'], replaces=k['replaces'],
-                 launches=launches[name] + enc_launches[name],
+                 launches=launches[name] + enc_launches[name] + st_launches[name],
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
+                 fft_dot_launches_per_iteration=(st_launches[name]
+                                                 / max(st_iterations[name], 1)),
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     print(json.dumps({'kernels': rows}))

@@ -242,11 +242,15 @@ def fixture_launched(monkeypatch):
 
 @pytest.mark.parametrize('inhibited', [False, True])
 def test_rank_gate_3d_runs_plain_operators(launched, inhibited):
-    """A 3-D problem never reaches a kernel wrapper, and its fit matches the
-    JAX package's; 1-D and 2-D problems go through the wrappers."""
+    """A 3-D problem reaches no wrapper of K2, K3 or K4, and its fit
+    matches the JAX package's; in float32 it reaches K1's W epilogue
+    (``mu_w`` takes any rank); 1-D and 2-D problems go through every
+    wrapper."""
     S, A, ranges = (7, 6, 8), (2, 3, 2), (1, 2, 1)
     jplan, plan, V, W, H, ks = _problem('valid', S, A, ranges, seed=3)
-    assert engine.plain_reason(plan, torch.float32) == '3-D shifts (the kernels take 1-D and 2-D)'
+    reason = engine.plain_reason(plan, torch.float32)
+    assert reason == '3-D shifts (K2, K3 and K4 take 1-D and 2-D)'
+    assert engine.dtype_reason(torch.float32) is None
     flags = dict(use_inhibition=inhibited, use_cross=inhibited)
     Vp = engine.prepare_data(torch.tensor(V), plan=plan)
     Wt, Ht = engine.fit_loop(Vp, torch.tensor(W), torch.tensor(H), 2, 0.1, 0.3, 0.2,
@@ -258,6 +262,12 @@ def test_rank_gate_3d_runs_plain_operators(launched, inhibited):
                               plan=jplan, strategy='conv', **flags)
     np.testing.assert_allclose(Wt.numpy(), np.asarray(Wj), **TOL)
     np.testing.assert_allclose(Ht.numpy(), np.asarray(Hj), **TOL)
+    f32 = [torch.tensor(x, dtype=torch.float32) for x in (V, W, H)]
+    engine.update_step(engine.prepare_data(f32[0], plan=plan), f32[1], f32[2], 0.1, 0.3, 0.2,
+                       tuple(torch.tensor(k, dtype=torch.float32) for k in ks), plan=plan,
+                       **flags)
+    assert launched == ['mu_w']
+    launched.clear()
 
     for S, A, ranges in (((30,), (6,), (5,)), ((12, 10), (3, 4), (2, 3))):
         _, plan, V, W, H, ks = _problem('valid', S, A, ranges)

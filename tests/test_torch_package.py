@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port: it imports neither JAX nor the JAX
 package, imports without nvcc, runs the plain versions for CPU tensors only,
-and refuses what it does not port yet with NotImplementedError."""
+refuses what it does not port yet with NotImplementedError, and runs the
+strategies it has ported as the JAX package does."""
 
 import ast
 import os
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import tnmf_tpu
 import tnmf_tpu_torch
 from tnmf_tpu_torch import engine
 from tnmf_tpu_torch.kernels import _build, gw, inhibit, mu, mu_h
@@ -31,6 +33,7 @@ def test_import_leaves_jax_out():
     code = ('import sys, tnmf_tpu_torch, tnmf_tpu_torch.engine, tnmf_tpu_torch.kernels.mu, '
             'tnmf_tpu_torch.kernels.gw, tnmf_tpu_torch.kernels.mu_h, '
             'tnmf_tpu_torch.kernels.inhibit, tnmf_tpu_torch.ops.inhibition, '
+            'tnmf_tpu_torch.ops.fft, tnmf_tpu_torch.ops.dot, '
             'tnmf_tpu_torch.utils.data_loading, tnmf_tpu_torch.utils.signals, '
             'tnmf_tpu_torch.utils.atoms\n'
             'bad = sorted(m for m in sys.modules\n'
@@ -125,25 +128,49 @@ def test_non_cpu_tensors_never_take_plain_versions():
     assert _build._lib is None
 
 
-@pytest.mark.parametrize('backend', ['jax_fft', 'numpy_fft', 'pytorch_fft'])
-def test_fft_backend_not_ported(backend):
-    nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), backend=backend, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 8'):
+@pytest.mark.parametrize('backend', ['jax_fft', 'numpy_fft', 'pytorch_fft',
+                                     'numpy_caching_fft'])
+def test_fft_backend_runs_and_matches_jax(backend):
+    """The fft backend names run the port's fft strategy (until item 8 they
+    raised); the fit matches the JAX model's."""
+    out = []
+    for module, kw in ((tnmf_tpu_torch, dict(device='cpu', dtype=torch.float64)),
+                       (tnmf_tpu, {})):
+        nmf = module.TransformInvariantNMF(2, (3, 3), backend=backend, seed=0, **kw)
         nmf.fit(np.ones((1, 1, 8, 8)), n_iterations=1)
+        out.append(nmf)
+    assert out[0]._strategy == out[1]._strategy == 'fft'
+    np.testing.assert_allclose(out[0].W, out[1].W, rtol=1e-10)
+    np.testing.assert_allclose(out[0].H, out[1].H, rtol=1e-10)
 
 
-def test_auto_large_atoms_and_plain_nmf_not_ported():
-    # 'auto' picks fft for atoms above the direct-conv threshold
-    nmf = tnmf_tpu_torch.TransformInvariantNMF(1, (25, 25), device='cpu')
-    with pytest.raises(NotImplementedError, match='fft'):
-        nmf.fit(np.ones((1, 1, 30, 30)), n_iterations=1)
-    # a single transform (atoms as large as the samples, 'full') is plain NMF
-    nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (4, 4), reconstruction_mode='full',
-                                               device='cpu')
-    with pytest.raises(NotImplementedError, match='dot'):
-        nmf.fit(np.ones((3, 1, 4, 4)), n_iterations=1)
-    with pytest.raises(NotImplementedError, match='phased'):
+@pytest.mark.parametrize('case', ['large atoms', 'plain NMF'])
+def test_auto_large_atoms_and_plain_nmf_run(case):
+    """'auto' picks fft for atoms above the direct-conv threshold, and a
+    single transform (atoms as large as the samples, 'full') is plain NMF on
+    the matmul strategy: both ran into NotImplementedError until item 8."""
+    atom, V, mode = (((25, 25), np.ones((1, 1, 30, 30)), 'valid') if case == 'large atoms'
+                     else ((4, 4), np.ones((3, 1, 4, 4)), 'full'))
+    out = []
+    for module, kw in ((tnmf_tpu_torch, dict(device='cpu', dtype=torch.float64)),
+                       (tnmf_tpu, {})):
+        nmf = module.TransformInvariantNMF(2, atom, reconstruction_mode=mode, seed=0, **kw)
+        nmf.fit(V, n_iterations=1)
+        out.append(nmf)
+    assert out[0]._strategy == out[1]._strategy == ('fft' if case == 'large atoms' else 'dot')
+    np.testing.assert_allclose(out[0].W, out[1].W, rtol=1e-10)
+    np.testing.assert_allclose(out[0].H, out[1].H, rtol=1e-10)
+
+
+def test_phased_is_not_ported():
+    with pytest.raises(NotImplementedError, match='phased.*item 15'):
         engine.require_ported('phased')
+    with pytest.raises(NotImplementedError, match='item 15'):
+        engine.get_ops('phased')
+    with pytest.raises(ValueError, match='unknown strategy'):
+        engine.get_ops('fftw')
+    assert [engine.get_ops(s).__name__.rsplit('.', 1)[1] for s in ('conv', 'fft', 'dot')] \
+        == ['conv', 'fft', 'dot']
 
 
 @pytest.mark.parametrize('kwargs', [

@@ -1,8 +1,12 @@
 // K1: the elementwise multiplicative-update ratio  out = arr * neg / (pos + reg),
 // and the W epilogue of the MU step built on it.
 //
-// Replaces tnmf_tpu/experimental/pallas_mu.py::mu_ratio (body _ratio_kernel).
-// The H epilogue is fused into K3 (mu_h.cu) and K4 (inhibited_mu_h.cu).
+// Replaces tnmf_tpu/experimental/pallas_mu.py::mu_ratio (body _ratio_kernel),
+// a TPU kernel that nothing in the JAX package calls.  On fft and dot
+// tnmf_mu_ratio is the H epilogue, which the JAX engine forms in jnp
+// (tnmf_tpu/engine.py:479); on the conv strategy the H epilogue is fused
+// into K3 (mu_h.cu); K4 (inhibited_mu_h.cu) forms it with lateral
+// inhibition on every strategy.
 //
 // tnmf_mu_ratio: the ratio alone, the direct counterpart of the Pallas
 // kernel.  Bound: device-memory bandwidth (three reads and one write of 4

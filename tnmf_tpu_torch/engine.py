@@ -5,26 +5,42 @@ with the same ``(W, H)`` result contract, run eagerly.  The fit loop is a
 Python loop; each iteration updates H, then W (reference ``fit_batch`` loop
 body, ``TransformInvariantNMF.py:334-340``).
 
-Only the direct-convolution strategy (:mod:`tnmf_tpu_torch.ops.conv`) is
-ported, so the functions here take no strategy argument; the model checks
-the strategy a fit resolves to with :func:`require_ported`.  On CUDA
-tensors the hot operators run through the hand-written kernels: the H
-update through K3 (:func:`~tnmf_tpu_torch.kernels.mu_h.mu_h`),
-the W statistics through K2 (:func:`~tnmf_tpu_torch.kernels.gw.grad_w`) and
-the W ratio with the atom normalisation through K1's W epilogue
-(:func:`~tnmf_tpu_torch.kernels.mu.mu_w`), and
-the inhibited H update (lateral inhibition on) through K4
+Three strategies of the JAX package are ported: direct convolution
+(:mod:`tnmf_tpu_torch.ops.conv`), FFT (:mod:`tnmf_tpu_torch.ops.fft`) and
+the plain-NMF matmuls (:mod:`tnmf_tpu_torch.ops.dot`).  The functions here
+take the JAX engine's ``strategy`` keyword (default ``'conv'``) and look its
+operators up with :func:`get_ops`; the TPU-only ``'phased'`` lowering is
+refused by :func:`require_ported`.  On CUDA tensors the hot operators run
+through the hand-written kernels.  On the conv strategy: the H update
+through K3 (:func:`~tnmf_tpu_torch.kernels.mu_h.mu_h`), the W statistics
+through K2 (:func:`~tnmf_tpu_torch.kernels.gw.grad_w`).  On fft and dot the
+strategy's own operators form the gradient pairs (cuFFT and cuBLAS) and K1
+(:func:`~tnmf_tpu_torch.kernels.mu.mu_ratio`) forms the H ratio, where the
+JAX engine forms ``H * neg / (pos + EPS + sparsity)`` in ``jnp``
+(``tnmf_tpu/engine.py:479``; ``pallas_mu.mu_ratio`` is the TPU kernel with
+that body, which nothing there calls).  K2 and K3 stay conv-only, as
+``pallas_gw`` and ``pallas_phased`` do.  On every strategy the W ratio with
+the atom normalisation runs through K1's W epilogue
+(:func:`~tnmf_tpu_torch.kernels.mu.mu_w`) and the inhibited H update
+(lateral inhibition on) through K4
 (:func:`~tnmf_tpu_torch.kernels.inhibit.inhibited_mu_h`).  On CPU tensors
-the same wrappers run their plain versions.  The reconstruction stays a
+the same wrappers run their plain versions.  The conv reconstruction stays a
 convolution (cuDNN, TF32 off), as the JAX package left it to XLA.
 
-Kernel gate: the kernels serve float32 problems with 1-D and 2-D shifts,
-the scope of the JAX package's own kernels (their ``supported`` gates take
-float32 and 1-2 shift axes).  ``_mu_H`` and ``_mu_W`` ask
-:func:`plain_reason` before any launch: a 3-D problem, or float64 (the
-port's reference precision, not its throughput path), runs the plain
-versions (cuDNN, TF32 off) on every device.  Every other problem goes to
-the kernels, whatever its shapes.
+Kernel gates, asked before any launch: K2, K3 and K4 serve float32
+problems with 1-D and 2-D shifts, the scope of the JAX package's own
+kernels (their ``supported`` gates take float32 and 1-2 shift axes), and
+:func:`plain_reason` sends a 3-D or rank-4 problem, or float64 (the port's
+reference precision, not its throughput path), to their plain versions on
+every device.  K1 is elementwise with a row sum and takes any shape:
+:func:`dtype_reason` gates it on the dtype alone, so a 3-D or rank-4
+float32 fit still runs ``mu_ratio`` and ``mu_w``.
+
+Precision: the fft and dot products (cuBLAS) obey the process-global
+``torch.set_float32_matmul_precision``.  The functions here that run them
+pin full float32 (:func:`~tnmf_tpu_torch.ops.precision.full_fp32_matmul`)
+once, at the outermost call: a fit loop sets it before its first iteration
+and gives the caller's setting back after its last.
 
 The fit-loop variants (:func:`fit_loop_energies`, :func:`fit_loop_tol`,
 :func:`fit_loop_extrapolated`), the single steps (:func:`update_H_step`,
@@ -37,6 +53,7 @@ tests run on the host, one synchronisation per block.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -44,35 +61,55 @@ import torch
 
 from .kernels.gw import grad_w, grad_w_plain
 from .kernels.inhibit import inhibited_mu_h, inhibited_mu_h_plain
-from .kernels.mu import mu_w, mu_w_plain
+from .kernels.mu import mu_ratio, mu_ratio_plain, mu_w, mu_w_plain
 from .kernels.mu_h import mu_h, mu_h_plain
 from .ops import beta as beta_ops
 from .ops import conv as conv_ops
+from .ops import dot as dot_ops
+from .ops import fft as fft_ops
 from .ops.modes import ConvPlan
+from .ops.precision import full_fp32_matmul
 
 EPS = 1.0e-9  # reference: TransformInvariantNMF.py:166
 
-#: shift ranks whose MU step runs through the hand-written kernels
+#: shift ranks whose MU step runs through K2, K3 and K4
 KERNEL_RANKS = (1, 2)
 
-#: the ROADMAP item that ports each strategy the port does not run yet
-_UNPORTED_STRATEGIES = {
-    'fft': 'ROADMAP.md queue 1, item 8 (ops/fft.py)',
-    'dot': 'ROADMAP.md queue 1, item 8 (ops/dot.py)',
-    'phased': 'ROADMAP.md queue 1, item 15 (not ported: TPU-only lowering)',
-}
+#: the operator module of each ported strategy
+_OPS = {'conv': conv_ops, 'fft': fft_ops, 'dot': dot_ops}
 
 
 def require_ported(strategy: str) -> None:
-    """Raise ``NotImplementedError`` for a strategy the port lacks."""
-    if strategy == 'conv':
+    """Raise ``NotImplementedError`` for the TPU-only 'phased' lowering,
+    ``ValueError`` for an unknown strategy."""
+    if strategy in _OPS:
         return
-    if strategy in _UNPORTED_STRATEGIES:
+    if strategy == 'phased':
         raise NotImplementedError(
-            f'strategy {strategy!r} is not ported to tnmf_tpu_torch yet; see '
-            f'{_UNPORTED_STRATEGIES[strategy]}')
+            "strategy 'phased' is not ported to tnmf_tpu_torch; see ROADMAP.md "
+            'queue 1, item 15 (not ported: TPU-only lowering)')
     raise ValueError(
         f'unknown strategy {strategy!r}; choose "fft", "conv", "phased" or "dot"')
+
+
+def get_ops(strategy: str):
+    """The operator module of ``strategy`` ('conv', 'fft' or 'dot'):
+    ``prepare_data`` / ``reconstruct`` / ``grad_H_pair`` / ``grad_W_pair``."""
+    require_ported(strategy)
+    return _OPS[strategy]
+
+
+def _pinned(fn):
+    """Run ``fn`` with full float32 products (:func:`full_fp32_matmul`) when
+    its ``strategy`` keyword is fft or dot; conv runs no matrix product and is
+    left as it was.  Nested calls find the pin set and leave it."""
+    @functools.wraps(fn)
+    def call(*args, strategy: str = 'conv', **kwargs):
+        if strategy == 'conv':
+            return fn(*args, strategy=strategy, **kwargs)
+        with full_fp32_matmul():
+            return fn(*args, strategy=strategy, **kwargs)
+    return call
 
 
 def resolve_strategy(strategy: str, plan: ConvPlan) -> str:
@@ -96,57 +133,81 @@ def choose_strategy(plan: ConvPlan) -> str:
     return 'conv' if math.prod(plan.atom_shape) <= threshold else 'fft'
 
 
-def prepare_data(V: torch.Tensor, *, plan: ConvPlan) -> torch.Tensor:
-    """Loop-invariant preprocessing of the data tensor (mode extension)."""
-    return conv_ops.prepare_data(V, plan)
+def prepare_data(V: torch.Tensor, *, plan: ConvPlan, strategy: str = 'conv') -> torch.Tensor:
+    """Loop-invariant preprocessing of the data tensor (mode extension; its
+    transform on fft)."""
+    return get_ops(strategy).prepare_data(V, plan)
 
 
-def reconstruct(W: torch.Tensor, H: torch.Tensor, *, plan: ConvPlan) -> torch.Tensor:
+@_pinned
+def reconstruct(W: torch.Tensor, H: torch.Tensor, *, plan: ConvPlan,
+                strategy: str = 'conv') -> torch.Tensor:
     """The model reconstruction ``R`` (canonical data layout)."""
-    return conv_ops.reconstruct(W, H, plan)
+    return get_ops(strategy).reconstruct(W, H, plan)
 
 
+@_pinned
 def partial_reconstruct(W: torch.Tensor, H: torch.Tensor, *, plan: ConvPlan,
-                        i_atom: int) -> torch.Tensor:
+                        i_atom: int, strategy: str = 'conv') -> torch.Tensor:
     """Reconstruction restricted to one atom (reference ``_Backend.py:124``)."""
-    return conv_ops.reconstruct(W[i_atom:i_atom + 1], H[:, i_atom:i_atom + 1], plan)
+    return get_ops(strategy).reconstruct(W[i_atom:i_atom + 1], H[:, i_atom:i_atom + 1], plan)
 
 
+@_pinned
 def energy(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
-           plan: ConvPlan) -> torch.Tensor:
+           plan: ConvPlan, strategy: str = 'conv') -> torch.Tensor:
     """Reconstruction objective ``0.5 * sum((V - R)^2)`` as a 0-d tensor,
     accumulated in ``promote_types(V.dtype, float32)``."""
-    return beta_ops.divergence(V, reconstruct(W, H, plan=plan))
+    return beta_ops.divergence(V, reconstruct(W, H, plan=plan, strategy=strategy))
 
 
-def plain_reason(plan: ConvPlan, dtype: torch.dtype) -> Optional[str]:
-    """Why the MU step of ``plan`` on ``dtype`` tensors runs the plain
-    versions of the kernels, or ``None`` when it runs the hand-written
-    kernels (float32, 1-D and 2-D shifts).  Decided from the plan and the
-    dtype before any launch, never from a failed one."""
-    if plan.ndim not in KERNEL_RANKS:
-        return f'{plan.ndim}-D shifts (the kernels take 1-D and 2-D)'
+def dtype_reason(dtype: torch.dtype) -> Optional[str]:
+    """Why K1 (``mu_ratio``, ``mu_w``) runs its plain version on ``dtype``
+    tensors, or ``None`` when it runs the kernel (float32, any shape)."""
     if dtype != torch.float32:
         return f'{str(dtype).removeprefix("torch.")} tensors (the kernels take float32)'
     return None
 
 
+def plain_reason(plan: ConvPlan, dtype: torch.dtype) -> Optional[str]:
+    """Why the MU step of ``plan`` on ``dtype`` tensors runs the plain
+    versions of K2, K3 and K4, or ``None`` when it runs those kernels
+    (float32, 1-D and 2-D shifts).  Decided from the plan and the dtype
+    before any launch, never from a failed one."""
+    if plan.ndim not in KERNEL_RANKS:
+        return f'{plan.ndim}-D shifts (K2, K3 and K4 take 1-D and 2-D)'
+    return dtype_reason(dtype)
+
+
+@_pinned
 def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
           inhibition: float = 0., cross_inhibition: float = 0., kernels: Sequence = (),
           *, plan: ConvPlan, use_inhibition: bool = False,
-          use_cross: bool = False) -> torch.Tensor:
+          use_cross: bool = False, strategy: str = 'conv') -> torch.Tensor:
     """One multiplicative H update (reference ``_update_H``,
     ``TransformInvariantNMF.py:246-271``):
-    ``H * corr(Vp, W) / (corr(Rx, W) + EPS + sparsity)``, fused in K3.  With
-    lateral inhibition (``use_inhibition`` same-atom, ``use_cross``
-    cross-atom) the gradient pair is one stacked convolution and K4 adds the
-    inhibition term and forms the ratio."""
-    Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
+    ``H * corr(Vp, W) / (corr(Rx, W) + EPS + sparsity)``, fused in K3 on the
+    conv strategy; on fft and dot the strategy's gradient pair, then K1's
+    ratio.  With lateral inhibition (``use_inhibition`` same-atom,
+    ``use_cross`` cross-atom) the gradient pair is computed alone (one
+    stacked convolution on conv) and K4 adds the inhibition term and forms
+    the ratio."""
     reg = EPS + float(sparsity)
     kernels_on = plain_reason(plan, H.dtype) is None
-    if not (use_inhibition or use_cross):
-        return (mu_h if kernels_on else mu_h_plain)(Vp, Rx, W, H, reg)
-    neg, pos = conv_ops.grad_H_pair_prepared(Vp, Rx, W)
+    inhibited = use_inhibition or use_cross
+    if strategy == 'conv':
+        Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
+        if not inhibited:
+            return (mu_h if kernels_on else mu_h_plain)(Vp, Rx, W, H, reg)
+        neg, pos = conv_ops.grad_H_pair_prepared(Vp, Rx, W)
+    else:
+        ops = get_ops(strategy)
+        # the kernels take contiguous tensors; fft's are crops of its transforms
+        neg, pos = (g.contiguous() for g in ops.grad_H_pair(
+            Vp, ops.reconstruct(W, H, plan), W, plan))
+        if not inhibited:
+            ratio = mu_ratio if dtype_reason(H.dtype) is None else mu_ratio_plain
+            return ratio(H, neg, pos, reg)
     update = inhibited_mu_h if kernels_on else inhibited_mu_h_plain
     return update(H, neg, pos, kernels, float(inhibition), float(cross_inhibition), reg,
                   use_same=use_inhibition, use_cross=use_cross)
@@ -158,45 +219,58 @@ def _normalize_W(W: torch.Tensor, n_shift_axes: int) -> torch.Tensor:
     return W / torch.where(s == 0, torch.ones_like(s), s)
 
 
+@_pinned
 def _mu_W(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
-          plan: ConvPlan) -> torch.Tensor:
+          plan: ConvPlan, strategy: str = 'conv') -> torch.Tensor:
     """One multiplicative W update with atom-wise sum normalization
     (reference ``_update_W`` + ``normalize``, ``TransformInvariantNMF.py:240-244``):
-    the statistics in K2, the ratio ``W * neg / (pos + EPS)`` and
-    :func:`_normalize_W` in one launch of K1's W epilogue."""
-    Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
-    stats, epilogue = ((grad_w, mu_w) if plain_reason(plan, H.dtype) is None
-                       else (grad_w_plain, mu_w_plain))
-    neg, pos = stats(torch.cat([Vp, Rx], dim=1), H, plan)
-    return epilogue(W, neg, pos, EPS, plan.ndim)
+    the statistics (K2 on the conv strategy, the strategy's gradient pair on
+    fft and dot), then the ratio ``W * neg / (pos + EPS)`` and
+    :func:`_normalize_W` in one launch of K1's W epilogue (any rank)."""
+    kernels_on = plain_reason(plan, H.dtype) is None
+    epilogue = mu_w if dtype_reason(H.dtype) is None else mu_w_plain
+    if strategy == 'conv':
+        Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
+        neg, pos = (grad_w if kernels_on else grad_w_plain)(torch.cat([Vp, Rx], dim=1), H, plan)
+    else:
+        ops = get_ops(strategy)
+        neg, pos = ops.grad_W_pair(Vp, ops.reconstruct(W, H, plan), H, plan)
+    # the kernel takes contiguous tensors: fft's pair and plain K2's (3-D
+    # fits) are views; K2's own are contiguous already, so no copy there
+    return epilogue(W, neg.contiguous(), pos.contiguous(), EPS, plan.ndim)
 
 
+@_pinned
 def update_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                 sparsity: float, inhibition: float = 0., cross_inhibition: float = 0.,
                 kernels: Sequence = (), *, plan: ConvPlan, update_H: bool = True,
                 update_W: bool = True, use_inhibition: bool = False,
-                use_cross: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                use_cross: bool = False,
+                strategy: str = 'conv') -> Tuple[torch.Tensor, torch.Tensor]:
     """One full MU iteration: H update, then W update.  Returns ``(W, H)``."""
     if update_H:
         H = _mu_H(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
-                  use_inhibition=use_inhibition, use_cross=use_cross)
+                  use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy)
     if update_W:
-        W = _mu_W(Vp, W, H, plan=plan)
+        W = _mu_W(Vp, W, H, plan=plan, strategy=strategy)
     return W, H
 
 
+@_pinned
 def fit_loop(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
              n_iterations: int, sparsity: float, inhibition: float = 0.,
              cross_inhibition: float = 0., kernels: Sequence = (), *, plan: ConvPlan,
              update_H: bool = True, update_W: bool = True, use_inhibition: bool = False,
-             use_cross: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+             use_cross: bool = False,
+             strategy: str = 'conv') -> Tuple[torch.Tensor, torch.Tensor]:
     """``n_iterations`` MU iterations.  Returns ``(W, H)``.  ``kernels`` are
     the per-axis inhibition kernels, read when ``use_inhibition`` or
     ``use_cross`` is set."""
     for _ in range(int(n_iterations)):
         W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
                            plan=plan, update_H=update_H, update_W=update_W,
-                           use_inhibition=use_inhibition, use_cross=use_cross)
+                           use_inhibition=use_inhibition, use_cross=use_cross,
+                           strategy=strategy)
     return W, H
 
 
@@ -207,9 +281,11 @@ def energy_trace(V: torch.Tensor, n: int) -> torch.Tensor:
     return torch.full((n,), math.nan, dtype=acc, device=V.device)
 
 
+@_pinned
 def fit_loop_energies(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                       sparsity: float, inhibition: float = 0., cross_inhibition: float = 0.,
                       kernels: Sequence = (), *, n_iterations: int, plan: ConvPlan,
+                      strategy: str = 'conv',
                       **step) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``n_iterations`` MU iterations that also record the energy after
     each one (one more reconstruction per iteration; reference
@@ -219,8 +295,8 @@ def fit_loop_energies(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: tor
     energies = energy_trace(V, int(n_iterations))
     for i in range(int(n_iterations)):
         W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
-                           plan=plan, **step)
-        energies[i] = energy(V, W, H, plan=plan)
+                           plan=plan, strategy=strategy, **step)
+        energies[i] = energy(V, W, H, plan=plan, strategy=strategy)
     return W, H, energies
 
 
@@ -234,19 +310,20 @@ def _block_change(e_prev: torch.Tensor, e: torch.Tensor,
 
 
 def _tol_start(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor, tol: float,
-               plan: ConvPlan) -> Tuple[torch.Tensor, torch.Tensor, float]:
+               plan: ConvPlan, strategy: str) -> Tuple[torch.Tensor, torch.Tensor, float]:
     """The initial energy, the scale ``max(e0, tiny)`` of the relative
     improvement, and ``tol`` rounded to the accumulation dtype (the JAX
     package compares in that dtype)."""
-    e0 = energy(V, W, H, plan=plan)
+    e0 = energy(V, W, H, plan=plan, strategy=strategy)
     scale = torch.clamp(e0, min=torch.finfo(e0.dtype).tiny)
     return e0, scale, float(torch.tensor(tol, dtype=e0.dtype))
 
 
+@_pinned
 def fit_loop_tol(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                  n_max: int, tol: float, sparsity: float, inhibition: float = 0.,
                  cross_inhibition: float = 0., kernels: Sequence = (), *, check_every: int,
-                 n_buf: int = 0, plan: ConvPlan, **step):
+                 n_buf: int = 0, plan: ConvPlan, strategy: str = 'conv', **step):
     """Adaptive fit (port of the JAX package's ``fit_loop_tol``): MU
     iterations in blocks of ``min(check_every, n_max - i)``; after each
     block the relative improvement ``(e_prev - e) / max(e0, tiny)`` is
@@ -266,16 +343,17 @@ def fit_loop_tol(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Te
     """
     n_max, check_every = int(n_max), int(check_every)
     trace = energy_trace(V, n_buf) if n_buf > 0 else None
-    e, scale, tol = _tol_start(V, W, H, tol, plan)
+    e, scale, tol = _tol_start(V, W, H, tol, plan, strategy)
     i, rel = 0, math.inf
     while i < n_max and rel >= tol:
         k = min(check_every, n_max - i)
         for j in range(k):
             W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
-                               plan=plan, **step)
+                               plan=plan, strategy=strategy, **step)
             if trace is not None:
-                trace[i + j] = energy(V, W, H, plan=plan)
-        e_prev, e = e, (trace[i + k - 1] if trace is not None else energy(V, W, H, plan=plan))
+                trace[i + j] = energy(V, W, H, plan=plan, strategy=strategy)
+        e_prev, e = e, (trace[i + k - 1] if trace is not None
+                        else energy(V, W, H, plan=plan, strategy=strategy))
         rel = _block_change(e_prev, e, scale)[1]
         i += k
     return W, H, i, e, trace
@@ -293,13 +371,15 @@ def _extrapolate(Xn: torch.Tensor, Xold: torch.Tensor, bk: torch.Tensor) -> torc
     return (Xn * r ** bk.to(Xn.dtype)).to(Xn.dtype)
 
 
+@_pinned
 def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
                           H: torch.Tensor, n_max: int, tol: float, beta0: float,
                           sparsity: float, inhibition: float = 0.,
                           cross_inhibition: float = 0., kernels: Sequence = (), *,
                           check_every: int, n_buf: int = 0, plan: ConvPlan,
                           update_H: bool = True, update_W: bool = True,
-                          use_inhibition: bool = False, use_cross: bool = False):
+                          use_inhibition: bool = False, use_cross: bool = False,
+                          strategy: str = 'conv'):
     """Extrapolated MU with restarts (port of the JAX package's
     ``fit_loop_extrapolated``): each update is taken at the extrapolated
     point ``Y = X_new * clip(X_new / X_old)**beta_k`` (W's re-normalised).
@@ -314,7 +394,7 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
     """
     n_max, check_every = int(n_max), int(check_every)
     trace = energy_trace(V, n_buf) if n_buf > 0 else None
-    e, scale, tol = _tol_start(V, W, H, tol, plan)
+    e, scale, tol = _tol_start(V, W, H, tol, plan, strategy)
     bk = torch.tensor(beta0, dtype=e.dtype, device=e.device)
     Wy, Hy = W, H
     i, rel = 0, math.inf
@@ -323,14 +403,16 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
         for j in range(k):
             if update_H:
                 Hn = _mu_H(Vp, Wy, Hy, sparsity, inhibition, cross_inhibition, kernels,
-                           plan=plan, use_inhibition=use_inhibition, use_cross=use_cross)
+                           plan=plan, use_inhibition=use_inhibition, use_cross=use_cross,
+                           strategy=strategy)
                 Hy, H = _extrapolate(Hn, H, bk), Hn
             if update_W:
-                Wn = _mu_W(Vp, Wy, Hy, plan=plan)
+                Wn = _mu_W(Vp, Wy, Hy, plan=plan, strategy=strategy)
                 Wy, W = _normalize_W(_extrapolate(Wn, W, bk), plan.ndim).to(Wn.dtype), Wn
             if trace is not None:
-                trace[i + j] = energy(V, W, H, plan=plan)
-        e_prev, e = e, (trace[i + k - 1] if trace is not None else energy(V, W, H, plan=plan))
+                trace[i + j] = energy(V, W, H, plan=plan, strategy=strategy)
+        e_prev, e = e, (trace[i + k - 1] if trace is not None
+                        else energy(V, W, H, plan=plan, strategy=strategy))
         diff, rel = _block_change(e_prev, e, scale)
         if diff < 0:  # the energy rose: drop the momentum
             bk = bk * _XTR_SHRINK
@@ -341,33 +423,37 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
     return W, H, i, e, trace
 
 
+@_pinned
 def update_H_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
                   inhibition: float = 0., cross_inhibition: float = 0., kernels: Sequence = (),
                   *, plan: ConvPlan, use_inhibition: bool = False,
-                  use_cross: bool = False) -> torch.Tensor:
+                  use_cross: bool = False, strategy: str = 'conv') -> torch.Tensor:
     """One H-only MU update (W frozen)."""
     return _mu_H(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
-                 use_inhibition=use_inhibition, use_cross=use_cross)
+                 use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy)
 
 
+@_pinned
 def update_W_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
-                  plan: ConvPlan) -> torch.Tensor:
+                  plan: ConvPlan, strategy: str = 'conv') -> torch.Tensor:
     """One W-only MU update (H frozen), atoms sum-normalised."""
-    return _mu_W(Vp, W, H, plan=plan)
+    return _mu_W(Vp, W, H, plan=plan, strategy=strategy)
 
 
+@_pinned
 def correlate_init_H(Vp: torch.Tensor, Vd: torch.Tensor, W: torch.Tensor, *,
-                     plan: ConvPlan) -> torch.Tensor:
+                     plan: ConvPlan, strategy: str = 'conv') -> torch.Tensor:
     """Matched-filter activations ``H0 = c * corr(Vp, W)`` with the
     least-squares scale ``c = <V, R0> / <R0, R0>``, ``R0 = reconstruct(W,
     corr(Vp, W))``, accumulated in ``promote_types(V.dtype, float32)``; a
     floor of 1 % of the mean keeps every entry positive (zero is absorbing
     under MU).  Deterministic and on the device: no host draw of H.  The
     JAX package takes the correlation as the ``neg`` half of
-    ``grad_H_pair(Vp, 0, W)``; here it is that half alone, one cuDNN
-    correlation."""
-    neg = conv_ops.corr_H(Vp, W)
-    R0 = reconstruct(W, neg.to(W.dtype), plan=plan)
+    ``grad_H_pair(Vp, 0, W)``; here it is that half alone (one cuDNN
+    correlation on the conv strategy)."""
+    neg = (conv_ops.corr_H(Vp, W) if strategy == 'conv'
+           else get_ops(strategy).corr_H(Vp, W, plan))
+    R0 = reconstruct(W, neg.to(W.dtype), plan=plan, strategy=strategy)
     acc = torch.promote_types(Vd.dtype, torch.float32)
     num = torch.sum(Vd.to(acc) * R0.to(acc))
     den = torch.clamp(torch.sum(R0.to(acc) ** 2), min=torch.finfo(acc).tiny)

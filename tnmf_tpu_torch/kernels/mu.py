@@ -6,7 +6,13 @@ are in ``tnmf_tpu_torch/csrc/mu_ratio.cu``.
 
 :func:`mu_ratio` is the ratio alone, the direct counterpart of the Pallas
 kernel: bound by device-memory bandwidth (three reads and one write per
-element, no reuse), a grid-stride loop with 16-byte vector accesses.
+element, no reuse), a grid-stride loop with 16-byte vector accesses.  It is
+the H epilogue of the fft and dot strategies (``H * neg / (pos + EPS +
+sparsity)`` after their gradient pair), which the JAX engine forms in
+``jnp`` (``tnmf_tpu/engine.py:479``): ``pallas_mu.mu_ratio`` is the TPU
+kernel with that body, and nothing in the JAX package calls it.  On the
+conv strategy K3 fuses the ratio.  Any shape runs, so the engine gates K1
+on the dtype alone (:func:`tnmf_tpu_torch.engine.dtype_reason`).
 
 :func:`mu_w` is the W epilogue of :func:`tnmf_tpu_torch.engine._mu_W`: the
 ratio ``W * neg / (pos + EPS)`` and the atom normalisation of the JAX

@@ -10,9 +10,17 @@ revival), the host-NumPy initialization (reference RNG stream, so seeded
 fits match the JAX package), the encoder API (``set_dictionary``,
 ``transform``, ``fit_transform``, ``inverse_transform``), the ``W`` / ``H``
 / ``V`` / ``R`` accessors, ``R_partial``, the energy, and ``.npz``
-checkpoints both packages read (``save`` / ``load``).  Arguments of the JAX
-API that select parts not ported yet raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+checkpoints both packages read (``save`` / ``load``).  Every strategy the
+JAX package picks off the TPU runs: direct convolution, FFT (with either
+``fft_policy``) and the plain-NMF matmuls.  Arguments of the JAX API that
+select parts not ported yet raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
+
+Data may arrive as NumPy arrays or as ``torch.Tensor``s.  A tensor on the
+model's device stays there, with no host copy: the non-negativity check runs
+on the device and reads back one scalar, and the ``V`` property makes its
+NumPy copy only when read (the JAX package keeps device arrays the same
+way).  A tensor on another device is moved with ``.to(device)``.
 
 The constructor takes the JAX package's positional order, and ``fit_batch``
 the JAX ``fit_batch``'s.  The model lives on an explicit ``device``
@@ -52,7 +60,6 @@ _ITEM = 'ROADMAP.md queue 1, item {}'
 #: constructor arguments of the JAX API not ported yet: (default, ROADMAP item)
 _UNPORTED_INIT = {
     'mesh': (None, _ITEM.format(14)),
-    'fft_policy': ('5-smooth', _ITEM.format(8)),
     'use_pallas': (None, 'ROADMAP.md queue 2 (kernel/plain switch)'),
     'init': ('host', _ITEM.format(12)),
     'shard_axis': ('samples', _ITEM.format(14)),
@@ -118,6 +125,30 @@ def _validate_tol(tol, tol_check_every):
             f'tol_check_every must be >= 1, got {tol_check_every!r}')
 
 
+def _as_input(x, device: torch.device):
+    """Data as the model takes it: a tensor (detached, moved to ``device``
+    if it lies elsewhere; no host copy) or a NumPy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(device)
+    return np.asarray(x)
+
+
+def _assert_nonnegative(x) -> None:
+    """``ValueError`` unless every entry is >= 0 (NaN fails); a tensor is
+    checked on its device, one scalar read back."""
+    ok = bool(torch.all(x >= 0)) if isinstance(x, torch.Tensor) else bool(np.all(x >= 0))
+    if not ok:
+        raise ValueError('The input data V must be non-negative.')
+
+
+def _np_dtype(x) -> np.dtype:
+    """The NumPy dtype of an array's or a tensor's entries: the dtype of the
+    host draws of H and W, as the JAX package draws them in ``V.dtype``."""
+    if isinstance(x, torch.Tensor):
+        return np.dtype(str(x.dtype).removeprefix('torch.'))
+    return x.dtype
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
@@ -165,9 +196,11 @@ class TransformInvariantNMF:
         Lateral inhibition range per shift axis; defaults to
         ``atom_shape - 1`` (reference ``TransformInvariantNMF.py:154-160``).
     backend : str, default 'auto'
-        A backend name of the JAX package.  Only the direct-convolution
-        strategy is ported: names (or an ``'auto'`` choice) that resolve to
-        another strategy raise ``NotImplementedError``.
+        A backend name of the JAX package or of the reference: the ``*fft``
+        names request the FFT strategy, the others direct convolution, and
+        ``'auto'`` picks by the JAX rule (:func:`tnmf_tpu_torch.engine.choose_strategy`).
+        Plain NMF (``'full'`` mode, atoms as large as the samples) runs the
+        matmul strategy.  The resolved strategy is ``_strategy``.
     logger : logging.Logger, optional
         Defaults to ``logging.getLogger('TransformInvariantNMF')``.
     verbose : {0, 1, 2, 3}, default 0
@@ -184,6 +217,9 @@ class TransformInvariantNMF:
         If given, W/H initialization (and dead-atom revival) draws from a
         private ``np.random.default_rng(seed)``; otherwise from the global
         NumPy stream in the reference's order (H, then W).
+    fft_policy : {'5-smooth', 'pow2'}, default '5-smooth'
+        FFT length per axis of the fft strategy: the smallest 5-smooth
+        length, or the next power of two, covering the linear correlation.
     h_init : {'random', 'correlate'}, default 'random'
         Keyword.  ``'correlate'`` starts H at the matched filter
         :func:`tnmf_tpu_torch.engine.correlate_init_H`, computed on the
@@ -194,7 +230,7 @@ class TransformInvariantNMF:
         the hot operators are the hand-written kernels; on the CPU their
         plain versions.
 
-    The JAX package's other later parameters (``fft_policy`` …
+    The JAX package's other later parameters (``use_pallas`` …
     ``w_init``) are taken by keyword; those whose code is not ported raise
     ``NotImplementedError`` unless they hold their default.
     """
@@ -204,8 +240,8 @@ class TransformInvariantNMF:
                  backend: str = 'auto', logger: Optional[logging.Logger] = None,
                  verbose: int = 0, reconstruction_mode: str = 'valid',
                  dtype: Union[torch.dtype, str] = torch.float32, mesh=None,
-                 seed: Optional[int] = None, *, h_init: str = 'random', device='cuda',
-                 **unported):
+                 seed: Optional[int] = None, fft_policy: str = '5-smooth', *,
+                 h_init: str = 'random', device='cuda', **unported):
         _reject_unported('TransformInvariantNMF', dict(mesh=mesh, **unported), _UNPORTED_INIT)
         self.n_atoms = int(n_atoms)
         self.atom_shape = tuple(int(a) for a in atom_shape)
@@ -219,6 +255,7 @@ class TransformInvariantNMF:
             raise KeyError(
                 f'unknown backend {backend!r}; choose one of {sorted(_BACKEND_STRATEGY)}') from e
         self._reconstruction_mode = reconstruction_mode
+        self._fft_policy = fft_policy
         if h_init not in ('random', 'correlate'):
             raise ValueError(
                 f"h_init must be 'random' or 'correlate', got {h_init!r}")
@@ -235,9 +272,10 @@ class TransformInvariantNMF:
                            self._strategy_request)
 
         self._plan: Optional[ConvPlan] = None
+        self._strategy: Optional[str] = None  # resolved per fit: 'conv', 'fft' or 'dot'
         self._W: Optional[torch.Tensor] = None
         self._H: Optional[torch.Tensor] = None
-        self._V: Optional[np.ndarray] = None   # host copy for the V property
+        self._V = None   # the data as given (array or tensor), for the V property
         self._Vd: Optional[torch.Tensor] = None
         self._Vp: Optional[torch.Tensor] = None  # prepared (mode-extended) data
         # iteration stamp of the checkpoint this model was loaded from
@@ -273,37 +311,52 @@ class TransformInvariantNMF:
 
     @property
     def V(self) -> np.ndarray:
+        """The last fit's data as a NumPy array (a tensor's host copy is made
+        here, on each read)."""
+        if isinstance(self._V, torch.Tensor):
+            return self._V.detach().cpu().numpy()
         return self._V
 
     @property
     def R(self) -> np.ndarray:
-        return engine.reconstruct(self._W, self._H, plan=self._plan).cpu().numpy()
+        return engine.reconstruct(self._W, self._H, plan=self._plan,
+                                  strategy=self._strategy).cpu().numpy()
 
     def R_partial(self, i_atom: int) -> np.ndarray:
         return engine.partial_reconstruct(
-            self._W, self._H, plan=self._plan, i_atom=int(i_atom)).cpu().numpy()
+            self._W, self._H, plan=self._plan, i_atom=int(i_atom),
+            strategy=self._strategy).cpu().numpy()
 
     def _energy_function(self) -> float:
-        return float(engine.energy(self._Vd, self._W, self._H, plan=self._plan))
+        return float(engine.energy(self._Vd, self._W, self._H, plan=self._plan,
+                                   strategy=self._strategy))
 
     # ------------------------------------------------------------------
     # initialization
     # ------------------------------------------------------------------
 
     def _check_strategy(self):
-        """Raise unless the requested backend resolves to the ported
-        direct-convolution strategy for the current plan."""
+        """Resolve the requested backend for the current plan (the JAX
+        ``choose_strategy`` / ``resolve_strategy``) into ``_strategy``."""
         strategy = self._strategy_request
         if strategy == 'auto':
             strategy = engine.choose_strategy(self._plan)
-        engine.require_ported(engine.resolve_strategy(strategy, self._plan))
+        strategy = engine.resolve_strategy(strategy, self._plan)
+        engine.require_ported(strategy)
+        self._strategy = strategy
+
+    def _plan_for(self, sample_shape) -> ConvPlan:
+        return ConvPlan.create(self._reconstruction_mode, sample_shape, self.atom_shape,
+                               self._fft_policy)
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
-    def _initialize_matrices(self, V: np.ndarray, keep_W: bool, keep_H: bool = False):
+    def _initialize_matrices(self, V, keep_W: bool, keep_H: bool = False):
+        """W, H and the prepared data for a fit of ``V`` (a NumPy array, or
+        a tensor on the model's device, kept there)."""
         self._V = V
-        self._plan = ConvPlan.create(self._reconstruction_mode, V.shape[2:], self.atom_shape)
+        self._plan = self._plan_for(V.shape[2:])
         self._check_strategy()
 
         keep = keep_W and self._W is not None
@@ -323,9 +376,10 @@ class TransformInvariantNMF:
                     f'do not match the new data (expected {expected_h}); '
                     f'exact resume requires the same batch')
         # host-side init replicating the reference RNG stream exactly (H then
-        # W, 1 - U[0,1); _Backend.py:83-98) so seeded runs match; keep_H
-        # skips the H draw, and h_init='correlate' computes H on the device
-        # below
+        # W, 1 - U[0,1); _Backend.py:83-98), in V's dtype, so seeded runs
+        # match; keep_H skips the H draw, and h_init='correlate' computes H
+        # on the device below
+        draw_dtype = _np_dtype(V)
         if keep_h:
             H = self._H
         elif self._h_init == 'correlate':
@@ -333,18 +387,19 @@ class TransformInvariantNMF:
         else:
             H = np.asarray(
                 1 - self._rng.random((V.shape[0], self.n_atoms) + self._plan.transform_shape),
-                dtype=V.dtype)
+                dtype=draw_dtype)
         if keep:
             W = self._W
         else:
             W = np.asarray(
                 1 - self._rng.random((self.n_atoms, V.shape[1]) + self.atom_shape),
-                dtype=V.dtype)
+                dtype=draw_dtype)
             W /= W.sum(axis=self._axes_W_normalization, keepdims=True)
         self._W = self._tensor(W)
         self._Vd = self._tensor(V)
-        self._Vp = engine.prepare_data(self._Vd, plan=self._plan)
-        self._H = (engine.correlate_init_H(self._Vp, self._Vd, self._W, plan=self._plan)
+        self._Vp = engine.prepare_data(self._Vd, plan=self._plan, strategy=self._strategy)
+        self._H = (engine.correlate_init_H(self._Vp, self._Vd, self._W, plan=self._plan,
+                                           strategy=self._strategy)
                    if H is None else self._tensor(H))
         # built in float64, cast to the compute dtype
         self._kernels = tuple(self._tensor(k) for k in self._inhibition_kernels_1D)
@@ -406,9 +461,8 @@ class TransformInvariantNMF:
         _reject_unported('fit_batch', dict(l2_H=l2_H, ortho_W=ortho_W, mask=mask,
                                            solver=solver, hals_inner=hals_inner,
                                            sparsity_W=sparsity_W, l2_W=l2_W), _UNPORTED_FIT)
-        V = np.asarray(V)
-        if not np.all(V >= 0):
-            raise ValueError('The input data V must be non-negative.')
+        V = _as_input(V, self.device)
+        _assert_nonnegative(V)
         _require(update_H or update_W, 'at least one of update_H / update_W must be True')
         for name, value in dict(
                 sparsity_H=sparsity_H, inhibition_strength=inhibition_strength,
@@ -475,8 +529,8 @@ class TransformInvariantNMF:
         n_iterations = int(n_iterations)
         regs = (float(sparsity_H), float(inhibition_strength),
                 float(cross_atom_inhibition_strength), self._kernels)
-        flags = dict(plan=self._plan, update_H=update_H, update_W=update_W,
-                     use_inhibition=inhibition_strength > 0,
+        flags = dict(plan=self._plan, strategy=self._strategy, update_H=update_H,
+                     update_W=update_W, use_inhibition=inhibition_strength > 0,
                      use_cross=cross_atom_inhibition_strength > 0)
         log_each = self._logger.isEnabledFor(logging.INFO)
         self.energies_ = None
@@ -579,9 +633,16 @@ class TransformInvariantNMF:
 
     def set_dictionary(self, W) -> 'TransformInvariantNMF':
         """Install a dictionary (nonnegative, ``(n_atoms, n_channels,
-        *atom_shape)``) so that ``transform`` / ``fit(keep_W=True)`` run
-        against it; its atoms are sum-normalised.  Drops any earlier fit
-        state.  Returns ``self``."""
+        *atom_shape)``, an array or a tensor) so that ``transform`` /
+        ``fit(keep_W=True)`` run against it; its atoms are sum-normalised.
+        Drops any earlier fit state.  Returns ``self``.
+
+        The normalisation runs on the host in NumPy for either kind of
+        input, as the JAX package's does (``np.asarray``), so an array and a
+        tensor give the same bits; a tensor's host copy is of the dictionary
+        alone (n_atoms x n_channels x atom entries), never of the data."""
+        if isinstance(W, torch.Tensor):
+            W = W.detach().cpu().numpy()
         W = np.asarray(W)
         if W.ndim != 2 + len(self.atom_shape) or W.shape[0] != self.n_atoms \
                 or W.shape[2:] != self.atom_shape:
@@ -613,7 +674,7 @@ class TransformInvariantNMF:
             self.fit_batch(V, n_iterations=n_iterations, update_W=False, keep_W=True,
                            **kwargs)
             return self.H
-        V = np.asarray(V)
+        V = _as_input(V, self.device)
         out = []
         for s in _sequential_slices(V.shape[0], batch_size):
             self.fit_batch(V[s], n_iterations=n_iterations, update_W=False, keep_W=True,
@@ -626,17 +687,17 @@ class TransformInvariantNMF:
         self.fit(V, y, **kwargs)
         return self.H
 
-    def inverse_transform(self, H: Optional[np.ndarray] = None) -> np.ndarray:
-        """The reconstruction of ``H`` (default: the last fit's or
-        transform's own activations, ``self.R``)."""
+    def inverse_transform(self, H=None) -> np.ndarray:
+        """The reconstruction of ``H`` (an array or a tensor; default: the
+        last fit's or transform's own activations, ``self.R``)."""
         if self._plan is None:
             raise RuntimeError(
                 'inverse_transform() requires a fitted model; call fit() '
                 '(or load a checkpoint that includes H) first')
         if H is None:
             return self.R
-        return engine.reconstruct(self._W, self._tensor(np.asarray(H)),
-                                  plan=self._plan).cpu().numpy()
+        return engine.reconstruct(self._W, self._tensor(_as_input(H, self.device)),
+                                  plan=self._plan, strategy=self._strategy).cpu().numpy()
 
     # ------------------------------------------------------------------
     # checkpoints, in the JAX package's .npz format
@@ -713,5 +774,5 @@ class TransformInvariantNMF:
             sample = tuple(t + a - 1 for t, a in zip(tshape, self.atom_shape))
         else:
             sample = tshape
-        self._plan = ConvPlan.create(mode, sample, self.atom_shape)
+        self._plan = self._plan_for(sample)
         self._check_strategy()

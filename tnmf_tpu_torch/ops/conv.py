@@ -38,7 +38,7 @@ def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     except KeyError:
         raise NotImplementedError(
             'direct-conv strategy supports up to 3 shift dimensions; the fft '
-            'strategy is not ported yet (ROADMAP.md queue 1, item 8)') from None
+            "strategy takes any number (backend='jax_fft', or 'auto')") from None
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         return conv(x, w)
 

@@ -73,20 +73,27 @@ def convolve_multi_1d(arr: torch.Tensor, kernels: Sequence, axes: Sequence[int])
 
     The shift axes from the first of ``axes`` to the last dimension (at most
     three) ride a depthwise convolution; all leading axes fold into its
-    batch."""
+    batch.  More shift axes (rank-4 fits, which take the fft strategy) run
+    one 1-D convolution per axis, that axis moved last.  Ranks 1-3 keep the
+    depthwise route: it is the plain version of K4 that the 1-D and 2-D
+    goldens and the card's comparisons were taken on, and the per-axis
+    route sums in another order (its speed on those ranks is not
+    measured)."""
     assert len(kernels) == len(axes)
     axes = [a % arr.ndim for a in axes]
     lead = min(axes)
     spatial = tuple(arr.shape[lead:])
     nd = len(spatial)
-    if nd not in _CONV:
-        raise NotImplementedError(
-            f'convolve_multi_1d: at most 3 trailing axes, got {nd}')
-    out = arr.reshape((-1, 1) + spatial)
+    out = arr if nd not in _CONV else arr.reshape((-1, 1) + spatial)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         for axis, kernel in zip(axes, kernels):
             k = torch.as_tensor(kernel, dtype=arr.dtype, device=arr.device)
             r = (k.shape[0] - 1) // 2
+            if nd not in _CONV:
+                x = out.movedim(axis, -1)
+                y = F.conv1d(x.reshape(-1, 1, x.shape[-1]), k.reshape(1, 1, -1), padding=r)
+                out = y.reshape(x.shape).movedim(-1, axis)
+                continue
             shape = [1] * nd
             shape[axis - lead] = k.shape[0]
             pad = [0] * nd

@@ -89,21 +89,39 @@ failure (exit code != 0, no result line):
    and read after it: the fft flagship (phase 5's problem on
    ``backend='jax_fft'``, 20 iterations) plain (``mu_ratio`` and ``mu_w``
    once per iteration, no other kernel) and inhibited (K4 and ``mu_w``),
-   each W and H within 1e-4 of the same fit under ``plain_versions()`` and
+   each W and H within 1e-4 of the same fit with ``use_pallas=False`` and
    of the float64 fit, peak memory, an iteration under the caller's TF32
    matmul setting bit-equal to one without, ms/iteration in turns with the
    conv flagship and the time of each part; ``'auto'`` on 64 x 1 x 128 x 128
    with 31 x 31 atoms (fft); the long 1-D fft problem (16 x 1 x 16000, 8
    atoms of 64) plain and inhibited; fft fits of 3 and 4 shift axes
    (``mu_ratio`` and ``mu_w``; inhibited rank 4: ``mu_w``, K4 plain under
-   the rank gate), each against ``plain_versions()`` and float64; plain NMF
+   the rank gate), each against ``use_pallas=False`` and float64; plain NMF
    at production scale (16384 x 1 x 4096, 256 atoms, the dot strategy)
    against its matmul bound; the golden ``'2d'`` energies through
    ``backend='numpy_fft'`` in float32 (rtol 1e-4) and float64 (1e-8); and
    F5: the golden fit (conv and fft), ``set_dictionary``, ``transform`` and
    ``inverse_transform`` of CUDA tensors, with no host copy of the data
    (``set_dictionary`` copies the dictionary alone to the host, once, as
-   the JAX package normalises it in NumPy), bit-equal to the NumPy calls.
+   the JAX package normalises it in NumPy), bit-equal to the NumPy calls;
+13. the minibatch and streaming drivers: ``fit_minibatches`` at the flagship
+   in batches of 16 (four per epoch), each of the five algorithms and
+   ASG_MU inhibited for 4 epochs on the kernels and with
+   ``use_pallas=False``, counts reset before each fit and read after it:
+   K3 (K4 inhibited) once per batch, K2 and ``mu_w`` once per batch or once
+   per epoch as the algorithm implies, no launch with ``use_pallas=False``;
+   W and H within 1e-4 of that fit; device ms per epoch after the first
+   (CUDA events recorded by the progress callback); Cyclic_MU against
+   ``fit_batch(n_iterations=3)`` within 1e-5; the golden ``minibatch`` and
+   ``stream`` energies in float32 on conv and fft (rtol 1e-4); four
+   ``partial_fit`` steps of 16 samples (wall ms per step, and the device
+   time of a step), the first with ``sag_lambda=1`` bit-equal to
+   ``fit_batch(n_iterations=1)``; ``fit_stream`` over a generator of CUDA
+   tensors with no host copy of them, bit-equal to the stream of NumPy
+   rows.
+
+Phases 7, 10, 12 and 13 hold fits on the kernels against the same fits with
+``use_pallas=False`` (the model's kernel/plain switch).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths, error, times and bound; the last line is
@@ -124,7 +142,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tnmf_tpu_torch import TransformInvariantNMF, engine
+from tnmf_tpu_torch import MiniBatchAlgorithm, TransformInvariantNMF, engine
 from tnmf_tpu_torch.kernels import _build, gw, inhibit, mu, mu_h
 from tnmf_tpu_torch.ops import conv
 from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
@@ -832,20 +850,6 @@ def _rel(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """Inside the block the engine runs the plain versions of the kernels on
-    every problem: the float32 comparator of a fit on the kernels."""
-    saved = {name: getattr(engine, name) for name in ENGINE_KERNELS}
-    for name in ENGINE_KERNELS:
-        setattr(engine, name, getattr(engine, name + '_plain'))
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(engine, name, fn)
-
-
 def phase_large():
     """16 channels of 31 x 31 atoms, plain and inhibited, 3 iterations on
     the kernels: no plain version called, each kernel of the path launched
@@ -862,8 +866,9 @@ def phase_large():
               dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition']))]
     out = {}
     for label, required, fit in paths:
-        def fitted(dtype):
-            model = TransformInvariantNMF(f['M'], f['A'], dtype=dtype, seed=SEED, device=DEVICE)
+        def fitted(dtype, use_pallas=None):
+            model = TransformInvariantNMF(f['M'], f['A'], dtype=dtype, seed=SEED, device=DEVICE,
+                                          use_pallas=use_pallas)
             model.fit(V, n_iterations=f['n_iter'], **fit)
             sync()
             return model
@@ -871,8 +876,7 @@ def phase_large():
         ref = fitted(torch.float64)
         if any(counts().values()):
             raise AssertionError(f'large {label}: the float64 fit launched {counts()}')
-        with plain_versions():
-            plain32 = fitted(torch.float32)
+        plain32 = fitted(torch.float32, use_pallas=False)
         reset_counts()
         with plain_calls() as plain:
             nmf = fitted(torch.float32)
@@ -1142,9 +1146,10 @@ def phase_encoder(W: np.ndarray) -> tuple:
     out = {}
     for label, kernel, fit in paths:
         for h_init in ('random', 'correlate'):
-            def encoder():
+            def encoder(use_pallas=None):
                 return TransformInvariantNMF(f['M'], f['A'], seed=SEED, h_init=h_init,
-                                             device=DEVICE).set_dictionary(W)
+                                             device=DEVICE,
+                                             use_pallas=use_pallas).set_dictionary(W)
             enc = encoder()
             sync()
             reset_counts()
@@ -1152,8 +1157,7 @@ def phase_encoder(W: np.ndarray) -> tuple:
             H = enc.transform(V, n_iterations=ENCODER_ITER, **fit)
             wall = time.perf_counter() - t0
             launches = counts()
-            with plain_versions():
-                want = encoder().transform(V, n_iterations=ENCODER_ITER, **fit)
+            want = encoder(use_pallas=False).transform(V, n_iterations=ENCODER_ITER, **fit)
             rel = _rel(H, want)
             log(f'encoder {label}, h_init={h_init}: transform of {ENCODER_ITER} iterations '
                 f'{wall:.3f} s wall (H to the host included); launches {launches}; H '
@@ -1335,7 +1339,7 @@ def _strategy_fit(label, make, V, fit: dict, n_iter: int, kernels: tuple, strate
     """``make(dtype).fit(V, n_iter, **fit)`` on the kernels, counts reset
     before and read after: each of ``kernels`` launched exactly once per
     iteration and no other kernel.  W and H within 1e-4 of the same fit on
-    the plain versions (``plain_versions()``) and of the float64 fit (the
+    the plain versions (``make(dtype, use_pallas=False)``) and of the float64 fit (the
     gate's plain versions) as ``refs`` ask.  Returns the float32 model, its
     launches, wall time and peak device memory (MiB)."""
     sync()
@@ -1355,9 +1359,8 @@ def _strategy_fit(label, make, V, fit: dict, n_iter: int, kernels: tuple, strate
                              f'{strategy} and {expected}')
     rel = {}
     if 'plain' in refs:
-        with plain_versions():
-            ref = make(torch.float32)
-            ref.fit(V, n_iterations=n_iter, **fit)
+        ref = make(torch.float32, use_pallas=False)
+        ref.fit(V, n_iterations=n_iter, **fit)
         rel['plain versions'] = max(_rel(nmf.W, ref.W), _rel(nmf.H, ref.H))
         del ref
     if 'float64' in refs:
@@ -1528,9 +1531,9 @@ def phase_strategies() -> tuple:
     plain_fit = dict(sparsity_H=f['sparsity'])
     inhibited_fit = dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition'])
 
-    def fft_model(dtype):
+    def fft_model(dtype, **kw):
         return TransformInvariantNMF(f['M'], f['A'], backend='jax_fft', dtype=dtype, seed=SEED,
-                                     device=DEVICE)
+                                     device=DEVICE, **kw)
     models = {}
     for label, fit, kernels in (('plain', plain_fit, ('mu_ratio', 'mu_w')),
                                 ('inhibited', inhibited_fit, ('inhibited_mu_h', 'mu_w'))):
@@ -1558,8 +1561,8 @@ def phase_strategies() -> tuple:
     V = np.random.default_rng(SEED).random((a['N'], a['C']) + a['S'], dtype=np.float32)
     fit = dict(sparsity_H=a['sparsity'])
     nmf, launches, _, _ = _strategy_fit(
-        "auto 64x1x128x128/16x31x31", lambda dtype: TransformInvariantNMF(
-            a['M'], a['A'], dtype=dtype, seed=SEED, device=DEVICE),
+        "auto 64x1x128x128/16x31x31", lambda dtype, **kw: TransformInvariantNMF(
+            a['M'], a['A'], dtype=dtype, seed=SEED, device=DEVICE, **kw),
         V, fit, a['n_iter'], ('mu_ratio', 'mu_w'), 'fft', refs=('plain',))
     tally(launches, ('mu_ratio', 'mu_w'), a['n_iter'])
     out['auto_fft_ms'] = _ms_per_iteration(nmf, fit)
@@ -1573,8 +1576,8 @@ def phase_strategies() -> tuple:
             ('inhibited', dict(sparsity_H=g['sparsity'], inhibition_strength=g['inhibition']),
              ('inhibited_mu_h', 'mu_w'))):
         nmf, launches, _, _ = _strategy_fit(
-            f'long 1-D fft 16x1x16000/8x64 {label}', lambda dtype: TransformInvariantNMF(
-                g['M'], g['A'], backend='jax_fft', dtype=dtype, seed=SEED, device=DEVICE),
+            f'long 1-D fft 16x1x16000/8x64 {label}', lambda dtype, **kw: TransformInvariantNMF(
+                g['M'], g['A'], backend='jax_fft', dtype=dtype, seed=SEED, device=DEVICE, **kw),
             V, fit, g['n_iter'], kernels, 'fft')
         tally(launches, kernels, g['n_iter'])
         out[f'long_1d_fft_{label}_ms'] = _ms_per_iteration(nmf, fit)
@@ -1588,8 +1591,8 @@ def phase_strategies() -> tuple:
         kernels = ('mu_w',) if inhibited else ('mu_ratio', 'mu_w')
         _, launches, _, _ = _strategy_fit(
             f'{label} fft {"x".join(map(str, shape))}/4x{"x".join(map(str, A))}',
-            lambda dtype: TransformInvariantNMF(4, A, backend=backend, dtype=dtype, seed=SEED,
-                                                device=DEVICE),
+            lambda dtype, **kw: TransformInvariantNMF(4, A, backend=backend, dtype=dtype,
+                                                      seed=SEED, device=DEVICE, **kw),
             V, fit, HIGH_RANK_ITER, kernels, 'fft')
         tally(launches, kernels, HIGH_RANK_ITER)
         del V
@@ -1598,8 +1601,9 @@ def phase_strategies() -> tuple:
     V = np.random.default_rng(SEED).random((d['N'], d['C']) + d['S'], dtype=np.float32)
     fit = dict(sparsity_H=d['sparsity'])
     nmf, launches, _, _ = _strategy_fit(
-        'dot 16384x1x4096/256', lambda dtype: TransformInvariantNMF(
-            d['M'], d['S'], reconstruction_mode='full', dtype=dtype, seed=SEED, device=DEVICE),
+        'dot 16384x1x4096/256', lambda dtype, **kw: TransformInvariantNMF(
+            d['M'], d['S'], reconstruction_mode='full', dtype=dtype, seed=SEED, device=DEVICE,
+            **kw),
         V, fit, d['n_iter'], ('mu_ratio', 'mu_w'), 'dot')
     tally(launches, ('mu_ratio', 'mu_w'), d['n_iter'])
     _precision_flip('dot', nmf, fit)
@@ -1617,6 +1621,206 @@ def phase_strategies() -> tuple:
     log('data already on the card (F5):')
     _f5()
     return total, iterations, out
+
+
+# ------------------------------------------ phase 13: minibatch and streaming
+
+#: the at-scale minibatch configuration (BASELINE.md:54): the flagship in
+#: batches of 16, four per epoch
+MB_BATCH = 16
+#: epochs of each timed minibatch fit: one warm-up, then the timed ones
+MB_EPOCHS = 4
+#: Cyclic_MU against fit_batch, and per-batch K2 sums against the whole batch's
+MB_CYCLIC_TOL = 1e-5
+#: launches per epoch of K3 (K4 when inhibited), K2 and mu_w with ``nb``
+#: batches: every algorithm updates H per batch; W statistics and updates
+#: per batch, or once per epoch
+MB_PER_EPOCH = {
+    'Cyclic_MU': lambda nb: dict(h=nb, grad_w=nb, mu_w=1),
+    'ASG_MU': lambda nb: dict(h=nb, grad_w=nb, mu_w=nb),
+    'GSG_MU': lambda nb: dict(h=nb, grad_w=1, mu_w=1),
+    'ASAG_MU': lambda nb: dict(h=nb, grad_w=nb, mu_w=nb),
+    'GSAG_MU': lambda nb: dict(h=nb, grad_w=1, mu_w=1),
+}
+
+
+def _patches_2d(n: int = 64, size: int = 32) -> np.ndarray:
+    """The golden minibatch patches, cut as tests/fixtures.py cuts them."""
+    img = synthetic_face(gray=True)
+    rows, cols = img.shape[0] // size, img.shape[1] // size
+    blocks = (img[:rows * size, :cols * size].reshape(rows, size, cols, size)
+              .transpose(0, 2, 1, 3).reshape(-1, 1, size, size))
+    return np.ascontiguousarray(blocks[:n])
+
+
+def _timed_minibatch_fit(V, algorithm, fit: dict, use_pallas=None) -> tuple:
+    """``fit_minibatches`` at the flagship in batches of ``MB_BATCH`` for
+    ``MB_EPOCHS`` epochs, counts reset before and read after; a callback
+    records a CUDA event after each epoch (no synchronisation).  Returns the
+    model, its launches and the device ms per epoch after the first."""
+    f = FLAGSHIP
+    nmf = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE, use_pallas=use_pallas)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(MB_EPOCHS)]
+    sync()
+    reset_counts()
+    nmf.fit_minibatches(V, algorithm=algorithm, batch_size=MB_BATCH, n_epochs=MB_EPOCHS,
+                        progress_callback=lambda m, e: events[e].record() or True, **fit)
+    sync()
+    launches = counts()
+    return nmf, launches, events[0].elapsed_time(events[-1]) / (MB_EPOCHS - 1)
+
+
+def _minibatch_flagship() -> tuple:
+    """The five algorithms (and ASG_MU inhibited) at the flagship on the
+    kernels and with ``use_pallas=False``; returns the launches and, per
+    algorithm, ms per epoch and the launches per epoch."""
+    f = FLAGSHIP
+    V = np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    nb = -(-f['N'] // MB_BATCH)
+    total = dict.fromkeys(KERNELS, 0)
+    out = {}
+    cases = [(a.name, a, dict(sparsity_H=f['sparsity']), 'mu_h') for a in MiniBatchAlgorithm]
+    cases.append(('ASG_MU inhibited', MiniBatchAlgorithm.ASG_MU,
+                  dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition']),
+                  'inhibited_mu_h'))
+    for label, algorithm, fit, h_kernel in cases:
+        nmf, launches, ms = _timed_minibatch_fit(V, algorithm, fit)
+        plain, plain_launches, plain_ms = _timed_minibatch_fit(V, algorithm, fit,
+                                                               use_pallas=False)
+        per_epoch = MB_PER_EPOCH[algorithm.name](nb)
+        expected = dict.fromkeys(KERNELS, 0)
+        expected.update({h_kernel: per_epoch['h'] * MB_EPOCHS,
+                         'grad_w': per_epoch['grad_w'] * MB_EPOCHS,
+                         'mu_w': per_epoch['mu_w'] * MB_EPOCHS})
+        rel = max(_rel(nmf.W, plain.W), _rel(nmf.H, plain.H))
+        e = nmf._energy_function()
+        log(f'minibatch {label}, bs={MB_BATCH} ({nb} batches): {ms:.4f} ms/epoch on the '
+            f'kernels, {plain_ms:.4f} with use_pallas=False; launches per epoch '
+            + ', '.join(f'{k} {v / MB_EPOCHS:g}' for k, v in launches.items() if v)
+            + f' (expected {per_epoch}); W, H {rel:.3e} off use_pallas=False; energy {e!r}')
+        if launches != expected or any(plain_launches.values()):
+            raise AssertionError(f'minibatch {label}: launches {launches} (use_pallas=False: '
+                                 f'{plain_launches}), not {expected}')
+        if not (math.isfinite(e) and rel <= TOL):
+            raise AssertionError(f'minibatch {label}: energy {e}, W and H {rel:.3e} off the '
+                                 f'plain versions > {TOL}?')
+        for name, n in launches.items():
+            total[name] += n
+        out[label] = dict(ms=ms, plain_ms=plain_ms,
+                          launches_per_epoch={k: v / MB_EPOCHS for k, v in launches.items()})
+        del nmf, plain
+    cyclic = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE)
+    cyclic.fit_minibatches(V, algorithm=MiniBatchAlgorithm.Cyclic_MU, batch_size=MB_BATCH,
+                           n_epochs=3, sparsity_H=f['sparsity'])
+    full = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE)
+    full.fit_batch(V, n_iterations=3, sparsity_H=f['sparsity'])
+    rel = max(_rel(cyclic.W, full.W), _rel(cyclic.H, full.H))
+    log(f'minibatch Cyclic_MU (3 epochs, bs={MB_BATCH}) against fit_batch(n_iterations=3): '
+        f'W, H {rel:.3e} apart')
+    if not rel <= MB_CYCLIC_TOL:
+        raise AssertionError(f'Cyclic_MU off fit_batch by {rel:.3e} > {MB_CYCLIC_TOL}')
+    return total, out
+
+
+def _minibatch_goldens() -> None:
+    """The golden ``minibatch`` and ``stream`` energies in float32 on the
+    conv and fft strategies (tests/test_minibatch.py, tests/test_stream.py)."""
+    goldens = json.loads((ROOT / 'tests' / 'golden_values.json').read_text())
+    V = _patches_2d()
+    stream = _patches_2d(32)
+    for backend in ('jax_conv', 'jax_fft'):
+        for key, golden in goldens['minibatch'].items():
+            np.random.seed(42)
+            nmf = TransformInvariantNMF(10, (7, 7), backend=backend, device=DEVICE)
+            if key == 'full_batch':
+                nmf.fit_batch(V, sparsity_H=0.1, n_iterations=3)
+            else:
+                nmf.fit_minibatches(V, sparsity_H=0.1, algorithm=MiniBatchAlgorithm[key],
+                                    batch_size=5, n_epochs=3, sag_lambda=0.8)
+            _check_rel(f'minibatch/{key} on {nmf._strategy}', nmf._energy_function(), golden)
+        for key, golden in goldens['stream'].items():
+            np.random.seed(42)
+            nmf = TransformInvariantNMF(10, (7, 7), backend=backend, device=DEVICE)
+            limited = key == 'limited'
+            nmf.fit(stream, sparsity_H=0.1, subsample_size=16, batch_size=3, n_epochs=3,
+                    sag_lambda=0.8, algorithm=MiniBatchAlgorithm['Cyclic_MU' if limited
+                                                                 else 'ASAG_MU'],
+                    **(dict(max_subsamples=1) if limited else {}))
+            _check_rel(f'stream/{key} on {nmf._strategy}', nmf._energy_function(), golden)
+
+
+def _online() -> dict:
+    """Four ``partial_fit`` steps of ``MB_BATCH`` flagship samples (the first
+    with ``sag_lambda=1`` against ``fit_batch(n_iterations=1)``, bits), and
+    ``fit_stream`` over a generator of CUDA tensors with no host copy of
+    them, bit-equal to the stream of NumPy rows."""
+    f = FLAGSHIP
+    V = np.random.default_rng(SEED + 2).random((4 * MB_BATCH, f['C']) + f['S'],
+                                               dtype=np.float32)
+    steps = [V[i * MB_BATCH:(i + 1) * MB_BATCH] for i in range(4)]
+    online = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE)
+    sync()
+    wall = []
+    for i, Vb in enumerate(steps):
+        t0 = time.perf_counter()
+        online.partial_fit(Vb, sag_lambda=1.0 if i == 0 else 0.2, sparsity_H=f['sparsity'])
+        sync()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            once = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE)
+            once.fit_batch(Vb, n_iterations=1, sparsity_H=f['sparsity'])
+            same = torch.equal(online._W, once._W) and torch.equal(online._H, once._H)
+            log(f'  partial_fit step 1 (sag_lambda=1): {"the bits" if same else "DIFFERS from"}'
+                ' of fit_batch(n_iterations=1)')
+            if not same:
+                raise AssertionError('partial_fit(sag_lambda=1) differs from one fit_batch '
+                                     'iteration')
+            del once
+    e = online._energy_function()
+    log(f'  partial_fit: {online.n_steps_} steps of {MB_BATCH} samples, wall ms per step '
+        + '/'.join(f'{t:.1f}' for t in wall) + f' (host draw of H included); energy {e!r}')
+    if online.n_steps_ != 4 or not math.isfinite(e):
+        raise AssertionError(f'partial_fit: {online.n_steps_} steps, energy {e}')
+    # the device time of one step without its host draw of H: the H update,
+    # the W statistics and the averaged W update on the last step's state
+    Vb = online._Vp
+
+    def step():
+        H = engine.update_H_step(Vb, online._W, online._H, f['sparsity'], plan=online._plan)
+        neg, pos = engine.grad_W_stats(Vb, online._W, H, plan=online._plan)
+        acc = engine.accumulate_gradient(*online._sag_stat_, neg, pos, 0.2)
+        return engine.apply_W_update(online._W, *acc, n_shift_axes=online._plan.ndim)
+    device_ms = time_ms(step, reps=5)
+    log(f'  partial_fit step on the card (no host draw): {device_ms:.4f} ms')
+    del online
+
+    def streamed(data):
+        np.random.seed(SEED)
+        m = TransformInvariantNMF(f['M'], f['A'], device=DEVICE)
+        m.fit(data, subsample_size=2 * MB_BATCH, batch_size=MB_BATCH, n_epochs=1,
+              algorithm=MiniBatchAlgorithm.ASG_MU, sparsity_H=f['sparsity'])
+        return m
+    want = streamed(iter(V))
+    Vt = torch.tensor(V, device=DEVICE)
+    with no_host_copy(Vt):
+        got = streamed(Vt[i] for i in range(Vt.shape[0]))
+    same = torch.equal(got._W, want._W) and torch.equal(got._H, want._H)
+    log(f'  fit_stream over a generator of CUDA tensors: {"the bits" if same else "DIFFERS from"}'
+        ' of the stream of NumPy rows, no host copy of the data')
+    if not same:
+        raise AssertionError('fit_stream over CUDA tensors differs from the NumPy stream')
+    return dict(partial_fit_wall_ms=wall, partial_fit_device_ms=device_ms)
+
+
+def phase_minibatch() -> tuple:
+    """Phase 13: the minibatch and streaming drivers; returns the launches
+    and the times."""
+    total, out = _minibatch_flagship()
+    log('golden minibatch and stream energies in float32:')
+    _minibatch_goldens()
+    log('online and streaming fits at the flagship:')
+    out.update(_online())
+    return total, out
 
 
 def main() -> int:
@@ -1643,15 +1847,22 @@ def main() -> int:
     log('the fft and dot strategies:')
     st_launches, st_iterations, st = phase_strategies()
     log('strategy times: ' + json.dumps(st))
+    log('minibatch and streaming (phase 13):')
+    mb_launches, mb = phase_minibatch()
+    log('minibatch times: ' + json.dumps(mb))
+    asg = mb['ASG_MU']['launches_per_epoch']
     rows = [dict(name=name, route='cuda', source=k['source'], replaces=k['replaces'],
-                 launches=launches[name] + enc_launches[name] + st_launches[name],
+                 launches=(launches[name] + enc_launches[name] + st_launches[name]
+                           + mb_launches[name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
                  fft_dot_launches_per_iteration=(st_launches[name]
                                                  / max(st_iterations[name], 1)),
+                 asg_mu_bs16_launches_per_epoch=asg[name],
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
+    log(device['smi'])  # again here: the build's report may push the first one out of a tail
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': dict(platform=device['platform'],
                                                  kind=device['kind'], count=device['count'])}),

@@ -8,16 +8,23 @@ Pallas for the TPU as a kernel hand-written in CUDA C++ for ``sm_90a``
 reference the port is held against; this package imports neither it nor
 JAX.
 
-Ported so far: the full-batch MU fit with the direct-convolution strategy,
-with lateral inhibition (see ROADMAP.md for the rest)::
+Ported so far: the full-batch MU fit on the direct-convolution, FFT and
+plain-NMF (matmul) strategies, with lateral inhibition, its fit driver and
+the encoder (``transform``), and the minibatch and streaming fits (the five
+algorithms of :class:`MiniBatchAlgorithm`, ``fit_stream``, ``partial_fit``,
+:class:`MiniBatchTransformInvariantNMF`); ``use_pallas=False`` runs the
+kernels' plain versions (see ROADMAP.md for the rest)::
 
-    from tnmf_tpu_torch import TransformInvariantNMF
+    from tnmf_tpu_torch import MiniBatchAlgorithm, TransformInvariantNMF
     nmf = TransformInvariantNMF(n_atoms=16, atom_shape=(9, 9), device='cuda')
     nmf.fit(V, n_iterations=100, sparsity_H=0.1, inhibition_strength=0.1)
+    nmf.fit(V, algorithm=MiniBatchAlgorithm.ASG_MU, batch_size=16, n_epochs=10)
 """
 
-from .models.tnmf import TransformInvariantNMF, from_numpy
+from .engine_minibatch import MiniBatchAlgorithm
+from .models.tnmf import MiniBatchTransformInvariantNMF, TransformInvariantNMF, from_numpy
 
-__all__ = ['TransformInvariantNMF', 'from_numpy']
+__all__ = ['TransformInvariantNMF', 'MiniBatchTransformInvariantNMF', 'MiniBatchAlgorithm',
+           'from_numpy']
 
 __version__ = '0.3.0.dev0'

@@ -46,9 +46,17 @@ The fit-loop variants (:func:`fit_loop_energies`, :func:`fit_loop_tol`,
 :func:`fit_loop_extrapolated`), the single steps (:func:`update_H_step`,
 :func:`update_W_step`) and the encoder's start (:func:`correlate_init_H`)
 reach the kernels through :func:`_mu_H` and :func:`_mu_W`, which look the
-wrappers up by this module's names at every call.  The JAX package runs its
+wrappers up by this module's names at every call.  :func:`_mu_W` is
+:func:`grad_W_stats` followed by :func:`apply_W_update`; the minibatch
+epochs (:mod:`tnmf_tpu_torch.engine_minibatch`) call the two apart, with
+:func:`accumulate_gradient` between them.  The JAX package runs its
 adaptive loops as one on-device ``lax.while_loop``; here their stopping
 tests run on the host, one synchronisation per block.
+
+Each of these functions takes the model's kernel/plain switch as
+``use_pallas`` (default True): False runs the plain versions of K1-K4 on
+any device, as one more reason of :func:`plain_reason` and
+:func:`dtype_reason`.
 """
 
 from __future__ import annotations
@@ -161,19 +169,25 @@ def energy(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
     return beta_ops.divergence(V, reconstruct(W, H, plan=plan, strategy=strategy))
 
 
-def dtype_reason(dtype: torch.dtype) -> Optional[str]:
+def dtype_reason(dtype: torch.dtype, use_pallas: bool = True) -> Optional[str]:
     """Why K1 (``mu_ratio``, ``mu_w``) runs its plain version on ``dtype``
-    tensors, or ``None`` when it runs the kernel (float32, any shape)."""
+    tensors, or ``None`` when it runs the kernel (float32, any shape).
+    ``use_pallas=False`` (the model's switch) is a reason of its own."""
+    if not use_pallas:
+        return 'use_pallas=False'
     if dtype != torch.float32:
         return f'{str(dtype).removeprefix("torch.")} tensors (the kernels take float32)'
     return None
 
 
-def plain_reason(plan: ConvPlan, dtype: torch.dtype) -> Optional[str]:
+def plain_reason(plan: ConvPlan, dtype: torch.dtype, use_pallas: bool = True) -> Optional[str]:
     """Why the MU step of ``plan`` on ``dtype`` tensors runs the plain
     versions of K2, K3 and K4, or ``None`` when it runs those kernels
-    (float32, 1-D and 2-D shifts).  Decided from the plan and the dtype
-    before any launch, never from a failed one."""
+    (float32, 1-D and 2-D shifts, ``use_pallas`` not False).  Decided from
+    the plan, the dtype and the switch before any launch, never from a
+    failed one."""
+    if not use_pallas:
+        return 'use_pallas=False'
     if plan.ndim not in KERNEL_RANKS:
         return f'{plan.ndim}-D shifts (K2, K3 and K4 take 1-D and 2-D)'
     return dtype_reason(dtype)
@@ -183,7 +197,8 @@ def plain_reason(plan: ConvPlan, dtype: torch.dtype) -> Optional[str]:
 def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
           inhibition: float = 0., cross_inhibition: float = 0., kernels: Sequence = (),
           *, plan: ConvPlan, use_inhibition: bool = False,
-          use_cross: bool = False, strategy: str = 'conv') -> torch.Tensor:
+          use_cross: bool = False, strategy: str = 'conv',
+          use_pallas: bool = True) -> torch.Tensor:
     """One multiplicative H update (reference ``_update_H``,
     ``TransformInvariantNMF.py:246-271``):
     ``H * corr(Vp, W) / (corr(Rx, W) + EPS + sparsity)``, fused in K3 on the
@@ -191,9 +206,9 @@ def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
     ratio.  With lateral inhibition (``use_inhibition`` same-atom,
     ``use_cross`` cross-atom) the gradient pair is computed alone (one
     stacked convolution on conv) and K4 adds the inhibition term and forms
-    the ratio."""
+    the ratio.  ``use_pallas=False`` runs the plain versions."""
     reg = EPS + float(sparsity)
-    kernels_on = plain_reason(plan, H.dtype) is None
+    kernels_on = plain_reason(plan, H.dtype, use_pallas) is None
     inhibited = use_inhibition or use_cross
     if strategy == 'conv':
         Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
@@ -206,7 +221,7 @@ def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
         neg, pos = (g.contiguous() for g in ops.grad_H_pair(
             Vp, ops.reconstruct(W, H, plan), W, plan))
         if not inhibited:
-            ratio = mu_ratio if dtype_reason(H.dtype) is None else mu_ratio_plain
+            ratio = mu_ratio if dtype_reason(H.dtype, use_pallas) is None else mu_ratio_plain
             return ratio(H, neg, pos, reg)
     update = inhibited_mu_h if kernels_on else inhibited_mu_h_plain
     return update(H, neg, pos, kernels, float(inhibition), float(cross_inhibition), reg,
@@ -220,24 +235,54 @@ def _normalize_W(W: torch.Tensor, n_shift_axes: int) -> torch.Tensor:
 
 
 @_pinned
-def _mu_W(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
-          plan: ConvPlan, strategy: str = 'conv') -> torch.Tensor:
-    """One multiplicative W update with atom-wise sum normalization
-    (reference ``_update_W`` + ``normalize``, ``TransformInvariantNMF.py:240-244``):
-    the statistics (K2 on the conv strategy, the strategy's gradient pair on
-    fft and dot), then the ratio ``W * neg / (pos + EPS)`` and
-    :func:`_normalize_W` in one launch of K1's W epilogue (any rank)."""
-    kernels_on = plain_reason(plan, H.dtype) is None
-    epilogue = mu_w if dtype_reason(H.dtype) is None else mu_w_plain
+def grad_W_stats(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *, plan: ConvPlan,
+                 strategy: str = 'conv',
+                 use_pallas: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``(neg, pos)`` statistics of the W gradient (the JAX engine's
+    ``grad_W_stats``; reference ``_accumulate_gradient_W``,
+    ``TransformInvariantNMF.py:444-455``): K2 on the stacked ``[Vp | Rx]``
+    on the conv strategy, the strategy's gradient pair on fft and dot.
+    Sums over the samples of ``H``, so a minibatch's statistics add up."""
     if strategy == 'conv':
         Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
-        neg, pos = (grad_w if kernels_on else grad_w_plain)(torch.cat([Vp, Rx], dim=1), H, plan)
-    else:
-        ops = get_ops(strategy)
-        neg, pos = ops.grad_W_pair(Vp, ops.reconstruct(W, H, plan), H, plan)
-    # the kernel takes contiguous tensors: fft's pair and plain K2's (3-D
-    # fits) are views; K2's own are contiguous already, so no copy there
-    return epilogue(W, neg.contiguous(), pos.contiguous(), EPS, plan.ndim)
+        grad = grad_w if plain_reason(plan, H.dtype, use_pallas) is None else grad_w_plain
+        return grad(torch.cat([Vp, Rx], dim=1), H, plan)
+    ops = get_ops(strategy)
+    return ops.grad_W_pair(Vp, ops.reconstruct(W, H, plan), H, plan)
+
+
+def apply_W_update(W: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor, *,
+                   n_shift_axes: int, use_pallas: bool = True) -> torch.Tensor:
+    """``normalize(W * neg / (pos + EPS))`` from given statistics (the JAX
+    engine's ``apply_W_update``) in one launch of K1's W epilogue (any
+    rank).  The kernel takes contiguous tensors: fft's pair and plain K2's
+    (3-D fits) are views; K2's own, and summed or averaged statistics, are
+    contiguous already, so no copy there."""
+    epilogue = mu_w if dtype_reason(W.dtype, use_pallas) is None else mu_w_plain
+    return epilogue(W, neg.contiguous(), pos.contiguous(), EPS, n_shift_axes)
+
+
+def accumulate_gradient(acc_neg: torch.Tensor, acc_pos: torch.Tensor, neg: torch.Tensor,
+                        pos: torch.Tensor,
+                        sag_lambda: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The running W statistics of the minibatch algorithms (the JAX
+    engine's ``accumulate_gradient``): ``sag_lambda == 1`` sums (the
+    reference's within-epoch accumulation), any other value averages
+    exponentially, ``(1 - sag_lambda) * acc + sag_lambda * new``."""
+    if sag_lambda == 1.0:
+        return acc_neg + neg, acc_pos + pos
+    keep = 1.0 - sag_lambda
+    return keep * acc_neg + sag_lambda * neg, keep * acc_pos + sag_lambda * pos
+
+
+@_pinned
+def _mu_W(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
+          plan: ConvPlan, strategy: str = 'conv', use_pallas: bool = True) -> torch.Tensor:
+    """One multiplicative W update with atom-wise sum normalization
+    (reference ``_update_W`` + ``normalize``, ``TransformInvariantNMF.py:240-244``):
+    :func:`grad_W_stats`, then :func:`apply_W_update`."""
+    neg, pos = grad_W_stats(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas)
+    return apply_W_update(W, neg, pos, n_shift_axes=plan.ndim, use_pallas=use_pallas)
 
 
 @_pinned
@@ -245,14 +290,16 @@ def update_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                 sparsity: float, inhibition: float = 0., cross_inhibition: float = 0.,
                 kernels: Sequence = (), *, plan: ConvPlan, update_H: bool = True,
                 update_W: bool = True, use_inhibition: bool = False,
-                use_cross: bool = False,
-                strategy: str = 'conv') -> Tuple[torch.Tensor, torch.Tensor]:
-    """One full MU iteration: H update, then W update.  Returns ``(W, H)``."""
+                use_cross: bool = False, strategy: str = 'conv',
+                use_pallas: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One full MU iteration: H update, then W update.  Returns ``(W, H)``.
+    ``use_pallas=False`` runs the plain versions of the kernels."""
     if update_H:
         H = _mu_H(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
-                  use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy)
+                  use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy,
+                  use_pallas=use_pallas)
     if update_W:
-        W = _mu_W(Vp, W, H, plan=plan, strategy=strategy)
+        W = _mu_W(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas)
     return W, H
 
 
@@ -261,8 +308,8 @@ def fit_loop(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
              n_iterations: int, sparsity: float, inhibition: float = 0.,
              cross_inhibition: float = 0., kernels: Sequence = (), *, plan: ConvPlan,
              update_H: bool = True, update_W: bool = True, use_inhibition: bool = False,
-             use_cross: bool = False,
-             strategy: str = 'conv') -> Tuple[torch.Tensor, torch.Tensor]:
+             use_cross: bool = False, strategy: str = 'conv',
+             use_pallas: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """``n_iterations`` MU iterations.  Returns ``(W, H)``.  ``kernels`` are
     the per-axis inhibition kernels, read when ``use_inhibition`` or
     ``use_cross`` is set."""
@@ -270,7 +317,7 @@ def fit_loop(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
         W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
                            plan=plan, update_H=update_H, update_W=update_W,
                            use_inhibition=use_inhibition, use_cross=use_cross,
-                           strategy=strategy)
+                           strategy=strategy, use_pallas=use_pallas)
     return W, H
 
 
@@ -379,7 +426,7 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
                           check_every: int, n_buf: int = 0, plan: ConvPlan,
                           update_H: bool = True, update_W: bool = True,
                           use_inhibition: bool = False, use_cross: bool = False,
-                          strategy: str = 'conv'):
+                          strategy: str = 'conv', use_pallas: bool = True):
     """Extrapolated MU with restarts (port of the JAX package's
     ``fit_loop_extrapolated``): each update is taken at the extrapolated
     point ``Y = X_new * clip(X_new / X_old)**beta_k`` (W's re-normalised).
@@ -404,10 +451,10 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
             if update_H:
                 Hn = _mu_H(Vp, Wy, Hy, sparsity, inhibition, cross_inhibition, kernels,
                            plan=plan, use_inhibition=use_inhibition, use_cross=use_cross,
-                           strategy=strategy)
+                           strategy=strategy, use_pallas=use_pallas)
                 Hy, H = _extrapolate(Hn, H, bk), Hn
             if update_W:
-                Wn = _mu_W(Vp, Wy, Hy, plan=plan, strategy=strategy)
+                Wn = _mu_W(Vp, Wy, Hy, plan=plan, strategy=strategy, use_pallas=use_pallas)
                 Wy, W = _normalize_W(_extrapolate(Wn, W, bk), plan.ndim).to(Wn.dtype), Wn
             if trace is not None:
                 trace[i + j] = energy(V, W, H, plan=plan, strategy=strategy)
@@ -427,17 +474,20 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
 def update_H_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
                   inhibition: float = 0., cross_inhibition: float = 0., kernels: Sequence = (),
                   *, plan: ConvPlan, use_inhibition: bool = False,
-                  use_cross: bool = False, strategy: str = 'conv') -> torch.Tensor:
+                  use_cross: bool = False, strategy: str = 'conv',
+                  use_pallas: bool = True) -> torch.Tensor:
     """One H-only MU update (W frozen)."""
     return _mu_H(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
-                 use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy)
+                 use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy,
+                 use_pallas=use_pallas)
 
 
 @_pinned
 def update_W_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
-                  plan: ConvPlan, strategy: str = 'conv') -> torch.Tensor:
+                  plan: ConvPlan, strategy: str = 'conv',
+                  use_pallas: bool = True) -> torch.Tensor:
     """One W-only MU update (H frozen), atoms sum-normalised."""
-    return _mu_W(Vp, W, H, plan=plan, strategy=strategy)
+    return _mu_W(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas)
 
 
 @_pinned

@@ -1,13 +1,17 @@
-"""Transform-Invariant Non-Negative Matrix Factorization in PyTorch (batch slice).
+"""Transform-Invariant Non-Negative Matrix Factorization in PyTorch.
 
-Port of the full-batch multiplicative-update fit of
+Port of the multiplicative-update fits of
 :class:`tnmf_tpu.models.tnmf.TransformInvariantNMF`: the constructor (with
-``logger`` / ``verbose`` and ``h_init``), ``fit`` / ``fit_batch`` with the
-L1 and lateral-inhibition regularizers and every MU branch of the JAX
-dispatch (progress callbacks, chunked callbacks, ``record_energies``,
+``logger`` / ``verbose``, ``h_init`` and the kernel/plain switch
+``use_pallas``), ``fit`` (the JAX dispatch) / ``fit_batch`` with the L1 and
+lateral-inhibition regularizers and every MU branch of the JAX
+``fit_batch`` (progress callbacks, chunked callbacks, ``record_energies``,
 ``tol``, ``extrapolate``, ``keep_H``, periodic checkpoints, dead-atom
-revival), the host-NumPy initialization (reference RNG stream, so seeded
-fits match the JAX package), the encoder API (``set_dictionary``,
+revival), the minibatch and streaming drivers (``fit_minibatches`` with the
+five algorithms of :class:`MiniBatchAlgorithm`, ``fit_stream``,
+``partial_fit`` and :class:`MiniBatchTransformInvariantNMF`), the host-NumPy
+initialization (reference RNG stream, so seeded fits match the JAX
+package), the encoder API (``set_dictionary``,
 ``transform``, ``fit_transform``, ``inverse_transform``), the ``W`` / ``H``
 / ``V`` / ``R`` accessors, ``R_partial``, the energy, and ``.npz``
 checkpoints both packages read (``save`` / ``load``).  Every strategy the
@@ -22,22 +26,25 @@ on the device and reads back one scalar, and the ``V`` property makes its
 NumPy copy only when read (the JAX package keeps device arrays the same
 way).  A tensor on another device is moved with ``.to(device)``.
 
-The constructor takes the JAX package's positional order, and ``fit_batch``
-the JAX ``fit_batch``'s.  The model lives on an explicit ``device``
-(keyword-only, default ``'cuda'``, no automatic choice) in an explicit
-``dtype`` (default float32).
+The constructor takes the JAX package's positional order, and
+``fit_batch``, ``fit_minibatches`` and ``partial_fit`` the JAX methods'.
+The model lives on an explicit ``device`` (keyword-only, default
+``'cuda'``, no automatic choice) in an explicit ``dtype`` (default
+float32).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import Callable, Iterable, Optional, Tuple, Union
+from itertools import count, islice
+from typing import Callable, Iterable, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import engine
+from ..engine_minibatch import MiniBatchAlgorithm, minibatch_epoch
 from ..ops.inhibition import cross_scale, inhibition_kernels, resolve_inhibition_range
 from ..ops.modes import ConvPlan
 
@@ -60,7 +67,6 @@ _ITEM = 'ROADMAP.md queue 1, item {}'
 #: constructor arguments of the JAX API not ported yet: (default, ROADMAP item)
 _UNPORTED_INIT = {
     'mesh': (None, _ITEM.format(14)),
-    'use_pallas': (None, 'ROADMAP.md queue 2 (kernel/plain switch)'),
     'init': ('host', _ITEM.format(12)),
     'shard_axis': ('samples', _ITEM.format(14)),
     'precision': (None, _ITEM.format(16)),
@@ -79,10 +85,6 @@ _UNPORTED_FIT = {
     'sparsity_W': (0., _ITEM.format(13)),
     'l2_W': (0., _ITEM.format(13)),
 }
-
-#: fit() keywords that select the minibatch / streaming drivers
-_MINIBATCH_KWARGS = ('batch_size', 'algorithm', 'subsample_size', 'max_subsamples')
-
 
 def _is_default(value, default) -> bool:
     if value is default:
@@ -152,6 +154,22 @@ def _np_dtype(x) -> np.dtype:
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def _require_nonneg(**values) -> None:
+    """``ValueError`` for a regularizer weight that is not >= 0 (NaN fails)."""
+    for name, value in values.items():
+        if not value >= 0:
+            raise ValueError(f'{name} must be >= 0, got {value!r}')
+
+
+def _stacked(samples: list):
+    """A subsample of the stream as one batch: tensors stacked on their
+    device (no host copy), anything else through ``np.asarray`` as the JAX
+    package does."""
+    if all(isinstance(x, torch.Tensor) for x in samples):
+        return torch.stack(samples)
+    return np.asarray(samples)
 
 
 def _sequential_slices(length: int, batch_size: int) -> Iterable[slice]:
@@ -229,9 +247,16 @@ class TransformInvariantNMF:
         Keyword-only.  Where the factors live and the updates run.  On CUDA
         the hot operators are the hand-written kernels; on the CPU their
         plain versions.
+    use_pallas : bool, optional
+        Keyword.  The kernel/plain switch, the JAX package's name for it:
+        ``None`` runs the kernels wherever the engine's gates take them
+        (CUDA, float32); ``False`` runs their plain PyTorch versions on
+        every device (the comparator of A/B runs); ``True`` is ``None`` on
+        a CUDA model and raises ``ValueError`` on a CPU one, which has no
+        kernel to force.
 
-    The JAX package's other later parameters (``use_pallas`` …
-    ``w_init``) are taken by keyword; those whose code is not ported raise
+    The JAX package's other later parameters (``init`` … ``w_init``) are
+    taken by keyword; those whose code is not ported raise
     ``NotImplementedError`` unless they hold their default.
     """
 
@@ -241,7 +266,8 @@ class TransformInvariantNMF:
                  verbose: int = 0, reconstruction_mode: str = 'valid',
                  dtype: Union[torch.dtype, str] = torch.float32, mesh=None,
                  seed: Optional[int] = None, fft_policy: str = '5-smooth', *,
-                 h_init: str = 'random', device='cuda', **unported):
+                 h_init: str = 'random', device='cuda', use_pallas: Optional[bool] = None,
+                 **unported):
         _reject_unported('TransformInvariantNMF', dict(mesh=mesh, **unported), _UNPORTED_INIT)
         self.n_atoms = int(n_atoms)
         self.atom_shape = tuple(int(a) for a in atom_shape)
@@ -262,6 +288,12 @@ class TransformInvariantNMF:
         self._h_init = h_init
         self.device = torch.device(device)
         self.dtype = _torch_dtype(dtype)
+        if use_pallas not in (None, False, True):
+            raise ValueError(f'use_pallas must be None, False or True, got {use_pallas!r}')
+        if use_pallas and self.device.type == 'cpu':
+            raise ValueError('use_pallas=True forces the CUDA kernels, and a CPU model has '
+                             'none; pass use_pallas=None or False')
+        self._use_pallas = use_pallas
         self._rng = np.random.default_rng(seed) if seed is not None else np.random
 
         self._logger = (logger if logger is not None
@@ -283,6 +315,10 @@ class TransformInvariantNMF:
         # iterations the last fit_batch ran (fewer than asked when tol or a
         # callback stopped it)
         self.n_iterations_: Optional[int] = None
+        # online-learning state of partial_fit: the averaged (neg, pos) W
+        # statistics carried across calls, and the steps taken
+        self._sag_stat_ = None
+        self.n_steps_: int = 0
 
     # ------------------------------------------------------------------
     # accessors (reference TransformInvariantNMF.py:188-215)
@@ -307,7 +343,8 @@ class TransformInvariantNMF:
 
     @property
     def H(self) -> np.ndarray:
-        return self._H.cpu().numpy()
+        """A host copy: the minibatch epochs write H in place."""
+        return self._H.to('cpu', copy=True).numpy()
 
     @property
     def V(self) -> np.ndarray:
@@ -404,6 +441,26 @@ class TransformInvariantNMF:
         # built in float64, cast to the compute dtype
         self._kernels = tuple(self._tensor(k) for k in self._inhibition_kernels_1D)
 
+    def _check_regs(self, sparsity_H, inhibition_strength, cross_atom_inhibition_strength):
+        _require_nonneg(sparsity_H=sparsity_H, inhibition_strength=inhibition_strength,
+                        cross_atom_inhibition_strength=cross_atom_inhibition_strength)
+        if cross_atom_inhibition_strength > 0:
+            cross_scale(cross_atom_inhibition_strength, self.n_atoms)  # raises for one atom
+
+    def _regs(self, sparsity_H, inhibition_strength, cross_atom_inhibition_strength) -> tuple:
+        """The engine's regularizer arguments: the weights and the
+        inhibition kernels."""
+        return (float(sparsity_H), float(inhibition_strength),
+                float(cross_atom_inhibition_strength), self._kernels)
+
+    def _flags(self, inhibition_strength, cross_atom_inhibition_strength) -> dict:
+        """The engine's keywords for the current fit: plan, strategy, the
+        inhibition terms and the kernel/plain switch."""
+        return dict(plan=self._plan, strategy=self._strategy,
+                    use_inhibition=inhibition_strength > 0,
+                    use_cross=cross_atom_inhibition_strength > 0,
+                    use_pallas=self._use_pallas is not False)
+
     # ------------------------------------------------------------------
     # batch fitting (reference fit_batch, TransformInvariantNMF.py:282-348)
     # ------------------------------------------------------------------
@@ -464,13 +521,7 @@ class TransformInvariantNMF:
         V = _as_input(V, self.device)
         _assert_nonnegative(V)
         _require(update_H or update_W, 'at least one of update_H / update_W must be True')
-        for name, value in dict(
-                sparsity_H=sparsity_H, inhibition_strength=inhibition_strength,
-                cross_atom_inhibition_strength=cross_atom_inhibition_strength).items():
-            if not value >= 0:
-                raise ValueError(f'{name} must be >= 0, got {value!r}')
-        if cross_atom_inhibition_strength > 0:
-            cross_scale(cross_atom_inhibition_strength, self.n_atoms)  # raises for one atom
+        self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
         _require(callback_interval >= 1, 'callback_interval must be >= 1')
         if (checkpoint_every is None) != (checkpoint_path is None):
             raise ValueError(
@@ -525,13 +576,12 @@ class TransformInvariantNMF:
 
             callback_interval = int(revive_every)
 
+        self._sag_stat_ = None  # a fresh fit drops partial_fit's state
         self._initialize_matrices(V, keep_W, keep_H=keep_H)
         n_iterations = int(n_iterations)
-        regs = (float(sparsity_H), float(inhibition_strength),
-                float(cross_atom_inhibition_strength), self._kernels)
-        flags = dict(plan=self._plan, strategy=self._strategy, update_H=update_H,
-                     update_W=update_W, use_inhibition=inhibition_strength > 0,
-                     use_cross=cross_atom_inhibition_strength > 0)
+        regs = self._regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
+        flags = dict(self._flags(inhibition_strength, cross_atom_inhibition_strength),
+                     update_H=update_H, update_W=update_W)
         log_each = self._logger.isEnabledFor(logging.INFO)
         self.energies_ = None
         if extrapolate or tol is not None:
@@ -617,15 +667,152 @@ class TransformInvariantNMF:
             self.energies_ = np.asarray(energies)
 
     def fit(self, V, y=None, **kwargs):
-        """sklearn-style front door: ``fit_batch`` (``y`` is ignored).  The
-        minibatch and streaming drivers are not ported yet."""
+        """sklearn-style front door (the JAX dispatch; reference :525-531):
+        ``subsample_size`` / ``max_subsamples`` go to :meth:`fit_stream`,
+        ``batch_size`` / ``algorithm`` to :meth:`fit_minibatches`, anything
+        else to :meth:`fit_batch`.  ``y`` is ignored."""
         del y
-        batch = [k for k in _MINIBATCH_KWARGS if k in kwargs]
-        if batch:
-            raise NotImplementedError(
-                f'fit({batch[0]}=...) selects the minibatch/streaming drivers, '
-                f'not ported to tnmf_tpu_torch yet; see {_ITEM.format(11)}')
-        self.fit_batch(V, **kwargs)
+        if 'subsample_size' in kwargs or 'max_subsamples' in kwargs:
+            self.fit_stream(iter(V), **kwargs)
+        elif 'batch_size' in kwargs or 'algorithm' in kwargs:
+            self.fit_minibatches(V, **kwargs)
+        else:
+            self.fit_batch(V, **kwargs)
+
+    # ------------------------------------------------------------------
+    # minibatch fitting (reference fit_minibatches, TransformInvariantNMF.py:350-504)
+    # ------------------------------------------------------------------
+
+    def fit_minibatches(self, V, algorithm: MiniBatchAlgorithm = MiniBatchAlgorithm.ASG_MU,
+                        batch_size: Optional[int] = 3, n_epochs: int = 1000,
+                        sag_lambda: float = 0.2, keep_W: bool = False,
+                        sparsity_H: float = 0., inhibition_strength: float = 0.,
+                        cross_atom_inhibition_strength: float = 0., l2_H: float = 0.,
+                        ortho_W: float = 0.,
+                        progress_callback: Optional[Callable[['TransformInvariantNMF', int],
+                                                             bool]] = None,
+                        record_energies: bool = False, mask=None):
+        """Minibatch MU fit of ``V``: ``n_epochs`` epochs of ``algorithm``
+        (:class:`~tnmf_tpu_torch.engine_minibatch.MiniBatchAlgorithm`) over
+        contiguous batches of ``batch_size`` samples (``None``: one batch),
+        the last one shorter when the count does not divide.  Algorithms
+        5-8 visit the batches in an order drawn each epoch from the
+        model's NumPy stream (``permutation(n_batches)``), as the JAX
+        package and the reference draw it; Cyclic_MU visits them in order.
+        ``sag_lambda`` weighs the newest batch in the averaged statistics
+        of ASAG_MU and GSAG_MU (1 sums them).
+
+        After each epoch ``progress_callback(model, epoch)`` runs and stops
+        the fit when it returns a false value; without one, INFO logging
+        writes the epoch's energy.  ``record_energies`` keeps the energy
+        after each epoch in ``energies_`` (a list, read from the device once
+        at the end).  Any earlier ``partial_fit`` state is dropped.  ``l2_H``,
+        ``ortho_W`` and ``mask`` are not ported yet and raise
+        ``NotImplementedError`` unless they hold their default."""
+        _reject_unported('fit_minibatches', dict(l2_H=l2_H, ortho_W=ortho_W, mask=mask),
+                         _UNPORTED_FIT)
+        V = _as_input(V, self.device)
+        _assert_nonnegative(V)
+        self._sag_stat_ = None  # a fresh fit drops partial_fit's state
+        self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
+        _require(isinstance(algorithm, MiniBatchAlgorithm),
+                 f'algorithm must be a MiniBatchAlgorithm, got {algorithm!r}')
+        self._initialize_matrices(V, keep_W)
+        n = int(self._Vd.shape[0])
+        batches = ([slice(0, n)] if batch_size is None
+                   else list(_sequential_slices(n, int(batch_size))))
+        regs = self._regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
+        flags = self._flags(inhibition_strength, cross_atom_inhibition_strength)
+        log_each = progress_callback is None and self._logger.isEnabledFor(logging.INFO)
+        energies = []
+        inner_stat = None
+        for epoch in range(int(n_epochs)):
+            order = (range(len(batches)) if algorithm is MiniBatchAlgorithm.Cyclic_MU
+                     else self._rng.permutation(len(batches)))
+            self._W, self._H, inner_stat = minibatch_epoch(
+                self._Vp, self._W, self._H, batches, order, inner_stat, float(sag_lambda),
+                *regs, algorithm=algorithm, **flags)
+            if record_energies or log_each:
+                e = engine.energy(self._Vd, self._W, self._H, plan=self._plan,
+                                  strategy=self._strategy)
+                energies.append(e)
+            if progress_callback is not None:
+                if not progress_callback(self, epoch):
+                    break
+            elif log_each:
+                self._logger.info('Epoch: %d\tEnergy function: %s', epoch, float(e))
+        self.energies_ = None
+        if record_energies:
+            self.energies_ = torch.stack(energies).tolist() if energies else []
+        self._logger.info('MiniBatch TNMF finished.')
+
+    # ------------------------------------------------------------------
+    # streaming fit (reference fit_stream, TransformInvariantNMF.py:506-523)
+    # ------------------------------------------------------------------
+
+    def fit_stream(self, V: Iterator, subsample_size: int = 3,
+                   max_subsamples: Optional[int] = None, **kwargs):
+        """Fit on an iterator of samples: subsamples of ``subsample_size``
+        samples each go to ``fit(subsample, keep_W=True, **kwargs)`` in
+        turn, until the iterator is exhausted or ``max_subsamples`` were
+        fitted.  A subsample of tensors is stacked on their device (no host
+        copy); anything else goes through ``np.asarray``."""
+        for isub in count(0):
+            subsample = list(islice(V, subsample_size))
+            if not subsample:
+                self._logger.info('Sample iterator exhausted. TNMF on full iterator finished.')
+                return
+            self._logger.info('Processing subsample %d.', isub)
+            self.fit(_stacked(subsample), keep_W=True, **kwargs)
+            if max_subsamples is not None and isub == max_subsamples - 1:
+                self._logger.info('Processed %d subsamples. TNMF on iterator will stop.',
+                                  max_subsamples)
+                return
+
+    # ------------------------------------------------------------------
+    # online learning (the JAX package's partial_fit, sklearn MiniBatchNMF's protocol)
+    # ------------------------------------------------------------------
+
+    def partial_fit(self, V, y=None, sag_lambda: float = 0.2, sparsity_H: float = 0.,
+                    inhibition_strength: float = 0., cross_atom_inhibition_strength: float = 0.,
+                    l2_H: float = 0., ortho_W: float = 0., mask=None) -> 'TransformInvariantNMF':
+        """Update the model with one minibatch ``V``: H drawn for the batch
+        and updated once, then W from the batch's statistics averaged with
+        those of earlier calls (``(1 - sag_lambda) * old + sag_lambda *
+        new``, ASAG_MU's rule).  ``sag_lambda=1`` keeps no memory: each call
+        uses its own batch's statistics, so a first call equals
+        ``fit_batch(V, n_iterations=1)``.  The first call draws the
+        dictionary, later ones keep it; batches may differ in sample count
+        and size, not in channels.  Any ``fit*`` call drops the averaged
+        state.  Returns ``self``; ``n_steps_`` counts the calls.  ``l2_H``,
+        ``ortho_W`` and ``mask`` raise ``NotImplementedError`` unless they
+        hold their default."""
+        del y
+        _reject_unported('partial_fit', dict(l2_H=l2_H, ortho_W=ortho_W, mask=mask),
+                         _UNPORTED_FIT)
+        V = _as_input(V, self.device)
+        _assert_nonnegative(V)
+        self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
+        self._initialize_matrices(V, keep_W=True)
+        flags = self._flags(inhibition_strength, cross_atom_inhibition_strength)
+        self._H = engine.update_H_step(
+            self._Vp, self._W, self._H,
+            *self._regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength),
+            **flags)
+        neg, pos = engine.grad_W_stats(self._Vp, self._W, self._H, plan=self._plan,
+                                       strategy=self._strategy, use_pallas=flags['use_pallas'])
+        if sag_lambda == 1.0 or self._sag_stat_ is None:
+            # the batch's own statistics: online learning replaces them at
+            # sag_lambda == 1, where accumulate_gradient would sum
+            stat = (neg, pos)
+        else:
+            stat = engine.accumulate_gradient(*self._sag_stat_, neg, pos, float(sag_lambda))
+        self._sag_stat_ = None if sag_lambda == 1.0 else stat
+        self._W = engine.apply_W_update(self._W, *stat, n_shift_axes=self._plan.ndim,
+                                        use_pallas=flags['use_pallas'])
+        self.n_steps_ += 1
+        self._logger.info('partial_fit step %d done.', self.n_steps_)
+        return self
 
     # ------------------------------------------------------------------
     # the encoder: a frozen dictionary (tnmf_tpu TransformInvariantNMF.transform)
@@ -776,3 +963,45 @@ class TransformInvariantNMF:
             sample = tshape
         self._plan = self._plan_for(sample)
         self._check_strategy()
+
+
+class MiniBatchTransformInvariantNMF(TransformInvariantNMF):
+    """The minibatch-first model of the JAX package (its sklearn
+    ``MiniBatchNMF`` analogue): the batch schedule is configuration, set in
+    the constructor, and ``fit`` runs :meth:`fit_minibatches
+    <TransformInvariantNMF.fit_minibatches>` with it.
+
+    Parameters (besides the base class's, which pass through ``kwargs``):
+    ``batch_size``, ``algorithm`` (a :class:`MiniBatchAlgorithm` or its
+    name, default ASG_MU), ``n_epochs`` and ``sag_lambda``; a ``fit`` call
+    may override each.  ``save`` / ``load`` carry what the base class's
+    checkpoint carries, not the schedule.
+    """
+
+    def __init__(self, n_atoms: int, atom_shape: Tuple[int, ...], batch_size: Optional[int] = 3,
+                 algorithm: Union[MiniBatchAlgorithm, str] = MiniBatchAlgorithm.ASG_MU,
+                 n_epochs: int = 1000, sag_lambda: float = 0.2, **kwargs):
+        super().__init__(n_atoms, atom_shape, **kwargs)
+        if isinstance(algorithm, str):
+            algorithm = MiniBatchAlgorithm[algorithm]
+        _require(isinstance(algorithm, MiniBatchAlgorithm),
+                 f'algorithm must be a MiniBatchAlgorithm, got {algorithm!r}')
+        self.batch_size = None if batch_size is None else int(batch_size)
+        self.algorithm = algorithm
+        self.n_epochs = int(n_epochs)
+        self.sag_lambda = float(sag_lambda)
+
+    def fit(self, V, y=None, **kwargs):
+        """Minibatch fit with the constructor's schedule, which ``kwargs``
+        may override; ``subsample_size`` / ``max_subsamples`` still go to
+        :meth:`fit_stream <TransformInvariantNMF.fit_stream>`, which runs
+        this fit on each subsample."""
+        del y
+        if 'subsample_size' in kwargs or 'max_subsamples' in kwargs:
+            self.fit_stream(iter(V), **kwargs)
+            return
+        kwargs.setdefault('batch_size', self.batch_size)
+        kwargs.setdefault('algorithm', self.algorithm)
+        kwargs.setdefault('n_epochs', self.n_epochs)
+        kwargs.setdefault('sag_lambda', self.sag_lambda)
+        self.fit_minibatches(V, **kwargs)

@@ -118,10 +118,26 @@ failure (exit code != 0, no result line):
    time of a step), the first with ``sag_lambda=1`` bit-equal to
    ``fit_batch(n_iterations=1)``; ``fit_stream`` over a generator of CUDA
    tensors with no host copy of them, bit-equal to the stream of NumPy
-   rows.
+   rows;
+14. the objectives: the conv flagship (3 iterations, counts reset before
+   and read after) under beta = 2, KL (``beta_loss=1``, plain and with
+   ``inhibition_strength=0.1``), beta = 0.5, 10 % of the entries missing (a
+   seeded Bernoulli mask, plain and inhibited), a weight mask broadcast over
+   samples and channels, and ``l2_H=0.1`` with ``ortho_W=0.1``: K3 (K4
+   inhibited), K2 and ``mu_w`` once per iteration, W and H within 1e-4 of
+   the same fit with ``use_pallas=False``, then ms/iteration (10 after a
+   warm-up, CUDA events) and, for KL and the mask, the time of each part of
+   an iteration; the fft flagship with KL and with the mask and plain NMF
+   on dot (16384 x 1 x 4096, 256 atoms) with KL (``mu_ratio`` and ``mu_w``
+   once per iteration); ASG_MU at bs = 16 with KL and the mask (launches
+   per epoch); ``transform(batch_size=16)`` of new data with a per-sample
+   mask against the KL dictionary (K3 alone); then at the golden 2-D
+   fixture every case, Itakura-Saito on ``V + 0.01``, fft, dot, minibatch
+   and ``transform`` in float32 on the kernels against float64 on the card
+   (1e-4).
 
-Phases 7, 10, 12 and 13 hold fits on the kernels against the same fits with
-``use_pallas=False`` (the model's kernel/plain switch).
+Phases 7, 10, 12, 13 and 14 hold fits on the kernels against the same fits
+with ``use_pallas=False`` (the model's kernel/plain switch).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths, error, times and bound; the last line is
@@ -352,13 +368,18 @@ def runtime_taps():
 
 # ---------------------------------------------------------------- phases
 
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is False; '
                          'this check needs a CUDA card')
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     log(smi)
     nvcc = subprocess.run([_build.nvcc(), '--version'], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[-1]
@@ -1653,13 +1674,15 @@ def _patches_2d(n: int = 64, size: int = 32) -> np.ndarray:
     return np.ascontiguousarray(blocks[:n])
 
 
-def _timed_minibatch_fit(V, algorithm, fit: dict, use_pallas=None) -> tuple:
+def _timed_minibatch_fit(V, algorithm, fit: dict, use_pallas=None, **init) -> tuple:
     """``fit_minibatches`` at the flagship in batches of ``MB_BATCH`` for
     ``MB_EPOCHS`` epochs, counts reset before and read after; a callback
-    records a CUDA event after each epoch (no synchronisation).  Returns the
-    model, its launches and the device ms per epoch after the first."""
+    records a CUDA event after each epoch (no synchronisation).  ``init``
+    goes to the constructor.  Returns the model, its launches and the
+    device ms per epoch after the first."""
     f = FLAGSHIP
-    nmf = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE, use_pallas=use_pallas)
+    nmf = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE, use_pallas=use_pallas,
+                                **init)
     events = [torch.cuda.Event(enable_timing=True) for _ in range(MB_EPOCHS)]
     sync()
     reset_counts()
@@ -1823,6 +1846,263 @@ def phase_minibatch() -> tuple:
     return total, out
 
 
+# ------------------------------------------------ phase 14: the objectives
+
+#: iterations of each objective fit held against its plain versions, and of
+#: its timed window (after a warm-up window as long)
+OBJ_ITER = 3
+OBJ_TIMED = 10
+#: the share of missing entries of the masked cases (a seeded Bernoulli draw)
+OBJ_MISSING = 0.1
+#: the kernels of one iteration: conv (K4 in place of K3 when inhibited),
+#: and fft or dot
+OBJ_CONV = ('mu_h', 'grad_w', 'mu_w')
+OBJ_CONV_INHIBITED = ('inhibited_mu_h', 'grad_w', 'mu_w')
+OBJ_FFT_DOT = ('mu_ratio', 'mu_w')
+
+
+def _objective_cases(V: np.ndarray, rng) -> list:
+    """``(label, constructor keywords, fit keywords)`` of each objective on
+    data ``V``: KL plain and inhibited, beta = 0.5, 10 % of the entries
+    missing plain and inhibited, a weight mask broadcast over the samples
+    and channels, ``l2_H`` with ``ortho_W``; the default objective first."""
+    missing = (rng.random(V.shape, dtype=np.float32) >= OBJ_MISSING).astype(np.float32)
+    weights = rng.uniform(0.5, 1.5, (1, 1) + V.shape[2:]).astype(np.float32)
+    inh = dict(inhibition_strength=FLAGSHIP['inhibition'])
+    return [('beta=2 (default)', {}, {}),
+            ('KL (beta=1)', dict(beta_loss=1.0), {}),
+            ('KL inhibited', dict(beta_loss=1.0), inh),
+            ('beta=0.5', dict(beta_loss=0.5), {}),
+            ('10% missing', {}, dict(mask=missing)),
+            ('10% missing inhibited', {}, dict(mask=missing, **inh)),
+            ('broadcast weights', {}, dict(mask=weights)),
+            ('l2_H + ortho_W', {}, dict(l2_H=0.1, ortho_W=0.1))]
+
+
+def _objective_ms(nmf, fit: dict, n: int = OBJ_TIMED) -> float:
+    """ms per MU iteration of the model's objective on its state (CUDA
+    events around ``engine.fit_loop``, after a warm-up of as many)."""
+    inh = fit.get('inhibition_strength', 0.)
+    cross = fit.get('cross_atom_inhibition_strength', 0.)
+    regs = nmf._regs(fit.get('sparsity_H', 0.), inh, cross)
+    flags = dict(nmf._flags(inh, cross),
+                 **nmf._objective(fit.get('l2_H', 0.), fit.get('ortho_W', 0.)))
+
+    def run():
+        nmf._W, nmf._H = engine.fit_loop(nmf._Vp, nmf._W, nmf._H, n, *regs, **flags)
+    return time_ms(run, reps=1) / n
+
+
+def _objective_parts(nmf) -> dict:
+    """Per-call times (CUDA events) of a conv iteration's parts under the
+    model's objective: the reconstruction, the two prepared streams (the
+    extension, and the factor pass at beta != 2), K3, the stacked ``X2`` and
+    K2, and ``mu_w``."""
+    Vp, W, H, plan, mask, b = nmf._Vp, nmf._W, nmf._H, nmf._plan, nmf._mask_d, nmf._beta
+    R = conv.reconstruct(W, H, plan)
+    Xv, Xr = engine._conv_streams(Vp, R, plan, b, mask)
+    X2 = torch.cat([Xv, Xr], dim=1)
+    neg, pos = gw.grad_w(X2, H, plan)
+    parts = {'reconstruct': lambda: conv.reconstruct(W, H, plan),
+             'streams': lambda: engine._conv_streams(Vp, R, plan, b, mask),
+             'mu_h': lambda: mu_h.mu_h(Xv, Xr, W, H, engine.EPS + FLAGSHIP['sparsity']),
+             'cat X2': lambda: torch.cat([Xv, Xr], dim=1),
+             'grad_w': lambda: gw.grad_w(X2, H, plan),
+             'mu_w': lambda: mu.mu_w(W, neg, pos, engine.EPS, plan.ndim)}
+    return {k: time_ms(fn, reps=5) for k, fn in parts.items()}
+
+
+def _objective_flagship(total: dict) -> dict:
+    """Each objective at the conv flagship: ``_strategy_fit`` (launches per
+    iteration, W and H against ``use_pallas=False``), then ms/iteration;
+    the time of each part of a KL and of a masked iteration."""
+    f = FLAGSHIP
+    rng = np.random.default_rng(SEED + 14)
+    V = rng.random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    out = {}
+    for label, init, fit in _objective_cases(V, rng):
+        fit = dict(sparsity_H=f['sparsity'], **fit)
+
+        def make(dtype, **kw):
+            return TransformInvariantNMF(f['M'], f['A'], dtype=dtype, seed=SEED, device=DEVICE,
+                                         **init, **kw)
+        kernels = OBJ_CONV_INHIBITED if 'inhibition_strength' in fit else OBJ_CONV
+        nmf, launches, _, peak = _strategy_fit(f'objective {label}', make, V, fit, OBJ_ITER,
+                                               kernels, 'conv', refs=('plain',))
+        for name, n in launches.items():
+            total[name] += n
+        ms = _objective_ms(nmf, fit)
+        log(f'objective {label}: {ms:.4f} ms/iteration; launches per iteration '
+            + ', '.join(f'{k} {v / OBJ_ITER:g}' for k, v in launches.items() if v)
+            + f'; peak {peak:.0f} MiB')
+        out[label] = dict(ms=ms, peak_mib=peak)
+        if label in ('KL (beta=1)', '10% missing'):
+            out[label]['parts'] = _objective_parts(nmf)
+            log(f'  {label} parts (ms per call): ' + json.dumps(out[label]['parts']))
+        if label == 'KL (beta=1)':
+            out['kl_W'] = nmf.W
+        del nmf
+    return out
+
+
+def _objective_strategies(total: dict, kl_W: np.ndarray) -> dict:
+    """The fft flagship with KL and with 10 % missing; plain NMF on dot
+    (KL-NMF); minibatch ASG_MU at bs = 16 with the mask and KL; and
+    ``transform(batch_size=16)`` of new data with a per-sample mask against
+    the KL dictionary, each against ``use_pallas=False``."""
+    f = FLAGSHIP
+    rng = np.random.default_rng(SEED + 15)
+    V = rng.random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    missing = (rng.random(V.shape, dtype=np.float32) >= OBJ_MISSING).astype(np.float32)
+    out = {}
+    for label, init, fit in (('fft KL', dict(beta_loss=1.0), {}),
+                             ('fft 10% missing', {}, dict(mask=missing))):
+        fit = dict(sparsity_H=f['sparsity'], **fit)
+
+        def fft_model(dtype, **kw):
+            return TransformInvariantNMF(f['M'], f['A'], backend='jax_fft', dtype=dtype,
+                                         seed=SEED, device=DEVICE, **init, **kw)
+        nmf, launches, _, _ = _strategy_fit(f'objective {label}', fft_model, V, fit, OBJ_ITER,
+                                            OBJ_FFT_DOT, 'fft', refs=('plain',))
+        for name, n in launches.items():
+            total[name] += n
+        out[label] = dict(ms=_objective_ms(nmf, fit))
+        log(f'objective {label}: {out[label]["ms"]:.4f} ms/iteration')
+        del nmf
+
+    d = DOT
+    Vd = np.random.default_rng(SEED + 16).random((d['N'], d['C']) + d['S'], dtype=np.float32)
+
+    def dot_model(dtype, **kw):
+        return TransformInvariantNMF(d['M'], d['S'], reconstruction_mode='full', dtype=dtype,
+                                     seed=SEED, device=DEVICE, beta_loss=1.0, **kw)
+    fit = dict(sparsity_H=d['sparsity'])
+    nmf, launches, _, _ = _strategy_fit('objective dot KL-NMF', dot_model, Vd, fit, OBJ_ITER,
+                                        OBJ_FFT_DOT, 'dot', refs=('plain',))
+    for name, n in launches.items():
+        total[name] += n
+    out['dot KL-NMF'] = dict(ms=_objective_ms(nmf, fit))
+    log(f'objective dot KL-NMF: {out["dot KL-NMF"]["ms"]:.4f} ms/iteration')
+    del nmf, Vd
+
+    fit = dict(sparsity_H=f['sparsity'], mask=missing)
+    nmf, launches, ms = _timed_minibatch_fit(V, MiniBatchAlgorithm.ASG_MU, fit, beta_loss=1.0)
+    plain, plain_launches, _ = _timed_minibatch_fit(V, MiniBatchAlgorithm.ASG_MU, fit,
+                                                    use_pallas=False, beta_loss=1.0)
+    nb = -(-f['N'] // MB_BATCH)
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(dict.fromkeys(OBJ_CONV, nb * MB_EPOCHS))
+    rel = max(_rel(nmf.W, plain.W), _rel(nmf.H, plain.H))
+    e = nmf._energy_function()
+    log(f'objective minibatch ASG_MU KL 10% missing, bs={MB_BATCH}: {ms:.4f} ms/epoch; '
+        f'launches {launches}; W, H {rel:.3e} off use_pallas=False; energy {e!r}')
+    if launches != expected or any(plain_launches.values()):
+        raise AssertionError(f'objective minibatch: launches {launches} (use_pallas=False: '
+                             f'{plain_launches}), not {expected}')
+    if not (math.isfinite(e) and rel <= TOL):
+        raise AssertionError(f'objective minibatch: energy {e}, W and H {rel:.3e} off > {TOL}?')
+    for name, n in launches.items():
+        total[name] += n
+    out['minibatch ASG_MU KL missing'] = dict(ms_per_epoch=ms)
+    del nmf, plain
+
+    Vn = np.random.default_rng(SEED + 17).random(V.shape, dtype=np.float32)
+
+    def encode(use_pallas=None):
+        enc = TransformInvariantNMF(f['M'], f['A'], beta_loss=1.0, h_init='correlate',
+                                    device=DEVICE, use_pallas=use_pallas).set_dictionary(kl_W)
+        return enc.transform(Vn, n_iterations=OBJ_ITER, batch_size=MB_BATCH, mask=missing,
+                             sparsity_H=f['sparsity'])
+    reset_counts()
+    H = encode()
+    sync()
+    launches = counts()
+    rel = _rel(H, encode(use_pallas=False))
+    expected = dict.fromkeys(KERNELS, 0)
+    expected['mu_h'] = nb * OBJ_ITER
+    log(f'objective transform KL, per-sample mask, batch_size={MB_BATCH}: launches '
+        f'{launches}; H {rel:.3e} off use_pallas=False')
+    if launches != expected or not (np.isfinite(H).all() and rel <= TOL):
+        raise AssertionError(f'objective transform: launches {launches} (not {expected}) or '
+                             f'H {rel:.3e} off > {TOL}')
+    for name, n in launches.items():
+        total[name] += n
+    return out
+
+
+def _objective_goldens() -> None:
+    """At the golden 2-D fixture, every objective on the kernels in float32
+    against ``use_pallas=False`` and against float64 on the card (the
+    gate's plain versions): the conv cases, Itakura-Saito on ``V + 0.01``,
+    fft with KL and with the mask, plain NMF with KL, minibatch ASG_MU
+    (bs = 1) and ``transform(batch_size=1)`` with the mask and KL."""
+    image = _image_2d().astype(np.float32)
+    rng = np.random.default_rng(SEED + 18)
+    cases = [(label, init, fit, 'jax_conv') for label, init, fit in _objective_cases(image, rng)]
+    missing = cases[4][2]['mask']
+    cases += [('Itakura-Saito', dict(beta_loss=0.0), {}, 'jax_conv'),
+              ('fft KL', dict(beta_loss=1.0), {}, 'jax_fft'),
+              ('fft 10% missing', {}, dict(mask=missing), 'jax_fft')]
+    for label, init, fit, backend in cases:
+        fit = dict(sparsity_H=0.1, **fit)
+        V = image + np.float32(0.01) if init.get('beta_loss') == 0.0 else image
+
+        def make(dtype, **kw):
+            return TransformInvariantNMF(10, (7, 7), backend=backend, dtype=dtype, seed=SEED,
+                                         device=DEVICE, **init, **kw)
+        strategy = backend.removeprefix('jax_')
+        kernels = (OBJ_FFT_DOT if strategy == 'fft' else
+                   OBJ_CONV_INHIBITED if 'inhibition_strength' in fit else OBJ_CONV)
+        _strategy_fit(f'golden objective {label} ({strategy})', make, V, fit, OBJ_ITER,
+                      kernels, strategy)
+
+    def dot_model(dtype, **kw):
+        return TransformInvariantNMF(10, image.shape[2:], reconstruction_mode='full',
+                                     dtype=dtype, seed=SEED, device=DEVICE, beta_loss=1.0, **kw)
+    _strategy_fit('golden objective KL-NMF (dot)', dot_model, image, dict(sparsity_H=0.1),
+                  OBJ_ITER, OBJ_FFT_DOT, 'dot')
+
+    def pair(run):
+        """``run(model)`` in float32 on the kernels and in float64."""
+        got, want = (run(TransformInvariantNMF(10, (7, 7), dtype=dtype, seed=SEED, device=DEVICE,
+                                               beta_loss=1.0, h_init='correlate'))
+                     for dtype in (torch.float32, torch.float64))
+        return max(_rel(g, w) for g, w in zip(got, want))
+
+    def minibatch(m):
+        m.fit_minibatches(image, batch_size=1, n_epochs=OBJ_ITER, sparsity_H=0.1, mask=missing)
+        return m.W, m.H
+
+    W0 = np.random.default_rng(SEED + 19).random((10, 3, 7, 7))
+
+    def encode(m):
+        m.set_dictionary(W0)
+        return (m.transform(image, n_iterations=OBJ_ITER, batch_size=1, mask=missing,
+                            sparsity_H=0.1),)
+    for label, run in (('minibatch ASG_MU bs=1', minibatch), ('transform batch_size=1', encode)):
+        rel = pair(run)
+        log(f'golden objective {label}, KL, 10% missing: {rel:.3e} off float64')
+        if not rel <= TOL:
+            raise AssertionError(f'golden objective {label}: {rel:.3e} off float64 > {TOL}')
+
+
+def phase_objectives() -> tuple:
+    """Phase 14: the objectives (beta-divergences, masks, ``l2_H``,
+    ``ortho_W``) at full width and at the golden fixture; returns the
+    launches and the times."""
+    total = dict.fromkeys(KERNELS, 0)
+    log(f'times on {card()}')
+    out = _objective_flagship(total)
+    kl_W = out.pop('kl_W')
+    out.update(_objective_strategies(total, kl_W))
+    log('the objectives at the golden 2-D fixture:')
+    _objective_goldens()
+    missing = [name for name, n in total.items() if not n]
+    if missing:
+        raise AssertionError(f'phase 14 launched no {missing}')
+    return total, out
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -1850,10 +2130,13 @@ def main() -> int:
     log('minibatch and streaming (phase 13):')
     mb_launches, mb = phase_minibatch()
     log('minibatch times: ' + json.dumps(mb))
+    log('the objectives (phase 14):')
+    obj_launches, obj = phase_objectives()
+    log(f'objective times ({card()}): ' + json.dumps(obj))
     asg = mb['ASG_MU']['launches_per_epoch']
     rows = [dict(name=name, route='cuda', source=k['source'], replaces=k['replaces'],
                  launches=(launches[name] + enc_launches[name] + st_launches[name]
-                           + mb_launches[name]),
+                           + mb_launches[name] + obj_launches[name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),

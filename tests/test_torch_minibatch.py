@@ -188,16 +188,6 @@ def test_minibatch_model_matches_jax():
     np.testing.assert_allclose(pm._energy_function(), jm._energy_function(), rtol=1e-10)
 
 
-@pytest.mark.parametrize('kwargs,match', [
-    (dict(l2_H=0.1), 'item 10'), (dict(ortho_W=0.1), 'item 10'),
-    (dict(mask=np.ones((4, 1, 8, 8))), 'item 10'),
-])
-def test_unported_minibatch_arguments_raise(kwargs, match):
-    nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu')
-    with pytest.raises(NotImplementedError, match=match):
-        nmf.fit_minibatches(np.ones((4, 1, 8, 8)), batch_size=2, n_epochs=1, **kwargs)
-
-
 def test_minibatch_arguments_are_checked():
     nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu')
     with pytest.raises(ValueError, match='MiniBatchAlgorithm'):

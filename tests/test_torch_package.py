@@ -175,9 +175,8 @@ def test_phased_is_not_ported():
 
 @pytest.mark.parametrize('kwargs', [
     dict(sparsity_W=0.1), dict(l2_W=0.1),
-    dict(l2_H=0.1), dict(ortho_W=0.1), dict(mask=np.ones((1, 1, 8, 8))),
-    dict(hals_inner=4), dict(batch_size=1, l2_H=0.1), dict(solver='hals'),
-    dict(subsample_size=4, ortho_W=0.1), dict(max_subsamples=2, sparsity_W=0.1),
+    dict(hals_inner=4), dict(solver='hals'),
+    dict(max_subsamples=2, sparsity_W=0.1),
 ])
 def test_unported_fit_arguments_raise(kwargs):
     """Through every driver ``fit`` dispatches to: ``fit_batch``,
@@ -196,7 +195,7 @@ def test_fit_arguments_at_jax_defaults_are_accepted():
     assert nmf.n_iterations_ == 1
 
 
-@pytest.mark.parametrize('kwargs', [dict(beta_loss=1.0), dict(precision='high'),
+@pytest.mark.parametrize('kwargs', [dict(precision='high'),
                                     dict(transform_type='shift+flip'), dict(init='device')])
 def test_unported_constructor_arguments_raise(kwargs):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
@@ -205,12 +204,13 @@ def test_unported_constructor_arguments_raise(kwargs):
 
 def test_minibatch_and_unknown_arguments():
     """``fit(batch_size=…)`` runs the minibatch driver (item 11), which
-    refuses the regularizers of item 10."""
+    takes no ``sparsity_W`` (a HALS penalty, item 13), as the JAX one takes
+    none."""
     nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu')
     nmf.fit(np.ones((4, 1, 8, 8)), batch_size=2, n_epochs=1)
     assert np.isfinite(nmf.W).all()
-    with pytest.raises(NotImplementedError, match='item 10'):
-        nmf.fit(np.ones((4, 1, 8, 8)), batch_size=2, l2_H=0.1)
+    with pytest.raises(TypeError, match='sparsity_W'):
+        nmf.fit(np.ones((4, 1, 8, 8)), batch_size=2, sparsity_W=0.1)
     with pytest.raises(TypeError, match='unexpected keyword'):
         nmf.fit(np.ones((4, 1, 8, 8)), n_iterationz=2)
     with pytest.raises(ValueError, match='non-negative'):

@@ -148,8 +148,8 @@ def test_every_fit_drops_the_online_state():
         assert m._sag_stat_ is None
     with pytest.raises(ValueError, match='channel count'):
         m.partial_fit(np.ones((2, 3, 16, 16)))
-    with pytest.raises(NotImplementedError, match='item 10'):
-        m.partial_fit(V, l2_H=0.1)
+    with pytest.raises(TypeError, match='sparsity_W'):
+        m.partial_fit(V, sparsity_W=0.1)
 
 
 def test_minibatch_model_streams_and_checkpoints(tmp_path):

@@ -57,6 +57,19 @@ Each of these functions takes the model's kernel/plain switch as
 ``use_pallas`` (default True): False runs the plain versions of K1-K4 on
 any device, as one more reason of :func:`plain_reason` and
 :func:`dtype_reason`.
+
+The objective is the JAX engine's: the beta-divergence of ``beta``
+(default 2, the Euclidean energy), weighted by a ``mask``, with the ridge
+penalty ``l2_H`` on H and the orthogonality penalty ``ortho_W`` on W
+(None where absent, so the default path is the Euclidean one as it was).
+The same kernels carry every objective, decided by no gate of their own:
+K3 and K2 correlate whatever two prepared streams they are given, the
+data and the reconstruction at beta = 2 (each masked with a mask), the
+factor streams ``V * R**(beta-2)`` and ``R**(beta-1)`` otherwise
+(:func:`_beta_factors`, :func:`_conv_streams`); ``l2_H * H`` joins K3's
+``pos_extra`` on conv and the positive part before K1's ratio or K4
+elsewhere, and the orthogonality gradient joins ``pos`` before K1's W
+epilogue (:func:`apply_W_update`).
 """
 
 from __future__ import annotations
@@ -162,11 +175,14 @@ def partial_reconstruct(W: torch.Tensor, H: torch.Tensor, *, plan: ConvPlan,
 
 
 @_pinned
-def energy(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
-           plan: ConvPlan, strategy: str = 'conv') -> torch.Tensor:
-    """Reconstruction objective ``0.5 * sum((V - R)^2)`` as a 0-d tensor,
-    accumulated in ``promote_types(V.dtype, float32)``."""
-    return beta_ops.divergence(V, reconstruct(W, H, plan=plan, strategy=strategy))
+def energy(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+           mask: Optional[torch.Tensor] = None, *, plan: ConvPlan, strategy: str = 'conv',
+           beta: float = 2.0) -> torch.Tensor:
+    """Reconstruction objective ``D_beta(V || R)`` (``0.5 * sum((V - R)^2)``
+    at the default beta = 2; :func:`tnmf_tpu_torch.ops.beta.divergence`),
+    with ``mask`` the per-entry weighted one, as a 0-d tensor accumulated in
+    ``promote_types(V.dtype, float32)``."""
+    return beta_ops.divergence(V, reconstruct(W, H, plan=plan, strategy=strategy), beta, mask)
 
 
 def dtype_reason(dtype: torch.dtype, use_pallas: bool = True) -> Optional[str]:
@@ -193,36 +209,133 @@ def plain_reason(plan: ConvPlan, dtype: torch.dtype, use_pallas: bool = True) ->
     return dtype_reason(dtype)
 
 
+@functools.lru_cache(maxsize=8)
+def _extension_pattern(plan: ConvPlan, strategy: str, n_channels: int, n: int,
+                       dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``prepare_data`` of an all-ones ``(1, n_channels, *sample)`` tensor,
+    the mode's boundary-extension pattern (1 over the extended data domain,
+    0 in ``'valid'`` zero padding), repeated over ``n`` samples into one
+    contiguous tensor (the JAX engine's ``_ones_prepared``, there a jit
+    constant).  Built once per geometry: at beta = 1 it is the whole
+    denominator stream ``B``, which K2 and K3 read at the batch's size."""
+    ones = torch.ones((1, n_channels) + plan.sample_shape, dtype=dtype, device=device)
+    P = get_ops(strategy).prepare_data(ones, plan)
+    return P if n == 1 else P.expand((n,) + tuple(P.shape[1:])).contiguous()
+
+
+def _beta_factors(ops, strategy: str, Vp: torch.Tensor, R: torch.Tensor, plan: ConvPlan,
+                  beta: float, mask: Optional[torch.Tensor]):
+    """``(A_prep, B_prep)``: the beta-divergence MU streams ``A = V *
+    R**(beta-2)``, ``B = R**(beta-1)`` in the strategy's prepared domain
+    (the JAX engine's ``_beta_factors`` and, with a mask, its
+    ``_beta_grad_pair``).  ``B_prep`` is None at beta = 1 without a mask:
+    ``B = 1``, the extension pattern (:func:`_extension_pattern`).
+
+    Unmasked on conv and dot (``FACTORS_IN_PREPARED``) ``Vp`` is the
+    loop-invariant ``prepare_data(V)`` and the factors are formed on
+    prepared tensors; ``B``'s ``'valid'`` padding, where the floored R
+    raised to ``beta - 1`` is not 0, is zeroed by the pattern.  On fft, and
+    with a mask on every strategy, ``Vp`` is the canonical data: the
+    factors are formed canonically, weighted by the mask, and prepared each
+    iteration."""
+    if mask is None and ops.FACTORS_IN_PREPARED:
+        Rp = ops.prepare_data(R, plan)
+        acc = torch.promote_types(Rp.dtype, torch.float32)
+        Rs = torch.clamp(Rp.to(acc), min=beta_ops.EPS_R)
+        Vc = Vp.to(acc)
+        if beta == 1.0:
+            return (Vc / Rs).to(R.dtype), None
+        ones = _extension_pattern(plan, strategy, R.shape[1], 1, R.dtype, R.device).to(acc)
+        if beta == 0.0:
+            A, B = Vc / (Rs * Rs), ones / Rs
+        else:
+            A, B = Vc * Rs ** (beta - 2.0), ones * Rs ** (beta - 1.0)
+        return A.to(R.dtype), B.to(R.dtype)
+    A, B = beta_ops.factors(Vp, R, beta)
+    if mask is None:
+        return ops.prepare_data(A, plan), (None if beta == 1.0 else ops.prepare_data(B, plan))
+    m = mask.to(A.dtype)
+    return ops.prepare_data(A * m, plan), ops.prepare_data(B * m, plan)
+
+
+def _conv_streams(Vp: torch.Tensor, R: torch.Tensor, plan: ConvPlan, beta: float,
+                  mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The two prepared streams whose correlations K3 and K2 take on the
+    conv strategy: ``(Vp, ext(R))`` for the Euclidean objective (with a
+    mask ``Vp`` is ``ext(mask * V)`` and R is masked here), the factor
+    pair otherwise, with the extension pattern at the batch's size as ``B``
+    at beta = 1."""
+    if beta == 2.0:
+        return Vp, conv_ops.extend_data(R if mask is None else R * mask.to(R.dtype), plan)
+    A, B = _beta_factors(conv_ops, 'conv', Vp, R, plan, beta, mask)
+    if B is None:
+        B = _extension_pattern(plan, 'conv', R.shape[1], A.shape[0], A.dtype, A.device)
+    return A, B
+
+
+def _grad_H_pair(ops, strategy: str, Vp: torch.Tensor, R: torch.Tensor, W: torch.Tensor,
+                 plan: ConvPlan, beta: float,
+                 mask: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(neg, pos)`` of the H gradient on fft and dot (the JAX engine's
+    ``grad_H_pair`` / ``_beta_grad_H``), contiguous, as K1 and K4 take
+    them.  At beta = 1 without a mask the denominator is the correlation
+    of the extension pattern, run at batch 1 and broadcast."""
+    if beta == 2.0:
+        pair = ops.grad_H_pair(Vp, R if mask is None else R * mask.to(R.dtype), W, plan)
+    else:
+        A, B = _beta_factors(ops, strategy, Vp, R, plan, beta, mask)
+        if B is None:
+            neg = ops.corr_H(A, W, plan)
+            ones = _extension_pattern(plan, strategy, W.shape[1], 1, R.dtype, R.device)
+            pair = neg, ops.corr_H(ones, W, plan).expand(neg.shape)
+        else:
+            pair = ops.grad_H_pair_prepared(A, B, W, plan)
+    # the kernels take contiguous tensors; fft's are crops of its transforms
+    return tuple(g.contiguous() for g in pair)
+
+
 @_pinned
 def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
           inhibition: float = 0., cross_inhibition: float = 0., kernels: Sequence = (),
           *, plan: ConvPlan, use_inhibition: bool = False,
           use_cross: bool = False, strategy: str = 'conv',
-          use_pallas: bool = True) -> torch.Tensor:
+          use_pallas: bool = True, beta: float = 2.0, mask: Optional[torch.Tensor] = None,
+          l2: Optional[float] = None) -> torch.Tensor:
     """One multiplicative H update (reference ``_update_H``,
     ``TransformInvariantNMF.py:246-271``):
-    ``H * corr(Vp, W) / (corr(Rx, W) + EPS + sparsity)``, fused in K3 on the
+    ``H * corr(Xv, W) / (corr(Xr, W) + EPS + sparsity)``, fused in K3 on the
     conv strategy; on fft and dot the strategy's gradient pair, then K1's
     ratio.  With lateral inhibition (``use_inhibition`` same-atom,
     ``use_cross`` cross-atom) the gradient pair is computed alone (one
     stacked convolution on conv) and K4 adds the inhibition term and forms
-    the ratio.  ``use_pallas=False`` runs the plain versions."""
+    the ratio.  ``use_pallas=False`` runs the plain versions.
+
+    The objective (the JAX engine's ``_mu_H`` keywords): ``Xv, Xr`` are
+    ``V, R`` at the default ``beta`` = 2, the factor streams ``A, B`` of
+    :func:`_beta_factors` otherwise.  With ``mask`` both are weighted by it:
+    at beta = 2 ``Vp`` arrives as ``prepare(mask * V)`` (loop-invariant)
+    and R is masked here, at other betas ``Vp`` is the canonical V and the
+    factors are masked.  ``l2`` (None: absent) is the ridge weight on H:
+    ``l2 * H`` joins the positive part, as K3's ``pos_extra`` on conv,
+    added to ``pos`` before K1 or K4 elsewhere."""
     reg = EPS + float(sparsity)
     kernels_on = plain_reason(plan, H.dtype, use_pallas) is None
     inhibited = use_inhibition or use_cross
+    extra = None if l2 is None else float(l2) * H
     if strategy == 'conv':
-        Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
+        Xv, Xr = _conv_streams(Vp, conv_ops.reconstruct(W, H, plan), plan, beta, mask)
         if not inhibited:
-            return (mu_h if kernels_on else mu_h_plain)(Vp, Rx, W, H, reg)
-        neg, pos = conv_ops.grad_H_pair_prepared(Vp, Rx, W)
+            return (mu_h if kernels_on else mu_h_plain)(Xv, Xr, W, H, reg, extra)
+        neg, pos = conv_ops.grad_H_pair_prepared(Xv, Xr, W)
     else:
         ops = get_ops(strategy)
-        # the kernels take contiguous tensors; fft's are crops of its transforms
-        neg, pos = (g.contiguous() for g in ops.grad_H_pair(
-            Vp, ops.reconstruct(W, H, plan), W, plan))
-        if not inhibited:
-            ratio = mu_ratio if dtype_reason(H.dtype, use_pallas) is None else mu_ratio_plain
-            return ratio(H, neg, pos, reg)
+        neg, pos = _grad_H_pair(ops, strategy, Vp, ops.reconstruct(W, H, plan), W, plan,
+                                beta, mask)
+    if extra is not None:
+        pos = pos + extra
+    if not inhibited:  # fft and dot: K1's ratio
+        ratio = mu_ratio if dtype_reason(H.dtype, use_pallas) is None else mu_ratio_plain
+        return ratio(H, neg, pos, reg)
     update = inhibited_mu_h if kernels_on else inhibited_mu_h_plain
     return update(H, neg, pos, kernels, float(inhibition), float(cross_inhibition), reg,
                   use_same=use_inhibition, use_cross=use_cross)
@@ -235,29 +348,54 @@ def _normalize_W(W: torch.Tensor, n_shift_axes: int) -> torch.Tensor:
 
 
 @_pinned
-def grad_W_stats(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *, plan: ConvPlan,
-                 strategy: str = 'conv',
-                 use_pallas: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+def grad_W_stats(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None, *, plan: ConvPlan,
+                 strategy: str = 'conv', use_pallas: bool = True,
+                 beta: float = 2.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``(neg, pos)`` statistics of the W gradient (the JAX engine's
     ``grad_W_stats``; reference ``_accumulate_gradient_W``,
-    ``TransformInvariantNMF.py:444-455``): K2 on the stacked ``[Vp | Rx]``
-    on the conv strategy, the strategy's gradient pair on fft and dot.
-    Sums over the samples of ``H``, so a minibatch's statistics add up."""
-    if strategy == 'conv':
-        Rx = conv_ops.extend_data(conv_ops.reconstruct(W, H, plan), plan)
-        grad = grad_w if plain_reason(plan, H.dtype, use_pallas) is None else grad_w_plain
-        return grad(torch.cat([Vp, Rx], dim=1), H, plan)
+    ``TransformInvariantNMF.py:444-455``): K2 on the stacked streams of
+    :func:`_conv_streams` on the conv strategy, the strategy's gradient
+    pair on fft and dot.  ``beta`` and ``mask`` select the objective as in
+    :func:`_mu_H`; at beta = 1 without a mask the fft and dot denominator
+    correlates the extension pattern with the batch-summed H, broadcast
+    over the channels.  Sums over the samples of ``H``, so a minibatch's
+    statistics add up."""
     ops = get_ops(strategy)
-    return ops.grad_W_pair(Vp, ops.reconstruct(W, H, plan), H, plan)
+    R = ops.reconstruct(W, H, plan)
+    if strategy == 'conv':
+        grad = grad_w if plain_reason(plan, H.dtype, use_pallas) is None else grad_w_plain
+        return grad(torch.cat(_conv_streams(Vp, R, plan, beta, mask), dim=1), H, plan)
+    if beta == 2.0:
+        return ops.grad_W_pair(Vp, R if mask is None else R * mask.to(R.dtype), H, plan)
+    A, B = _beta_factors(ops, strategy, Vp, R, plan, beta, mask)
+    if B is not None:
+        return ops.grad_W_pair_prepared(A, B, H, plan)
+    neg = ops.corr_W(A, H, plan)
+    ones = _extension_pattern(plan, strategy, 1, 1, R.dtype, R.device)
+    return neg, ops.corr_W(ones, H.sum(dim=0, keepdim=True), plan).expand(neg.shape)
 
 
-def apply_W_update(W: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor, *,
-                   n_shift_axes: int, use_pallas: bool = True) -> torch.Tensor:
+def _ortho_positive_term(W: torch.Tensor, ortho: float) -> torch.Tensor:
+    """Gradient of the cross-atom orthogonality penalty ``(ortho/2) *
+    sum_{m != m'} <W_m, W_m'>``: ``ortho * sum_{m' != m} W_m'``, nonnegative,
+    so it joins the positive part (the JAX engine's ``_ortho_positive_term``)."""
+    return float(ortho) * (W.sum(dim=0, keepdim=True) - W)
+
+
+def apply_W_update(W: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
+                   ortho_W: Optional[float] = None, *, n_shift_axes: int,
+                   use_pallas: bool = True) -> torch.Tensor:
     """``normalize(W * neg / (pos + EPS))`` from given statistics (the JAX
     engine's ``apply_W_update``) in one launch of K1's W epilogue (any
-    rank).  The kernel takes contiguous tensors: fft's pair and plain K2's
-    (3-D fits) are views; K2's own, and summed or averaged statistics, are
-    contiguous already, so no copy there."""
+    rank).  ``ortho_W`` (None: absent) adds the orthogonality gradient of
+    the *current* W to ``pos`` before the launch, never to the statistics,
+    which the minibatch algorithms average over earlier dictionaries.  The
+    kernel takes contiguous tensors: fft's pair and plain K2's (3-D fits)
+    are views; K2's own, and summed or averaged statistics, are contiguous
+    already, so no copy there."""
+    if ortho_W is not None:
+        pos = pos + _ortho_positive_term(W, ortho_W)
     epilogue = mu_w if dtype_reason(W.dtype, use_pallas) is None else mu_w_plain
     return epilogue(W, neg.contiguous(), pos.contiguous(), EPS, n_shift_axes)
 
@@ -277,12 +415,16 @@ def accumulate_gradient(acc_neg: torch.Tensor, acc_pos: torch.Tensor, neg: torch
 
 @_pinned
 def _mu_W(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
-          plan: ConvPlan, strategy: str = 'conv', use_pallas: bool = True) -> torch.Tensor:
+          plan: ConvPlan, strategy: str = 'conv', use_pallas: bool = True,
+          beta: float = 2.0, mask: Optional[torch.Tensor] = None,
+          ortho: Optional[float] = None) -> torch.Tensor:
     """One multiplicative W update with atom-wise sum normalization
     (reference ``_update_W`` + ``normalize``, ``TransformInvariantNMF.py:240-244``):
-    :func:`grad_W_stats`, then :func:`apply_W_update`."""
-    neg, pos = grad_W_stats(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas)
-    return apply_W_update(W, neg, pos, n_shift_axes=plan.ndim, use_pallas=use_pallas)
+    :func:`grad_W_stats`, then :func:`apply_W_update` (``ortho``: the
+    orthogonality weight, None when absent)."""
+    neg, pos = grad_W_stats(Vp, W, H, mask, plan=plan, strategy=strategy,
+                            use_pallas=use_pallas, beta=beta)
+    return apply_W_update(W, neg, pos, ortho, n_shift_axes=plan.ndim, use_pallas=use_pallas)
 
 
 @_pinned
@@ -291,15 +433,20 @@ def update_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                 kernels: Sequence = (), *, plan: ConvPlan, update_H: bool = True,
                 update_W: bool = True, use_inhibition: bool = False,
                 use_cross: bool = False, strategy: str = 'conv',
-                use_pallas: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                use_pallas: bool = True, beta: float = 2.0,
+                mask: Optional[torch.Tensor] = None, l2_H: Optional[float] = None,
+                ortho_W: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One full MU iteration: H update, then W update.  Returns ``(W, H)``.
-    ``use_pallas=False`` runs the plain versions of the kernels."""
+    ``use_pallas=False`` runs the plain versions of the kernels; ``beta``,
+    ``mask``, ``l2_H`` and ``ortho_W`` (None: absent) are the objective's,
+    the JAX engine's keywords."""
     if update_H:
         H = _mu_H(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
                   use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy,
-                  use_pallas=use_pallas)
+                  use_pallas=use_pallas, beta=beta, mask=mask, l2=l2_H)
     if update_W:
-        W = _mu_W(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas)
+        W = _mu_W(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas, beta=beta,
+                  mask=mask, ortho=ortho_W)
     return W, H
 
 
@@ -307,17 +454,14 @@ def update_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
 def fit_loop(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
              n_iterations: int, sparsity: float, inhibition: float = 0.,
              cross_inhibition: float = 0., kernels: Sequence = (), *, plan: ConvPlan,
-             update_H: bool = True, update_W: bool = True, use_inhibition: bool = False,
-             use_cross: bool = False, strategy: str = 'conv',
-             use_pallas: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+             strategy: str = 'conv', **step) -> Tuple[torch.Tensor, torch.Tensor]:
     """``n_iterations`` MU iterations.  Returns ``(W, H)``.  ``kernels`` are
     the per-axis inhibition kernels, read when ``use_inhibition`` or
-    ``use_cross`` is set."""
+    ``use_cross`` is set; ``step`` holds :func:`update_step`'s other
+    keywords."""
     for _ in range(int(n_iterations)):
         W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
-                           plan=plan, update_H=update_H, update_W=update_W,
-                           use_inhibition=use_inhibition, use_cross=use_cross,
-                           strategy=strategy, use_pallas=use_pallas)
+                           plan=plan, strategy=strategy, **step)
     return W, H
 
 
@@ -332,18 +476,20 @@ def energy_trace(V: torch.Tensor, n: int) -> torch.Tensor:
 def fit_loop_energies(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                       sparsity: float, inhibition: float = 0., cross_inhibition: float = 0.,
                       kernels: Sequence = (), *, n_iterations: int, plan: ConvPlan,
-                      strategy: str = 'conv',
+                      strategy: str = 'conv', beta: float = 2.0,
+                      mask: Optional[torch.Tensor] = None,
                       **step) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``n_iterations`` MU iterations that also record the energy after
-    each one (one more reconstruction per iteration; reference
-    ``TransformInvariantNMF.py:346``).  The trace stays on the device: the
-    caller synchronises once when it reads it.  ``step`` holds
-    :func:`update_step`'s keywords.  Returns ``(W, H, energies)``."""
+    """``n_iterations`` MU iterations that also record the energy (of
+    ``beta`` and ``mask``) after each one (one more reconstruction per
+    iteration; reference ``TransformInvariantNMF.py:346``).  The trace
+    stays on the device: the caller synchronises once when it reads it.
+    ``step`` holds :func:`update_step`'s other keywords.  Returns ``(W, H,
+    energies)``."""
     energies = energy_trace(V, int(n_iterations))
     for i in range(int(n_iterations)):
         W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
-                           plan=plan, strategy=strategy, **step)
-        energies[i] = energy(V, W, H, plan=plan, strategy=strategy)
+                           plan=plan, strategy=strategy, beta=beta, mask=mask, **step)
+        energies[i] = energy(V, W, H, mask, plan=plan, strategy=strategy, beta=beta)
     return W, H, energies
 
 
@@ -356,12 +502,13 @@ def _block_change(e_prev: torch.Tensor, e: torch.Tensor,
     return diff, rel
 
 
-def _tol_start(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor, tol: float,
-               plan: ConvPlan, strategy: str) -> Tuple[torch.Tensor, torch.Tensor, float]:
+def _tol_start(W: torch.Tensor, H: torch.Tensor, tol: float,
+               energy_of) -> Tuple[torch.Tensor, torch.Tensor, float]:
     """The initial energy, the scale ``max(e0, tiny)`` of the relative
     improvement, and ``tol`` rounded to the accumulation dtype (the JAX
-    package compares in that dtype)."""
-    e0 = energy(V, W, H, plan=plan, strategy=strategy)
+    package compares in that dtype).  ``energy_of(W, H)`` is the loop's
+    objective."""
+    e0 = energy_of(W, H)
     scale = torch.clamp(e0, min=torch.finfo(e0.dtype).tiny)
     return e0, scale, float(torch.tensor(tol, dtype=e0.dtype))
 
@@ -370,12 +517,13 @@ def _tol_start(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor, tol: float,
 def fit_loop_tol(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                  n_max: int, tol: float, sparsity: float, inhibition: float = 0.,
                  cross_inhibition: float = 0., kernels: Sequence = (), *, check_every: int,
-                 n_buf: int = 0, plan: ConvPlan, strategy: str = 'conv', **step):
+                 n_buf: int = 0, plan: ConvPlan, strategy: str = 'conv', beta: float = 2.0,
+                 mask: Optional[torch.Tensor] = None, **step):
     """Adaptive fit (port of the JAX package's ``fit_loop_tol``): MU
     iterations in blocks of ``min(check_every, n_max - i)``; after each
-    block the relative improvement ``(e_prev - e) / max(e0, tiny)`` is
-    read, and the fit stops at ``n_max`` iterations or once it drops below
-    ``tol``.
+    block the relative improvement ``(e_prev - e) / max(e0, tiny)`` of the
+    energy (of ``beta`` and ``mask``) is read, and the fit stops at
+    ``n_max`` iterations or once it drops below ``tol``.
 
     The JAX package runs the whole loop as one on-device ``while_loop``.
     Here the stopping test runs on the host: one synchronisation per block,
@@ -384,23 +532,25 @@ def fit_loop_tol(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Te
     ``n_buf > 0`` (at least ``n_max``) also records the energy after every
     iteration into a trace of ``n_buf`` entries, NaN past the iterations
     run; a block's last entry then serves as its energy, with no second
-    reconstruction.  ``step`` holds :func:`update_step`'s keywords.
+    reconstruction.  ``step`` holds :func:`update_step`'s other keywords.
 
     Returns ``(W, H, n_done, e_final, trace_or_None)``.
     """
+    def energy_of(W, H):
+        return energy(V, W, H, mask, plan=plan, strategy=strategy, beta=beta)
+
     n_max, check_every = int(n_max), int(check_every)
     trace = energy_trace(V, n_buf) if n_buf > 0 else None
-    e, scale, tol = _tol_start(V, W, H, tol, plan, strategy)
+    e, scale, tol = _tol_start(W, H, tol, energy_of)
     i, rel = 0, math.inf
     while i < n_max and rel >= tol:
         k = min(check_every, n_max - i)
         for j in range(k):
             W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
-                               plan=plan, strategy=strategy, **step)
+                               plan=plan, strategy=strategy, beta=beta, mask=mask, **step)
             if trace is not None:
-                trace[i + j] = energy(V, W, H, plan=plan, strategy=strategy)
-        e_prev, e = e, (trace[i + k - 1] if trace is not None
-                        else energy(V, W, H, plan=plan, strategy=strategy))
+                trace[i + j] = energy_of(W, H)
+        e_prev, e = e, (trace[i + k - 1] if trace is not None else energy_of(W, H))
         rel = _block_change(e_prev, e, scale)[1]
         i += k
     return W, H, i, e, trace
@@ -426,7 +576,9 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
                           check_every: int, n_buf: int = 0, plan: ConvPlan,
                           update_H: bool = True, update_W: bool = True,
                           use_inhibition: bool = False, use_cross: bool = False,
-                          strategy: str = 'conv', use_pallas: bool = True):
+                          strategy: str = 'conv', use_pallas: bool = True,
+                          beta: float = 2.0, mask: Optional[torch.Tensor] = None,
+                          l2_H: Optional[float] = None, ortho_W: Optional[float] = None):
     """Extrapolated MU with restarts (port of the JAX package's
     ``fit_loop_extrapolated``): each update is taken at the extrapolated
     point ``Y = X_new * clip(X_new / X_old)**beta_k`` (W's re-normalised).
@@ -435,13 +587,22 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
     ``beta_k`` halves; else it grows by 5 % up to 0.95.  Stopping as in
     :func:`fit_loop_tol` (a restarted block never stops the fit), with the
     same host-side test, one synchronisation per block; ``n_buf > 0``
-    records the accepted iterates' energies.
+    records the accepted iterates' energies.  The objective's keywords
+    (``beta``, ``mask``, ``l2_H``, ``ortho_W``) are :func:`update_step`'s;
+    ``ortho_W`` is formed from the extrapolated W the update is taken at.
 
     Returns ``(W, H, n_done, e_final, trace_or_None)``.
     """
+    def energy_of(W, H):
+        return energy(V, W, H, mask, plan=plan, strategy=strategy, beta=beta)
+
+    h_flags = dict(plan=plan, use_inhibition=use_inhibition, use_cross=use_cross,
+                   strategy=strategy, use_pallas=use_pallas, beta=beta, mask=mask, l2=l2_H)
+    w_flags = dict(plan=plan, strategy=strategy, use_pallas=use_pallas, beta=beta, mask=mask,
+                   ortho=ortho_W)
     n_max, check_every = int(n_max), int(check_every)
     trace = energy_trace(V, n_buf) if n_buf > 0 else None
-    e, scale, tol = _tol_start(V, W, H, tol, plan, strategy)
+    e, scale, tol = _tol_start(W, H, tol, energy_of)
     bk = torch.tensor(beta0, dtype=e.dtype, device=e.device)
     Wy, Hy = W, H
     i, rel = 0, math.inf
@@ -450,16 +611,14 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
         for j in range(k):
             if update_H:
                 Hn = _mu_H(Vp, Wy, Hy, sparsity, inhibition, cross_inhibition, kernels,
-                           plan=plan, use_inhibition=use_inhibition, use_cross=use_cross,
-                           strategy=strategy, use_pallas=use_pallas)
+                           **h_flags)
                 Hy, H = _extrapolate(Hn, H, bk), Hn
             if update_W:
-                Wn = _mu_W(Vp, Wy, Hy, plan=plan, strategy=strategy, use_pallas=use_pallas)
+                Wn = _mu_W(Vp, Wy, Hy, **w_flags)
                 Wy, W = _normalize_W(_extrapolate(Wn, W, bk), plan.ndim).to(Wn.dtype), Wn
             if trace is not None:
-                trace[i + j] = energy(V, W, H, plan=plan, strategy=strategy)
-        e_prev, e = e, (trace[i + k - 1] if trace is not None
-                        else energy(V, W, H, plan=plan, strategy=strategy))
+                trace[i + j] = energy_of(W, H)
+        e_prev, e = e, (trace[i + k - 1] if trace is not None else energy_of(W, H))
         diff, rel = _block_change(e_prev, e, scale)
         if diff < 0:  # the energy rose: drop the momentum
             bk = bk * _XTR_SHRINK
@@ -475,19 +634,23 @@ def update_H_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: 
                   inhibition: float = 0., cross_inhibition: float = 0., kernels: Sequence = (),
                   *, plan: ConvPlan, use_inhibition: bool = False,
                   use_cross: bool = False, strategy: str = 'conv',
-                  use_pallas: bool = True) -> torch.Tensor:
+                  use_pallas: bool = True, beta: float = 2.0,
+                  mask: Optional[torch.Tensor] = None,
+                  l2_H: Optional[float] = None) -> torch.Tensor:
     """One H-only MU update (W frozen)."""
     return _mu_H(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
                  use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy,
-                 use_pallas=use_pallas)
+                 use_pallas=use_pallas, beta=beta, mask=mask, l2=l2_H)
 
 
 @_pinned
 def update_W_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
-                  plan: ConvPlan, strategy: str = 'conv',
-                  use_pallas: bool = True) -> torch.Tensor:
+                  plan: ConvPlan, strategy: str = 'conv', use_pallas: bool = True,
+                  beta: float = 2.0, mask: Optional[torch.Tensor] = None,
+                  ortho_W: Optional[float] = None) -> torch.Tensor:
     """One W-only MU update (H frozen), atoms sum-normalised."""
-    return _mu_W(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas)
+    return _mu_W(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas, beta=beta,
+                 mask=mask, ortho=ortho_W)
 
 
 @_pinned

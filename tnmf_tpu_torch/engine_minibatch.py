@@ -51,6 +51,12 @@ def _averaged(stat: Stat, neg: torch.Tensor, pos: torch.Tensor, sag_lambda: floa
     return engine.accumulate_gradient(*stat, neg, pos, sag_lambda)
 
 
+def _batch_mask(mask: Optional[torch.Tensor], s: slice) -> Optional[torch.Tensor]:
+    """A batch's rows of the mask; a broadcast (one-sample) mask serves
+    every batch as it is (the JAX package's ``_mask_slice``)."""
+    return mask if mask is None or mask.shape[0] == 1 else mask[s]
+
+
 @engine._pinned
 def minibatch_epoch(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                     batches: Sequence[slice], order: Sequence[int], inner_stat: Stat,
@@ -58,7 +64,9 @@ def minibatch_epoch(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                     cross_inhibition: float = 0., kernels: Sequence = (), *,
                     plan: ConvPlan, algorithm: MiniBatchAlgorithm, strategy: str = 'conv',
                     use_inhibition: bool = False, use_cross: bool = False,
-                    use_pallas: bool = True) -> Tuple[torch.Tensor, torch.Tensor, Stat]:
+                    use_pallas: bool = True, beta: float = 2.0,
+                    mask: Optional[torch.Tensor] = None, l2_H: Optional[float] = None,
+                    ortho_W: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor, Stat]:
     """One epoch of ``algorithm`` over ``batches`` (sample slices of the
     prepared data ``Vp`` and of ``H``) visited in ``order``:
 
@@ -73,37 +81,45 @@ def minibatch_epoch(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
     ``inner_stat`` is the averaged ``(neg, pos)`` of ASAG_MU and GSAG_MU,
     carried across epochs (``None`` to start).  ``H`` is written in place.
     Returns ``(W, H, inner_stat)``; Cyclic_MU returns ``None`` for the
-    statistics, which it restarts each epoch."""
+    statistics, which it restarts each epoch.
+
+    ``beta``, ``l2_H`` and ``ortho_W`` (None: absent) are the objective's,
+    as in :func:`~tnmf_tpu_torch.engine.update_step`.  ``mask`` has the
+    samples of ``Vp`` or one broadcast sample (which serves every batch);
+    each batch takes its rows.  ``ortho_W`` is formed from the current W at
+    each W update, never added into the averaged statistics."""
     A = MiniBatchAlgorithm
     h_flags = dict(plan=plan, strategy=strategy, use_inhibition=use_inhibition,
-                   use_cross=use_cross, use_pallas=use_pallas)
-    w_flags = dict(plan=plan, strategy=strategy, use_pallas=use_pallas)
+                   use_cross=use_cross, use_pallas=use_pallas, beta=beta, l2=l2_H)
+    w_flags = dict(plan=plan, strategy=strategy, use_pallas=use_pallas, beta=beta)
+
+    def stats(s, W, Hb):
+        return engine.grad_W_stats(Vp[s], W, Hb, _batch_mask(mask, s), **w_flags)
 
     def apply(W, stat):
-        return engine.apply_W_update(W, *stat, n_shift_axes=plan.ndim, use_pallas=use_pallas)
+        return engine.apply_W_update(W, *stat, ortho_W, n_shift_axes=plan.ndim,
+                                     use_pallas=use_pallas)
 
     total: Stat = None
     for s in (batches[i] for i in order):
         Hb = engine._mu_H(Vp[s], W, H[s], sparsity, inhibition, cross_inhibition, kernels,
-                          **h_flags)
+                          mask=_batch_mask(mask, s), **h_flags)
         H[s] = Hb
         if algorithm is A.Cyclic_MU:
-            neg, pos = engine.grad_W_stats(Vp[s], W, Hb, **w_flags)
+            neg, pos = stats(s, W, Hb)
             total = (neg, pos) if total is None else (total[0] + neg, total[1] + pos)
         elif algorithm is A.ASG_MU:
-            W = engine._mu_W(Vp[s], W, Hb, **w_flags)
+            W = apply(W, stats(s, W, Hb))
         elif algorithm is A.ASAG_MU:
-            inner_stat = _averaged(inner_stat, *engine.grad_W_stats(Vp[s], W, Hb, **w_flags),
-                                   sag_lambda)
+            inner_stat = _averaged(inner_stat, *stats(s, W, Hb), sag_lambda)
             W = apply(W, inner_stat)
         elif algorithm not in (A.GSG_MU, A.GSAG_MU):
             raise ValueError(f'unknown minibatch algorithm {algorithm!r}')
     if algorithm is A.Cyclic_MU:
         return apply(W, total), H, None
     if algorithm is A.GSG_MU:
-        W = engine._mu_W(Vp[s], W, H[s], **w_flags)
+        W = apply(W, stats(s, W, H[s]))
     elif algorithm is A.GSAG_MU:
-        inner_stat = _averaged(inner_stat, *engine.grad_W_stats(Vp[s], W, H[s], **w_flags),
-                               sag_lambda)
+        inner_stat = _averaged(inner_stat, *stats(s, W, H[s]), sag_lambda)
         W = apply(W, inner_stat)
     return W, H, inner_stat

@@ -4,8 +4,9 @@ Port of the multiplicative-update fits of
 :class:`tnmf_tpu.models.tnmf.TransformInvariantNMF`: the constructor (with
 ``logger`` / ``verbose``, ``h_init`` and the kernel/plain switch
 ``use_pallas``), ``fit`` (the JAX dispatch) / ``fit_batch`` with the L1 and
-lateral-inhibition regularizers and every MU branch of the JAX
-``fit_batch`` (progress callbacks, chunked callbacks, ``record_energies``,
+lateral-inhibition regularizers, the objectives of the JAX package
+(``beta_loss``, ``mask``, ``l2_H``, ``ortho_W``) and every MU branch of the
+JAX ``fit_batch`` (progress callbacks, chunked callbacks, ``record_energies``,
 ``tol``, ``extrapolate``, ``keep_H``, periodic checkpoints, dead-atom
 revival), the minibatch and streaming drivers (``fit_minibatches`` with the
 five algorithms of :class:`MiniBatchAlgorithm`, ``fit_stream``,
@@ -35,6 +36,7 @@ float32).
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 from itertools import count, islice
@@ -45,6 +47,7 @@ import torch
 
 from .. import engine
 from ..engine_minibatch import MiniBatchAlgorithm, minibatch_epoch
+from ..ops import beta as beta_ops
 from ..ops.inhibition import cross_scale, inhibition_kernels, resolve_inhibition_range
 from ..ops.modes import ConvPlan
 
@@ -70,16 +73,12 @@ _UNPORTED_INIT = {
     'init': ('host', _ITEM.format(12)),
     'shard_axis': ('samples', _ITEM.format(14)),
     'precision': (None, _ITEM.format(16)),
-    'beta_loss': (2.0, _ITEM.format(10)),
     'transform_type': ('shift', _ITEM.format(12)),
     'w_init': ('random', _ITEM.format(12)),
 }
 
 #: fit_batch arguments of the JAX API not ported yet: (default, ROADMAP item)
 _UNPORTED_FIT = {
-    'l2_H': (0., _ITEM.format(10)),
-    'ortho_W': (0., _ITEM.format(10)),
-    'mask': (None, _ITEM.format(10)),
     'solver': ('mu', _ITEM.format(13)),
     'hals_inner': ('auto', _ITEM.format(13)),
     'sparsity_W': (0., _ITEM.format(13)),
@@ -101,8 +100,6 @@ def _reject_unported(where: str, kwargs: dict, table: dict) -> None:
         if name not in table:
             raise TypeError(f'{where}() got an unexpected keyword argument {name!r}')
         default, item = table[name]
-        if name == 'beta_loss' and value == 'frobenius':
-            continue
         if not _is_default(value, default):
             raise NotImplementedError(
                 f'{where}({name}={value!r}) is not ported to tnmf_tpu_torch yet; '
@@ -253,7 +250,16 @@ class TransformInvariantNMF:
         (CUDA, float32); ``False`` runs their plain PyTorch versions on
         every device (the comparator of A/B runs); ``True`` is ``None`` on
         a CUDA model and raises ``ValueError`` on a CPU one, which has no
-        kernel to force.
+        kernel to force, and with ``beta_loss != 2``, as the JAX
+        constructor does.
+    beta_loss : float or {'frobenius', 'kullback-leibler', 'itakura-saito'}, default 2.0
+        Keyword.  The objective ``D_beta(V || R)`` (:mod:`tnmf_tpu_torch.ops.beta`):
+        2 the reference's Euclidean energy, 1 generalized KL, 0
+        Itakura-Saito (which needs ``V > 0`` wherever the mask is
+        positive), any float.  Every strategy runs it on the same kernels
+        (K2 and K3 take the factor streams ``V * R**(beta-2)`` and
+        ``R**(beta-1)``).  Checkpoints do not store it: pass it to
+        :meth:`load` again.
 
     The JAX package's other later parameters (``init`` … ``w_init``) are
     taken by keyword; those whose code is not ported raise
@@ -267,7 +273,7 @@ class TransformInvariantNMF:
                  dtype: Union[torch.dtype, str] = torch.float32, mesh=None,
                  seed: Optional[int] = None, fft_policy: str = '5-smooth', *,
                  h_init: str = 'random', device='cuda', use_pallas: Optional[bool] = None,
-                 **unported):
+                 beta_loss: Union[float, str] = 2.0, **unported):
         _reject_unported('TransformInvariantNMF', dict(mesh=mesh, **unported), _UNPORTED_INIT)
         self.n_atoms = int(n_atoms)
         self.atom_shape = tuple(int(a) for a in atom_shape)
@@ -294,6 +300,12 @@ class TransformInvariantNMF:
             raise ValueError('use_pallas=True forces the CUDA kernels, and a CPU model has '
                              'none; pass use_pallas=None or False')
         self._use_pallas = use_pallas
+        self._beta = beta_ops.resolve_beta_loss(beta_loss)
+        if self._beta != 2.0 and use_pallas is True:
+            raise ValueError(
+                'use_pallas=True with beta_loss != 2 raises, as in the JAX package, whose '
+                'Pallas kernels implement the Euclidean (beta = 2) statistics; the default '
+                'use_pallas=None runs the kernels on the card for every beta_loss')
         self._rng = np.random.default_rng(seed) if seed is not None else np.random
 
         self._logger = (logger if logger is not None
@@ -310,6 +322,7 @@ class TransformInvariantNMF:
         self._V = None   # the data as given (array or tensor), for the V property
         self._Vd: Optional[torch.Tensor] = None
         self._Vp: Optional[torch.Tensor] = None  # prepared (mode-extended) data
+        self._mask_d: Optional[torch.Tensor] = None  # per-entry mask/weights of the fit
         # iteration stamp of the checkpoint this model was loaded from
         self.last_checkpoint_iteration_: Optional[int] = None
         # iterations the last fit_batch ran (fewer than asked when tol or a
@@ -332,7 +345,8 @@ class TransformInvariantNMF:
     @property
     def reconstruction_err_(self) -> float:
         """sklearn ``NMF``'s reconstruction error of the last fit,
-        ``sqrt(2 * energy)`` = ``||V - R||_F`` (one reconstruction)."""
+        ``sqrt(2 * D_beta(V || R))`` (``||V - R||_F`` at beta = 2; one
+        reconstruction)."""
         if self._plan is None:
             raise RuntimeError('reconstruction_err_ requires a fitted model')
         return float(np.sqrt(max(2.0 * self._energy_function(), 0.0)))
@@ -364,9 +378,65 @@ class TransformInvariantNMF:
             self._W, self._H, plan=self._plan, i_atom=int(i_atom),
             strategy=self._strategy).cpu().numpy()
 
+    def _energy(self) -> torch.Tensor:
+        """The fit's objective (its ``beta_loss``, weighted by its mask)
+        as a 0-d tensor on the device."""
+        return engine.energy(self._Vd, self._W, self._H, self._mask_d, plan=self._plan,
+                             strategy=self._strategy, beta=self._beta)
+
     def _energy_function(self) -> float:
-        return float(engine.energy(self._Vd, self._W, self._H, plan=self._plan,
-                                   strategy=self._strategy))
+        return float(self._energy())
+
+    def _assert_beta_domain(self, V, mask: Optional[torch.Tensor] = None) -> None:
+        """``beta_loss <= 0`` (the Itakura-Saito family) needs strictly
+        positive data, as in sklearn's ``NMF``: ``D_beta(v || r)`` diverges
+        as v -> 0.  Masked-out entries are exempt, they never enter the
+        objective.  A tensor is checked on its device, one scalar read
+        back."""
+        if self._beta > 0:
+            return
+        positive = V > 0
+        if mask is not None:
+            observed = mask > 0
+            if not isinstance(V, torch.Tensor):
+                observed = observed.cpu().numpy()
+            positive = positive | ~observed
+        if not bool(positive.all()):
+            raise ValueError(
+                f'beta_loss = {self._beta} (Itakura-Saito family) requires '
+                'strictly positive data, but V contains zeros')
+
+    def _prepare_mask(self, mask, V) -> Optional[torch.Tensor]:
+        """A per-entry mask (0/1 for missing data, nonnegative float
+        weights; an array or a tensor) of V's rank, broadcastable to V, as
+        a tensor on the model's device in its dtype, or None."""
+        if mask is None:
+            return None
+        mask = _as_input(mask, self.device)
+        if mask.ndim != V.ndim:
+            raise ValueError(
+                f'mask must have the same rank as V ({V.ndim}), got '
+                f'{mask.ndim}; use singleton axes to broadcast')
+        try:
+            np.broadcast_shapes(tuple(mask.shape), tuple(V.shape))
+        except ValueError as e:
+            raise ValueError(
+                f'mask of shape {tuple(mask.shape)} does not broadcast to V '
+                f'{tuple(V.shape)}') from e
+        if bool((mask < 0).any()):
+            raise ValueError('mask entries must be nonnegative '
+                             '(0/1 for missing data, floats for weights)')
+        return self._tensor(mask)
+
+    def _check_data(self, V, mask) -> tuple:
+        """The data and the mask of a fit as the model takes them, after
+        the JAX package's checks: V nonnegative, the mask valid, and the
+        beta_loss domain."""
+        V = _as_input(V, self.device)
+        _assert_nonnegative(V)
+        mask = self._prepare_mask(mask, V)
+        self._assert_beta_domain(V, mask)
+        return V, mask
 
     # ------------------------------------------------------------------
     # initialization
@@ -389,9 +459,11 @@ class TransformInvariantNMF:
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
-    def _initialize_matrices(self, V, keep_W: bool, keep_H: bool = False):
+    def _initialize_matrices(self, V, keep_W: bool, keep_H: bool = False,
+                             mask: Optional[torch.Tensor] = None):
         """W, H and the prepared data for a fit of ``V`` (a NumPy array, or
-        a tensor on the model's device, kept there)."""
+        a tensor on the model's device, kept there) and its ``mask`` (from
+        :meth:`_prepare_mask`)."""
         self._V = V
         self._plan = self._plan_for(V.shape[2:])
         self._check_strategy()
@@ -434,16 +506,36 @@ class TransformInvariantNMF:
             W /= W.sum(axis=self._axes_W_normalization, keepdims=True)
         self._W = self._tensor(W)
         self._Vd = self._tensor(V)
-        self._Vp = engine.prepare_data(self._Vd, plan=self._plan, strategy=self._strategy)
-        self._H = (engine.correlate_init_H(self._Vp, self._Vd, self._W, plan=self._plan,
-                                           strategy=self._strategy)
-                   if H is None else self._tensor(H))
+        self._mask_d = mask
+        # the prepared-data slot, as the JAX package fills it: prepare(V);
+        # with a mask at beta = 2 the loop-invariant prepare(mask * V); the
+        # canonical V where the beta factors are formed canonically (fft,
+        # and every masked fit at beta != 2)
+        prepare = functools.partial(engine.prepare_data, plan=self._plan,
+                                    strategy=self._strategy)
+        canonical = self._beta != 2.0 and (
+            mask is not None or not engine.get_ops(self._strategy).FACTORS_IN_PREPARED)
+        if canonical:
+            self._Vp = self._Vd
+        elif mask is not None:
+            self._Vp = prepare(self._Vd * mask)
+        else:
+            self._Vp = prepare(self._Vd)
+        if H is None:
+            # the matched filter of the masked objective is prepare(mask * V)
+            # at beta = 2; prepare(V) where the slot holds the canonical V
+            Vp0 = prepare(self._Vd) if canonical else self._Vp
+            H = engine.correlate_init_H(Vp0, self._Vd, self._W, plan=self._plan,
+                                        strategy=self._strategy)
+        self._H = self._tensor(H)
         # built in float64, cast to the compute dtype
         self._kernels = tuple(self._tensor(k) for k in self._inhibition_kernels_1D)
 
-    def _check_regs(self, sparsity_H, inhibition_strength, cross_atom_inhibition_strength):
+    def _check_regs(self, sparsity_H, inhibition_strength, cross_atom_inhibition_strength,
+                    l2_H=0., ortho_W=0.):
         _require_nonneg(sparsity_H=sparsity_H, inhibition_strength=inhibition_strength,
-                        cross_atom_inhibition_strength=cross_atom_inhibition_strength)
+                        cross_atom_inhibition_strength=cross_atom_inhibition_strength,
+                        l2_H=l2_H, ortho_W=ortho_W)
         if cross_atom_inhibition_strength > 0:
             cross_scale(cross_atom_inhibition_strength, self.n_atoms)  # raises for one atom
 
@@ -455,11 +547,18 @@ class TransformInvariantNMF:
 
     def _flags(self, inhibition_strength, cross_atom_inhibition_strength) -> dict:
         """The engine's keywords for the current fit: plan, strategy, the
-        inhibition terms and the kernel/plain switch."""
+        inhibition terms, the kernel/plain switch and the beta_loss."""
         return dict(plan=self._plan, strategy=self._strategy,
                     use_inhibition=inhibition_strength > 0,
                     use_cross=cross_atom_inhibition_strength > 0,
-                    use_pallas=self._use_pallas is not False)
+                    use_pallas=self._use_pallas is not False, beta=self._beta)
+
+    def _objective(self, l2_H, ortho_W) -> dict:
+        """The engine's objective keywords besides ``beta``: the fit's mask
+        and the two penalty weights, None where absent (a zero weight
+        leaves the default path as it was)."""
+        return dict(mask=self._mask_d, l2_H=float(l2_H) if l2_H > 0 else None,
+                    ortho_W=float(ortho_W) if ortho_W > 0 else None)
 
     # ------------------------------------------------------------------
     # batch fitting (reference fit_batch, TransformInvariantNMF.py:282-348)
@@ -510,18 +609,28 @@ class TransformInvariantNMF:
           activation mass fell below ``revive_threshold`` times the mean
           (:func:`tnmf_tpu_torch.utils.atoms.revive_dead_atoms`).
 
-        ``n_iterations_`` holds the count actually run.  ``l2_H``,
-        ``ortho_W``, ``mask``, ``solver``, ``hals_inner``, ``sparsity_W``
-        and ``l2_W`` are not ported yet and raise ``NotImplementedError``
-        unless they hold their default.
+        The objective is the model's ``beta_loss``, with two penalties and
+        a weighting (the JAX package's):
+
+        * ``l2_H`` adds the ridge penalty ``(l2_H/2) * ||H||^2``;
+        * ``ortho_W`` adds the cross-atom orthogonality penalty
+          ``(ortho_W/2) * sum_{m != m'} <W_m, W_m'>`` (dictionary
+          diversity);
+        * ``mask`` (V's rank, broadcastable to V; an array or a tensor)
+          weights every entry of the objective: 0/1 for missing data,
+          nonnegative floats for weights.  Masked-out entries never enter
+          the fit, so their values do not matter.
+
+        ``n_iterations_`` holds the count actually run.  ``solver``,
+        ``hals_inner``, ``sparsity_W`` and ``l2_W`` are not ported yet and
+        raise ``NotImplementedError`` unless they hold their default.
         """
-        _reject_unported('fit_batch', dict(l2_H=l2_H, ortho_W=ortho_W, mask=mask,
-                                           solver=solver, hals_inner=hals_inner,
+        _reject_unported('fit_batch', dict(solver=solver, hals_inner=hals_inner,
                                            sparsity_W=sparsity_W, l2_W=l2_W), _UNPORTED_FIT)
-        V = _as_input(V, self.device)
-        _assert_nonnegative(V)
+        V, mask = self._check_data(V, mask)
         _require(update_H or update_W, 'at least one of update_H / update_W must be True')
-        self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
+        self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength,
+                         l2_H, ortho_W)
         _require(callback_interval >= 1, 'callback_interval must be >= 1')
         if (checkpoint_every is None) != (checkpoint_path is None):
             raise ValueError(
@@ -577,11 +686,11 @@ class TransformInvariantNMF:
             callback_interval = int(revive_every)
 
         self._sag_stat_ = None  # a fresh fit drops partial_fit's state
-        self._initialize_matrices(V, keep_W, keep_H=keep_H)
+        self._initialize_matrices(V, keep_W, keep_H=keep_H, mask=mask)
         n_iterations = int(n_iterations)
         regs = self._regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
         flags = dict(self._flags(inhibition_strength, cross_atom_inhibition_strength),
-                     update_H=update_H, update_W=update_W)
+                     update_H=update_H, update_W=update_W, **self._objective(l2_H, ortho_W))
         log_each = self._logger.isEnabledFor(logging.INFO)
         self.energies_ = None
         if extrapolate or tol is not None:
@@ -706,23 +815,23 @@ class TransformInvariantNMF:
         the fit when it returns a false value; without one, INFO logging
         writes the epoch's energy.  ``record_energies`` keeps the energy
         after each epoch in ``energies_`` (a list, read from the device once
-        at the end).  Any earlier ``partial_fit`` state is dropped.  ``l2_H``,
-        ``ortho_W`` and ``mask`` are not ported yet and raise
-        ``NotImplementedError`` unless they hold their default."""
-        _reject_unported('fit_minibatches', dict(l2_H=l2_H, ortho_W=ortho_W, mask=mask),
-                         _UNPORTED_FIT)
-        V = _as_input(V, self.device)
-        _assert_nonnegative(V)
+        at the end).  Any earlier ``partial_fit`` state is dropped.
+        ``l2_H``, ``ortho_W`` and ``mask`` are :meth:`fit_batch`'s; each
+        batch takes its rows of the mask (a mask of one sample serves every
+        batch), and the epoch's energy is the masked one."""
+        V, mask = self._check_data(V, mask)
         self._sag_stat_ = None  # a fresh fit drops partial_fit's state
-        self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
+        self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength,
+                         l2_H, ortho_W)
         _require(isinstance(algorithm, MiniBatchAlgorithm),
                  f'algorithm must be a MiniBatchAlgorithm, got {algorithm!r}')
-        self._initialize_matrices(V, keep_W)
+        self._initialize_matrices(V, keep_W, mask=mask)
         n = int(self._Vd.shape[0])
         batches = ([slice(0, n)] if batch_size is None
                    else list(_sequential_slices(n, int(batch_size))))
         regs = self._regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
-        flags = self._flags(inhibition_strength, cross_atom_inhibition_strength)
+        flags = dict(self._flags(inhibition_strength, cross_atom_inhibition_strength),
+                     **self._objective(l2_H, ortho_W))
         log_each = progress_callback is None and self._logger.isEnabledFor(logging.INFO)
         energies = []
         inner_stat = None
@@ -733,8 +842,7 @@ class TransformInvariantNMF:
                 self._Vp, self._W, self._H, batches, order, inner_stat, float(sag_lambda),
                 *regs, algorithm=algorithm, **flags)
             if record_energies or log_each:
-                e = engine.energy(self._Vd, self._W, self._H, plan=self._plan,
-                                  strategy=self._strategy)
+                e = self._energy()
                 energies.append(e)
             if progress_callback is not None:
                 if not progress_callback(self, epoch):
@@ -785,22 +893,23 @@ class TransformInvariantNMF:
         dictionary, later ones keep it; batches may differ in sample count
         and size, not in channels.  Any ``fit*`` call drops the averaged
         state.  Returns ``self``; ``n_steps_`` counts the calls.  ``l2_H``,
-        ``ortho_W`` and ``mask`` raise ``NotImplementedError`` unless they
-        hold their default."""
+        ``ortho_W`` and ``mask`` are :meth:`fit_batch`'s, the mask the
+        batch's; ``ortho_W`` is formed from the current W at the update,
+        never averaged into the statistics."""
         del y
-        _reject_unported('partial_fit', dict(l2_H=l2_H, ortho_W=ortho_W, mask=mask),
-                         _UNPORTED_FIT)
-        V = _as_input(V, self.device)
-        _assert_nonnegative(V)
-        self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
-        self._initialize_matrices(V, keep_W=True)
+        V, mask = self._check_data(V, mask)
+        self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength,
+                         l2_H, ortho_W)
+        self._initialize_matrices(V, keep_W=True, mask=mask)
         flags = self._flags(inhibition_strength, cross_atom_inhibition_strength)
+        objective = self._objective(l2_H, ortho_W)
         self._H = engine.update_H_step(
             self._Vp, self._W, self._H,
             *self._regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength),
-            **flags)
-        neg, pos = engine.grad_W_stats(self._Vp, self._W, self._H, plan=self._plan,
-                                       strategy=self._strategy, use_pallas=flags['use_pallas'])
+            mask=mask, l2_H=objective['l2_H'], **flags)
+        neg, pos = engine.grad_W_stats(self._Vp, self._W, self._H, mask, plan=self._plan,
+                                       strategy=self._strategy, use_pallas=flags['use_pallas'],
+                                       beta=self._beta)
         if sag_lambda == 1.0 or self._sag_stat_ is None:
             # the batch's own statistics: online learning replaces them at
             # sag_lambda == 1, where accumulate_gradient would sum
@@ -808,7 +917,8 @@ class TransformInvariantNMF:
         else:
             stat = engine.accumulate_gradient(*self._sag_stat_, neg, pos, float(sag_lambda))
         self._sag_stat_ = None if sag_lambda == 1.0 else stat
-        self._W = engine.apply_W_update(self._W, *stat, n_shift_axes=self._plan.ndim,
+        self._W = engine.apply_W_update(self._W, *stat, objective['ortho_W'],
+                                        n_shift_axes=self._plan.ndim,
                                         use_pallas=flags['use_pallas'])
         self.n_steps_ += 1
         self._logger.info('partial_fit step %d done.', self.n_steps_)
@@ -852,7 +962,8 @@ class TransformInvariantNMF:
         ``fit_batch``'s), returned as a NumPy array.  With ``batch_size``
         the samples are encoded in independent chunks of that many and the
         chunks' H concatenated on the host; the model's ``V`` / ``H`` /
-        ``R`` then hold the last chunk."""
+        ``R`` then hold the last chunk.  A ``mask`` with a row per sample
+        is sliced with the chunks; a broadcast one serves each chunk."""
         if self._W is None:
             raise RuntimeError(
                 'transform() requires a fitted or loaded dictionary; '
@@ -862,10 +973,13 @@ class TransformInvariantNMF:
                            **kwargs)
             return self.H
         V = _as_input(V, self.device)
+        mask = kwargs.pop('mask', None)
+        per_sample = (mask is not None and np.ndim(mask) == V.ndim
+                      and np.shape(mask)[0] == V.shape[0])
         out = []
         for s in _sequential_slices(V.shape[0], batch_size):
             self.fit_batch(V[s], n_iterations=n_iterations, update_W=False, keep_W=True,
-                           **kwargs)
+                           mask=mask[s] if per_sample else mask, **kwargs)
             out.append(self.H)
         return np.concatenate(out, axis=0)
 

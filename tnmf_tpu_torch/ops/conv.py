@@ -109,6 +109,12 @@ def prepare_data(V: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     return extend_data(V, plan)
 
 
+#: the extension replicates or zero-fills entries, so it commutes with the
+#: beta-divergence factors (elementwise, 0 -> 0): they are formed on
+#: prepared tensors (the JAX engine's ``beta_prepares_data``)
+FACTORS_IN_PREPARED = True
+
+
 def reconstruct(W: torch.Tensor, H: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     """``R[n,c,*S] = sum_m (H[n,m] * W[m,c])``, the model reconstruction."""
     Hp = _extend_H(H, plan)

@@ -77,6 +77,12 @@ def prepare_data(V: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     return _rfftn(extend_data(V, plan), plan)
 
 
+#: the prepared domain is spectral: the beta-divergence factors are formed
+#: canonically and transformed every iteration (the JAX engine's
+#: ``beta_prepares_data``)
+FACTORS_IN_PREPARED = False
+
+
 def reconstruct(W: torch.Tensor, H: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     """``R[n,c,x] = sum_{m,a} W[m,c,a] * Hext[n,m,x+(A-1)-a]``."""
     am1 = tuple(a - 1 for a in plan.atom_shape)

@@ -134,10 +134,28 @@ failure (exit code != 0, no result line):
    mask against the KL dictionary (K3 alone); then at the golden 2-D
    fixture every case, Itakura-Saito on ``V + 0.01``, fft, dot, minibatch
    and ``transform`` in float32 on the kernels against float64 on the card
-   (1e-4).
+   (1e-4);
+15. transform groups and initialisation: the conv flagship with D4
+   (``transform_type='shift+rot90+flip'``, 16 atoms x 8 transforms = 128
+   maps) from ``init='device'``, plain and inhibited (0.1, cross-atom
+   0.05), counts reset before and read after: K3 (K4 inhibited), K2 and
+   ``mu_w`` once per iteration, W and H within 1e-4 of ``use_pallas=False``
+   over 2 iterations, ms per iteration (5 after a warm-up), peak memory,
+   K3's, K2's and K4's geometries (K3 on its tensor-core route) and the
+   per-call split; K3, K2 and K4 at 128 maps against their plain versions,
+   timed in turns with them, beside the nearest PyTorch call and the
+   bound; ``'auto'`` on phase 12's 31 x 31 problem with the C4 rotations
+   (fft: ``mu_ratio`` and ``mu_w``); the golden 2-D fixture under each
+   group on conv and fft, float32 on the kernels within 1e-5 of float64,
+   and a D4 fit of a CUDA tensor bit-equal to the NumPy fit; the wall time
+   of a flagship fit's initialisation with ``init='device'`` against the
+   host draw, in turns, and of ``partial_fit`` steps of 16 samples with
+   each, two device draws of one seed bit-equal; ``w_init='patches'``
+   from a CUDA tensor within 1e-6 of the NumPy array's windows, with no
+   host copy of the data.
 
-Phases 7, 10, 12, 13 and 14 hold fits on the kernels against the same fits
-with ``use_pallas=False`` (the model's kernel/plain switch).
+Phases 7, 10, 12, 13, 14 and 15 hold fits on the kernels against the same
+fits with ``use_pallas=False`` (the model's kernel/plain switch).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths, error, times and bound; the last line is
@@ -164,6 +182,7 @@ from tnmf_tpu_torch.ops import conv
 from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
 from tnmf_tpu_torch.ops.modes import ConvPlan
 from tnmf_tpu_torch.ops.precision import full_fp32_matmul
+from tnmf_tpu_torch.ops.transforms import expand_w, make_group, tie_back
 from tnmf_tpu_torch.utils.data_loading import synthetic_face
 from tnmf_tpu_torch.utils.signals import generate_pulse_train
 
@@ -2103,6 +2122,260 @@ def phase_objectives() -> tuple:
     return total, out
 
 
+# ------------------------------------ phase 15: transform groups and initialisation
+
+#: the D4 group at the flagship: 16 atoms x 8 transforms, H of 128 maps
+GROUP_TYPE = 'shift+rot90+flip'
+#: iterations held against use_pallas=False, and timed after a warm-up
+GROUP_ITER = 2
+GROUP_TIMED = 5
+#: the golden 2-D fixture under each group: float32 on the kernels against
+#: float64 on the card (max|a - b| / max|b| of W and H)
+GROUP_TYPES = ('shift+flip', 'shift+rot90', 'shift+rot90+flip')
+GROUP_GOLDEN_TOL = 1e-5
+#: w_init='patches' from a CUDA tensor against the NumPy array's windows
+PATCHES_TOL = 1e-6
+
+
+def _group_parts(nmf, fit: dict) -> dict:
+    """Per-call times (CUDA events) of a D4 conv iteration's parts on the
+    model's state: the expansion of W, the reconstruction over the 128 maps,
+    the streams, K3 on ``W_exp``, the stacked H-gradient pair and K4 of the
+    inhibited path, ``X2``, K2, the tie-back and ``mu_w``."""
+    Vp, W, H, plan, group = nmf._Vp, nmf._W, nmf._H, nmf._plan, nmf._group
+    We = expand_w(W, group)
+    R = conv.reconstruct(We, H, plan)
+    Xv, Xr = engine._conv_streams(Vp, R, plan, 2.0, None)
+    X2 = torch.cat([Xv, Xr], dim=1)
+    neg, pos = gw.grad_w(X2, H, plan)
+    tneg, tpos = tie_back(neg, group), tie_back(pos, group)
+    hneg, hpos = (g.contiguous() for g in conv.grad_H_pair_prepared(Xv, Xr, We))
+    reg = engine.EPS + fit['sparsity_H']
+    f = FLAGSHIP
+    parts = {'expand_w': lambda: expand_w(W, group),
+             'reconstruct': lambda: conv.reconstruct(We, H, plan),
+             'streams': lambda: engine._conv_streams(Vp, R, plan, 2.0, None),
+             'mu_h': lambda: mu_h.mu_h(Xv, Xr, We, H, reg),
+             'grad_H_pair (inhibited)': lambda: conv.grad_H_pair_prepared(Xv, Xr, We),
+             'inhibited_mu_h': lambda: inhibit.inhibited_mu_h(
+                 H, hneg, hpos, nmf._kernels, f['inhibition'], f['cross'], reg),
+             'cat X2': lambda: torch.cat([Xv, Xr], dim=1),
+             'grad_w': lambda: gw.grad_w(X2, H, plan),
+             'tie_back': lambda: (tie_back(neg, group), tie_back(pos, group)),
+             'mu_w': lambda: mu.mu_w(W, tneg, tpos, engine.EPS, plan.ndim)}
+    _, _, g3 = mu_h.launch_geometry(Xv, Xr, We, H)
+    g2 = gw._geometry(*gw_dims(plan, H, X2.shape[1]))
+    g4 = inhibit.launch_geometry(tuple(H.shape), tuple(k.numel() for k in nmf._kernels), True)
+    log(f'  K3 at {tuple(We.shape)} atoms, H {tuple(H.shape)}: route {g3["route"]}, ' +
+        json.dumps(g3))
+    log(f'  K2 at H {tuple(H.shape)}: ' + json.dumps(g2))
+    log('  K4 (same + cross over the 128 maps): ' + json.dumps(g4))
+    if g3['route'] != 'mma':
+        raise AssertionError(f'K3 at 128 maps left the tensor-core route: {g3}')
+    return {k: time_ms(fn, reps=3) for k, fn in parts.items()}
+
+
+def _group_kernels() -> dict:
+    """K3, K2 and K4 at the D4 flagship's shapes (128 maps, random factors)
+    against their plain versions, then timed in turns with them, beside the
+    nearest single PyTorch call and the bound."""
+    f = FLAGSHIP
+    fns = _problem(f['N'], f['C'], f['S'], f['M'] * 8, f['A'], f['mode'], seed=SEED + 15)
+    out = {}
+    for name in ('mu_h', 'grad_w', 'inhibited_mu_h'):
+        kernel, plain, library, work = fns[name]
+        err = _compare(name, kernel, plain, 'D4 flagship, 128 maps')
+        # the plain K2 sums 64 per-sample convolutions: one timed call
+        reps = 1 if name == 'grad_w' else 5
+        p1, k1, k2, p2 = (time_ms(fn, reps=r) for fn, r in
+                          ((plain, reps), (kernel, 5), (kernel, 5), (plain, reps)))
+        lib = None if library is None else time_ms(library, reps=5)
+        bound_ms, bound_by = bound(*work, OPS_PER_S[name])
+        ms = (k1 + k2) / 2
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=(p1 + p2) / 2, library_ms=lib,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        log(f'  {name:14s} at 128 maps: kernel {k1:.4f}/{k2:.4f} ms  plain {p1:.4f}/{p2:.4f} ms'
+            f'  library {"none" if lib is None else f"{lib:.4f} ms"}  bound {bound_ms:.4f} ms '
+            f'({bound_by}), {100 * bound_ms / ms:.1f} % of bound')
+    del fns
+    return out
+
+
+def _group_flagship(total: dict) -> dict:
+    """(a) The conv flagship with D4 (128 maps), plain and inhibited (same
+    and cross-atom), from ``init='device'``: K3 (K4), K2 and ``mu_w`` once
+    per iteration, W and H within 1e-4 of ``use_pallas=False`` from the
+    same start, ms per iteration, peak memory, the routes and the split."""
+    f = FLAGSHIP
+    V = np.random.default_rng(SEED + 15).random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    group = make_group(GROUP_TYPE, f['A'])
+    out = {}
+    paths = (('plain', dict(sparsity_H=f['sparsity']), OBJ_CONV),
+             ('inhibited', dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition'],
+                                cross_atom_inhibition_strength=f['cross']), OBJ_CONV_INHIBITED))
+    for label, fit, kernels in paths:
+        def make(dtype, **kw):
+            return TransformInvariantNMF(f['M'], f['A'], dtype=dtype, seed=SEED, device=DEVICE,
+                                         init='device', transform_type=GROUP_TYPE, **kw)
+        nmf, launches, wall, peak = _strategy_fit(f'D4 flagship {label}', make, V, fit,
+                                                  GROUP_ITER, kernels, ('conv', group),
+                                                  refs=('plain',))
+        for name, n in launches.items():
+            total[name] += n
+        ms = _objective_ms(nmf, fit, n=GROUP_TIMED)
+        log(f'D4 flagship {label}: {ms:.4f} ms/iteration ({GROUP_TIMED} after as many); '
+            f'peak {peak:.0f} MiB')
+        out[label] = dict(ms=ms, peak_mib=peak, wall_s=wall)
+        if label == 'plain':
+            out['parts'] = _group_parts(nmf, fit)
+            log('  D4 parts (ms per call): ' + json.dumps(out['parts']))
+        del nmf
+    out['kernels_128_maps'] = _group_kernels()
+    return out
+
+
+def _group_fft(total: dict) -> dict:
+    """(b) ``'auto'`` on phase 12's fft problem with the C4 rotations (64
+    maps): ``mu_ratio`` and ``mu_w`` once per iteration, against
+    ``use_pallas=False``."""
+    a = AUTO_FFT
+    V = np.random.default_rng(SEED + 16).random((a['N'], a['C']) + a['S'], dtype=np.float32)
+    fit = dict(sparsity_H=a['sparsity'])
+
+    def make(dtype, **kw):
+        return TransformInvariantNMF(a['M'], a['A'], dtype=dtype, seed=SEED, device=DEVICE,
+                                     init='device', transform_type='shift+rot90', **kw)
+    nmf, launches, _, peak = _strategy_fit(
+        "'auto' -> fft with rotations", make, V, fit, GROUP_ITER, OBJ_FFT_DOT,
+        ('fft', make_group('shift+rot90', a['A'])), refs=('plain',))
+    for name, n in launches.items():
+        total[name] += n
+    ms = _objective_ms(nmf, fit, n=GROUP_TIMED)
+    log(f"'auto' -> fft with rotations (64 maps): {ms:.4f} ms/iteration; peak {peak:.0f} MiB")
+    return dict(ms=ms, peak_mib=peak)
+
+
+def _group_goldens(total: dict) -> None:
+    """(c) The golden 2-D fit under each group on conv and fft, float32 on
+    the kernels within 1e-5 of float64 on the card; a D4 fit of a CUDA
+    tensor with the bits of the NumPy array's, no host copy of the data."""
+    image = _image_2d()
+    for ttype in GROUP_TYPES:
+        for backend, kernels in (('jax_conv', OBJ_CONV), ('jax_fft', OBJ_FFT_DOT)):
+            def golden(dtype, data=image):
+                np.random.seed(42)
+                m = TransformInvariantNMF(10, (7, 7), backend=backend, transform_type=ttype,
+                                          dtype=dtype, device=DEVICE)
+                m.fit(data, sparsity_H=0.1, n_iterations=10)
+                return m
+            reset_counts()
+            got = golden(torch.float32)
+            launches = counts()
+            want = golden(torch.float64)
+            rel = max(_rel(got.W, want.W), _rel(got.H, want.H))
+            expected = dict.fromkeys(KERNELS, 0)
+            expected.update(dict.fromkeys(kernels, 10))
+            log(f'  golden 2-D {ttype} on {got._strategy[0]}: W, H off float64 {rel:.3e}; '
+                f'launches {launches}')
+            if not rel <= GROUP_GOLDEN_TOL or launches != expected:
+                raise AssertionError(f'golden 2-D {ttype} {backend}: {rel:.3e} > '
+                                     f'{GROUP_GOLDEN_TOL} or launches {launches}')
+            for name, n in launches.items():
+                total[name] += n
+            if ttype == GROUP_TYPE and backend == 'jax_conv':
+                Vt = torch.tensor(image, device=DEVICE)
+                with no_host_copy(Vt):
+                    tensor_fit = golden(torch.float32, Vt)
+                same = torch.equal(tensor_fit._W, got._W) and torch.equal(tensor_fit._H,
+                                                                          got._H)
+                log(f'  D4 golden fit of a CUDA tensor: {"the bits" if same else "DIFFERS from"}'
+                    ' of the NumPy fit, no host copy of the data')
+                if not same:
+                    raise AssertionError('a D4 fit of a CUDA tensor differs from the NumPy fit')
+
+
+def _device_init() -> dict:
+    """(d) ``init='device'`` at the flagship: the wall time of a fit's
+    initialisation (``fit(n_iterations=0)``) against the host draw, in turns;
+    ``partial_fit`` steps of 16 samples with each; two draws from one seed
+    bit-equal.  (e) ``w_init='patches'`` from a CUDA tensor: the windows of
+    the NumPy array's fit (the JAX rule), with no host copy of the data."""
+    f = FLAGSHIP
+    V = np.random.default_rng(SEED + 17).random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    out = dict(init_wall_ms={'host': [], 'device': []},
+               partial_fit_wall_ms={'host': [], 'device': []})
+    models = []
+    for init in ('host', 'device', 'device', 'host'):
+        m = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE, init=init)
+        sync()
+        t0 = time.perf_counter()
+        m.fit(V, n_iterations=0)
+        sync()
+        out['init_wall_ms'][init].append(1e3 * (time.perf_counter() - t0))
+        if init == 'device':
+            models.append(m)
+        del m
+    a, b = models
+    same = torch.equal(a._W, b._W) and torch.equal(a._H, b._H)
+    h = a._H
+    mean, lo, hi = float(h.mean()), float(h.min()), float(h.max())
+    log(f'  init wall ms (fit of 0 iterations, in turns): host '
+        + '/'.join(f'{t:.1f}' for t in out['init_wall_ms']['host']) + ', device '
+        + '/'.join(f'{t:.1f}' for t in out['init_wall_ms']['device'])
+        + f'; two device draws of seed {SEED}: {"the same bits" if same else "DIFFER"}; '
+        f'H in [{lo!r}, {hi!r}], mean {mean!r}')
+    if not (same and 0 < lo and hi <= 1 and abs(mean - 0.5) < 4 / math.sqrt(12 * h.numel())):
+        raise AssertionError('init=device: draws differ or H is off its distribution')
+    del models, a, b, h
+    for init in ('host', 'device'):
+        online = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE, init=init)
+        for i in range(4):
+            sync()
+            t0 = time.perf_counter()
+            online.partial_fit(V[i * MB_BATCH:(i + 1) * MB_BATCH], sparsity_H=f['sparsity'])
+            sync()
+            out['partial_fit_wall_ms'][init].append(1e3 * (time.perf_counter() - t0))
+        if not math.isfinite(online._energy_function()):
+            raise AssertionError(f'partial_fit with init={init}: energy not finite')
+        del online
+    log('  partial_fit of 16 samples, wall ms per step: host '
+        + '/'.join(f'{t:.1f}' for t in out['partial_fit_wall_ms']['host']) + ', device '
+        + '/'.join(f'{t:.1f}' for t in out['partial_fit_wall_ms']['device']))
+
+    def patches(data):
+        m = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE, w_init='patches')
+        m.fit(data, n_iterations=0)
+        return m.W
+    want = patches(V)
+    Vt = torch.tensor(V, device=DEVICE)
+    with no_host_copy(Vt):
+        got = patches(Vt)
+    rel = _rel(got, want)
+    log(f"  w_init='patches' from a CUDA tensor at the flagship: W off the NumPy array's "
+        f'windows (the JAX rule) by {rel:.3e}, no host copy of the data')
+    if not rel <= PATCHES_TOL:
+        raise AssertionError(f"w_init='patches' from a CUDA tensor off by {rel:.3e}")
+    out['patches_rel'] = rel
+    return out
+
+
+def phase_transforms() -> tuple:
+    """Phase 15: transform groups on K1-K4 and the initialisations; returns
+    the launches and the measurements."""
+    total = dict.fromkeys(KERNELS, 0)
+    log(f'times on {card()}')
+    out = _group_flagship(total)
+    out['auto_fft_rot90'] = _group_fft(total)
+    log('the golden 2-D fixture under each group:')
+    _group_goldens(total)
+    log("init='device' and w_init='patches' at the flagship:")
+    out.update(_device_init())
+    missing = [name for name, n in total.items() if not n]
+    if missing:
+        raise AssertionError(f'phase 15 launched no {missing}')
+    return total, out
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -2133,16 +2406,21 @@ def main() -> int:
     log('the objectives (phase 14):')
     obj_launches, obj = phase_objectives()
     log(f'objective times ({card()}): ' + json.dumps(obj))
+    log('transform groups and initialisation (phase 15):')
+    grp_launches, grp = phase_transforms()
+    log(f'transform group times ({card()}): ' + json.dumps(grp))
     asg = mb['ASG_MU']['launches_per_epoch']
+    at_128 = grp['kernels_128_maps']
     rows = [dict(name=name, route='cuda', source=k['source'], replaces=k['replaces'],
                  launches=(launches[name] + enc_launches[name] + st_launches[name]
-                           + mb_launches[name] + obj_launches[name]),
+                           + mb_launches[name] + obj_launches[name] + grp_launches[name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
                  fft_dot_launches_per_iteration=(st_launches[name]
                                                  / max(st_iterations[name], 1)),
                  asg_mu_bs16_launches_per_epoch=asg[name],
+                 d4_flagship_128_maps=at_128.get(name),
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     log(device['smi'])  # again here: the build's report may push the first one out of a tail

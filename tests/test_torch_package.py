@@ -196,7 +196,7 @@ def test_fit_arguments_at_jax_defaults_are_accepted():
 
 
 @pytest.mark.parametrize('kwargs', [dict(precision='high'),
-                                    dict(transform_type='shift+flip'), dict(init='device')])
+                                    dict(mesh=object()), dict(shard_axis='atoms')])
 def test_unported_constructor_arguments_raise(kwargs):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu', **kwargs)

@@ -9,16 +9,20 @@ reference the port is held against; this package imports neither it nor
 JAX.
 
 Ported so far: the full-batch MU fit on the direct-convolution, FFT and
-plain-NMF (matmul) strategies, with lateral inhibition, its fit driver and
-the encoder (``transform``), and the minibatch and streaming fits (the five
-algorithms of :class:`MiniBatchAlgorithm`, ``fit_stream``, ``partial_fit``,
-:class:`MiniBatchTransformInvariantNMF`); ``use_pallas=False`` runs the
-kernels' plain versions (see ROADMAP.md for the rest)::
+plain-NMF (matmul) strategies, with lateral inhibition and every objective
+of the JAX package, its fit driver and the encoder (``transform``), the
+minibatch and streaming fits (the five algorithms of
+:class:`MiniBatchAlgorithm`, ``fit_stream``, ``partial_fit``,
+:class:`MiniBatchTransformInvariantNMF`), the transform groups
+(``transform_type``), ``init='device'``, ``w_init`` and the sklearn
+protocol; ``use_pallas=False`` runs the kernels' plain versions (see
+ROADMAP.md for the rest)::
 
     from tnmf_tpu_torch import MiniBatchAlgorithm, TransformInvariantNMF
     nmf = TransformInvariantNMF(n_atoms=16, atom_shape=(9, 9), device='cuda')
     nmf.fit(V, n_iterations=100, sparsity_H=0.1, inhibition_strength=0.1)
     nmf.fit(V, algorithm=MiniBatchAlgorithm.ASG_MU, batch_size=16, n_epochs=10)
+    d4 = TransformInvariantNMF(16, (9, 9), transform_type='shift+rot90+flip', init='device')
 """
 
 from .engine_minibatch import MiniBatchAlgorithm

@@ -70,13 +70,23 @@ factor streams ``V * R**(beta-2)`` and ``R**(beta-1)`` otherwise
 ``pos_extra`` on conv and the positive part before K1's ratio or K4
 elsewhere, and the orthogonality gradient joins ``pos`` before K1's W
 epilogue (:func:`apply_W_update`).
+
+Transform groups (the JAX engine's ``(base, TransformGroup)`` strategy
+tuple, :mod:`tnmf_tpu_torch.ops.transforms`): every function here takes
+the tuple as its ``strategy`` and runs the base strategy on the expanded
+dictionary ``W_exp`` of ``M*G`` atoms, H holding one map per (atom,
+transform).  :func:`_mu_H` expands W once per H step and hands the same
+``W_exp`` to the reconstruction and to K3 (or to the pair before K4);
+:func:`grad_W_stats` ties K2's (or the strategy's) ``(M*G, C, *A)``
+statistics back before :func:`apply_W_update`, so ``mu_w`` and
+``ortho_W`` act on the canonical W only.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -90,6 +100,7 @@ from .ops import dot as dot_ops
 from .ops import fft as fft_ops
 from .ops.modes import ConvPlan
 from .ops.precision import full_fp32_matmul
+from .ops.transforms import GroupOps, TransformGroup, expand_w, split_strategy, tie_back
 
 EPS = 1.0e-9  # reference: TransformInvariantNMF.py:166
 
@@ -99,10 +110,15 @@ KERNEL_RANKS = (1, 2)
 #: the operator module of each ported strategy
 _OPS = {'conv': conv_ops, 'fft': fft_ops, 'dot': dot_ops}
 
+#: an engine ``strategy``: a base strategy name, or ``(base, TransformGroup)``
+#: for a transform-group fit (the JAX engine's tuple)
+Strategy = Union[str, Tuple[str, TransformGroup]]
 
-def require_ported(strategy: str) -> None:
+
+def require_ported(strategy) -> None:
     """Raise ``NotImplementedError`` for the TPU-only 'phased' lowering,
-    ``ValueError`` for an unknown strategy."""
+    ``ValueError`` for an unknown strategy (of a group's base strategy)."""
+    strategy = split_strategy(strategy)[0]
     if strategy in _OPS:
         return
     if strategy == 'phased':
@@ -113,20 +129,24 @@ def require_ported(strategy: str) -> None:
         f'unknown strategy {strategy!r}; choose "fft", "conv", "phased" or "dot"')
 
 
-def get_ops(strategy: str):
+def get_ops(strategy):
     """The operator module of ``strategy`` ('conv', 'fft' or 'dot'):
-    ``prepare_data`` / ``reconstruct`` / ``grad_H_pair`` / ``grad_W_pair``."""
+    ``prepare_data`` / ``reconstruct`` / ``grad_H_pair`` / ``grad_W_pair``.
+    A tuple ``(base, TransformGroup)`` gives the group adapter
+    (:class:`~tnmf_tpu_torch.ops.transforms.GroupOps`) around the base's."""
     require_ported(strategy)
-    return _OPS[strategy]
+    base, group = split_strategy(strategy)
+    return _OPS[base] if group is None else GroupOps(_OPS[base], group)
 
 
 def _pinned(fn):
     """Run ``fn`` with full float32 products (:func:`full_fp32_matmul`) when
-    its ``strategy`` keyword is fft or dot; conv runs no matrix product and is
-    left as it was.  Nested calls find the pin set and leave it."""
+    its ``strategy`` keyword (or a group's base strategy) is fft or dot; conv
+    runs no matrix product and is left as it was.  Nested calls find the pin
+    set and leave it."""
     @functools.wraps(fn)
-    def call(*args, strategy: str = 'conv', **kwargs):
-        if strategy == 'conv':
+    def call(*args, strategy: Strategy = 'conv', **kwargs):
+        if split_strategy(strategy)[0] == 'conv':
             return fn(*args, strategy=strategy, **kwargs)
         with full_fp32_matmul():
             return fn(*args, strategy=strategy, **kwargs)
@@ -154,7 +174,7 @@ def choose_strategy(plan: ConvPlan) -> str:
     return 'conv' if math.prod(plan.atom_shape) <= threshold else 'fft'
 
 
-def prepare_data(V: torch.Tensor, *, plan: ConvPlan, strategy: str = 'conv') -> torch.Tensor:
+def prepare_data(V: torch.Tensor, *, plan: ConvPlan, strategy: Strategy = 'conv') -> torch.Tensor:
     """Loop-invariant preprocessing of the data tensor (mode extension; its
     transform on fft)."""
     return get_ops(strategy).prepare_data(V, plan)
@@ -162,21 +182,27 @@ def prepare_data(V: torch.Tensor, *, plan: ConvPlan, strategy: str = 'conv') -> 
 
 @_pinned
 def reconstruct(W: torch.Tensor, H: torch.Tensor, *, plan: ConvPlan,
-                strategy: str = 'conv') -> torch.Tensor:
-    """The model reconstruction ``R`` (canonical data layout)."""
+                strategy: Strategy = 'conv') -> torch.Tensor:
+    """The model reconstruction ``R`` (canonical data layout); under a
+    transform group from the expanded dictionary and H's ``M*G`` maps."""
     return get_ops(strategy).reconstruct(W, H, plan)
 
 
 @_pinned
 def partial_reconstruct(W: torch.Tensor, H: torch.Tensor, *, plan: ConvPlan,
-                        i_atom: int, strategy: str = 'conv') -> torch.Tensor:
-    """Reconstruction restricted to one atom (reference ``_Backend.py:124``)."""
-    return get_ops(strategy).reconstruct(W[i_atom:i_atom + 1], H[:, i_atom:i_atom + 1], plan)
+                        i_atom: int, strategy: Strategy = 'conv') -> torch.Tensor:
+    """Reconstruction restricted to one atom (reference ``_Backend.py:124``):
+    under a transform group the atom with all its tied copies, H's maps
+    ``i_atom*G .. (i_atom+1)*G - 1`` (m-major)."""
+    group = split_strategy(strategy)[1]
+    g = 1 if group is None else group.size
+    return get_ops(strategy).reconstruct(W[i_atom:i_atom + 1],
+                                         H[:, i_atom * g:(i_atom + 1) * g], plan)
 
 
 @_pinned
 def energy(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
-           mask: Optional[torch.Tensor] = None, *, plan: ConvPlan, strategy: str = 'conv',
+           mask: Optional[torch.Tensor] = None, *, plan: ConvPlan, strategy: Strategy = 'conv',
            beta: float = 2.0) -> torch.Tensor:
     """Reconstruction objective ``D_beta(V || R)`` (``0.5 * sum((V - R)^2)``
     at the default beta = 2; :func:`tnmf_tpu_torch.ops.beta.divergence`),
@@ -298,7 +324,7 @@ def _grad_H_pair(ops, strategy: str, Vp: torch.Tensor, R: torch.Tensor, W: torch
 def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
           inhibition: float = 0., cross_inhibition: float = 0., kernels: Sequence = (),
           *, plan: ConvPlan, use_inhibition: bool = False,
-          use_cross: bool = False, strategy: str = 'conv',
+          use_cross: bool = False, strategy: Strategy = 'conv',
           use_pallas: bool = True, beta: float = 2.0, mask: Optional[torch.Tensor] = None,
           l2: Optional[float] = None) -> torch.Tensor:
     """One multiplicative H update (reference ``_update_H``,
@@ -317,7 +343,15 @@ def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
     and R is masked here, at other betas ``Vp`` is the canonical V and the
     factors are masked.  ``l2`` (None: absent) is the ridge weight on H:
     ``l2 * H`` joins the positive part, as K3's ``pos_extra`` on conv,
-    added to ``pos`` before K1 or K4 elsewhere."""
+    added to ``pos`` before K1 or K4 elsewhere.
+
+    Under a transform group (``strategy = (base, group)``) W is expanded
+    once, and the reconstruction and K3 (or the stacked pair before K4)
+    take the same ``W_exp`` of ``M*G`` atoms; H holds ``M*G`` maps, and
+    cross-atom inhibition spans them all."""
+    strategy, group = split_strategy(strategy)
+    if group is not None:
+        W = expand_w(W, group)
     reg = EPS + float(sparsity)
     kernels_on = plain_reason(plan, H.dtype, use_pallas) is None
     inhibited = use_inhibition or use_cross
@@ -350,7 +384,7 @@ def _normalize_W(W: torch.Tensor, n_shift_axes: int) -> torch.Tensor:
 @_pinned
 def grad_W_stats(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                  mask: Optional[torch.Tensor] = None, *, plan: ConvPlan,
-                 strategy: str = 'conv', use_pallas: bool = True,
+                 strategy: Strategy = 'conv', use_pallas: bool = True,
                  beta: float = 2.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``(neg, pos)`` statistics of the W gradient (the JAX engine's
     ``grad_W_stats``; reference ``_accumulate_gradient_W``,
@@ -360,7 +394,23 @@ def grad_W_stats(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
     :func:`_mu_H`; at beta = 1 without a mask the fft and dot denominator
     correlates the extension pattern with the batch-summed H, broadcast
     over the channels.  Sums over the samples of ``H``, so a minibatch's
-    statistics add up."""
+    statistics add up.
+
+    Under a transform group the statistics of the expanded dictionary
+    (K2's ``(M*G, C, *A)`` on conv) are tied back to the canonical W's
+    shape (:func:`~tnmf_tpu_torch.ops.transforms.tie_back`)."""
+    strategy, group = split_strategy(strategy)
+    if group is None:
+        return _grad_W_pair(Vp, W, H, mask, plan, strategy, use_pallas, beta)
+    neg, pos = _grad_W_pair(Vp, expand_w(W, group), H, mask, plan, strategy, use_pallas, beta)
+    return tie_back(neg, group), tie_back(pos, group)
+
+
+def _grad_W_pair(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+                 mask: Optional[torch.Tensor], plan: ConvPlan, strategy: str,
+                 use_pallas: bool, beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`grad_W_stats` on a base strategy, for the dictionary ``W``
+    whose atoms are H's maps."""
     ops = get_ops(strategy)
     R = ops.reconstruct(W, H, plan)
     if strategy == 'conv':
@@ -415,7 +465,7 @@ def accumulate_gradient(acc_neg: torch.Tensor, acc_pos: torch.Tensor, neg: torch
 
 @_pinned
 def _mu_W(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
-          plan: ConvPlan, strategy: str = 'conv', use_pallas: bool = True,
+          plan: ConvPlan, strategy: Strategy = 'conv', use_pallas: bool = True,
           beta: float = 2.0, mask: Optional[torch.Tensor] = None,
           ortho: Optional[float] = None) -> torch.Tensor:
     """One multiplicative W update with atom-wise sum normalization
@@ -432,7 +482,7 @@ def update_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                 sparsity: float, inhibition: float = 0., cross_inhibition: float = 0.,
                 kernels: Sequence = (), *, plan: ConvPlan, update_H: bool = True,
                 update_W: bool = True, use_inhibition: bool = False,
-                use_cross: bool = False, strategy: str = 'conv',
+                use_cross: bool = False, strategy: Strategy = 'conv',
                 use_pallas: bool = True, beta: float = 2.0,
                 mask: Optional[torch.Tensor] = None, l2_H: Optional[float] = None,
                 ortho_W: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -454,7 +504,7 @@ def update_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
 def fit_loop(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
              n_iterations: int, sparsity: float, inhibition: float = 0.,
              cross_inhibition: float = 0., kernels: Sequence = (), *, plan: ConvPlan,
-             strategy: str = 'conv', **step) -> Tuple[torch.Tensor, torch.Tensor]:
+             strategy: Strategy = 'conv', **step) -> Tuple[torch.Tensor, torch.Tensor]:
     """``n_iterations`` MU iterations.  Returns ``(W, H)``.  ``kernels`` are
     the per-axis inhibition kernels, read when ``use_inhibition`` or
     ``use_cross`` is set; ``step`` holds :func:`update_step`'s other
@@ -476,7 +526,7 @@ def energy_trace(V: torch.Tensor, n: int) -> torch.Tensor:
 def fit_loop_energies(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                       sparsity: float, inhibition: float = 0., cross_inhibition: float = 0.,
                       kernels: Sequence = (), *, n_iterations: int, plan: ConvPlan,
-                      strategy: str = 'conv', beta: float = 2.0,
+                      strategy: Strategy = 'conv', beta: float = 2.0,
                       mask: Optional[torch.Tensor] = None,
                       **step) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``n_iterations`` MU iterations that also record the energy (of
@@ -517,7 +567,7 @@ def _tol_start(W: torch.Tensor, H: torch.Tensor, tol: float,
 def fit_loop_tol(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                  n_max: int, tol: float, sparsity: float, inhibition: float = 0.,
                  cross_inhibition: float = 0., kernels: Sequence = (), *, check_every: int,
-                 n_buf: int = 0, plan: ConvPlan, strategy: str = 'conv', beta: float = 2.0,
+                 n_buf: int = 0, plan: ConvPlan, strategy: Strategy = 'conv', beta: float = 2.0,
                  mask: Optional[torch.Tensor] = None, **step):
     """Adaptive fit (port of the JAX package's ``fit_loop_tol``): MU
     iterations in blocks of ``min(check_every, n_max - i)``; after each
@@ -576,7 +626,7 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
                           check_every: int, n_buf: int = 0, plan: ConvPlan,
                           update_H: bool = True, update_W: bool = True,
                           use_inhibition: bool = False, use_cross: bool = False,
-                          strategy: str = 'conv', use_pallas: bool = True,
+                          strategy: Strategy = 'conv', use_pallas: bool = True,
                           beta: float = 2.0, mask: Optional[torch.Tensor] = None,
                           l2_H: Optional[float] = None, ortho_W: Optional[float] = None):
     """Extrapolated MU with restarts (port of the JAX package's
@@ -633,7 +683,7 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
 def update_H_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
                   inhibition: float = 0., cross_inhibition: float = 0., kernels: Sequence = (),
                   *, plan: ConvPlan, use_inhibition: bool = False,
-                  use_cross: bool = False, strategy: str = 'conv',
+                  use_cross: bool = False, strategy: Strategy = 'conv',
                   use_pallas: bool = True, beta: float = 2.0,
                   mask: Optional[torch.Tensor] = None,
                   l2_H: Optional[float] = None) -> torch.Tensor:
@@ -645,7 +695,7 @@ def update_H_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: 
 
 @_pinned
 def update_W_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
-                  plan: ConvPlan, strategy: str = 'conv', use_pallas: bool = True,
+                  plan: ConvPlan, strategy: Strategy = 'conv', use_pallas: bool = True,
                   beta: float = 2.0, mask: Optional[torch.Tensor] = None,
                   ortho_W: Optional[float] = None) -> torch.Tensor:
     """One W-only MU update (H frozen), atoms sum-normalised."""
@@ -655,7 +705,7 @@ def update_W_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
 
 @_pinned
 def correlate_init_H(Vp: torch.Tensor, Vd: torch.Tensor, W: torch.Tensor, *,
-                     plan: ConvPlan, strategy: str = 'conv') -> torch.Tensor:
+                     plan: ConvPlan, strategy: Strategy = 'conv') -> torch.Tensor:
     """Matched-filter activations ``H0 = c * corr(Vp, W)`` with the
     least-squares scale ``c = <V, R0> / <R0, R0>``, ``R0 = reconstruct(W,
     corr(Vp, W))``, accumulated in ``promote_types(V.dtype, float32)``; a
@@ -663,7 +713,11 @@ def correlate_init_H(Vp: torch.Tensor, Vd: torch.Tensor, W: torch.Tensor, *,
     under MU).  Deterministic and on the device: no host draw of H.  The
     JAX package takes the correlation as the ``neg`` half of
     ``grad_H_pair(Vp, 0, W)``; here it is that half alone (one cuDNN
-    correlation on the conv strategy)."""
+    correlation on the conv strategy).  Under a transform group both run
+    on the expanded dictionary, so H0 has ``M*G`` maps."""
+    strategy, group = split_strategy(strategy)
+    if group is not None:
+        W = expand_w(W, group)
     neg = (conv_ops.corr_H(Vp, W) if strategy == 'conv'
            else get_ops(strategy).corr_H(Vp, W, plan))
     R0 = reconstruct(W, neg.to(W.dtype), plan=plan, strategy=strategy)

@@ -62,7 +62,8 @@ def minibatch_epoch(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                     batches: Sequence[slice], order: Sequence[int], inner_stat: Stat,
                     sag_lambda: float, sparsity: float, inhibition: float = 0.,
                     cross_inhibition: float = 0., kernels: Sequence = (), *,
-                    plan: ConvPlan, algorithm: MiniBatchAlgorithm, strategy: str = 'conv',
+                    plan: ConvPlan, algorithm: MiniBatchAlgorithm,
+                    strategy: engine.Strategy = 'conv',
                     use_inhibition: bool = False, use_cross: bool = False,
                     use_pallas: bool = True, beta: float = 2.0,
                     mask: Optional[torch.Tensor] = None, l2_H: Optional[float] = None,
@@ -87,7 +88,9 @@ def minibatch_epoch(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
     as in :func:`~tnmf_tpu_torch.engine.update_step`.  ``mask`` has the
     samples of ``Vp`` or one broadcast sample (which serves every batch);
     each batch takes its rows.  ``ortho_W`` is formed from the current W at
-    each W update, never added into the averaged statistics."""
+    each W update, never added into the averaged statistics.  Under a
+    transform group (``strategy = (base, group)``) the statistics are the
+    tied-back ones, so the SAG state keeps the canonical W's shape."""
     A = MiniBatchAlgorithm
     h_flags = dict(plan=plan, strategy=strategy, use_inhibition=use_inhibition,
                    use_cross=use_cross, use_pallas=use_pallas, beta=beta, l2=l2_H)

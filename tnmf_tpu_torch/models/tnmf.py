@@ -10,16 +10,19 @@ JAX ``fit_batch`` (progress callbacks, chunked callbacks, ``record_energies``,
 ``tol``, ``extrapolate``, ``keep_H``, periodic checkpoints, dead-atom
 revival), the minibatch and streaming drivers (``fit_minibatches`` with the
 five algorithms of :class:`MiniBatchAlgorithm`, ``fit_stream``,
-``partial_fit`` and :class:`MiniBatchTransformInvariantNMF`), the host-NumPy
-initialization (reference RNG stream, so seeded fits match the JAX
-package), the encoder API (``set_dictionary``,
+``partial_fit`` and :class:`MiniBatchTransformInvariantNMF`), the transform
+groups (``transform_type``: flips, quarter turns, D4), the initializations
+(the host-NumPy draw in the reference's RNG stream, so seeded fits match
+the JAX package; ``init='device'``; ``w_init='patches'`` / ``'nndsvd'``;
+``h_init='correlate'``), the encoder API (``set_dictionary``,
 ``transform``, ``fit_transform``, ``inverse_transform``), the ``W`` / ``H``
-/ ``V`` / ``R`` accessors, ``R_partial``, the energy, and ``.npz``
-checkpoints both packages read (``save`` / ``load``).  Every strategy the
-JAX package picks off the TPU runs: direct convolution, FFT (with either
-``fft_policy``) and the plain-NMF matmuls.  Arguments of the JAX API that
-select parts not ported yet raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+/ ``V`` / ``R`` accessors, ``R_partial``, the energy, ``.npz`` checkpoints
+both packages read (``save`` / ``load``) and the sklearn estimator protocol
+(``get_params`` / ``set_params`` / ``__sklearn_tags__``).  Every strategy
+the JAX package picks off the TPU runs: direct convolution, FFT (with
+either ``fft_policy``) and the plain-NMF matmuls.  Arguments of the JAX API
+that select parts not ported yet raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 
 Data may arrive as NumPy arrays or as ``torch.Tensor``s.  A tensor on the
 model's device stays there, with no host copy: the non-negativity check runs
@@ -38,6 +41,7 @@ from __future__ import annotations
 
 import functools
 import logging
+import math
 import os
 from itertools import count, islice
 from typing import Callable, Iterable, Iterator, Optional, Tuple, Union
@@ -50,6 +54,8 @@ from ..engine_minibatch import MiniBatchAlgorithm, minibatch_epoch
 from ..ops import beta as beta_ops
 from ..ops.inhibition import cross_scale, inhibition_kernels, resolve_inhibition_range
 from ..ops.modes import ConvPlan
+from ..ops.transforms import TransformGroup, make_group
+from ..utils.initialization import nndsvda_init, patches_init
 
 # reference backend names (tnmf/TransformInvariantNMF.py:168-176) and the
 # JAX package's own, with the strategy each requests
@@ -70,11 +76,8 @@ _ITEM = 'ROADMAP.md queue 1, item {}'
 #: constructor arguments of the JAX API not ported yet: (default, ROADMAP item)
 _UNPORTED_INIT = {
     'mesh': (None, _ITEM.format(14)),
-    'init': ('host', _ITEM.format(12)),
     'shard_axis': ('samples', _ITEM.format(14)),
     'precision': (None, _ITEM.format(16)),
-    'transform_type': ('shift', _ITEM.format(12)),
-    'w_init': ('random', _ITEM.format(12)),
 }
 
 #: fit_batch arguments of the JAX API not ported yet: (default, ROADMAP item)
@@ -190,15 +193,20 @@ def _torch_dtype(name) -> torch.dtype:
 def from_numpy(W: np.ndarray, H: Optional[np.ndarray] = None, *, device,
                dtype: torch.dtype) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The JAX model's ``W`` (and ``H``), as NumPy arrays, as the port's
-    tensors on ``device`` in ``dtype``."""
-    Wt = torch.as_tensor(np.ascontiguousarray(W), dtype=dtype, device=device)
-    Ht = None if H is None else torch.as_tensor(np.ascontiguousarray(H), dtype=dtype,
-                                                device=device)
+    tensors on ``device`` in ``dtype``.  Under a transform group ``H`` is
+    the flat m-major ``(n_samples, n_atoms * n_transforms, *shift)`` layout
+    both packages hold internally (the JAX model's ``_H``), not the
+    ``H`` property's 4-axis view."""
+    # a copy only where the array is not contiguous or not writable (a JAX
+    # array's host view is read-only, and the minibatch epochs write H)
+    Wt = torch.as_tensor(np.require(W, requirements=('C', 'W')), dtype=dtype, device=device)
+    Ht = None if H is None else torch.as_tensor(np.require(H, requirements=('C', 'W')),
+                                                dtype=dtype, device=device)
     return Wt, Ht
 
 
 class TransformInvariantNMF:
-    r"""Shift-invariant NMF via multiplicative updates, in PyTorch.
+    r"""Transform-invariant NMF via multiplicative updates, in PyTorch.
 
     Parameters
     ----------
@@ -231,10 +239,38 @@ class TransformInvariantNMF:
     seed : int, optional
         If given, W/H initialization (and dead-atom revival) draws from a
         private ``np.random.default_rng(seed)``; otherwise from the global
-        NumPy stream in the reference's order (H, then W).
+        NumPy stream in the reference's order (H, then W).  With
+        ``init='device'`` it seeds the model's ``torch.Generator`` (0 when
+        None).
     fft_policy : {'5-smooth', 'pow2'}, default '5-smooth'
         FFT length per axis of the fft strategy: the smallest 5-smooth
         length, or the next power of two, covering the linear correlation.
+    init : {'host', 'device'}, default 'host'
+        Keyword.  ``'host'`` draws W and H with NumPy (the reference's RNG
+        stream, so seeded fits match the JAX package).  ``'device'`` draws
+        ``1 - U[0, 1)`` on the model's device from one ``torch.Generator``
+        the model holds (seeded with ``seed``, or 0), H then W (sum-normalised),
+        no host draw and no upload; each fit advances it.  Its stream is not
+        ``jax.random``'s, so parity with the JAX package is in
+        distribution, not in bits.
+    transform_type : {'shift', 'shift+flip', 'shift+rot90', 'shift+rot90+flip'}, default 'shift'
+        Keyword.  The invariance group (:mod:`tnmf_tpu_torch.ops.transforms`):
+        ``'shift'`` is the reference's model; the others also match every
+        atom under mirror flips (``2**ndim`` transforms), quarter turns (4;
+        square atoms in the last two axes) or both (D4, 8), each canonical
+        atom learned once and tied across its copies.  H then holds one map
+        per (atom, transform): the ``H`` property is ``(n_samples, n_atoms,
+        n_transforms, *shift)``, inhibition acts per map and cross-atom
+        inhibition spans all ``n_atoms * n_transforms`` maps.  A
+        :class:`~tnmf_tpu_torch.ops.transforms.TransformGroup` is accepted
+        too.  Every strategy and fit driver runs it on the kernels (K3, K4
+        and K2 take the ``M*G`` maps); ``n_transforms`` is the group's size.
+    w_init : {'random', 'patches', 'nndsvd'}, default 'random'
+        Keyword.  ``'patches'`` starts each atom as a data window at a random
+        (sample, position) of the host RNG (a tensor is cut on its device);
+        ``'nndsvd'`` is sklearn's ``NMF(init='nndsvda')`` for W and H,
+        plain-NMF geometry only (:mod:`tnmf_tpu_torch.utils.initialization`).
+        Both need ``init='host'``.
     h_init : {'random', 'correlate'}, default 'random'
         Keyword.  ``'correlate'`` starts H at the matched filter
         :func:`tnmf_tpu_torch.engine.correlate_init_H`, computed on the
@@ -261,9 +297,11 @@ class TransformInvariantNMF:
         ``R**(beta-1)``).  Checkpoints do not store it: pass it to
         :meth:`load` again.
 
-    The JAX package's other later parameters (``init`` … ``w_init``) are
-    taken by keyword; those whose code is not ported raise
-    ``NotImplementedError`` unless they hold their default.
+    The JAX package's other later parameters (``shard_axis``,
+    ``precision``) are taken by keyword and raise ``NotImplementedError``
+    unless they hold their default.  ``get_params`` / ``set_params`` hand
+    the constructor's arguments back as given (the sklearn protocol, with
+    ``device`` among them).
     """
 
     def __init__(self, n_atoms: int, atom_shape: Tuple[int, ...],
@@ -272,11 +310,27 @@ class TransformInvariantNMF:
                  verbose: int = 0, reconstruction_mode: str = 'valid',
                  dtype: Union[torch.dtype, str] = torch.float32, mesh=None,
                  seed: Optional[int] = None, fft_policy: str = '5-smooth', *,
-                 h_init: str = 'random', device='cuda', use_pallas: Optional[bool] = None,
-                 beta_loss: Union[float, str] = 2.0, **unported):
-        _reject_unported('TransformInvariantNMF', dict(mesh=mesh, **unported), _UNPORTED_INIT)
+                 init: str = 'host', transform_type: Union[str, TransformGroup] = 'shift',
+                 w_init: str = 'random', h_init: str = 'random', device='cuda',
+                 use_pallas: Optional[bool] = None, beta_loss: Union[float, str] = 2.0,
+                 **unported):
+        unported = dict(mesh=mesh, **unported)
+        _reject_unported('TransformInvariantNMF', unported, _UNPORTED_INIT)
+        # the arguments as given, for get_params / set_params / clone
+        self._init_params = dict(
+            n_atoms=n_atoms, atom_shape=atom_shape, inhibition_range=inhibition_range,
+            backend=backend, logger=logger, verbose=verbose,
+            reconstruction_mode=reconstruction_mode, dtype=dtype, seed=seed,
+            fft_policy=fft_policy, init=init, transform_type=transform_type, w_init=w_init,
+            h_init=h_init, device=device, use_pallas=use_pallas, beta_loss=beta_loss,
+            **{name: unported.get(name, default)
+               for name, (default, _) in _UNPORTED_INIT.items()})
         self.n_atoms = int(n_atoms)
         self.atom_shape = tuple(int(a) for a in atom_shape)
+        self._group = make_group(transform_type, self.atom_shape)
+        self.transform_type = (transform_type if isinstance(transform_type, str)
+                               else self._group.name)
+        self.n_transforms = 1 if self._group is None else self._group.size
         self._inhibition_range = resolve_inhibition_range(inhibition_range, self.atom_shape)
         self._inhibition_kernels_1D = inhibition_kernels(self._inhibition_range)
         self._kernels: Tuple[torch.Tensor, ...] = ()
@@ -288,9 +342,28 @@ class TransformInvariantNMF:
                 f'unknown backend {backend!r}; choose one of {sorted(_BACKEND_STRATEGY)}') from e
         self._reconstruction_mode = reconstruction_mode
         self._fft_policy = fft_policy
+        if init not in ('host', 'device'):
+            raise ValueError(f"init must be 'host' or 'device', got {init!r}")
+        if w_init not in ('random', 'patches', 'nndsvd'):
+            raise ValueError(
+                f"w_init must be 'random', 'patches' or 'nndsvd', got {w_init!r}")
+        if w_init != 'random' and init == 'device':
+            raise ValueError(
+                f"w_init={w_init!r} is a data-dependent host-side scheme; "
+                "it requires init='host'")
+        if w_init == 'nndsvd' and self._group is not None:
+            raise ValueError(
+                "w_init='nndsvd' applies to the plain-NMF geometry only and "
+                'does not combine with transform groups')
         if h_init not in ('random', 'correlate'):
             raise ValueError(
                 f"h_init must be 'random' or 'correlate', got {h_init!r}")
+        if h_init == 'correlate' and w_init == 'nndsvd':
+            raise ValueError(
+                "w_init='nndsvd' already initializes H from the SVD; it "
+                "does not combine with h_init='correlate'")
+        self._init = init
+        self._w_init = w_init
         self._h_init = h_init
         self.device = torch.device(device)
         self.dtype = _torch_dtype(dtype)
@@ -300,6 +373,11 @@ class TransformInvariantNMF:
             raise ValueError('use_pallas=True forces the CUDA kernels, and a CPU model has '
                              'none; pass use_pallas=None or False')
         self._use_pallas = use_pallas
+        if self._group is not None and use_pallas is True:
+            raise ValueError(
+                'use_pallas=True with transform_type != "shift" raises, as in the JAX package, '
+                'whose Pallas kernels implement the canonical (untied) statistics; the default '
+                'use_pallas=None runs the kernels on the card with every transform group')
         self._beta = beta_ops.resolve_beta_loss(beta_loss)
         if self._beta != 2.0 and use_pallas is True:
             raise ValueError(
@@ -307,6 +385,10 @@ class TransformInvariantNMF:
                 'Pallas kernels implement the Euclidean (beta = 2) statistics; the default '
                 'use_pallas=None runs the kernels on the card for every beta_loss')
         self._rng = np.random.default_rng(seed) if seed is not None else np.random
+        # init='device': one generator on the model's device, made at the
+        # first draw (a CUDA generator needs the card)
+        self._device_seed = 0 if seed is None else int(seed)
+        self._device_gen: Optional[torch.Generator] = None
 
         self._logger = (logger if logger is not None
                         else logging.getLogger(self.__class__.__name__))
@@ -316,7 +398,8 @@ class TransformInvariantNMF:
                            self._strategy_request)
 
         self._plan: Optional[ConvPlan] = None
-        self._strategy: Optional[str] = None  # resolved per fit: 'conv', 'fft' or 'dot'
+        # resolved per fit: 'conv', 'fft' or 'dot'; (base, group) under a group
+        self._strategy: Optional[engine.Strategy] = None
         self._W: Optional[torch.Tensor] = None
         self._H: Optional[torch.Tensor] = None
         self._V = None   # the data as given (array or tensor), for the V property
@@ -357,8 +440,14 @@ class TransformInvariantNMF:
 
     @property
     def H(self) -> np.ndarray:
-        """A host copy: the minibatch epochs write H in place."""
-        return self._H.to('cpu', copy=True).numpy()
+        """Activations ``(n_samples, n_atoms, *shift)``; under a transform
+        group ``(n_samples, n_atoms, n_transforms, *shift)``, a view of the
+        flat m-major maps.  A host copy: the minibatch epochs write H in
+        place."""
+        H = self._H.to('cpu', copy=True).numpy()
+        if self.n_transforms > 1:
+            H = H.reshape((H.shape[0], self.n_atoms, self.n_transforms) + H.shape[2:])
+        return H
 
     @property
     def V(self) -> np.ndarray:
@@ -374,6 +463,8 @@ class TransformInvariantNMF:
                                   strategy=self._strategy).cpu().numpy()
 
     def R_partial(self, i_atom: int) -> np.ndarray:
+        """The reconstruction of one atom (with all its tied copies under a
+        transform group)."""
         return engine.partial_reconstruct(
             self._W, self._H, plan=self._plan, i_atom=int(i_atom),
             strategy=self._strategy).cpu().numpy()
@@ -444,13 +535,14 @@ class TransformInvariantNMF:
 
     def _check_strategy(self):
         """Resolve the requested backend for the current plan (the JAX
-        ``choose_strategy`` / ``resolve_strategy``) into ``_strategy``."""
+        ``choose_strategy`` / ``resolve_strategy``) into ``_strategy``, the
+        tuple ``(base, group)`` under a transform group."""
         strategy = self._strategy_request
         if strategy == 'auto':
             strategy = engine.choose_strategy(self._plan)
         strategy = engine.resolve_strategy(strategy, self._plan)
         engine.require_ported(strategy)
-        self._strategy = strategy
+        self._strategy = strategy if self._group is None else (strategy, self._group)
 
     def _plan_for(self, sample_shape) -> ConvPlan:
         return ConvPlan.create(self._reconstruction_mode, sample_shape, self.atom_shape,
@@ -458,6 +550,15 @@ class TransformInvariantNMF:
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    def _device_uniform(self, shape: tuple) -> torch.Tensor:
+        """``1 - U[0, 1)`` of ``shape`` in the model's dtype, drawn on its
+        device from the model's generator (``init='device'``)."""
+        if self._device_gen is None:
+            self._device_gen = torch.Generator(device=self.device)
+            self._device_gen.manual_seed(self._device_seed)
+        U = torch.rand(shape, generator=self._device_gen, dtype=self.dtype, device=self.device)
+        return U.neg_().add_(1)
 
     def _initialize_matrices(self, V, keep_W: bool, keep_H: bool = False,
                              mask: Optional[torch.Tensor] = None):
@@ -476,33 +577,46 @@ class TransformInvariantNMF:
                     f'keep_W: existing dictionary of shape {tuple(self._W.shape)} '
                     f'does not match the new data (expected {expected}); '
                     f'the channel count must stay constant across fits')
+        # H holds one map per (atom, transform)
+        h_shape = (V.shape[0], self.n_atoms * self.n_transforms) + self._plan.transform_shape
+        w_shape = (self.n_atoms, V.shape[1]) + self.atom_shape
         keep_h = keep_H and self._H is not None
         if keep_h:
-            expected_h = (V.shape[0], self.n_atoms) + self._plan.transform_shape
-            if tuple(self._H.shape) != expected_h:
+            if tuple(self._H.shape) != h_shape:
                 raise ValueError(
                     f'keep_H: existing activations of shape {tuple(self._H.shape)} '
-                    f'do not match the new data (expected {expected_h}); '
+                    f'do not match the new data (expected {h_shape}); '
                     f'exact resume requires the same batch')
         # host-side init replicating the reference RNG stream exactly (H then
         # W, 1 - U[0,1); _Backend.py:83-98), in V's dtype, so seeded runs
-        # match; keep_H skips the H draw, and h_init='correlate' computes H
-        # on the device below
+        # match; keep_H skips the H draw, h_init='correlate' computes H on
+        # the device below, and init='device' draws both there
         draw_dtype = _np_dtype(V)
         if keep_h:
             H = self._H
         elif self._h_init == 'correlate':
             H = None
+        elif self._init == 'device':
+            H = self._device_uniform(h_shape)
         else:
-            H = np.asarray(
-                1 - self._rng.random((V.shape[0], self.n_atoms) + self._plan.transform_shape),
-                dtype=draw_dtype)
+            H = np.asarray(1 - self._rng.random(h_shape), dtype=draw_dtype)
         if keep:
             W = self._W
+        elif self._init == 'device':
+            W = self._device_uniform(w_shape)
+            W /= W.sum(dim=self._axes_W_normalization, keepdim=True)
+        elif self._w_init == 'patches':
+            # atoms start as data windows; a tensor is cut on its device
+            W = patches_init(V, self.n_atoms, self.atom_shape, self._rng)
+            if isinstance(W, torch.Tensor):
+                W = W / W.sum(dim=self._axes_W_normalization, keepdim=True)
+            else:
+                W = W.astype(draw_dtype)
+                W /= W.sum(axis=self._axes_W_normalization, keepdims=True)
+        elif self._w_init == 'nndsvd':
+            W, H = self._nndsvd(V, H, keep_h, draw_dtype)
         else:
-            W = np.asarray(
-                1 - self._rng.random((self.n_atoms, V.shape[1]) + self.atom_shape),
-                dtype=draw_dtype)
+            W = np.asarray(1 - self._rng.random(w_shape), dtype=draw_dtype)
             W /= W.sum(axis=self._axes_W_normalization, keepdims=True)
         self._W = self._tensor(W)
         self._Vd = self._tensor(V)
@@ -531,13 +645,35 @@ class TransformInvariantNMF:
         # built in float64, cast to the compute dtype
         self._kernels = tuple(self._tensor(k) for k in self._inhibition_kernels_1D)
 
+    def _nndsvd(self, V, H, keep_h: bool, draw_dtype):
+        """``(W, H)`` of ``w_init='nndsvd'`` (sklearn's ``nndsvda``) from the
+        host float64 SVD of V, as the JAX package computes it: W
+        sum-normalised, H (unless kept) rescaled so that the product is the
+        SVD's."""
+        if math.prod(self._plan.transform_shape) != 1:
+            raise ValueError(
+                "w_init='nndsvd' applies to the plain-NMF geometry only "
+                "(reconstruction_mode='full' with atom_shape == sample_shape); "
+                "use w_init='patches' for transform-invariant problems")
+        X = V.detach().cpu().numpy() if isinstance(V, torch.Tensor) else V
+        A, B = nndsvda_init(np.asarray(X, dtype=np.float64).reshape(V.shape[0], -1),
+                            self.n_atoms)
+        W = B.reshape((self.n_atoms, V.shape[1]) + self.atom_shape)
+        s = W.sum(axis=self._axes_W_normalization, keepdims=True)
+        W = (W / s).astype(draw_dtype)
+        if not keep_h:
+            H = (A * s.reshape(1, self.n_atoms)).reshape(
+                (V.shape[0], self.n_atoms) + self._plan.transform_shape).astype(draw_dtype)
+        return W, H
+
     def _check_regs(self, sparsity_H, inhibition_strength, cross_atom_inhibition_strength,
                     l2_H=0., ortho_W=0.):
         _require_nonneg(sparsity_H=sparsity_H, inhibition_strength=inhibition_strength,
                         cross_atom_inhibition_strength=cross_atom_inhibition_strength,
                         l2_H=l2_H, ortho_W=ortho_W)
         if cross_atom_inhibition_strength > 0:
-            cross_scale(cross_atom_inhibition_strength, self.n_atoms)  # raises for one atom
+            # raises for one map; a transform group gives each atom G maps
+            cross_scale(cross_atom_inhibition_strength, self.n_atoms * self.n_transforms)
 
     def _regs(self, sparsity_H, inhibition_strength, cross_atom_inhibition_strength) -> tuple:
         """The engine's regularizer arguments: the weights and the
@@ -559,6 +695,38 @@ class TransformInvariantNMF:
         leaves the default path as it was)."""
         return dict(mask=self._mask_d, l2_H=float(l2_H) if l2_H > 0 else None,
                     ortho_W=float(ortho_W) if ortho_W > 0 else None)
+
+    # ------------------------------------------------------------------
+    # the sklearn estimator protocol (tnmf_tpu's get_params / set_params):
+    # the model composes with sklearn.base.clone, Pipeline and the CV tools
+    # ------------------------------------------------------------------
+
+    def get_params(self, deep: bool = True) -> dict:
+        """The constructor's arguments as given (``device`` among them)."""
+        del deep  # no nested estimators
+        return dict(self._init_params)
+
+    def set_params(self, **params) -> 'TransformInvariantNMF':
+        """Re-run the constructor with ``params`` over the current arguments,
+        which drops any fitted state (configure before ``fit``, as sklearn
+        does).  Unknown names raise ``ValueError``."""
+        unknown = set(params) - set(self._init_params)
+        if unknown:
+            raise ValueError(
+                f'invalid parameter(s) {sorted(unknown)} for estimator '
+                f'{type(self).__name__}; valid parameters are '
+                f'{sorted(self._init_params)}')
+        self.__init__(**{**self._init_params, **params})
+        return self
+
+    def __sklearn_tags__(self):
+        """Estimator tags (the sklearn >= 1.6 protocol).  sklearn is imported
+        here, when sklearn asks: the package does not need it."""
+        from sklearn.utils import Tags, TargetTags, TransformerTags
+        return Tags(estimator_type='transformer', target_tags=TargetTags(required=False),
+                    transformer_tags=TransformerTags(), regressor_tags=None,
+                    classifier_tags=None, non_deterministic=False,
+                    no_validation=True)  # V is an n-d tensor, not a 2-D X
 
     # ------------------------------------------------------------------
     # batch fitting (reference fit_batch, TransformInvariantNMF.py:282-348)
@@ -989,16 +1157,21 @@ class TransformInvariantNMF:
         return self.H
 
     def inverse_transform(self, H=None) -> np.ndarray:
-        """The reconstruction of ``H`` (an array or a tensor; default: the
-        last fit's or transform's own activations, ``self.R``)."""
+        """The reconstruction of ``H`` (an array or a tensor, flat or the
+        ``H`` property's view under a transform group; default: the last
+        fit's or transform's own activations, ``self.R``)."""
         if self._plan is None:
             raise RuntimeError(
                 'inverse_transform() requires a fitted model; call fit() '
                 '(or load a checkpoint that includes H) first')
         if H is None:
             return self.R
-        return engine.reconstruct(self._W, self._tensor(_as_input(H, self.device)),
-                                  plan=self._plan, strategy=self._strategy).cpu().numpy()
+        H = self._tensor(_as_input(H, self.device))
+        if self.n_transforms > 1 and H.dim() == 3 + self._plan.ndim:
+            # the H property's (n, atoms, transforms, *shift) view -> m-major maps
+            H = H.reshape((H.shape[0], self.n_atoms * self.n_transforms) + tuple(H.shape[3:]))
+        return engine.reconstruct(self._W, H, plan=self._plan,
+                                  strategy=self._strategy).cpu().numpy()
 
     # ------------------------------------------------------------------
     # checkpoints, in the JAX package's .npz format
@@ -1021,11 +1194,11 @@ class TransformInvariantNMF:
             atom_shape=np.asarray(self.atom_shape),
             inhibition_range=np.asarray(self._inhibition_range),
             reconstruction_mode=self._reconstruction_mode,
-            transform_type='shift',
+            transform_type=self.transform_type,
             version=1,
         )
         if include_H and self._H is not None:
-            payload['H'] = self._H.cpu().numpy()
+            payload['H'] = self._H.cpu().numpy()  # the flat m-major maps
         if completed_iterations is not None:
             payload['completed_iterations'] = int(completed_iterations)
         final = path if path.endswith('.npz') else path + '.npz'
@@ -1040,7 +1213,7 @@ class TransformInvariantNMF:
         """Restore a model from a checkpoint of either package (``W``,
         optional ``H`` and ``completed_iterations``, ``n_atoms``,
         ``atom_shape``, ``inhibition_range``, ``reconstruction_mode``,
-        ``dtype``).  ``kwargs`` override constructor arguments, as in the
+        ``transform_type``, ``dtype``).  ``kwargs`` override constructor arguments, as in the
         JAX package; ``dtype`` defaults to the stored one.  Continue with
         ``fit(V, keep_W=True)``, or resume exactly with ``keep_H=True``."""
         with np.load(path, allow_pickle=False) as data:
@@ -1104,6 +1277,8 @@ class MiniBatchTransformInvariantNMF(TransformInvariantNMF):
         self.algorithm = algorithm
         self.n_epochs = int(n_epochs)
         self.sag_lambda = float(sag_lambda)
+        self._init_params.update(batch_size=batch_size, algorithm=algorithm,
+                                 n_epochs=n_epochs, sag_lambda=sag_lambda)
 
     def fit(self, V, y=None, **kwargs):
         """Minibatch fit with the constructor's schedule, which ``kwargs``

@@ -152,9 +152,23 @@ failure (exit code != 0, no result line):
    host draw, in turns, and of ``partial_fit`` steps of 16 samples with
    each, two device draws of one seed bit-equal; ``w_init='patches'``
    from a CUDA tensor within 1e-6 of the NumPy array's windows, with no
-   host copy of the data.
+   host copy of the data;
+16. HALS (``fit(solver='hals')``): K5 ``hals_sweep`` against its plain
+   version (within 1e-5, two launches bit-identical, timed in turns beside
+   its bound) at the H side of plain NMF at production scale (16384 x 256),
+   its W side (4096 x 256), the rows of one phase of the shift-invariant
+   flagship (50176 x 16), a ragged 1000 x 37 and 3 passes; plain-NMF HALS
+   on 16384 x 1 x 4096 with 256 atoms (``'auto'``: 1 sweep; K5 twice per
+   iteration) and shift-invariant HALS on the flagship's data in ``'full'``
+   mode with ``sparsity_H=0.1`` (81 phases: K5 81 times, K2 and
+   ``mu_ratio`` once per iteration), counts reset before and read after,
+   each for 2 iterations against ``use_pallas=False`` (W and H within
+   1e-4, no launch there), the regularized objective never rising (1e-6),
+   then ms per iteration (CUDA events), the split of an iteration and peak
+   memory; then a small plain-NMF fit and the golden 2-D fixture in
+   ``'full'`` mode in float32 on the kernels within 1e-4 of float64.
 
-Phases 7, 10, 12, 13, 14 and 15 hold fits on the kernels against the same
+Phases 7, 10, 12, 13, 14, 15 and 16 hold fits on the kernels against the same
 fits with ``use_pallas=False`` (the model's kernel/plain switch).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
@@ -176,8 +190,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tnmf_tpu_torch import MiniBatchAlgorithm, TransformInvariantNMF, engine
-from tnmf_tpu_torch.kernels import _build, gw, inhibit, mu, mu_h
+from tnmf_tpu_torch import (MiniBatchAlgorithm, TransformInvariantNMF, engine, engine_hals,
+                            engine_hals_conv)
+from tnmf_tpu_torch.kernels import _build, gw, hals, inhibit, mu, mu_h
 from tnmf_tpu_torch.ops import conv
 from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
 from tnmf_tpu_torch.ops.modes import ConvPlan
@@ -210,7 +225,7 @@ TF32_FLOP_PER_S = 495e12
 # (3xTF32), the others FP32 FMAs
 OPS_PER_S = dict(mu_ratio=FP32_FLOP_PER_S, mu_w=FP32_FLOP_PER_S,
                  grad_w=TF32_FLOP_PER_S / 3, mu_h=TF32_FLOP_PER_S / 3,
-                 inhibited_mu_h=FP32_FLOP_PER_S)
+                 inhibited_mu_h=FP32_FLOP_PER_S, hals_sweep=FP32_FLOP_PER_S)
 KERNELS = {
     'mu_ratio': dict(wrapper=mu.mu_ratio, source='tnmf_tpu_torch/csrc/mu_ratio.cu',
                      replaces='tnmf_tpu/experimental/pallas_mu.py:62'),
@@ -225,6 +240,10 @@ KERNELS = {
     'inhibited_mu_h': dict(wrapper=inhibit.inhibited_mu_h,
                            source='tnmf_tpu_torch/csrc/inhibited_mu_h.cu',
                            replaces='tnmf_tpu/experimental/pallas_mu.py:213'),
+    # the HALS solvers' Gauss-Seidel sweep, a lax.fori_loop in the JAX
+    # package (no Pallas kernel of its own)
+    'hals_sweep': dict(wrapper=hals.hals_sweep, source='tnmf_tpu_torch/csrc/hals_sweep.cu',
+                       replaces='tnmf_tpu/engine_hals.py:98'),
 }
 #: the engine's kernel wrappers (``mu_ratio``: the H ratio of the fft and
 #: dot strategies)
@@ -2116,7 +2135,7 @@ def phase_objectives() -> tuple:
     out.update(_objective_strategies(total, kl_W))
     log('the objectives at the golden 2-D fixture:')
     _objective_goldens()
-    missing = [name for name, n in total.items() if not n]
+    missing = [name for name in ENGINE_KERNELS if not total[name]]
     if missing:
         raise AssertionError(f'phase 14 launched no {missing}')
     return total, out
@@ -2370,9 +2389,309 @@ def phase_transforms() -> tuple:
     _group_goldens(total)
     log("init='device' and w_init='patches' at the flagship:")
     out.update(_device_init())
-    missing = [name for name, n in total.items() if not n]
+    missing = [name for name in ENGINE_KERNELS if not total[name]]
     if missing:
         raise AssertionError(f'phase 15 launched no {missing}')
+    return total, out
+
+
+# --------------------------------------------------------------- phase 16: HALS
+
+#: K5 against its plain version (max|kernel - plain| / max|plain|)
+K5_TOL = 1e-5
+#: HALS fits held against ``use_pallas=False`` (W and H) and float64
+HALS_TOL = 1e-4
+#: iterations of the HALS fits held against their references, and timed
+HALS_ITER = 2
+HALS_TIMED = 3
+#: plain-NMF HALS at the JAX package's production scale (``'auto'`` -> 1 sweep)
+HALS_PLAIN = dict(N=16384, F=4096, M=256)
+#: shift-invariant HALS at the flagship's data ('full': H is 64 x 16 x 248 x 248)
+HALS_CONV = dict(N=64, C=1, S=(256, 256), M=16, A=(9, 9), sparsity=0.1)
+#: K5 alone: (where, rows, components, length of the factor the Gram sums
+#: over, passes); the shapes of the main paths and a ragged one
+K5_CASES = [
+    ('H side 16384x256', 16384, 256, 4096, 1),
+    ('W side 4096x256', 4096, 256, 16384, 1),
+    ('phase rows 50176x16', 50176, 16, 81, 1),
+    ('ragged 1000x37', 1000, 37, 300, 1),
+    ('H side 16384x256 inner 3', 16384, 256, 4096, 3),
+]
+
+
+def _k5_inputs(rows: int, m: int, length: int, seed: int) -> tuple:
+    """Random non-negative factors as a HALS sweep meets them: ``G = Y Y^T``
+    of a sum-normalised factor ``Y (m, length)``, ``P = Z Y^T`` of data ``Z``
+    near the span of ``Y``, and a random start ``X``; float32 on the card."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    Y = torch.rand((m, length), generator=g, device=DEVICE)
+    Y /= Y.sum(dim=1, keepdim=True)
+    Z = (torch.rand((rows, m), generator=g, device=DEVICE) @ Y
+         + 0.01 * torch.rand((rows, length), generator=g, device=DEVICE) / length)
+    with full_fp32_matmul():
+        G, P = Y @ Y.T, Z @ Y.T
+    X = torch.rand((rows, m), generator=g, device=DEVICE)
+    return X, G.contiguous(), P.contiguous()
+
+
+def _k5_cases() -> dict:
+    """K5 against its plain version at each case, timed in turns (plain,
+    kernel, kernel, plain), with its bound; returns the measurements."""
+    out = {}
+    for i, (where, rows, m, length, inner) in enumerate(K5_CASES):
+        X, G, P = _k5_inputs(rows, m, length, SEED + 40 + i)
+        args = (X, G, P, 0.1 / length, 0.0, inner)
+        got, want = hals.hals_sweep(*args), hals.hals_sweep_plain(*args)
+        sync()
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        again = hals.hals_sweep(*args)
+        same = torch.equal(again, got)
+        p1, k1, k2, p2 = (time_ms(lambda fn=fn: fn(*args), reps=3)
+                          for fn in (hals.hals_sweep_plain, hals.hals_sweep, hals.hals_sweep,
+                                     hals.hals_sweep_plain))
+        # X read and written, P and G read; 2 m^2 operations per row and pass
+        work = (4 * (3 * rows * m + m * m), 2.0 * inner * rows * m * m)
+        bound_ms, bound_by = bound(*work, FP32_FLOP_PER_S)
+        threads, smem = hals.launch_geometry(rows, m, X.device)
+        ms = (k1 + k2) / 2
+        out[where] = dict(max_abs_err=err, rel=rel, ms=ms, plain_ms=(p1 + p2) / 2,
+                          bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                          threads=threads, smem_bytes=smem)
+        log(f'  hals_sweep {where}: max_abs_err={err:.3e} rel={rel:.3e}, two launches '
+            f'{"bit-equal" if same else "DIFFER"}; kernel {k1:.4f}/{k2:.4f} ms, plain '
+            f'{p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), '
+            f'{100 * bound_ms / ms:.1f} % of bound; {threads} threads/block, '
+            f'{smem} B shared')
+        if not (rel <= K5_TOL and same and torch.isfinite(got).all()):
+            raise AssertionError(f'hals_sweep at {where}: {rel:.3e} off its plain version '
+                                 f'(> {K5_TOL}?), or launches differ, or not finite')
+        del X, G, P, got, want, again
+    return out
+
+
+def _hals_fit(label, make, V, fit: dict, expected: dict) -> tuple:
+    """``make().fit(V, solver='hals', **fit)`` for ``HALS_ITER`` iterations
+    on the kernels, with ``record_energies`` and a callback that records the
+    regularized objective ``energy + sparsity_H * sum(H)`` (what each
+    iteration minimizes), counts reset before and read after (exactly
+    ``expected`` per iteration); that objective never rises from the start
+    on (1e-6 relative).  The same fit with ``use_pallas=False`` (no launch)
+    and in float64 (the gate's plain versions): W and H of the kernels'
+    fit within ``HALS_TOL`` of float64, or, where the float32 plain
+    versions are themselves farther off float64 (the plain-NMF W sweep
+    amplifies float32 rounding), within twice their distance.  Returns the
+    model, its launches, peak device memory (MiB) and the three distances."""
+    l1 = fit.get('sparsity_H', 0.)
+
+    def objective(m):
+        return m._energy() + l1 * m._H.sum()
+    start = make()
+    start.fit(V, n_iterations=0, solver='hals', **fit)
+    objs = [objective(start)]
+    del start
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    nmf = make()
+    nmf.fit(V, n_iterations=HALS_ITER, solver='hals', record_energies=True,
+            progress_callback=lambda m, i: objs.append(objective(m)) or True, **fit)
+    sync()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({k: v * HALS_ITER for k, v in expected.items()})
+    e = np.asarray(torch.stack(objs).tolist())
+    refs = {}
+    reset_counts()
+    for ref_label, kw in (('plain', dict(use_pallas=False)), ('float64', dict(dtype=torch.float64))):
+        ref = make(**kw)
+        ref.fit(V, n_iterations=HALS_ITER, solver='hals', **fit)
+        refs[ref_label] = (ref.W, ref.H)
+        del ref
+    sync()
+    ref_launches = counts()
+
+    def off(a, b):
+        return max(_rel(a[0], b[0]), _rel(a[1], b[1]))
+    got = (nmf.W, nmf.H)
+    rel = dict(kernels_plain=off(got, refs['plain']), kernels_float64=off(got, refs['float64']),
+               plain_float64=off(refs['plain'], refs['float64']))
+    log(f'{label}: launches {launches}; objective {e.tolist()} (energies '
+        f'{nmf.energies_.tolist()}); W, H off: kernels against use_pallas=False '
+        f'{rel["kernels_plain"]:.3e}, kernels against float64 {rel["kernels_float64"]:.3e}, '
+        f'use_pallas=False against float64 {rel["plain_float64"]:.3e}; peak {peak:.0f} MiB')
+    if launches != want or any(ref_launches.values()):
+        raise AssertionError(f'{label}: launches {launches} (references: {ref_launches}), '
+                             f'not {want}')
+    limit = max(HALS_TOL, 2 * rel['plain_float64'])
+    if not (np.isfinite(e).all() and np.all(np.diff(e) <= 1e-6 * abs(e[0]))
+            and rel['kernels_float64'] <= limit):
+        raise AssertionError(f'{label}: objective {e.tolist()} rises or is not finite, or W, '
+                             f'H {rel["kernels_float64"]:.3e} off float64 > {limit:.3e}')
+    return nmf, launches, peak, rel
+
+
+def _hals_ms(run) -> float:
+    """Device ms per iteration of ``run(n)`` (CUDA events), after a warm-up
+    iteration."""
+    run(1)
+    sync()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    run(HALS_TIMED)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / HALS_TIMED
+
+
+def _hals_plain_nmf(total: dict) -> dict:
+    """Plain-NMF HALS at 16384 x 1 x 4096 with 256 atoms ('full', ``'auto'``
+    inner sweeps: 1): K5 twice per iteration, no other kernel."""
+    c = HALS_PLAIN
+    V = np.random.default_rng(SEED + 50).random((c['N'], 1, c['F']), dtype=np.float32)
+
+    def make(**kw):
+        return TransformInvariantNMF(c['M'], (c['F'],), reconstruction_mode='full', seed=SEED,
+                                     device=DEVICE, **kw)
+    inner = engine_hals.auto_inner(c['M'], c['F'], 'auto', n_samples=c['N'])
+    nmf, launches, peak, rel = _hals_fit(f'HALS plain NMF {c["N"]}x1x{c["F"]}/{c["M"]}', make,
+                                         V, {}, {'hals_sweep': 2})
+    for name, n in launches.items():
+        total[name] += n
+    Vd, plan = nmf._Vd, nmf._plan
+
+    def run(n):
+        nmf._W, nmf._H = engine_hals.fit_loop(Vd, nmf._W, nmf._H, n, 0., 0., 0., 0.,
+                                              inner=inner, update_H=True, update_W=True)
+    ms = _hals_ms(run)
+    V2, W2, H2 = engine_hals._flatten(Vd, nmf._W, nmf._H)
+    with full_fp32_matmul():
+        grams = time_ms(lambda: (engine_hals._dot(W2, W2.T), engine_hals._dot(V2, W2.T),
+                                 engine_hals._dot(H2.T, H2), engine_hals._dot(H2.T, V2)),
+                        reps=3)
+    flops = 4.0 * c['N'] * c['M'] * c['F'] + 2.0 * c['M'] ** 2 * (c['N'] + c['F'])
+    gram_bound, _ = bound(4.0 * (c['N'] * c['F'] + 2 * c['N'] * c['M'] + 2 * c['M'] * c['F']),
+                          flops, FP32_FLOP_PER_S)
+    log(f'HALS plain NMF: inner {inner}, {ms:.4f} ms/iteration (CUDA events); the four Gram '
+        f'products {grams:.4f} ms ({flops / 1e9:.1f} GFLOP, bound {gram_bound:.4f} ms), '
+        f'peak {peak:.0f} MiB; energy {nmf._energy_function()!r}; plan {plan.transform_shape}')
+    return dict(ms_per_iteration=ms, grams_ms=grams, grams_bound_ms=gram_bound,
+                peak_mib=peak, inner=inner, rel=rel,
+                launches_per_iteration={k: v / HALS_ITER for k, v in launches.items() if v})
+
+
+def _hals_conv(total: dict) -> dict:
+    """Shift-invariant HALS at the flagship's data ('full', 81 phases):
+    K5 once per phase, K2 and ``mu_ratio`` once per iteration."""
+    c = HALS_CONV
+    V = np.random.default_rng(SEED).random((c['N'], c['C']) + c['S'], dtype=np.float32)
+
+    def make(**kw):
+        return TransformInvariantNMF(c['M'], c['A'], reconstruction_mode='full', seed=SEED,
+                                     device=DEVICE, **kw)
+    n_phases = math.prod(c['A'])
+    nmf, launches, peak, rel = _hals_fit('HALS shift-invariant flagship', make, V,
+                                         dict(sparsity_H=c['sparsity']),
+                                         {'hals_sweep': n_phases, 'grad_w': 1, 'mu_ratio': 1})
+    for name, n in launches.items():
+        total[name] += n
+    Vd, plan = nmf._Vd, nmf._plan
+    flags = dict(inner=1, update_H=True, update_W=True, plan=plan)
+
+    def run(n):
+        nmf._W, nmf._H = engine_hals_conv.fit_loop(Vd, nmf._W, nmf._H, n, c['sparsity'], 0.,
+                                                   **flags)
+    ms = _hals_ms(run)
+    split = _hals_conv_split(Vd, nmf._W, nmf._H, plan, c['sparsity'])
+    log(f'HALS shift-invariant flagship: {ms:.4f} ms/iteration (CUDA events); one '
+        f'iteration by stage, device ms (host ms to issue it): '
+        + ', '.join(f'{k} {v[0]:.4f} ({v[1]:.4f})' for k, v in split.items())
+        + f'; peak {peak:.0f} MiB; energy {nmf._energy_function()!r}')
+    return dict(ms_per_iteration=ms, split=split, peak_mib=peak, rel=rel,
+                launches_per_iteration={k: v / HALS_ITER for k, v in launches.items() if v})
+
+
+def _hals_conv_split(V, W, H, plan, l1) -> dict:
+    """One shift-invariant HALS iteration stage by stage, as
+    ``engine_hals_conv._iteration`` runs it after the loop's start (the
+    encoding): each stage's device time between CUDA events, and the host
+    time to issue it (no synchronisation in between), after a warm-up."""
+    ehc = engine_hals_conv
+    stages = [
+        ('encode (a reconstruction)', lambda st: st.update(zip(('E', 'Hpm'),
+                                                                ehc._encode(V, W, H, plan)),
+                                                            G=ehc.gram_W(W))),
+        ('H phase sweep (81 phases)', lambda st: ehc.h_phase_sweep(
+            st['E'], st['Hpm'], W, st['G'], l1, 0., plan=plan, inner=1)),
+        ('decode H', lambda st: st.update(H=ehc._decode_h(st['Hpm'], plan))),
+        ('W step (K2 + mu_ratio)', lambda st: st.update(
+            W=ehc._mu_W_from_residual(V, st['E'], W, st['H'], plan))),
+        ('Gram', lambda st: st.update(G=ehc.gram_W(st['W']))),
+        ('fresh residual (a reconstruction)', lambda st: st.update(
+            E=ehc._residual(V, st['W'], st['H'], plan))),
+    ]
+    out = {}
+    for rep in range(2):  # the first pass warms up
+        st = {}
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        host = []
+        sync()
+        with full_fp32_matmul():
+            events[0].record()
+            for i, (_, fn) in enumerate(stages):
+                t0 = time.perf_counter()
+                fn(st)
+                events[i + 1].record()
+                host.append(1e3 * (time.perf_counter() - t0))
+        sync()
+        out = {name: (events[i].elapsed_time(events[i + 1]), host[i])
+               for i, (name, _) in enumerate(stages)}
+        del st
+    return out
+
+
+def _hals_goldens() -> None:
+    """Small fixtures' HALS fits in float32 on the kernels within
+    ``HALS_TOL`` of float64 on the card (the gate's plain versions): plain
+    NMF on 64 x 1 x 100 with 5 atoms, and the golden 2-D fixture in 'full'
+    mode with 10 atoms of 7 x 7."""
+    rng = np.random.default_rng(SEED + 60)
+    cases = [('plain NMF 64x1x100/5',
+              (rng.random((64, 5)) @ rng.random((5, 100))).reshape(64, 1, 100), (100,), 5,
+              dict(n_iterations=10, sparsity_H=0.01, l2_W=0.1)),
+             ("golden 2-D 'full' 10 x 7x7", _image_2d().astype(np.float64), (7, 7), 10,
+              dict(n_iterations=5, sparsity_H=0.1))]
+    for label, V, atom, m, fit in cases:
+        out = []
+        for dtype in (torch.float32, torch.float64):
+            reset_counts()
+            nmf = TransformInvariantNMF(m, atom, reconstruction_mode='full', seed=SEED,
+                                        device=DEVICE, dtype=dtype)
+            nmf.fit(V.astype(np.float32) if dtype == torch.float32 else V, solver='hals',
+                    **fit)
+            sync()
+            out.append((nmf.W, nmf.H, counts()['hals_sweep']))
+        rel = max(_rel(out[0][0], out[1][0]), _rel(out[0][1], out[1][1]))
+        log(f'  HALS {label}: float32 on the kernels ({out[0][2]} K5 launches) {rel:.3e} off '
+            f'float64 ({out[1][2]} launches)')
+        if not (rel <= HALS_TOL and out[0][2] and not out[1][2]):
+            raise AssertionError(f'HALS {label}: float32 {rel:.3e} off float64 > {HALS_TOL}, '
+                                 f'or launches {out[0][2]} / {out[1][2]}')
+
+
+def phase_hals() -> tuple:
+    """Phase 16: the HALS solvers on K5 (with K2 and ``mu_ratio`` on the
+    shift-invariant W step); returns the launches and the measurements."""
+    total = dict.fromkeys(KERNELS, 0)
+    log(f'times on {card()}')
+    out = dict(k5=_k5_cases())
+    out['plain_nmf'] = _hals_plain_nmf(total)
+    out['shift_invariant'] = _hals_conv(total)
+    _hals_goldens()
+    missing = [name for name in ('hals_sweep', 'grad_w', 'mu_ratio') if not total[name]]
+    if missing:
+        raise AssertionError(f'phase 16 launched no {missing}')
     return total, out
 
 
@@ -2409,11 +2728,23 @@ def main() -> int:
     log('transform groups and initialisation (phase 15):')
     grp_launches, grp = phase_transforms()
     log(f'transform group times ({card()}): ' + json.dumps(grp))
+    log('HALS (phase 16):')
+    hals_launches, hals_out = phase_hals()
+    log(f'HALS times ({card()}): ' + json.dumps(hals_out))
+    k5 = hals_out['k5']
+    errors['hals_sweep'] = k5[K5_CASES[0][0]]['max_abs_err']
+    times['hals_sweep'] = dict(
+        {k: k5[K5_CASES[0][0]][k] for k in ('ms', 'plain_ms', 'bound_ms', 'bound_by',
+                                            'library_ms')},
+        cases_ms={where: k5[where]['ms'] for where, *_ in K5_CASES})
+    per_iteration = {cfg: hals_out[cfg]['launches_per_iteration']
+                     for cfg in ('plain_nmf', 'shift_invariant')}
     asg = mb['ASG_MU']['launches_per_epoch']
     at_128 = grp['kernels_128_maps']
     rows = [dict(name=name, route='cuda', source=k['source'], replaces=k['replaces'],
                  launches=(launches[name] + enc_launches[name] + st_launches[name]
-                           + mb_launches[name] + obj_launches[name] + grp_launches[name]),
+                           + mb_launches[name] + obj_launches[name] + grp_launches[name]
+                           + hals_launches[name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
@@ -2421,6 +2752,8 @@ def main() -> int:
                                                  / max(st_iterations[name], 1)),
                  asg_mu_bs16_launches_per_epoch=asg[name],
                  d4_flagship_128_maps=at_128.get(name),
+                 hals_launches_per_iteration={cfg: n.get(name, 0)
+                                              for cfg, n in per_iteration.items()},
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     log(device['smi'])  # again here: the build's report may push the first one out of a tail

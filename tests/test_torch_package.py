@@ -75,7 +75,8 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
 def test_build_flags_target_hopper():
     assert 'arch=compute_90a,code=sm_90a' in _build.NVCC_FLAGS
     names = {p.name for p in _build.SOURCE_DIR.glob('*.cu')}
-    assert names == {'mu_ratio.cu', 'grad_w.cu', 'mu_h.cu', 'inhibited_mu_h.cu'}
+    assert names == {'mu_ratio.cu', 'grad_w.cu', 'mu_h.cu', 'inhibited_mu_h.cu',
+                     'hals_sweep.cu'}
     assert _build.library_path().parent == _build.BUILD_DIR
     assert 'tnmf_tpu_torch/_build/' in (ROOT / '.gitignore').read_text().split()
 
@@ -179,12 +180,27 @@ def test_phased_is_not_ported():
     dict(max_subsamples=2, sparsity_W=0.1),
 ])
 def test_unported_fit_arguments_raise(kwargs):
-    """Through every driver ``fit`` dispatches to: ``fit_batch``,
-    ``fit_minibatches`` (``batch_size``) and ``fit_stream``
-    (``subsample_size``, ``max_subsamples``)."""
-    nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md queue 1, item'):
-        nmf.fit(np.ones((1, 1, 8, 8)), **kwargs)
+    """The HALS arguments (item 13, ported) through each method ``fit``
+    dispatches to (``fit_batch``; ``fit_stream`` for ``max_subsamples``)
+    do what the JAX package's do on a shift-invariant 'valid' problem: the
+    same ``ValueError`` and message (``sparsity_W`` / ``l2_W`` under MU,
+    HALS on a geometry it does not take), or a fit (``hals_inner`` alone,
+    read only by HALS)."""
+    outcomes = []
+    for module, kw in ((tnmf_tpu_torch, dict(device='cpu', dtype=torch.float64)),
+                       (tnmf_tpu, {})):
+        nmf = module.TransformInvariantNMF(2, (3, 3), seed=0, **kw)
+        try:
+            nmf.fit(np.ones((1, 1, 8, 8)), n_iterations=1, **kwargs)
+            outcomes.append(('ran', nmf.W))
+        except ValueError as e:
+            outcomes.append(('ValueError', str(e)))
+    assert outcomes[0][0] == outcomes[1][0] == ('ran' if kwargs == dict(hals_inner=4)
+                                                else 'ValueError')
+    if outcomes[0][0] == 'ran':
+        np.testing.assert_allclose(outcomes[0][1], outcomes[1][1], rtol=1e-10)
+    else:
+        assert outcomes[0][1] == outcomes[1][1]
 
 
 def test_fit_arguments_at_jax_defaults_are_accepted():

@@ -14,8 +14,9 @@ of the JAX package, its fit driver and the encoder (``transform``), the
 minibatch and streaming fits (the five algorithms of
 :class:`MiniBatchAlgorithm`, ``fit_stream``, ``partial_fit``,
 :class:`MiniBatchTransformInvariantNMF`), the transform groups
-(``transform_type``), ``init='device'``, ``w_init`` and the sklearn
-protocol; ``use_pallas=False`` runs the kernels' plain versions (see
+(``transform_type``), ``init='device'``, ``w_init``, the sklearn
+protocol and the HALS solvers (``fit(solver='hals')``, whose sweeps run
+through K5); ``use_pallas=False`` runs the kernels' plain versions (see
 ROADMAP.md for the rest)::
 
     from tnmf_tpu_torch import MiniBatchAlgorithm, TransformInvariantNMF

@@ -411,8 +411,17 @@ def _grad_W_pair(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                  use_pallas: bool, beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`grad_W_stats` on a base strategy, for the dictionary ``W``
     whose atoms are H's maps."""
+    R = get_ops(strategy).reconstruct(W, H, plan)
+    return grad_W_pair_of(Vp, R, H, mask, plan, strategy, use_pallas, beta)
+
+
+def grad_W_pair_of(Vp: torch.Tensor, R: torch.Tensor, H: torch.Tensor,
+                   mask: Optional[torch.Tensor], plan: ConvPlan, strategy: str,
+                   use_pallas: bool, beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_grad_W_pair` from a given reconstruction ``R`` (the
+    shift-invariant HALS solver passes ``V - E`` from its maintained
+    residual): K2 on the stacked streams on conv."""
     ops = get_ops(strategy)
-    R = ops.reconstruct(W, H, plan)
     if strategy == 'conv':
         grad = grad_w if plain_reason(plan, H.dtype, use_pallas) is None else grad_w_plain
         return grad(torch.cat(_conv_streams(Vp, R, plan, beta, mask), dim=1), H, plan)
@@ -552,15 +561,40 @@ def _block_change(e_prev: torch.Tensor, e: torch.Tensor,
     return diff, rel
 
 
-def _tol_start(W: torch.Tensor, H: torch.Tensor, tol: float,
-               energy_of) -> Tuple[torch.Tensor, torch.Tensor, float]:
-    """The initial energy, the scale ``max(e0, tiny)`` of the relative
-    improvement, and ``tol`` rounded to the accumulation dtype (the JAX
-    package compares in that dtype).  ``energy_of(W, H)`` is the loop's
-    objective."""
-    e0 = energy_of(W, H)
+def _tol_start(e0: torch.Tensor, tol: float) -> Tuple[torch.Tensor, float]:
+    """The scale ``max(e0, tiny)`` of the relative improvement from the
+    initial energy ``e0``, and ``tol`` rounded to the accumulation dtype
+    (the JAX package compares in that dtype)."""
     scale = torch.clamp(e0, min=torch.finfo(e0.dtype).tiny)
-    return e0, scale, float(torch.tensor(tol, dtype=e0.dtype))
+    return scale, float(torch.tensor(tol, dtype=e0.dtype))
+
+
+def tol_loop(carry, step, energy_of, n_max: int, tol: float, check_every: int, n_buf: int,
+             like: torch.Tensor):
+    """The ``(e_prev - e) / e_init < tol`` protocol of the JAX package's
+    ``fit_loop_tol`` loops, for any loop state ``carry``: ``step(carry)``
+    runs one iteration, ``energy_of(carry)`` is the objective (a 0-d
+    tensor).  Iterations run in blocks of ``min(check_every, n_max - i)``;
+    after each block the relative improvement is read on the host (one
+    synchronisation), and the loop stops at ``n_max`` or once it drops
+    below ``tol``.  ``n_buf > 0`` records every iteration's energy into a
+    trace of ``n_buf`` entries on ``like``'s device (NaN past the
+    iterations run), whose block-end entry then serves as the block's
+    energy.  Returns ``(carry, n_done, e_final, trace_or_None)``."""
+    trace = energy_trace(like, n_buf) if n_buf > 0 else None
+    e = energy_of(carry)
+    scale, tol = _tol_start(e, tol)
+    i, rel = 0, math.inf
+    while i < n_max and rel >= tol:
+        k = min(check_every, n_max - i)
+        for j in range(k):
+            carry = step(carry)
+            if trace is not None:
+                trace[i + j] = energy_of(carry)
+        e_prev, e = e, (trace[i + k - 1] if trace is not None else energy_of(carry))
+        rel = _block_change(e_prev, e, scale)[1]
+        i += k
+    return carry, i, e, trace
 
 
 @_pinned
@@ -586,24 +620,16 @@ def fit_loop_tol(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Te
 
     Returns ``(W, H, n_done, e_final, trace_or_None)``.
     """
-    def energy_of(W, H):
-        return energy(V, W, H, mask, plan=plan, strategy=strategy, beta=beta)
+    def energy_of(WH):
+        return energy(V, *WH, mask, plan=plan, strategy=strategy, beta=beta)
 
-    n_max, check_every = int(n_max), int(check_every)
-    trace = energy_trace(V, n_buf) if n_buf > 0 else None
-    e, scale, tol = _tol_start(W, H, tol, energy_of)
-    i, rel = 0, math.inf
-    while i < n_max and rel >= tol:
-        k = min(check_every, n_max - i)
-        for j in range(k):
-            W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
-                               plan=plan, strategy=strategy, beta=beta, mask=mask, **step)
-            if trace is not None:
-                trace[i + j] = energy_of(W, H)
-        e_prev, e = e, (trace[i + k - 1] if trace is not None else energy_of(W, H))
-        rel = _block_change(e_prev, e, scale)[1]
-        i += k
-    return W, H, i, e, trace
+    def iteration(WH):
+        return update_step(Vp, *WH, sparsity, inhibition, cross_inhibition, kernels,
+                           plan=plan, strategy=strategy, beta=beta, mask=mask, **step)
+
+    (W, H), n_done, e, trace = tol_loop((W, H), iteration, energy_of, int(n_max), tol,
+                                        int(check_every), n_buf, V)
+    return W, H, n_done, e, trace
 
 
 # extrapolation safeguard of the JAX package (Ang & Gillis 2019-style): the
@@ -652,7 +678,8 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
                    ortho=ortho_W)
     n_max, check_every = int(n_max), int(check_every)
     trace = energy_trace(V, n_buf) if n_buf > 0 else None
-    e, scale, tol = _tol_start(W, H, tol, energy_of)
+    e = energy_of(W, H)
+    scale, tol = _tol_start(e, tol)
     bk = torch.tensor(beta0, dtype=e.dtype, device=e.device)
     Wy, Hy = W, H
     i, rel = 0, math.inf

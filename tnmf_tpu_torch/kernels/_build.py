@@ -51,6 +51,8 @@ SIGNATURES = {
     # inh, cross, reg, use_same, use_cross, two_d, vec, h_vec, h_bufs, compiled,
     # seg_x, seg_y, smem_bytes, stream
     'tnmf_inhibited_mu_h': (_P,) * 5 + (_I,) * 11 + (_F,) * 3 + (_I,) * 10 + (_P,),
+    # xt, gt, pt, l1, l2, inner, out, rows, m, threads, smem_bytes, stream
+    'tnmf_hals_sweep': (_P, _P, _P, _F, _F, _I, _P, _I64, _I, _I, _I, _P),
 }
 
 #: the largest dynamic shared memory a Hopper block may opt in to (bytes)

@@ -17,8 +17,10 @@ the JAX package; ``init='device'``; ``w_init='patches'`` / ``'nndsvd'``;
 ``h_init='correlate'``), the encoder API (``set_dictionary``,
 ``transform``, ``fit_transform``, ``inverse_transform``), the ``W`` / ``H``
 / ``V`` / ``R`` accessors, ``R_partial``, the energy, ``.npz`` checkpoints
-both packages read (``save`` / ``load``) and the sklearn estimator protocol
-(``get_params`` / ``set_params`` / ``__sklearn_tags__``).  Every strategy
+both packages read (``save`` / ``load``), the sklearn estimator protocol
+(``get_params`` / ``set_params`` / ``__sklearn_tags__``) and the HALS
+solvers (``fit_batch(solver='hals')``, :mod:`tnmf_tpu_torch.engine_hals`
+and :mod:`tnmf_tpu_torch.engine_hals_conv`).  Every strategy
 the JAX package picks off the TPU runs: direct convolution, FFT (with
 either ``fft_policy``) and the plain-NMF matmuls.  Arguments of the JAX API
 that select parts not ported yet raise ``NotImplementedError`` naming the
@@ -78,14 +80,6 @@ _UNPORTED_INIT = {
     'mesh': (None, _ITEM.format(14)),
     'shard_axis': ('samples', _ITEM.format(14)),
     'precision': (None, _ITEM.format(16)),
-}
-
-#: fit_batch arguments of the JAX API not ported yet: (default, ROADMAP item)
-_UNPORTED_FIT = {
-    'solver': ('mu', _ITEM.format(13)),
-    'hals_inner': ('auto', _ITEM.format(13)),
-    'sparsity_W': (0., _ITEM.format(13)),
-    'l2_W': (0., _ITEM.format(13)),
 }
 
 def _is_default(value, default) -> bool:
@@ -789,17 +783,36 @@ class TransformInvariantNMF:
           nonnegative floats for weights.  Masked-out entries never enter
           the fit, so their values do not matter.
 
-        ``n_iterations_`` holds the count actually run.  ``solver``,
-        ``hals_inner``, ``sparsity_W`` and ``l2_W`` are not ported yet and
-        raise ``NotImplementedError`` unless they hold their default.
+        ``solver='hals'`` replaces the multiplicative updates with exact
+        block coordinate descent (fast HALS, sklearn's ``NMF(solver='cd')``;
+        the JAX package's): on the plain-NMF geometry
+        (``prod(transform_shape) == 1``) every component of H and of W is
+        solved exactly per sweep (:mod:`tnmf_tpu_torch.engine_hals`), and on
+        the shift-invariant geometry under ``reconstruction_mode='full'``
+        H takes exact phase-blocked sweeps and W a multiplicative step
+        (:mod:`tnmf_tpu_torch.engine_hals_conv`).  The sweeps run through
+        K5 (:func:`~tnmf_tpu_torch.kernels.hals.hals_sweep`).
+        ``hals_inner`` sets the sweeps per pair of Gram matrices (``'auto'``:
+        the JAX package's rule, 1 on the shift-invariant geometry);
+        ``sparsity_W`` / ``l2_W`` are the dictionary's L1 / L2 weights
+        (plain-NMF HALS only).  HALS leaves W un-normalised, composes with
+        ``sparsity_H``, ``l2_H``, the update flags, ``keep_W`` / ``keep_H``,
+        ``tol``, ``record_energies``, callbacks and checkpoints, and
+        rejects what the JAX package rejects (``ValueError``): inhibition,
+        ``ortho_W``, ``beta_loss != 2``, ``mask``, ``extrapolate``,
+        ``revive_every``, transform groups and other geometries.
+
+        ``n_iterations_`` holds the count actually run.
         """
-        _reject_unported('fit_batch', dict(solver=solver, hals_inner=hals_inner,
-                                           sparsity_W=sparsity_W, l2_W=l2_W), _UNPORTED_FIT)
         V, mask = self._check_data(V, mask)
         _require(update_H or update_W, 'at least one of update_H / update_W must be True')
         self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength,
                          l2_H, ortho_W)
+        _require_nonneg(sparsity_W=sparsity_W, l2_W=l2_W)
         _require(callback_interval >= 1, 'callback_interval must be >= 1')
+        self._check_solver(solver, sparsity_W, l2_W, inhibition_strength,
+                           cross_atom_inhibition_strength, ortho_W, mask, extrapolate,
+                           revive_every)
         if (checkpoint_every is None) != (checkpoint_path is None):
             raise ValueError(
                 'checkpoint_every and checkpoint_path must be given together')
@@ -856,92 +869,224 @@ class TransformInvariantNMF:
         self._sag_stat_ = None  # a fresh fit drops partial_fit's state
         self._initialize_matrices(V, keep_W, keep_H=keep_H, mask=mask)
         n_iterations = int(n_iterations)
+        if solver == 'hals':
+            self._fit_batch_hals(
+                n_iterations, update_H=update_H, update_W=update_W, l1=sparsity_H, l2=l2_H,
+                l1w=sparsity_W, l2w=l2_W, hals_inner=hals_inner,
+                progress_callback=progress_callback, callback_interval=callback_interval,
+                record_energies=record_energies, tol=tol, tol_check_every=tol_check_every)
+            return
         regs = self._regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
         flags = dict(self._flags(inhibition_strength, cross_atom_inhibition_strength),
                      update_H=update_H, update_W=update_W, **self._objective(l2_H, ortho_W))
-        log_each = self._logger.isEnabledFor(logging.INFO)
-        self.energies_ = None
-        if extrapolate or tol is not None:
-            if extrapolate:
-                # the JAX package leaves the block length unchecked here (a
-                # length of 0 never ends its loop)
-                _validate_tol(0.0 if tol is None else tol, tol_check_every)
-                loop, extra = engine.fit_loop_extrapolated, (xtr_beta0,)
-            else:
-                if progress_callback is not None:
-                    raise ValueError(
-                        'tol-based early stopping cannot combine with progress_callback '
-                        '(as in the JAX package, whose tol loop runs on the device)')
-                _validate_tol(tol, tol_check_every)
-                loop, extra = engine.fit_loop_tol, ()
-            self._W, self._H, n_done, _, trace = loop(
+        if extrapolate:
+            # the JAX package leaves the block length unchecked here (a
+            # length of 0 never ends its loop)
+            _validate_tol(0.0 if tol is None else tol, tol_check_every)
+            self._W, self._H, n_done, _, trace = engine.fit_loop_extrapolated(
                 self._Vp, self._Vd, self._W, self._H, n_iterations,
-                0.0 if tol is None else tol, *extra, *regs,
+                0.0 if tol is None else tol, xtr_beta0, *regs,
                 check_every=int(tol_check_every),
                 n_buf=_trace_buf(n_iterations) if record_energies else 0, **flags)
             self.n_iterations_ = n_done
+            self.energies_ = trace.cpu().numpy()[:n_done] if record_energies else None
+            self._logger.info('TNMF finished.')
+            return
+        Vp, Vd = self._Vp, self._Vd
+        self._run_loops(
+            n_iterations,
+            loop_tol=lambda n, t, ce, nb: engine.fit_loop_tol(
+                Vp, Vd, self._W, self._H, n, t, *regs, check_every=ce, n_buf=nb, **flags),
+            loop_energies=lambda n: engine.fit_loop_energies(
+                Vp, Vd, self._W, self._H, *regs, n_iterations=n, **flags),
+            loop_plain=lambda n: engine.fit_loop(Vp, self._W, self._H, n, *regs, **flags),
+            step=lambda: engine.update_step(Vp, self._W, self._H, *regs, **flags),
+            progress_callback=progress_callback, callback_interval=callback_interval,
+            record_energies=record_energies, tol=tol, tol_check_every=tol_check_every)
+
+    # ------------------------------------------------------------------
+    # the HALS solvers (the JAX package's solver='hals')
+    # ------------------------------------------------------------------
+
+    def _check_solver(self, solver, sparsity_W, l2_W, inhibition_strength,
+                      cross_atom_inhibition_strength, ortho_W, mask, extrapolate,
+                      revive_every) -> None:
+        """The JAX ``fit_batch``'s checks of ``solver`` and of what HALS does
+        not take, with its exception types and messages."""
+        if solver not in ('mu', 'hals'):
+            raise ValueError(f"solver must be 'mu' or 'hals', got {solver!r}")
+        if solver == 'mu' and (sparsity_W > 0 or l2_W > 0):
+            raise ValueError(
+                'sparsity_W / l2_W regularize the un-normalized HALS '
+                'dictionary; MU sum-normalizes atoms every update '
+                '(reference _Backend.py:75-77), which makes W penalties '
+                "ill-posed — use solver='hals'")
+        if solver != 'hals':
+            return
+        if inhibition_strength > 0 or cross_atom_inhibition_strength > 0 or ortho_W > 0:
+            raise ValueError(
+                "solver='hals' minimizes the plain (L1/L2-regularized) "
+                'Frobenius objective exactly; inhibition and ortho_W '
+                'are MU-only regularizers')
+        if self._beta != 2.0:
+            raise ValueError(
+                "solver='hals' requires beta_loss=2 (Frobenius); the "
+                'closed-form coordinate minimizer does not exist for '
+                'other beta divergences — use the MU solver')
+        if mask is not None:
+            raise ValueError(
+                'masked/weighted fits are MU-only (the masked Gram '
+                'matrices are no longer shared across components)')
+        if extrapolate:
+            raise ValueError(
+                'extrapolate accelerates MU; HALS takes exact '
+                'coordinate steps and does not compose with it')
+        if revive_every is not None:
+            raise ValueError(
+                'revive_every is unnecessary under HALS: zero is not '
+                'absorbing (a zeroed atom re-enters a later sweep when '
+                'its partial residual correlation turns positive)')
+        if self._group is not None:
+            raise ValueError(
+                "transform groups are MU-only (solver='hals' applies "
+                'to the degenerate plain-NMF geometry)')
+
+    def _fit_batch_hals(self, n_iterations, *, update_H, update_W, l1, l2, l1w, l2w,
+                        hals_inner, progress_callback, callback_interval, record_energies,
+                        tol, tol_check_every):
+        """Loop dispatch of ``solver='hals'`` after the matrices are
+        initialised: the plain-NMF solver (:mod:`tnmf_tpu_torch.engine_hals`)
+        on the degenerate geometry, the shift-invariant one
+        (:mod:`tnmf_tpu_torch.engine_hals_conv`) on ``'full'``, else the JAX
+        package's ``ValueError``."""
+        from .. import engine_hals, engine_hals_conv as ehc
+        V, l1, l2, l1w, l2w = self._Vd, float(l1), float(l2), float(l1w), float(l2w)
+        flags = dict(update_H=update_H, update_W=update_W,
+                     use_pallas=self._use_pallas is not False)
+        if math.prod(self._plan.transform_shape) != 1:
+            if not ehc.applicable(self._plan):
+                raise ValueError(
+                    "solver='hals' requires the degenerate plain-NMF "
+                    "geometry (prod(transform_shape) == 1, any mode) "
+                    "or reconstruction_mode='full' (shift-invariant "
+                    'exact CD via phase-blocked sweeps, '
+                    ':mod:`tnmf_tpu.engine_hals_conv`); other modes '
+                    'have boundary-clipped atom footprints whose '
+                    'position-dependent Grams break the shared-Gram '
+                    'phase blocks — use the MU solver there')
+            if l1w > 0 or l2w > 0:
+                raise ValueError(
+                    'sparsity_W / l2_W apply to the plain-NMF HALS '
+                    'W sweeps; the shift-invariant solver updates W '
+                    'multiplicatively (engine_hals_conv) where W '
+                    'penalties are ill-posed')
+            # one Gauss-Seidel pass per phase block unless asked: the JAX
+            # package's default (fresh phases see fresher residuals)
+            inner = 1 if hals_inner in (None, 'auto') else int(hals_inner)
+            if inner < 1:
+                raise ValueError('hals_inner must be >= 1 or "auto"')
+            flags.update(inner=inner, plan=self._plan)
+            loops = dict(
+                loop_tol=lambda n, t, ce, nb: ehc.fit_loop_tol(
+                    V, self._W, self._H, n, t, l1, l2, check_every=ce, n_buf=nb, **flags),
+                loop_energies=lambda n: ehc.fit_loop_energies(
+                    V, self._W, self._H, l1, l2, n_iterations=n, **flags),
+                loop_plain=lambda n: ehc.fit_loop(V, self._W, self._H, n, l1, l2, **flags),
+                step=lambda: ehc.update_step(V, self._W, self._H, l1, l2, **flags))
+        else:
+            flags['inner'] = engine_hals.auto_inner(
+                self._W.shape[0], math.prod(self._W.shape[1:]), hals_inner,
+                n_samples=int(self._H.shape[0]))
+            regs = (l1, l2, l1w, l2w)
+            loops = dict(
+                # the JAX package hands this loop tol in float32
+                loop_tol=lambda n, t, ce, nb: engine_hals.fit_loop_tol(
+                    V, self._W, self._H, n, float(np.float32(t)), *regs, check_every=ce,
+                    n_buf=nb, **flags),
+                loop_energies=lambda n: engine_hals.fit_loop_energies(
+                    V, self._W, self._H, *regs, n_iterations=n, **flags),
+                loop_plain=lambda n: engine_hals.fit_loop(V, self._W, self._H, n, *regs,
+                                                          **flags),
+                step=lambda: engine_hals.update_step(V, self._W, self._H, *regs, **flags))
+        self._run_loops(n_iterations, progress_callback=progress_callback,
+                        callback_interval=callback_interval, record_energies=record_energies,
+                        tol=tol, tol_check_every=tol_check_every, **loops)
+
+    def _run_loops(self, n_iterations, *, loop_tol, loop_energies, loop_plain, step,
+                   progress_callback, callback_interval, record_energies, tol,
+                   tol_check_every):
+        """The loop dispatch of ``fit_batch`` for MU (without
+        ``extrapolate``) and the coordinate-descent solvers (the JAX
+        package's MU branches and its ``_run_cd_loops``, which repeat each
+        other): the ``tol`` loop, the loop recording the energies, the plain
+        loop, chunked callbacks (the callback sees iterations k-1, 2k-1, …)
+        or one iteration at a time (the callback, or without one the INFO
+        energy line, after each).  The callables read ``self._W`` /
+        ``self._H`` when called:
+
+        * ``loop_tol(n_max, tol, check_every, n_buf)`` -> ``(W, H, n_done,
+          e, trace_or_None)``
+        * ``loop_energies(n)`` -> ``(W, H, energies)``
+        * ``loop_plain(n)`` -> ``(W, H)``
+        * ``step()`` -> ``(W, H)``
+        """
+        log_each = self._logger.isEnabledFor(logging.INFO)
+        self.energies_ = None
+        if tol is not None:
+            if progress_callback is not None:
+                raise ValueError(
+                    'tol-based early stopping cannot combine with progress_callback '
+                    '(as in the JAX package, whose tol loop runs on the device)')
+            _validate_tol(tol, tol_check_every)
+            self._W, self._H, n_done, _, trace = loop_tol(
+                int(n_iterations), tol, int(tol_check_every),
+                _trace_buf(n_iterations) if record_energies else 0)
+            self.n_iterations_ = int(n_done)
             if record_energies:
-                self.energies_ = trace.cpu().numpy()[:n_done]
+                self.energies_ = trace.cpu().numpy()[:self.n_iterations_]
         elif record_energies and progress_callback is None:
-            self._W, self._H, energies = engine.fit_loop_energies(
-                self._Vp, self._Vd, self._W, self._H, *regs, n_iterations=n_iterations,
-                **flags)
-            self.n_iterations_ = n_iterations
+            self._W, self._H, energies = loop_energies(int(n_iterations))
+            self.n_iterations_ = int(n_iterations)
             self.energies_ = energies.cpu().numpy()
             if log_each:
                 for i, e in enumerate(self.energies_):
                     self._logger.info('Iteration: %d\tEnergy function: %s', i, e)
         elif progress_callback is None and not log_each:
-            self._W, self._H = engine.fit_loop(self._Vp, self._W, self._H, n_iterations,
-                                               *regs, **flags)
-            self.n_iterations_ = n_iterations
+            self._W, self._H = loop_plain(n_iterations)
+            self.n_iterations_ = int(n_iterations)
         elif progress_callback is not None and callback_interval > 1:
-            self._fit_chunks(n_iterations, regs, flags, progress_callback,
-                             int(callback_interval), record_energies)
-        else:
-            self._fit_each(n_iterations, regs, flags, progress_callback, record_energies)
-        self._logger.info('TNMF finished.')
-
-    def _fit_chunks(self, n_iterations, regs, flags, callback, interval, record_energies):
-        """Plain loops of ``interval`` iterations with the callback after
-        each (it sees iterations k-1, 2k-1, …); ``record_energies`` records
-        every iteration."""
-        traces = []
-        done = 0
-        while done < n_iterations:
-            chunk = min(interval, n_iterations - done)
-            if record_energies:
-                self._W, self._H, es = engine.fit_loop_energies(
-                    self._Vp, self._Vd, self._W, self._H, *regs, n_iterations=chunk, **flags)
-                traces.append(es.cpu().numpy())
-            else:
-                self._W, self._H = engine.fit_loop(self._Vp, self._W, self._H, chunk,
-                                                   *regs, **flags)
-            done += chunk
-            if not callback(self, done - 1):
-                break
-        self.n_iterations_ = done
-        if record_energies:
-            self.energies_ = np.concatenate(traces) if traces else np.zeros((0,))
-
-    def _fit_each(self, n_iterations, regs, flags, callback, record_energies):
-        """One iteration at a time: the callback (or, without one, the
-        INFO energy line) after each."""
-        energies = []
-        self.n_iterations_ = n_iterations
-        for iteration in range(n_iterations):
-            self._W, self._H = engine.update_step(self._Vp, self._W, self._H, *regs, **flags)
-            self.n_iterations_ = iteration + 1
-            if record_energies:
-                energies.append(self._energy_function())
-            if callback is not None:
-                if not callback(self, iteration):
+            traces = []
+            done = 0
+            while done < n_iterations:
+                chunk = min(callback_interval, n_iterations - done)
+                if record_energies:
+                    self._W, self._H, es = loop_energies(chunk)
+                    traces.append(es.cpu().numpy())
+                else:
+                    self._W, self._H = loop_plain(chunk)
+                done += chunk
+                if not progress_callback(self, done - 1):
                     break
-            else:
-                self._logger.info('Iteration: %d\tEnergy function: %s',
-                                  iteration, self._energy_function())
-        if record_energies:
-            self.energies_ = np.asarray(energies)
+            self.n_iterations_ = done
+            if record_energies:
+                self.energies_ = np.concatenate(traces) if traces else np.zeros((0,))
+        else:
+            energies = []
+            self.n_iterations_ = int(n_iterations)
+            for iteration in range(n_iterations):
+                self._W, self._H = step()
+                self.n_iterations_ = iteration + 1
+                if record_energies:
+                    energies.append(self._energy_function())
+                if progress_callback is not None:
+                    if not progress_callback(self, iteration):
+                        break
+                else:
+                    self._logger.info('Iteration: %d\tEnergy function: %s',
+                                      iteration, self._energy_function())
+            if record_energies:
+                self.energies_ = np.asarray(energies)
+        self._logger.info('TNMF finished.')
 
     def fit(self, V, y=None, **kwargs):
         """sklearn-style front door (the JAX dispatch; reference :525-531):

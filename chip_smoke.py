@@ -166,10 +166,27 @@ failure (exit code != 0, no result line):
    1e-4, no launch there), the regularized objective never rising (1e-6),
    then ms per iteration (CUDA events), the split of an iteration and peak
    memory; then a small plain-NMF fit and the golden 2-D fixture in
-   ``'full'`` mode in float32 on the kernels within 1e-4 of float64.
+   ``'full'`` mode in float32 on the kernels within 1e-4 of float64;
+17. the serving artifact (``export_serving`` / ``load_serving``, a
+   ``torch.export`` program that calls K3, K4, K1's ratio and K5 as custom
+   operators): the conv flagship's artifact (phase 5's dictionary,
+   ``sparsity_H=0.1``, symbolic batch) exported, written, loaded, and
+   loaded again in a fresh process that imports torch and the port alone;
+   requests of batch 1, 8 and 64 at 10 iterations under PyTorch's TF32
+   defaults (cuBLAS 'high', cuDNN TF32 on), counts reset before and read
+   after (K3 once per iteration, no other kernel, no plain version called),
+   H within 1e-6 of ``transform`` on the card (bits printed) and within
+   1e-4 of ``transform`` with ``use_pallas=False``; the inhibited flagship
+   (K4), the fft flagship (``mu_ratio``), plain-NMF HALS at 16384 x 4096
+   with 256 atoms (K5 once per iteration) and shift-invariant HALS in
+   ``'full'`` mode on the flagship's data (K5 81 times per iteration) the
+   same way, HALS also against float64 within phase 16's margin; ms per
+   request and per iteration (CUDA events) of each artifact beside
+   ``transform``'s compute, in turns, the host time of a request, export
+   time, file size and peak memory.
 
-Phases 7, 10, 12, 13, 14, 15 and 16 hold fits on the kernels against the same
-fits with ``use_pallas=False`` (the model's kernel/plain switch).
+Phases 7, 10, 12, 13, 14, 15, 16 and 17 hold fits on the kernels against the
+same fits with ``use_pallas=False`` (the model's kernel/plain switch).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths, error, times and bound; the last line is
@@ -191,7 +208,7 @@ import numpy as np
 import torch
 
 from tnmf_tpu_torch import (MiniBatchAlgorithm, TransformInvariantNMF, engine, engine_hals,
-                            engine_hals_conv)
+                            engine_hals_conv, load_serving)
 from tnmf_tpu_torch.kernels import _build, gw, hals, inhibit, mu, mu_h
 from tnmf_tpu_torch.ops import conv
 from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
@@ -2695,6 +2712,289 @@ def phase_hals() -> tuple:
     return total, out
 
 
+#: the serving artifact (phase 17): request batch sizes at the conv
+#: flagship, iterations per MU request, per HALS request, and the tolerance
+#: of an artifact against ``transform`` on the card (the same kernels)
+SERVE_BATCHES = (1, 8, 64)
+SERVE_ITER = 10
+SERVE_HALS_ITER = 3
+SERVE_TOL = 1e-6
+#: what a loaded artifact may import besides torch and the port
+SERVE_CHILD = r'''
+import sys, torch, tnmf_tpu_torch
+served = tnmf_tpu_torch.load_serving(sys.argv[1])
+shape = [1] + served.header['input_shape'][1:]
+H = served.transform(torch.rand(shape, device=sys.argv[2]), n_iterations=2)
+others = sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', 'tnmf_tpu'})
+print(tuple(H.shape), bool(torch.isfinite(H).all()), others)
+'''
+
+
+@contextlib.contextmanager
+def tf32_defaults():
+    """Inside the block PyTorch's TF32 switches are on for cuBLAS and cuDNN
+    (matmul precision 'high', the cuDNN default): what a serving process
+    may have set; the caller's settings come back on exit."""
+    saved = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.set_float32_matmul_precision('high')
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved[1:]
+
+
+@contextlib.contextmanager
+def every_plain_call():
+    """Inside the block every plain version counts its calls, the engine's
+    names and the kernel modules' own (which a wrapper calls on CPU
+    tensors): yields the counts, read after the block."""
+    sites = [(engine, name + '_plain') for name in ENGINE_KERNELS]
+    sites += [(engine_hals, 'hals_sweep_plain'), (mu, 'mu_ratio_plain'), (mu, 'mu_w_plain'),
+              (mu_h, 'mu_h_plain'), (inhibit, 'inhibited_mu_h_plain'), (gw, 'grad_w_plain'),
+              (hals, 'hals_sweep_plain')]
+    calls = {}
+    saved = [(module, name, getattr(module, name)) for module, name in sites]
+
+    def counting(key, fn):
+        def call(*args, **kwargs):
+            calls[key] = calls.get(key, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+    for module, name, fn in saved:
+        setattr(module, name, counting(f'{module.__name__}.{name}', fn))
+    try:
+        yield calls
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def _export(make, sample_shape, label, **export) -> tuple:
+    """``make()``'s artifact for ``sample_shape`` (symbolic batch) written to
+    a temporary file and loaded from it: ``(served, model, seconds, bytes)``."""
+    model = make()
+    path = Path(tempfile.mkdtemp()) / f'{label}.tnmfsrt'
+    sync()
+    t0 = time.perf_counter()
+    model.export_serving(path=str(path), sample_shape=sample_shape, **export)
+    seconds = time.perf_counter() - t0
+    size = path.stat().st_size
+    served = load_serving(str(path))
+    log(f'serving {label}: export {seconds:.2f} s, {size} bytes, sections '
+        f'{served.header["sections"]}')
+    return served, model, seconds, size, path
+
+
+def _serve_check(label, served, model, V, n_iter, kernel, refs, transform_kw,
+                 limit=None) -> tuple:
+    """One request of ``V`` (a CUDA tensor) under the TF32 defaults, counts
+    reset before and read after, every plain version counting: ``kernel``
+    launched as ``n_iter`` times ``per`` (K5: once per phase), no other
+    kernel and no plain version.  H against ``transform`` on the card
+    (within ``SERVE_TOL``, bits printed) and against each reference
+    ``refs[name]() -> H`` (``limit``: the tolerance of each, default 1e-4).
+    Returns the H, the launches, the distances and the request's peak
+    device memory beyond what was allocated before it (MiB)."""
+    kernel, per = kernel
+    sync()
+    reset_counts()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with every_plain_call() as plain, tf32_defaults():
+        H = served.transform(V, n_iterations=n_iter)
+        sync()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**20
+    launches = counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want[kernel] = n_iter * per
+    reset_counts()
+    H_t = model.transform(V, n_iterations=n_iter, **transform_kw)
+    sync()
+    got = H.cpu().numpy()
+    bits = np.array_equal(got, H_t)
+    rel = dict(transform=_rel(got, H_t))
+    for name, ref in refs.items():
+        rel[name] = _rel(got, ref())
+    log(f'serving {label}: batch {V.shape[0]}, {n_iter} iterations, launches '
+        f'{ {k: v for k, v in launches.items() if v} }, plain calls {plain}; H '
+        + ('bit-equal to' if bits else f'{rel["transform"]:.3e} off') + ' transform, '
+        + ', '.join(f'{rel[k]:.3e} off {k}' for k in refs)
+        + f'; the request took {peak:.0f} MiB of device memory beyond its input and models')
+    if launches != want or plain:
+        raise AssertionError(f'serving {label}: launches {launches} (not {want}) or plain '
+                             f'calls {plain}')
+    limits = dict(transform=SERVE_TOL, **{k: (limit or {}).get(k, TOL) for k in refs})
+    bad = {k: v for k, v in rel.items() if not v <= limits[k]}
+    if bad or not np.isfinite(got).all():
+        raise AssertionError(f'serving {label}: H off {bad} (limits {limits}), or not finite')
+    return H, launches, rel, peak
+
+
+def _request_ms(served, model, V, n_iter, transform_kw, reps=3) -> dict:
+    """ms per request of the artifact and of ``transform``'s compute
+    (``fit_batch`` with W frozen, H left on the card) on the same CUDA
+    tensor, CUDA events, in turns (artifact, transform, transform,
+    artifact) after a warm-up of each; and the artifact's host time per
+    request (the call, then a synchronisation)."""
+    def artifact():
+        served.transform(V, n_iterations=n_iter)
+
+    def transform():
+        model.fit_batch(V, n_iterations=n_iter, update_W=False, keep_W=True, **transform_kw)
+    for fn in (artifact, transform):
+        fn()
+    times = [time_ms(fn, reps=reps) for fn in (artifact, transform, transform, artifact)]
+    host = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        artifact()
+        sync()
+        host.append(1e3 * (time.perf_counter() - t0))
+    ms, t_ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+    return dict(ms=ms, ms_per_iteration=ms / n_iter, transform_ms=t_ms,
+                transform_ms_per_iteration=t_ms / n_iter, turns_ms=times,
+                host_ms=float(np.median(host)))
+
+
+def _serve_flagship(W: np.ndarray, total: dict) -> dict:
+    """The conv flagship's artifact (K3): export, a fresh process that loads
+    it, then requests of each batch size against ``transform``, against the
+    same call with ``use_pallas=False``, and timed."""
+    f = FLAGSHIP
+    fit = dict(sparsity_H=f['sparsity'])
+
+    def make(use_pallas=None):
+        return TransformInvariantNMF(f['M'], f['A'], h_init='correlate', device=DEVICE,
+                                     use_pallas=use_pallas).set_dictionary(W)
+    served, model, seconds, size, path = _export(make, f['S'], 'conv flagship',
+                                                 n_iterations=SERVE_ITER, **fit)
+    child = subprocess.run([sys.executable, '-c', SERVE_CHILD, str(path), DEVICE], cwd=ROOT,
+                           capture_output=True, text=True, timeout=300)
+    log(f'serving conv flagship: a fresh process loading the file: {child.stdout.strip()} '
+        f'(exit {child.returncode}) {child.stderr.strip()[-500:]}')
+    if child.returncode != 0 or not child.stdout.strip().endswith('True []'):
+        raise AssertionError('the artifact did not serve in a process of torch and '
+                             'tnmf_tpu_torch alone')
+    V_all = torch.as_tensor(np.random.default_rng(SEED + 1).random(
+        (max(SERVE_BATCHES), f['C']) + f['S'], dtype=np.float32), device=DEVICE)
+    plain_model = make(use_pallas=False)
+    out = dict(export_s=seconds, file_bytes=size, requests={})
+    for b in SERVE_BATCHES:
+        V = V_all[:b]
+        _, launches, rel, peak = _serve_check(
+            'conv flagship', served, model, V, SERVE_ITER, ('mu_h', 1),
+            dict(use_pallas_false=lambda: plain_model.transform(V, n_iterations=SERVE_ITER,
+                                                                **fit)), fit)
+        for name, n in launches.items():
+            total[name] += n
+        out['launches_per_iteration'] = {k: n / SERVE_ITER for k, n in launches.items() if n}
+        times = _request_ms(served, model, V, SERVE_ITER, fit)
+        times.update(request_mib=peak, rel=rel)
+        out['requests'][b] = times
+        log(f'serving conv flagship, batch {b} ({card()}): artifact {times["ms"]:.4f} ms per '
+            f'request ({times["ms_per_iteration"]:.4f} ms per iteration), transform '
+            f'{times["transform_ms"]:.4f} ms ({times["transform_ms_per_iteration"]:.4f}); in '
+            f'turns {[round(t, 4) for t in times["turns_ms"]]}; host {times["host_ms"]:.3f} ms '
+            f'per request; the request\'s own peak {peak:.0f} MiB')
+    path.unlink()
+    return out
+
+
+def _serve_kinds(W: np.ndarray, total: dict) -> dict:
+    """The other artifact kinds: the inhibited flagship (K4), the fft
+    flagship (K1 ``mu_ratio``), plain-NMF HALS at 16384 x 4096 with 256
+    atoms (K5) and shift-invariant HALS in 'full' mode on the flagship's
+    data (K5 once per phase), each against ``transform``, ``use_pallas=False``
+    and, for HALS, float64 (within phase 16's margin), then timed."""
+    f, hp, hc = FLAGSHIP, HALS_PLAIN, HALS_CONV
+    rng = np.random.default_rng(SEED + 70)
+    W_plain = rng.random((hp['M'], 1, hp['F']))
+    W_conv = rng.random((hc['M'], hc['C']) + hc['A'])
+    kinds = [
+        ('inhibited flagship', lambda **kw: TransformInvariantNMF(
+            f['M'], f['A'], h_init='correlate', device=DEVICE, **kw).set_dictionary(W),
+         f['S'], 8, SERVE_ITER, ('inhibited_mu_h', 1),
+         dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition'],
+              cross_atom_inhibition_strength=f['cross']), {}),
+        ('fft flagship', lambda **kw: TransformInvariantNMF(
+            f['M'], f['A'], h_init='correlate', backend='jax_fft', device=DEVICE,
+            **kw).set_dictionary(W),
+         f['S'], 8, SERVE_ITER, ('mu_ratio', 1), dict(sparsity_H=f['sparsity']), {}),
+        ('HALS plain NMF', lambda **kw: TransformInvariantNMF(
+            hp['M'], (hp['F'],), reconstruction_mode='full', h_init='correlate',
+            device=DEVICE, **kw).set_dictionary(W_plain),
+         (hp['F'],), hp['N'], SERVE_HALS_ITER, ('hals_sweep', 1), {},
+         dict(solver='hals', hals_inner=1)),
+        ('HALS shift-invariant flagship', lambda **kw: TransformInvariantNMF(
+            hc['M'], hc['A'], reconstruction_mode='full', h_init='correlate', device=DEVICE,
+            **kw).set_dictionary(W_conv),
+         hc['S'], 8, SERVE_HALS_ITER, ('hals_sweep', math.prod(hc['A'])),
+         dict(sparsity_H=hc['sparsity']), dict(solver='hals')),
+    ]
+    out = {}
+    for label, make, S, b, n_iter, kernel, regs, solver in kinds:
+        served, model, seconds, size, path = _export(
+            make, S, label, n_iterations=n_iter, **regs,
+            **({'solver': 'hals'} if solver else {}))
+        V = torch.as_tensor(np.random.default_rng(SEED + 71).random(
+            (b, 1) + S, dtype=np.float32), device=DEVICE)
+        fit = dict(regs, **solver)
+        refs = dict(use_pallas_false=lambda: make(use_pallas=False).transform(
+            V, n_iterations=n_iter, **fit))
+        limit = None
+        if solver:  # HALS: against float64 too, within phase 16's margin
+            plain32 = refs['use_pallas_false']()
+            H64 = make(dtype=torch.float64).transform(V.double(), n_iterations=n_iter, **fit)
+            margin = max(HALS_TOL, 2 * _rel(plain32, H64))
+            refs = dict(use_pallas_false=lambda: plain32, float64=lambda: H64)
+            limit = dict(use_pallas_false=margin, float64=margin)
+        _, launches, rel, peak = _serve_check(label, served, model, V, n_iter, kernel, refs,
+                                              fit, limit)
+        for name, n in launches.items():
+            total[name] += n
+        times = _request_ms(served, model, V, n_iter, fit, reps=2)
+        times.update(request_mib=peak, export_s=seconds,
+                     file_bytes=size, batch=b, rel=rel,
+                     launches_per_iteration={k: n / n_iter for k, n in launches.items() if n})
+        out[label] = times
+        log(f'serving {label}, batch {b} ({card()}): artifact {times["ms"]:.4f} ms per '
+            f'request ({times["ms_per_iteration"]:.4f} ms per iteration), transform '
+            f'{times["transform_ms"]:.4f} ms ({times["transform_ms_per_iteration"]:.4f}); '
+            f'host {times["host_ms"]:.3f} ms; the request\'s own peak {peak:.0f} MiB')
+        path.unlink()
+        del served, model, V
+    return out
+
+
+def phase_serving(W: np.ndarray = None) -> tuple:
+    """Phase 17: the serving artifact on the kernels (K3, K4, K1's ratio and
+    K5 as custom operators in a ``torch.export`` program), against phase
+    5's dictionary ``W`` (run alone: the same fit of the flagship, plain);
+    returns the launches and the measurements."""
+    if W is None:
+        f = FLAGSHIP
+        nmf = TransformInvariantNMF(f['M'], f['A'], reconstruction_mode=f['mode'], seed=SEED,
+                                    device=DEVICE)
+        nmf.fit(np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'],
+                                                   dtype=np.float32),
+                n_iterations=N_ITER, sparsity_H=f['sparsity'])
+        W = nmf.W
+        del nmf
+    total = dict.fromkeys(KERNELS, 0)
+    out = {'conv flagship': _serve_flagship(W, total)}
+    out.update(_serve_kinds(W, total))
+    missing = [name for name in ('mu_h', 'inhibited_mu_h', 'mu_ratio', 'hals_sweep')
+               if not total[name]]
+    if missing:
+        raise AssertionError(f'phase 17 launched no {missing}')
+    return total, out
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -2731,6 +3031,10 @@ def main() -> int:
     log('HALS (phase 16):')
     hals_launches, hals_out = phase_hals()
     log(f'HALS times ({card()}): ' + json.dumps(hals_out))
+    log('the serving artifact (phase 17):')
+    srv_launches, srv = phase_serving(W)
+    log(f'serving times ({card()}): ' + json.dumps(srv))
+    srv_per_iteration = {kind: d['launches_per_iteration'] for kind, d in srv.items()}
     k5 = hals_out['k5']
     errors['hals_sweep'] = k5[K5_CASES[0][0]]['max_abs_err']
     times['hals_sweep'] = dict(
@@ -2744,7 +3048,7 @@ def main() -> int:
     rows = [dict(name=name, route='cuda', source=k['source'], replaces=k['replaces'],
                  launches=(launches[name] + enc_launches[name] + st_launches[name]
                            + mb_launches[name] + obj_launches[name] + grp_launches[name]
-                           + hals_launches[name]),
+                           + hals_launches[name] + srv_launches[name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
@@ -2754,6 +3058,9 @@ def main() -> int:
                  d4_flagship_128_maps=at_128.get(name),
                  hals_launches_per_iteration={cfg: n.get(name, 0)
                                               for cfg, n in per_iteration.items()},
+                 serving_launches=srv_launches[name],
+                 serving_launches_per_iteration={kind: n.get(name, 0)
+                                                 for kind, n in srv_per_iteration.items()},
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     log(device['smi'])  # again here: the build's report may push the first one out of a tail

@@ -258,6 +258,33 @@ def test_transform_hals_matches_jax():
     np.testing.assert_allclose(pm.W, jm.W, **TOL)
 
 
+def test_float32_fit_on_a_nearly_rank_one_gram_is_no_farther_off_than_jax():
+    """C1 (ROADMAP.md section 3): plain-NMF HALS on random nonnegative
+    samples, 2048 x 512 with 64 atoms, whose W-sweep Gram ``H^T H`` is
+    nearly rank one.  After 2 iterations from one seeded start the port's
+    float32 fit is no farther from its float64 fit than the JAX package's
+    float32 fit is from the same float64 fit (both about 1e-5 off here;
+    the float64 fits agree to 1e-13)."""
+    V = np.random.default_rng(0).random((2048, 1, 512))
+    fits = {}
+    for module in PACKAGES:
+        for dtype in ('float32', 'float64'):
+            kw = dict(device='cpu', dtype=getattr(torch, dtype)) if module is tnmf_tpu_torch \
+                else dict(dtype=dtype)
+            m = module.TransformInvariantNMF(64, (512,), reconstruction_mode='full', seed=0,
+                                             **kw)
+            m.fit(V.astype(dtype), n_iterations=2, solver='hals')
+            fits[module, dtype] = (np.asarray(m.W, np.float64), np.asarray(m.H, np.float64))
+
+    def off(module, i):
+        got, want = fits[module, 'float32'][i], fits[tnmf_tpu_torch, 'float64'][i]
+        return np.max(np.abs(got - want)) / np.max(np.abs(want))
+    for i in (0, 1):  # W, then H
+        np.testing.assert_allclose(fits[tnmf_tpu_torch, 'float64'][i],
+                                   fits[tnmf_tpu, 'float64'][i], **TOL)
+        assert off(tnmf_tpu_torch, i) <= off(tnmf_tpu, i) < 1e-3
+
+
 REJECTIONS = [
     dict(solver='hals', inhibition_strength=0.1),
     dict(solver='hals', cross_atom_inhibition_strength=0.1),

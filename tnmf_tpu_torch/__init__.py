@@ -28,8 +28,9 @@ ROADMAP.md for the rest)::
 
 from .engine_minibatch import MiniBatchAlgorithm
 from .models.tnmf import MiniBatchTransformInvariantNMF, TransformInvariantNMF, from_numpy
+from .serving import ServingModel, export_serving, load_serving
 
 __all__ = ['TransformInvariantNMF', 'MiniBatchTransformInvariantNMF', 'MiniBatchAlgorithm',
-           'from_numpy']
+           'from_numpy', 'export_serving', 'load_serving', 'ServingModel']
 
 __version__ = '0.3.0.dev0'

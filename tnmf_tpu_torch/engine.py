@@ -91,15 +91,16 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from .kernels.gw import grad_w, grad_w_plain
-from .kernels.inhibit import inhibited_mu_h, inhibited_mu_h_plain
-from .kernels.mu import mu_ratio, mu_ratio_plain, mu_w, mu_w_plain
-from .kernels.mu_h import mu_h, mu_h_plain
+from .kernels.inhibit import inhibited_mu_h_plain
+from .kernels.mu import mu_ratio_plain, mu_w, mu_w_plain
+from .kernels.mu_h import mu_h_plain
+from .kernels.ops import inhibited_mu_h, mu_h, mu_ratio
 from .ops import beta as beta_ops
 from .ops import conv as conv_ops
 from .ops import dot as dot_ops
 from .ops import fft as fft_ops
 from .ops.modes import ConvPlan
-from .ops.precision import full_fp32_matmul
+from .ops.precision import exporting, full_fp32_matmul
 from .ops.transforms import GroupOps, TransformGroup, expand_w, split_strategy, tie_back
 
 EPS = 1.0e-9  # reference: TransformInvariantNMF.py:166
@@ -143,10 +144,11 @@ def _pinned(fn):
     """Run ``fn`` with full float32 products (:func:`full_fp32_matmul`) when
     its ``strategy`` keyword (or a group's base strategy) is fft or dot; conv
     runs no matrix product and is left as it was.  Nested calls find the pin
-    set and leave it."""
+    set and leave it.  While a program is exported the pin stands aside
+    (:func:`~tnmf_tpu_torch.ops.precision.exporting`)."""
     @functools.wraps(fn)
     def call(*args, strategy: Strategy = 'conv', **kwargs):
-        if split_strategy(strategy)[0] == 'conv':
+        if split_strategy(strategy)[0] == 'conv' or exporting():
             return fn(*args, strategy=strategy, **kwargs)
         with full_fp32_matmul():
             return fn(*args, strategy=strategy, **kwargs)
@@ -295,7 +297,11 @@ def _conv_streams(Vp: torch.Tensor, R: torch.Tensor, plan: ConvPlan, beta: float
         return Vp, conv_ops.extend_data(R if mask is None else R * mask.to(R.dtype), plan)
     A, B = _beta_factors(conv_ops, 'conv', Vp, R, plan, beta, mask)
     if B is None:
-        B = _extension_pattern(plan, 'conv', R.shape[1], A.shape[0], A.dtype, A.device)
+        if exporting():  # a symbolic batch: built in the program, not cached
+            P = _extension_pattern.__wrapped__(plan, 'conv', R.shape[1], 1, A.dtype, A.device)
+            B = P.expand(A.shape).contiguous()
+        else:
+            B = _extension_pattern(plan, 'conv', R.shape[1], A.shape[0], A.dtype, A.device)
     return A, B
 
 

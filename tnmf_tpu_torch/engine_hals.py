@@ -42,9 +42,10 @@ from typing import Optional
 import torch
 
 from . import engine
-from .kernels.hals import hals_sweep, hals_sweep_plain
+from .kernels.hals import hals_sweep_plain
+from .kernels.ops import hals_sweep
 from .ops import beta as beta_ops
-from .ops.precision import full_fp32_matmul
+from .ops.precision import exporting, full_fp32_matmul
 
 
 def _acc_dtype(*xs) -> torch.dtype:
@@ -62,9 +63,12 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _pinned(fn):
-    """Run ``fn`` with full float32 products (one pin per outermost call)."""
+    """Run ``fn`` with full float32 products (one pin per outermost call;
+    none while a program is exported)."""
     @functools.wraps(fn)
     def call(*args, **kwargs):
+        if exporting():
+            return fn(*args, **kwargs)
         with full_fp32_matmul():
             return fn(*args, **kwargs)
     return call

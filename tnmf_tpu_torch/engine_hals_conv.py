@@ -53,6 +53,7 @@ from . import engine
 from .engine_hals import _acc_dtype, _pinned, _sweep_H
 from .ops import conv as conv_ops
 from .ops.modes import ConvPlan
+from .ops.precision import fp32_convolutions
 
 _CONV = {1: (F.conv1d, F.conv_transpose1d), 2: (F.conv2d, F.conv_transpose2d),
          3: (F.conv3d, F.conv_transpose3d)}
@@ -113,29 +114,26 @@ def _valid(A, T, K, device) -> torch.Tensor:
     return valid.reshape(math.prod(A), math.prod(K))
 
 
-def h_phase_sweep(E_pad: torch.Tensor, H_pm: torch.Tensor, W: torch.Tensor, G: torch.Tensor,
-                  l1: float, l2: float, *, plan: ConvPlan, inner: int,
-                  use_pallas: bool = True):
-    """One exact Gauss–Seidel pass over all ``prod(A)`` phases of H.
-
-    ``E_pad``: the residual ``V - R`` zero-padded to ``Tp + A - 1`` per axis;
-    ``H_pm``: H in the phase-major carry ``(P, n, M, prod(K))``.  Both are
-    updated in place (the loops own them) and returned; the residual stays
-    consistent with the returned H.  Each phase's sweep is one K5 launch
-    (or its plain version, under the engine's gate)."""
+def _sweep_phases(E_pad: torch.Tensor, phases, W: torch.Tensor, G: torch.Tensor, l1: float,
+                  l2: float, plan: ConvPlan, inner: int, use_pallas: bool, store) -> None:
+    """The phases of one exact Gauss–Seidel pass, in order: ``phases[p]``
+    holds phase ``p``'s ``(n, M, prod(K))`` maps (a phase-major carry, or
+    a sequence of them); for each phase the residual window is updated in
+    place in ``E_pad`` and ``store(p, maps)`` takes the new maps, after
+    the sweep's last read of ``phases[p]``."""
     A, T, K, Tp = _geom(plan)
-    n_phases, n, M, nk = H_pm.shape
+    n, M, nk = phases[0].shape
     acc = G.dtype
     corr, place = _convs(plan.ndim)
     Wc = W.to(acc)
-    valid = _valid(A, T, K, H_pm.device)
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        for p in range(n_phases):
+    valid = _valid(A, T, K, E_pad.device)
+    with fp32_convolutions():
+        for p in range(len(phases)):
             starts = _phase_starts(p, A)
             window = (slice(None), slice(None)) + tuple(
                 slice(s, s + tp) for s, tp in zip(starts, Tp))
             Esl = E_pad[window]                                      # (n, C, *Tp)
-            Hp = H_pm[p]                                             # (n, M, nk)
+            Hp = phases[p]                                           # (n, M, nk)
             rows = Hp.transpose(1, 2).reshape(n * nk, M)
             # the phase's patch correlations: one strided convolution
             Pc = corr(Esl.to(acc), Wc, stride=A)                     # (n, M, *K)
@@ -149,8 +147,36 @@ def h_phase_sweep(E_pad: torch.Tensor, H_pm: torch.Tensor, W: torch.Tensor, G: t
             # disjoint placement of each position's atom at its stride-A offset
             dR = place(delta.to(acc), Wc, stride=A)                  # (n, C, *Tp)
             Esl.sub_(dR.to(Esl.dtype))
-            H_pm[p] = new_pm
+            store(p, new_pm)
+
+
+def h_phase_sweep(E_pad: torch.Tensor, H_pm: torch.Tensor, W: torch.Tensor, G: torch.Tensor,
+                  l1: float, l2: float, *, plan: ConvPlan, inner: int,
+                  use_pallas: bool = True):
+    """One exact Gauss–Seidel pass over all ``prod(A)`` phases of H.
+
+    ``E_pad``: the residual ``V - R`` zero-padded to ``Tp + A - 1`` per axis;
+    ``H_pm``: H in the phase-major carry ``(P, n, M, prod(K))``.  Both are
+    updated in place (the loops own them) and returned; the residual stays
+    consistent with the returned H.  Each phase's sweep is one K5 launch
+    (or its plain version, under the engine's gate)."""
+    _sweep_phases(E_pad, H_pm, W, G, l1, l2, plan, inner, use_pallas, H_pm.__setitem__)
     return E_pad, H_pm
+
+
+def h_phase_sweep_copy(E_pad: torch.Tensor, H_bm: torch.Tensor, W: torch.Tensor,
+                       G: torch.Tensor, l1: float, l2: float, *, plan: ConvPlan, inner: int,
+                       use_pallas: bool = True):
+    """:func:`h_phase_sweep` on the batch-major carry ``H_bm (n, P, M,
+    prod(K))`` (:func:`_encode` with ``batch_major``) into new tensors, its
+    arguments left as they were: the body of a traced loop must not write
+    its carries, and under a symbolic batch no stride of a carry may depend
+    on it.  The residual is copied once, the phases' maps stacked once."""
+    E_pad = E_pad.clone()
+    phases = []
+    _sweep_phases(E_pad, H_bm.unbind(1), W, G, l1, l2, plan, inner, use_pallas,
+                  lambda p, maps: phases.append(maps))
+    return E_pad, torch.stack(phases, dim=1)
 
 
 def _pad_to(x: torch.Tensor, spatial: tuple) -> torch.Tensor:
@@ -168,24 +194,35 @@ def _residual(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor, plan: ConvPlan)
     return _pad_to((V - R.to(V.dtype)).to(V.dtype), tuple(t + a - 1 for t, a in zip(Tp, A)))
 
 
-def _encode(V, W, H, plan: ConvPlan):
-    """Canonical ``(V, W, H)`` -> the loop-carried ``(E_pad, H_pm)`` pair."""
+def _encode(V, W, H, plan: ConvPlan, batch_major: bool = False):
+    """Canonical ``(V, W, H)`` -> the loop-carried ``(E_pad, H_pm)`` pair;
+    ``batch_major``: H as ``(n, P, M, prod(K))``."""
     A, T, K, Tp = _geom(plan)
     d = plan.ndim
     n, M = H.shape[:2]
     Hr = _pad_to(H, Tp).reshape((n, M) + tuple(x for ka in zip(K, A) for x in ka))
-    perm = tuple(3 + 2 * i for i in range(d)) + (0, 1) + tuple(2 + 2 * i for i in range(d))
-    H_pm = Hr.permute(perm).reshape((math.prod(A), n, M, math.prod(K)))
+    a_axes, k_axes = tuple(3 + 2 * i for i in range(d)), tuple(2 + 2 * i for i in range(d))
+    if batch_major:
+        H_pm = Hr.permute((0,) + a_axes + (1,) + k_axes).reshape(
+            (n, math.prod(A), M, math.prod(K)))
+    else:
+        H_pm = Hr.permute(a_axes + (0, 1) + k_axes).reshape((math.prod(A), n, M, math.prod(K)))
     return _residual(V, W, H, plan), H_pm
 
 
-def _decode_h(H_pm: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
-    """The phase-major carry back to the canonical ``(n, M, *T)``."""
+def _decode_h(H_pm: torch.Tensor, plan: ConvPlan, batch_major: bool = False) -> torch.Tensor:
+    """The phase-major (``batch_major``: batch-major) carry back to the
+    canonical ``(n, M, *T)``."""
     A, T, K, Tp = _geom(plan)
     d = plan.ndim
-    _, n, M, _ = H_pm.shape
-    Hr = H_pm.reshape(tuple(A) + (n, M) + tuple(K))
-    inv = (d, d + 1) + tuple(x for i in range(d) for x in (d + 2 + i, i))
+    if batch_major:
+        n, _, M, _ = H_pm.shape
+        Hr = H_pm.reshape((n,) + tuple(A) + (M,) + tuple(K))
+        inv = (0, d + 1) + tuple(x for i in range(d) for x in (d + 2 + i, 1 + i))
+    else:
+        _, n, M, _ = H_pm.shape
+        Hr = H_pm.reshape(tuple(A) + (n, M) + tuple(K))
+        inv = (d, d + 1) + tuple(x for i in range(d) for x in (d + 2 + i, i))
     H = Hr.permute(inv).reshape((n, M) + Tp)
     return H[(Ellipsis,) + tuple(slice(0, t) for t in T)].contiguous()
 

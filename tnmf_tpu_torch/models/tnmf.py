@@ -527,16 +527,21 @@ class TransformInvariantNMF:
     # initialization
     # ------------------------------------------------------------------
 
-    def _check_strategy(self):
-        """Resolve the requested backend for the current plan (the JAX
-        ``choose_strategy`` / ``resolve_strategy``) into ``_strategy``, the
-        tuple ``(base, group)`` under a transform group."""
+    def _strategy_for(self, plan: ConvPlan) -> engine.Strategy:
+        """The requested backend resolved for ``plan`` (the JAX
+        ``choose_strategy`` / ``resolve_strategy``), the tuple ``(base,
+        group)`` under a transform group."""
         strategy = self._strategy_request
         if strategy == 'auto':
-            strategy = engine.choose_strategy(self._plan)
-        strategy = engine.resolve_strategy(strategy, self._plan)
+            strategy = engine.choose_strategy(plan)
+        strategy = engine.resolve_strategy(strategy, plan)
         engine.require_ported(strategy)
-        self._strategy = strategy if self._group is None else (strategy, self._group)
+        return strategy if self._group is None else (strategy, self._group)
+
+    def _check_strategy(self):
+        """Resolve the requested backend for the current plan into
+        ``_strategy``."""
+        self._strategy = self._strategy_for(self._plan)
 
     def _plan_for(self, sample_shape) -> ConvPlan:
         return ConvPlan.create(self._reconstruction_mode, sample_shape, self.atom_shape,
@@ -1295,6 +1300,14 @@ class TransformInvariantNMF:
                            mask=mask[s] if per_sample else mask, **kwargs)
             out.append(self.H)
         return np.concatenate(out, axis=0)
+
+    def export_serving(self, path: Optional[str] = None, **kwargs) -> bytes:
+        """Serialize the encoding step ``V -> H`` against the current
+        dictionary to a serving artifact (:func:`tnmf_tpu_torch.serving.export_serving`;
+        ``kwargs`` are its keywords); also written to ``path`` when given.
+        Returns the artifact bytes."""
+        from ..serving import export_serving
+        return export_serving(self, path=path, **kwargs)
 
     def fit_transform(self, V, y=None, **kwargs) -> np.ndarray:
         """``fit(V, **kwargs)``, then the learned activations ``H``."""

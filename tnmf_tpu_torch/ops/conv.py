@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .modes import ConvPlan
+from .precision import fp32_convolutions
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
@@ -39,7 +40,7 @@ def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError(
             'direct-conv strategy supports up to 3 shift dimensions; the fft '
             "strategy takes any number (backend='jax_fft', or 'auto')") from None
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    with fp32_convolutions():
         return conv(x, w)
 
 

@@ -43,8 +43,10 @@ def reconstruct(W: torch.Tensor, H: torch.Tensor, plan: ConvPlan) -> torch.Tenso
 
 def corr_H(Xp: torch.Tensor, W: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     """Single-stream H-gradient product ``G[n,m] = sum_{cF} Xp[n,cF] W[m,cF]``."""
-    G = torch.matmul(Xp.reshape(Xp.shape[0], -1), W.reshape(W.shape[0], -1).T)
-    return G.to(W.dtype).reshape(G.shape + (1,) * plan.ndim)
+    # flatten and unit axes added by indexing: no size of the batch is read,
+    # which a traced program holds symbolic (the stacked pair's is a sum)
+    G = torch.matmul(Xp.flatten(1), W.flatten(1).T)
+    return G.to(W.dtype)[(Ellipsis,) + (None,) * plan.ndim]
 
 
 def corr_W(Xp: torch.Tensor, H: torch.Tensor, plan: ConvPlan) -> torch.Tensor:

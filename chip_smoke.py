@@ -154,10 +154,14 @@ failure (exit code != 0, no result line):
    from a CUDA tensor within 1e-6 of the NumPy array's windows, with no
    host copy of the data;
 16. HALS (``fit(solver='hals')``): K5 ``hals_sweep`` against its plain
-   version (within 1e-5, two launches bit-identical, timed in turns beside
-   its bound) at the H side of plain NMF at production scale (16384 x 256),
-   its W side (4096 x 256), the rows of one phase of the shift-invariant
-   flagship (50176 x 16), a ragged 1000 x 37 and 3 passes; plain-NMF HALS
+   version (within 1e-5, two launches bit-identical, the output in X's
+   layout, timed in turns beside its bound, its earlier time, its geometry
+   and the host's time per call; both versions' distance from float64) at
+   the H side of plain NMF at production scale (16384 x 256, row-major),
+   its W side (4096 x 256, on transposed views as the engine passes them),
+   the rows of one phase of the shift-invariant flagship (50176 x 16), a
+   ragged 1000 x 37, 3 passes and 2048 x 4096, whose tile of X no block
+   holds (the streamed route); plain-NMF HALS
    on 16384 x 1 x 4096 with 256 atoms (``'auto'``: 1 sweep; K5 twice per
    iteration) and shift-invariant HALS on the flagship's data in ``'full'``
    mode with ``sparsity_H=0.1`` (81 phases: K5 81 times, K2 and
@@ -2426,64 +2430,117 @@ HALS_PLAIN = dict(N=16384, F=4096, M=256)
 #: shift-invariant HALS at the flagship's data ('full': H is 64 x 16 x 248 x 248)
 HALS_CONV = dict(N=64, C=1, S=(256, 256), M=16, A=(9, 9), sparsity=0.1)
 #: K5 alone: (where, rows, components, length of the factor the Gram sums
-#: over, passes); the shapes of the main paths and a ragged one
+#: over, passes, options of ``_k5_inputs``); the shapes of the main paths,
+#: a ragged one and one whose tile of X no block's shared memory holds (the
+#: streamed route).  ``layout='views'``: X, G and P transposed views of
+#: contiguous tensors, as the W sweep launches ``W^T``, ``A^T`` and ``B^T``
+#: (the others row-major, as the H and phase sweeps launch them).  At 4096
+#: components dense atoms make a Gram so near rank one that two float32
+#: sum orders of the plain version differ by more than ``K5_TOL``; the
+#: streamed case takes atoms of about 64 nonzeros in 8192 (``density``),
+#: and every case prints both versions' distance from float64
 K5_CASES = [
-    ('H side 16384x256', 16384, 256, 4096, 1),
-    ('W side 4096x256', 4096, 256, 16384, 1),
-    ('phase rows 50176x16', 50176, 16, 81, 1),
-    ('ragged 1000x37', 1000, 37, 300, 1),
-    ('H side 16384x256 inner 3', 16384, 256, 4096, 3),
+    ('H side 16384x256', 16384, 256, 4096, 1, {}),
+    ('W side 4096x256', 4096, 256, 16384, 1, dict(layout='views')),
+    ('phase rows 50176x16', 50176, 16, 81, 1, {}),
+    ('ragged 1000x37', 1000, 37, 300, 1, {}),
+    ('H side 16384x256 inner 3', 16384, 256, 4096, 3, {}),
+    ('streamed 2048x4096', 2048, 4096, 8192, 1, dict(density=1 / 128)),
 ]
+#: K5's times before its redesign, as PERF.md section 6 records them
+#: (NVIDIA H100 80GB HBM3, 700.00 W), printed as "earlier"
+K5_EARLIER_MS = {'H side 16384x256': 2.3527, 'W side 4096x256': 1.8180,
+                 'phase rows 50176x16': 0.0833, 'H side 16384x256 inner 3': 5.8644}
 
 
-def _k5_inputs(rows: int, m: int, length: int, seed: int) -> tuple:
+def _k5_inputs(rows: int, m: int, length: int, seed: int, layout: str = 'rows',
+               density: float = 1.0) -> tuple:
     """Random non-negative factors as a HALS sweep meets them: ``G = Y Y^T``
-    of a sum-normalised factor ``Y (m, length)``, ``P = Z Y^T`` of data ``Z``
-    near the span of ``Y``, and a random start ``X``; float32 on the card."""
+    of a sum-normalised factor ``Y (m, length)`` (each entry nonzero with
+    probability ``density``), ``P = Z Y^T`` of data ``Z`` near the span of
+    ``Y``, and a random start ``X``; float32 on the card, row-major or
+    (``'views'``) transposed views of contiguous tensors."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     Y = torch.rand((m, length), generator=g, device=DEVICE)
+    if density < 1:
+        Y *= torch.rand((m, length), generator=g, device=DEVICE) < density
     Y /= Y.sum(dim=1, keepdim=True)
     Z = (torch.rand((rows, m), generator=g, device=DEVICE) @ Y
          + 0.01 * torch.rand((rows, length), generator=g, device=DEVICE) / length)
     with full_fp32_matmul():
         G, P = Y @ Y.T, Z @ Y.T
     X = torch.rand((rows, m), generator=g, device=DEVICE)
+    if layout == 'views':
+        return tuple(t.T.contiguous().T for t in (X, G, P))
     return X, G.contiguous(), P.contiguous()
+
+
+def _host_us(fn, reps: int = 10) -> float:
+    """Host microseconds per call of ``fn`` (the time to issue it, no
+    synchronisation in the window), after a warm-up call."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / reps
+    sync()
+    return us
 
 
 def _k5_cases() -> dict:
     """K5 against its plain version at each case, timed in turns (plain,
-    kernel, kernel, plain), with its bound; returns the measurements."""
+    kernel, kernel, plain), with its bound, its earlier time, its geometry
+    and the host's time to issue a call; returns the measurements."""
     out = {}
-    for i, (where, rows, m, length, inner) in enumerate(K5_CASES):
-        X, G, P = _k5_inputs(rows, m, length, SEED + 40 + i)
+    for i, (where, rows, m, length, inner, options) in enumerate(K5_CASES):
+        X, G, P = _k5_inputs(rows, m, length, SEED + 40 + i, **options)
+        layout = options.get('layout', 'rows')
         args = (X, G, P, 0.1 / length, 0.0, inner)
         got, want = hals.hals_sweep(*args), hals.hals_sweep_plain(*args)
+        want64 = hals.hals_sweep_plain(*(t.double() for t in args[:3]), *args[3:])
         sync()
         err = float((got - want).abs().max())
         rel = err / float(want.abs().max())
+        # both versions' distance from float64 on the same float32 inputs
+        f64 = {name: float((t.double() - want64).abs().max() / want64.abs().max())
+               for name, t in (('kernel', got), ('plain', want))}
+        del want64
         again = hals.hals_sweep(*args)
         same = torch.equal(again, got)
         p1, k1, k2, p2 = (time_ms(lambda fn=fn: fn(*args), reps=3)
                           for fn in (hals.hals_sweep_plain, hals.hals_sweep, hals.hals_sweep,
                                      hals.hals_sweep_plain))
+        host_us = _host_us(lambda: hals.hals_sweep(*args))
         # X read and written, P and G read; 2 m^2 operations per row and pass
         work = (4 * (3 * rows * m + m * m), 2.0 * inner * rows * m * m)
         bound_ms, bound_by = bound(*work, FP32_FLOP_PER_S)
-        threads, smem = hals.launch_geometry(rows, m, X.device)
+        geo = hals.launch_geometry(rows, m, X.device)
         ms = (k1 + k2) / 2
+        earlier = K5_EARLIER_MS.get(where)
+        host_bound = host_us / 1e3 >= ms
         out[where] = dict(max_abs_err=err, rel=rel, ms=ms, plain_ms=(p1 + p2) / 2,
                           bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                          threads=threads, smem_bytes=smem)
-        log(f'  hals_sweep {where}: max_abs_err={err:.3e} rel={rel:.3e}, two launches '
-            f'{"bit-equal" if same else "DIFFER"}; kernel {k1:.4f}/{k2:.4f} ms, plain '
+                          earlier_ms=earlier, host_us=host_us, host_bound=host_bound,
+                          layout=layout, out_strides=list(got.stride()),
+                          float64_rel=f64, **geo)
+        log(f'  hals_sweep {where} ({layout}): max_abs_err={err:.3e} rel={rel:.3e} (from '
+            f'float64: kernel {f64["kernel"]:.3e}, plain {f64["plain"]:.3e}), two '
+            f'launches {"bit-equal" if same else "DIFFER"}; kernel {k1:.4f}/{k2:.4f} ms '
+            f'(earlier {"not recorded" if earlier is None else f"{earlier:.4f} ms"}), plain '
             f'{p1:.4f}/{p2:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), '
-            f'{100 * bound_ms / ms:.1f} % of bound; {threads} threads/block, '
-            f'{smem} B shared')
-        if not (rel <= K5_TOL and same and torch.isfinite(got).all()):
+            f'{100 * bound_ms / ms:.1f} % of bound; host {host_us:.1f} us per call'
+            f'{" (host-bound window)" if host_bound else ""}; {geo["rows_per_block"]} rows, '
+            f'panel {geo["panel"]}, {geo["threads"]} threads, {geo["blocks"]} blocks, '
+            f'{geo["smem_bytes"]} B shared, tile {"resident" if geo["resident"] else "streamed"}')
+        if not (rel <= K5_TOL and same and torch.isfinite(got).all()
+                and got.stride() == X.stride()):
             raise AssertionError(f'hals_sweep at {where}: {rel:.3e} off its plain version '
-                                 f'(> {K5_TOL}?), or launches differ, or not finite')
+                                 f'(> {K5_TOL}?), or launches differ, or not finite, or '
+                                 f'strides {got.stride()} not X\'s {X.stride()}')
         del X, G, P, got, want, again
+    if not any(not v['resident'] for v in out.values()):
+        raise AssertionError('no K5 case took the streamed route')
     return out
 
 

@@ -324,9 +324,14 @@ def test_operator(name):
 
 
 def test_hals_sweep_fake_on_cuda_is_the_kernels_layout():
-    """On a CUDA tensor K5 returns a transposed view of its component-major
-    output; the fake gives those strides."""
+    """On a CUDA tensor K5's output takes X's layout (``torch.empty_like``):
+    row-major for a row-major X, a transposed view for the W side's ``W^T``;
+    the fake gives those strides."""
     with FakeTensorMode():
         X = torch.empty(20, 4, device='cuda')
-        out = ops.hals_sweep_op(X, torch.empty(4, 4, device='cuda'), X, 0.1, 0., 1)
-    assert out.shape == (20, 4) and out.stride() == (1, 20)
+        G = torch.empty(4, 4, device='cuda')
+        out = ops.hals_sweep_op(X, G, X, 0.1, 0., 1)
+        Xt = torch.empty(4, 20, device='cuda').t()
+        out_t = ops.hals_sweep_op(Xt, G.t(), Xt, 0.1, 0., 1)
+    assert out.shape == (20, 4) and out.stride() == (4, 1)
+    assert out_t.shape == (20, 4) and out_t.stride() == (1, 20)

@@ -1,5 +1,6 @@
 """The kernel-variant timing tool (tools/kernel_variants.py) on the CPU:
-every named variant's source edits still apply to the package's kernels.
+every named variant's source edits still apply to the package's kernels
+(``mu_h.cu``, and the other sources a variant names).
 Its timing runs need a CUDA card."""
 
 import importlib
@@ -13,11 +14,14 @@ kv = importlib.import_module('tools.kernel_variants')
 def test_variant_edits_apply(name, tmp_path, monkeypatch):
     monkeypatch.setattr(kv, 'WORK', tmp_path)
     dst = kv.make_copy(name)
-    src = (kv.ROOT / 'tnmf_tpu_torch' / 'csrc' / 'mu_h.cu').read_text()
-    got = (dst / 'tnmf_tpu_torch' / 'csrc' / 'mu_h.cu').read_text()
-    assert (got != src) == bool(kv.VARIANTS[name])
-    for new in (n for _, n in kv.VARIANTS[name]):
-        assert new in got
+    edits = kv.variant_edits(name)
+    for source in {'mu_h.cu', *(e[0] for e in edits)}:
+        src = (kv.ROOT / 'tnmf_tpu_torch' / 'csrc' / source).read_text()
+        got = (dst / 'tnmf_tpu_torch' / 'csrc' / source).read_text()
+        news = [n for s, _, n in edits if s == source]
+        assert (got != src) == bool(news)
+        for new in news:
+            assert new in got
     # the copy holds the whole package and no build
     assert (dst / 'tnmf_tpu_torch' / 'kernels' / 'mu_h.py').is_file()
     assert not (dst / 'tnmf_tpu_torch' / '_build').exists()

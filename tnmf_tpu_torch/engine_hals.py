@@ -25,8 +25,11 @@ float32 on CUDA takes the kernel, float64, CPU tensors and
 ``use_pallas=False`` its plain version.
 
 The JAX package's blocked sweeps (``_sweep_H_blocked``, ``_sweep_W_blocked``)
-are not ported: its ``_iteration`` never routes to them, and its docstring
-records them as a measured negative (ROADMAP.md queue 1, item 15).
+are not ported as functions: its ``_iteration`` never routes to them, and
+its docstring records them as a measured negative on the TPU (ROADMAP.md
+queue 1, item 15).  Their algebra, panel products for the coupling across
+blocks and a running correlation inside a block, is K5's design on the
+card (``csrc/hals_sweep.cu``).
 
 The energy is the MU engine's, ``0.5 * ||V - H W||_F^2``
 (:func:`tnmf_tpu_torch.ops.beta.divergence` at beta = 2).  The JAX package
@@ -114,9 +117,9 @@ def _flatten(V, W, H):
 
 
 def _canonical(X2: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """A 2-D view back in ``like``'s shape, contiguous (K5 returns H as a
-    transposed view, which the loops carry as it is: the next sweep then
-    takes its component-major copy for free)."""
+    """A 2-D view back in ``like``'s shape, contiguous (K5's output takes
+    its input's layout, so H stays row-major and W^T's output is a
+    transposed view of a contiguous W: no copy)."""
     return X2.reshape(like.shape).contiguous()
 
 

@@ -139,6 +139,7 @@ def _sweep_phases(E_pad: torch.Tensor, phases, W: torch.Tensor, G: torch.Tensor,
             Pc = corr(Esl.to(acc), Wc, stride=A)                     # (n, M, *K)
             Pc = Pc.reshape(n, M, nk).transpose(1, 2).reshape(n * nk, M)
             P = Pc + torch.matmul(rows.to(acc), G)                   # own term added back
+            # K5's output takes the rows' layout, so this reshape is a view
             new = _sweep_H(rows, G, P, l1, l2, inner, use_pallas).reshape(n, nk, M)
             # positions past T overhang the valid region: keep them as they were
             new = torch.where(valid[p].view(1, nk, 1), new, rows.view(n, nk, M))

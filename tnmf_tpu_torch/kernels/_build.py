@@ -51,8 +51,9 @@ SIGNATURES = {
     # inh, cross, reg, use_same, use_cross, two_d, vec, h_vec, h_bufs, compiled,
     # seg_x, seg_y, smem_bytes, stream
     'tnmf_inhibited_mu_h': (_P,) * 5 + (_I,) * 11 + (_F,) * 3 + (_I,) * 10 + (_P,),
-    # xt, gt, pt, l1, l2, inner, out, rows, m, threads, smem_bytes, stream
-    'tnmf_hals_sweep': (_P, _P, _P, _F, _F, _I, _P, _I64, _I, _I, _I, _P),
+    # x, g, p, out, each with its row and column strides; l1, l2, inner, rows,
+    # m, rows_per_block, resident, smem_bytes, stream
+    'tnmf_hals_sweep': (_P, _I64, _I64) * 4 + (_F, _F, _I, _I64, _I, _I, _I, _I, _P),
 }
 
 #: the largest dynamic shared memory a Hopper block may opt in to (bytes)
@@ -155,8 +156,9 @@ def check_launch(err: int, name: str) -> None:
         raise RuntimeError(f'{name}: CUDA error {err}: {msg}')
 
 
-def check_inputs(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous float32 CUDA tensors on one device."""
+def check_inputs(name: str, *tensors: torch.Tensor, contiguous: bool = True) -> None:
+    """The kernels take float32 CUDA tensors on one device, contiguous
+    unless the kernel reads them through their strides (``contiguous=False``)."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != 'cuda':
@@ -167,7 +169,7 @@ def check_inputs(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(
                 f'{name}: the CUDA kernel takes float32, got {t.dtype} '
                 '(bf16 storage: ROADMAP.md queue 2)')
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f'{name}: expected contiguous tensors')
 
 

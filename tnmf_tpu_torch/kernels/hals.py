@@ -10,10 +10,16 @@ source says what bounds it and how it is laid out.
 The same function serves every sweep of
 :mod:`tnmf_tpu_torch.engine_hals` and :mod:`tnmf_tpu_torch.engine_hals_conv`:
 the H sweep ``hals_sweep(H, W W^T, V W^T, ...)``, the W sweep
-``hals_sweep(W^T, A^T, B^T, ...)^T`` (``A = H^T H``, ``B = H^T V``; the
-transposes are views, and the kernel's component-major operands are then
-``W``, ``A`` and ``B`` themselves, with no copy) and the per-phase sweep of
-the shift-invariant solver on the rows ``(n*K, M)``.
+``hals_sweep(W^T, A^T, B^T, ...)^T`` (``A = H^T H``, ``B = H^T V``) and the
+per-phase sweep of the shift-invariant solver on the rows ``(n*K, M)``.
+The kernel reads and writes its operands through their strides, so the
+transposed views launch as they are, with no copy, and the output takes
+X's layout (``W^T``'s output is a transposed view of a contiguous ``(m,
+F)`` tensor).
+
+:func:`hals_sweep_panels_plain` sums in the kernel's order (panel
+products, then a running correlation inside each panel); the tests hold it
+to :func:`hals_sweep_plain` and to the JAX package's sweep.
 """
 
 from __future__ import annotations
@@ -24,9 +30,13 @@ import torch
 
 from . import _build
 
-#: threads per block, largest first: the largest that still gives every
-#: multiprocessor a block
-_THREADS = (128, 64, 32)
+#: threads per block, columns per panel, rows of ``G[:, J]`` per streamed
+#: chunk and chunks in flight (``kThreads``, ``kPanel``, ``kChunk``,
+#: ``kStages`` of the source)
+THREADS, PANEL, CHUNK, STAGES = 128, 32, 32, 4
+#: rows of X per block (16 row groups of 4, 2 or 1 rows in the panel
+#: product), largest first
+_ROWS_PER_BLOCK = (64, 32, 16)
 
 
 def hals_sweep_plain(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: float, l2: float,
@@ -51,20 +61,72 @@ def hals_sweep_plain(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: floa
     return X
 
 
+def hals_sweep_panels_plain(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: float,
+                            l2: float, inner: int, panel: int = PANEL) -> torch.Tensor:
+    """:func:`hals_sweep_plain`'s function summed in K5's order: for each
+    panel ``J`` of ``panel`` columns, the panel product ``S = P[:, J] - X
+    @ G[:, J]`` with the current X, then the columns of the panel in turn,
+    column ``j`` taking ``u = S[:, j] + X[:, j] * G[j, j] - l1`` and its
+    change ``d`` updating ``S[:, k] -= d * G[j, k]`` for the panel's later
+    columns.  For the tests; no path of the port runs it."""
+    X = X.clone()
+    tiny = torch.finfo(torch.float32).tiny
+    m = X.shape[1]
+    for _ in range(int(inner)):
+        for j0 in range(0, m, panel):
+            j1 = min(j0 + panel, m)
+            S = P[:, j0:j1] - X @ G[:, j0:j1]
+            for j in range(j0, j1):
+                gjj = G[j, j]
+                denom = gjj + l2
+                if not denom > 0:  # dead component: the column keeps its values
+                    continue
+                xj = X[:, j].clone()
+                u = S[:, j - j0] + xj * gjj - l1
+                X[:, j] = torch.clamp(u / torch.clamp(denom, min=tiny), min=0.0)
+                S[:, j - j0 + 1:] -= (X[:, j] - xj)[:, None] * G[j, j + 1:j1][None, :]
+    return X
+
+
 @functools.lru_cache(maxsize=None)
 def _multiprocessors(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def launch_geometry(rows: int, m: int, device: torch.device) -> tuple:
-    """``(threads per block, dynamic shared memory bytes)`` of a launch:
-    the largest block that still gives every multiprocessor one (32 at
-    least), staging its rows in shared memory when they fit a block (0
-    bytes: the rows stay in device memory)."""
+def smem_bytes(rows_per_block: int, m: int, resident: bool) -> int:
+    """Dynamic shared memory of a launch (``required_smem`` in the source):
+    the tile of X (``rows_per_block`` rows, pitch ``m`` rounded up to a
+    chunk plus 4) or, streamed, one chunk of it; two panels of S; ``STAGES``
+    chunks of ``G[:, J]`` and two blocks ``G[J, J]`` (pitch ``PANEL + 4``)."""
+    mc = -(-m // CHUNK) * CHUNK
+    xs = rows_per_block * (mc + 4) if resident else rows_per_block * (CHUNK + 4)
+    return 4 * (xs + 2 * rows_per_block * (PANEL + 4) + (STAGES * CHUNK + 2 * PANEL) * (PANEL + 4))
+
+
+def launch_geometry(rows: int, m: int, device: torch.device) -> dict:
+    """The launch of ``rows x m``: ``rows_per_block``, the largest tile that
+    fits shared memory and still gives every multiprocessor a block (else
+    the smallest that fits); ``resident``, whether the tile stays in shared
+    memory (where no tile fits, the largest that gives every multiprocessor
+    a block streams through it); ``panel``, ``threads``, ``smem_bytes`` and
+    ``blocks``."""
     sms = _multiprocessors(device)
-    threads = next((t for t in _THREADS if -(-rows // t) >= sms), _THREADS[-1])
-    smem = threads * m * 4
-    return threads, (smem if smem <= _build.MAX_SMEM_BYTES else 0)
+    fits = [t for t in _ROWS_PER_BLOCK if smem_bytes(t, m, True) <= _build.MAX_SMEM_BYTES]
+    fills = [t for t in _ROWS_PER_BLOCK if -(-rows // t) >= sms]
+    if fits:
+        rt = next((t for t in fits if t in fills), fits[-1])
+    else:
+        rt = next(iter(fills), _ROWS_PER_BLOCK[-1])
+    return dict(rows_per_block=rt, resident=bool(fits), panel=PANEL, threads=THREADS,
+                smem_bytes=smem_bytes(rt, m, bool(fits)), blocks=-(-rows // rt))
+
+
+def launch_operands(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
+                    out: torch.Tensor) -> tuple:
+    """The tensor arguments of the C entry, as the kernel reads them: each
+    operand's address and its row and column strides in elements (no copy:
+    a transposed view launches with its base's address)."""
+    return tuple(v for t in (X, G, P, out) for v in (t.data_ptr(), *t.stride()))
 
 
 def hals_sweep(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: float, l2: float,
@@ -72,8 +134,8 @@ def hals_sweep(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: float, l2:
     """``inner`` Gauss-Seidel sweeps over the ``m`` columns of ``X (rows,
     m)`` (:func:`hals_sweep_plain`'s function): the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (float32; ``G (m, m)``, ``P
-    (rows, m)``), one launch for all the sweeps.  Returns ``(rows, m)``, a
-    transposed view of the kernel's component-major output."""
+    (rows, m)``, any strides), one launch for all the sweeps.  Returns
+    ``(rows, m)`` in X's layout (``torch.empty_like``)."""
     if X.device.type == 'cpu':
         return hals_sweep_plain(X, G, P, l1, l2, inner)
     rows, m = X.shape
@@ -82,22 +144,20 @@ def hals_sweep(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: float, l2:
                          f'{tuple(P.shape)} do not fit')
     if int(inner) < 1:
         raise ValueError(f'hals_sweep: inner must be >= 1, got {inner!r}')
-    # component-major operands; a transposed view of a contiguous tensor
-    # (the W sweep's W^T, A^T, B^T) is no copy
-    xt, gt, pt = X.t().contiguous(), G.t().contiguous(), P.t().contiguous()
-    _build.check_inputs('hals_sweep', xt, gt, pt)
-    out = torch.empty_like(xt)
+    _build.check_inputs('hals_sweep', X, G, P, contiguous=False)
+    out = torch.empty_like(X)
     if X.numel() == 0:
-        return out.t()
-    threads, smem = launch_geometry(rows, m, X.device)
+        return out
+    geo = launch_geometry(rows, m, X.device)
     lib = _build.library()
     with torch.cuda.device(X.device):
-        err = lib.tnmf_hals_sweep(xt.data_ptr(), gt.data_ptr(), pt.data_ptr(), float(l1),
-                                  float(l2), int(inner), out.data_ptr(), rows, m, threads,
-                                  smem, _build.stream_of(X))
+        err = lib.tnmf_hals_sweep(*launch_operands(X, G, P, out), float(l1), float(l2),
+                                  int(inner), rows, m, geo['rows_per_block'],
+                                  int(geo['resident']), geo['smem_bytes'],
+                                  _build.stream_of(X))
     _build.check_launch(err, 'hals_sweep')
     hals_sweep.launches += 1
-    return out.t()
+    return out
 
 
 #: kernel launches since the last reset (a plain count, read by chip_smoke.py)

@@ -174,9 +174,7 @@ class _HALSEncoder(_Program):
             return (engine_hals._sweep_H(H2, self.G, P, r.sparsity, r.l2 or 0., 1,
                                          r.use_pallas),)
 
-        H2 = H0.reshape(H0.shape[0], H0.shape[1])
-        if H2.device.type == 'cuda':  # the carry in K5's layout, a transposed view
-            H2 = H2.t().contiguous().t()
+        H2 = H0.reshape(H0.shape[0], H0.shape[1])  # K5's output keeps this layout
         (H2,) = _loop(n_iterations, step, (H2,))
         return H2.reshape(H0.shape)
 

@@ -11,19 +11,22 @@ parent commit unpacked with ``git archive``) as the variant ``parent``.
 Each variant runs in its own process, which builds its own library and
 times K3 ``mu_h`` (on the route the flagship takes and with its FP32 route
 forced) and K2 ``grad_w`` at the flagship shapes (64 x 1 x 256 x 256, 16
-atoms 9 x 9), and K4 ``inhibited_mu_h`` at the inhibited flagship's (64 x
-16 x 264 x 264, 17 x 17 taps, same + cross and same-atom only; CUDA
-events, two windows of 20 launches).  The variants run
+atoms 9 x 9), K4 ``inhibited_mu_h`` at the inhibited flagship's (64 x
+16 x 264 x 264, 17 x 17 taps, same + cross and same-atom only) and K5
+``hals_sweep`` at the H side of plain-NMF HALS (16384 x 256, row-major),
+its W side (4096 x 256 on transposed views, as the engine passes them) and
+the rows of a shift-invariant phase (50176 x 16; CUDA events, two windows
+of 20 launches).  The variants run
 in the order given and then in reverse, so each one is timed twice around
 the others.  Each process also times one MU iteration of the golden 2-D
 fit (five windows of 10 iterations) and prints the registers of K3's
 tensor-core kernel, a digest of its library's K2 SASS, which shows whether
 a change meant to leave K2 alone did, and digests of the bits of K3's, K2's
 and K4's outputs at the flagship, of the golden 2-D and 1-D fits (W, H and
-the energy, seeded as tests/fixtures.py seeds them) and of the H updates
+the energy, seeded as tests/fixtures.py seeds them), of the H updates
 alone (W held) of the golden 1-D fit and of the inhibited settings of the
-``sparsity_inhibition`` sweep, which show whether two packages compute the
-same bits.
+``sparsity_inhibition`` sweep, and of K5's outputs at its three shapes,
+which show whether two packages compute the same bits.
 
 The ablations compute wrong values: they are for finding what bounds a
 kernel, never for its results.
@@ -60,8 +63,15 @@ _SPLIT_PER_LOAD = ('\n'.join(' ' * 14 + old for old, _ in _B_LOADS),
                    '\n'.join(' ' * 14 + f'split_tf32(x{i}[{off} - plane], {b}b[j][{i}], {b}s[j][{i}]);'
                              for b, off in (('v', 0), ('r', 'win')) for i in (0, 1)))
 
-#: name -> edits (text, replacement) of the package's csrc/mu_h.cu, each
-#: applied to every occurrence (and each must occur)
+_K5_STEPS = 'if (threadIdx.x < nr) {'
+_K5_PRODUCT = 'for (int k = 0; k < kChunk; k += 4) {'
+_K5_LOADS = ('if (s + kStages - 1 < chunks) issue_chunk',
+             'if (q == 0 && pi + 1 < panels) issue_panel')
+_K5_WIDE = 'if (sc == 1 && sr % 4 == 0 && '
+
+#: name -> edits (text, replacement) of the package's csrc/mu_h.cu, or
+#: (source, text, replacement) of another csrc/ source, each applied to
+#: every occurrence (and each must occur)
 VARIANTS = {
     'base': [],
     # each MMA of the tensor-core kernel becomes two three-input XORs
@@ -81,7 +91,28 @@ VARIANTS = {
     'k3_no_staging_no_split': [
         (_STAGE, _STAGE.replace('if (', 'if (false && ')),
         (_SPLIT, _SPLIT.replace('i < plane', 'q == blockIdx.x && i < plane'))],
+    # K5 without the steps inside each panel (the running correlation)
+    'k5_no_steps': [('hals_sweep.cu', _K5_STEPS,
+                     _K5_STEPS.replace('if (', 'if (false && '))],
+    # K5 without the panel products' FMAs (their loads and barriers stay)
+    'k5_no_product': [('hals_sweep.cu', _K5_PRODUCT,
+                       _K5_PRODUCT.replace('k < kChunk', 'k < 0'))],
+    # K5 without the streamed copies of G[:, J], P and G[J, J] after the
+    # prologue (the panels compute on stale buffers)
+    'k5_no_loads': [('hals_sweep.cu', old, old.replace('if (', 'if (false && '))
+                    for old in _K5_LOADS],
+    # K5 staging a column-major G (the W side's A^T) element by element into
+    # row-major chunks, not column by column
+    'k5_g_walk': [('hals_sweep.cu', 'const bool gt = g_sc != 1 && g_sr == 1;',
+                   'const bool gt = false;')],
+    # K5 with 4-byte copies only (no 16-byte cp.async for contiguous rows)
+    'k5_4byte_copies': [('hals_sweep.cu', _K5_WIDE, _K5_WIDE.replace('if (', 'if (false && '))],
 }
+
+
+def variant_edits(name: str) -> list:
+    """The variant's edits as ``(source, text, replacement)``."""
+    return [edit if len(edit) == 3 else ('mu_h.cu', *edit) for edit in VARIANTS[name]]
 
 
 def make_copy(name: str) -> Path:
@@ -90,13 +121,12 @@ def make_copy(name: str) -> Path:
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT / 'tnmf_tpu_torch', dst / 'tnmf_tpu_torch',
                     ignore=shutil.ignore_patterns('_build', '__pycache__'))
-    path = dst / 'tnmf_tpu_torch' / 'csrc' / 'mu_h.cu'
-    src = path.read_text()
-    for old, new in VARIANTS[name]:
+    for source, old, new in variant_edits(name):
+        path = dst / 'tnmf_tpu_torch' / 'csrc' / source
+        src = path.read_text()
         if old not in src:
-            raise SystemExit(f'{name}: an edit of mu_h.cu no longer applies: {old!r}')
-        src = src.replace(old, new)
-    path.write_text(src)
+            raise SystemExit(f'{name}: an edit of {source} no longer applies: {old!r}')
+        path.write_text(src.replace(old, new))
     return dst
 
 
@@ -109,7 +139,7 @@ def time_package(root: Path) -> dict:
     import tnmf_tpu_torch
     if not Path(tnmf_tpu_torch.__file__).resolve().is_relative_to(root.resolve()):
         raise SystemExit(f'imported {tnmf_tpu_torch.__file__}, not the package in {root}')
-    from tnmf_tpu_torch.kernels import _build, gw, inhibit, mu_h
+    from tnmf_tpu_torch.kernels import _build, gw, hals, inhibit, mu_h
     from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
     from tnmf_tpu_torch.ops.modes import ConvPlan
     so = _build.build()
@@ -162,17 +192,49 @@ def time_package(root: Path) -> dict:
 
     def k4(cross):
         return inhibit.inhibited_mu_h(Hi, neg, pos, ks, 0.1, 0.05, 0.1, use_cross=cross)
+    k5 = {where: k5_inputs(*shape) for where, shape in K5_SHAPES.items()}
     return dict(mu_h_ms=ms(lambda: mu_h.mu_h(Vp, Rx, W, H, 0.1)),
                 inhibited_mu_h_ms=ms(lambda: k4(True)),
                 inhibited_mu_h_same_ms=ms(lambda: k4(False)),
                 mu_h_fma_ms=fma_ms,
                 grad_w_ms=ms(lambda: gw.grad_w(X2, H, plan)),
+                hals_sweep_ms={where: ms(lambda a=a: hals.hals_sweep(*a))
+                               for where, a in k5.items()},
                 mu_h_mma_registers=regs,
                 grad_w_sass=digest.hexdigest()[:16],
                 inhibited_mu_h_17_sass=k4_digest.hexdigest()[:16],
                 bits=dict(mu_h=bits(mu_h.mu_h(Vp, Rx, W, H, 0.1)), mu_h_fma=bits(fma_out),
                           grad_w=bits(*gw.grad_w(X2, H, plan)),
-                inhibited_mu_h=bits(k4(True), k4(False)), **golden_bits()))
+                inhibited_mu_h=bits(k4(True), k4(False)),
+                hals_sweep={where: bits(hals.hals_sweep(*a)) for where, a in k5.items()},
+                **golden_bits()))
+
+
+#: K5's shapes: (rows, components, length of the factor the Gram sums over,
+#: transposed views)
+K5_SHAPES = {'H 16384x256': (16384, 256, 4096, False), 'W 4096x256': (4096, 256, 16384, True),
+             'phase 50176x16': (50176, 16, 81, False)}
+
+
+def k5_inputs(rows: int, m: int, length: int, views: bool) -> tuple:
+    """K5's arguments as a HALS sweep meets them (``G = Y Y^T``, ``P = Z
+    Y^T`` of data near the span of ``Y``, a random start; one pass,
+    ``l1 = 0.1 / length``), seeded; on the W side transposed views of
+    contiguous tensors."""
+    import torch
+    g = torch.Generator(device='cuda').manual_seed(rows + m)
+    Y = torch.rand((m, length), generator=g, device='cuda')
+    Y /= Y.sum(dim=1, keepdim=True)
+    Z = (torch.rand((rows, m), generator=g, device='cuda') @ Y
+         + 0.01 * torch.rand((rows, length), generator=g, device='cuda') / length)
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision('highest')
+    G, P = Y @ Y.T, Z @ Y.T
+    torch.set_float32_matmul_precision(prec)
+    X = torch.rand((rows, m), generator=g, device='cuda')
+    if views:
+        X, G, P = (t.T.contiguous().T for t in (X, G, P))
+    return X, G, P, 0.1 / length, 0.0, 1
 
 
 def bits(*tensors) -> str:
@@ -266,7 +328,9 @@ def main() -> int:
               f'{r["mu_h_fma_ms"][0]:.4f}/{r["mu_h_fma_ms"][1]:.4f} ms  grad_w '
               f'{r["grad_w_ms"][0]:.4f}/{r["grad_w_ms"][1]:.4f} ms  K4 '
               f'{r["inhibited_mu_h_ms"][0]:.4f}/{r["inhibited_mu_h_ms"][1]:.4f} ms, same-atom '
-              f'{r["inhibited_mu_h_same_ms"][0]:.4f}/{r["inhibited_mu_h_same_ms"][1]:.4f} ms  '
+              f'{r["inhibited_mu_h_same_ms"][0]:.4f}/{r["inhibited_mu_h_same_ms"][1]:.4f} ms  K5 '
+              + '  '.join(f'{where} {t[0]:.4f}/{t[1]:.4f} ms'
+                          for where, t in r['hals_sweep_ms'].items()) + '  '
               f'K3 registers '
               f'{r["mu_h_mma_registers"]}  K2 SASS {r["grad_w_sass"]}  K4 17-tap SASS '
               f'{r["inhibited_mu_h_17_sass"]}  golden 2-D ms/it '

@@ -9,7 +9,8 @@ failure (exit code != 0, no result line):
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and nvcc;
 2. build: compiles ``tnmf_tpu_torch/csrc/*.cu`` for ``sm_90a`` into
-   ``tnmf_tpu_torch/_build/`` (set-up time), prints ptxas' resource report
+   ``tnmf_tpu_torch/_build/`` (set-up time; one ``nvcc`` per source, all
+   started together, each one's time printed), prints ptxas' resource report
    and counts the tensor-core (HMMA) instructions of K2 and of K3's
    tensor-core kernel in the library's SASS (``cuobjdump -sass``); none
    fails the run;
@@ -32,7 +33,12 @@ failure (exit code != 0, no result line):
    and K3 at the flagship also against float64 within 1e-5, and two K2
    launches bit-identical; ``mu_w`` within 1e-6 of its plain version (the
    flagship W, a zero atom, 100 atoms of 3 x 15 x 15, 1-D atoms of 1024), a
-   zero atom kept zero and two launches bit-identical;
+   zero atom kept zero and two launches bit-identical; then the one-pass
+   routes of K2 and K3 (``passes=1``, the TF32 precision levels) against
+   their plain versions on TF32-rounded operands within 1e-5 at the
+   flagship, at the small ragged shapes above and at K2's and K3's edge
+   cases (K3 where it takes the tensor-core route), K2 also in its groups,
+   against float64 on the rounded operands, and two launches bit-identical;
 4. golden: the seeded golden fits of tests/golden_values.json in float32 on
    the card: the 2-D fixture ('2d'/'valid'), the 1-D pulse train with
    inhibition ('1d', four modes) and the regularizer sweep
@@ -57,7 +63,8 @@ failure (exit code != 0, no result line):
    versions on the card, within max|W - W64| / max|W64| <= 1e-4 (and for H),
    the same fit on the plain versions in float32 printed beside it; then
    ms/iteration, K3's and K2's times at these shapes and the cuDNN calls
-   beside them; then the flagship with ``inhibition_range=120`` (241 x 241
+   beside them, and K2's one-pass route beside cuDNN with TF32 on; then
+   the flagship with ``inhibition_range=120`` (241 x 241
    taps, K4 streamed) for 3 iterations, energy falling, and K4's time and
    bound there;
 8. float64 on the card: the golden 2-D fit and the 1-D pulse train (four
@@ -65,7 +72,9 @@ failure (exit code != 0, no result line):
    is printed, no kernel launches); energy within rtol 1e-8 of
    tests/golden_values.json;
 9. per-kernel times at the flagship shapes: kernel, plain version and the
-   nearest single PyTorch call, with each kernel's bound; K3's two routes in
+   nearest single PyTorch call, with each kernel's bound (the one-pass
+   routes of K2 and K3 too, beside cuDNN's ``corr_W``/``corr_H`` under
+   TF32 and the TF32 peak); K3's two routes in
    turns; K4 also same-atom only, and with its runtime tap loop against the
    compiled taps; ``mu_w`` against the ratio kernel and the normalisation it
    replaces, in turns;
@@ -187,7 +196,21 @@ failure (exit code != 0, no result line):
    same way, HALS also against float64 within phase 16's margin; ms per
    request and per iteration (CUDA events) of each artifact beside
    ``transform``'s compute, in turns, the host time of a request, export
-   time, file size and peak memory.
+   time, file size and peak memory; then one request of the conv
+   flagship's artifact exported at ``precision='default'`` (its header
+   records the level; K3 on its one-pass route), bit-equal to ``transform``
+   at 'default';
+18. precision: the conv flagship plain and inhibited, ``transform``, the
+   fft flagship, plain NMF on dot (16384 x 1 x 4096, 256 atoms) and
+   plain-NMF HALS at that size, each fit at every level (None, 'default',
+   'high', 'highest'), counts reset before each fit and read after it
+   (K2 and K3 on their one-pass routes once per iteration at 'default'
+   and 'high', never at None and 'highest'): 'default' bit-equal to
+   'high' and 'highest' to None; at 'default' the MU fits' energies within
+   1e-3 of the float64 fit after 10 iterations and W and H within 5e-3
+   (relative Frobenius norm), HALS's distances printed; ms per iteration
+   at None and 'default' in turns (CUDA events); the golden fixtures at
+   'default' within 1e-3 of tests/golden_values.json.
 
 Phases 7, 10, 12, 13, 14, 15, 16 and 17 hold fits on the kernels against the
 same fits with ``use_pallas=False`` (the model's kernel/plain switch).
@@ -217,7 +240,7 @@ from tnmf_tpu_torch.kernels import _build, gw, hals, inhibit, mu, mu_h
 from tnmf_tpu_torch.ops import conv
 from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
 from tnmf_tpu_torch.ops.modes import ConvPlan
-from tnmf_tpu_torch.ops.precision import full_fp32_matmul
+from tnmf_tpu_torch.ops.precision import matmul_pin, round_tf32
 from tnmf_tpu_torch.ops.transforms import expand_w, make_group, tie_back
 from tnmf_tpu_torch.utils.data_loading import synthetic_face
 from tnmf_tpu_torch.utils.signals import generate_pulse_train
@@ -225,6 +248,8 @@ from tnmf_tpu_torch.utils.signals import generate_pulse_train
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-4            # max|kernel - plain| / max|plain|, float32 on the card
 F64_TOL = 1e-5        # K2 and K3 (3xTF32) against float64 at the flagship
+ONE_PASS_TOL = 1e-5   # K2's and K3's one-pass routes against their rounded plain versions,
+                      # in float64 (their products are exact)
 GOLDEN_RTOL = 1e-4    # float32 fit on the card against the float64 golden
 F64_GOLDEN_RTOL = 1e-8  # float64 fit on the card against the float64 golden
 N_ITER = 20
@@ -243,9 +268,10 @@ FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
 # the rate each kernel's operations run at: K2 and K3 (on its tensor-core
 # route, the flagship's) do three TF32 products per float32 product
-# (3xTF32), the others FP32 FMAs
+# (3xTF32), one on their one-pass routes, the others FP32 FMAs
 OPS_PER_S = dict(mu_ratio=FP32_FLOP_PER_S, mu_w=FP32_FLOP_PER_S,
                  grad_w=TF32_FLOP_PER_S / 3, mu_h=TF32_FLOP_PER_S / 3,
+                 grad_w_1pass=TF32_FLOP_PER_S, mu_h_1pass=TF32_FLOP_PER_S,
                  inhibited_mu_h=FP32_FLOP_PER_S, hals_sweep=FP32_FLOP_PER_S)
 KERNELS = {
     'mu_ratio': dict(wrapper=mu.mu_ratio, source='tnmf_tpu_torch/csrc/mu_ratio.cu',
@@ -258,6 +284,14 @@ KERNELS = {
                    replaces='tnmf_tpu/experimental/pallas_gw.py:163'),
     'mu_h': dict(wrapper=mu_h.mu_h, source='tnmf_tpu_torch/csrc/mu_h.cu',
                  replaces='tnmf_tpu/experimental/pallas_phased.py:169'),
+    # the one-pass TF32 routes of K2 and K3 (precision 'default' and
+    # 'high'): the same wrappers, each route with a count of its own
+    'grad_w_1pass': dict(wrapper=gw.grad_w, count='one_pass_launches',
+                         source='tnmf_tpu_torch/csrc/grad_w.cu',
+                         replaces='tnmf_tpu/experimental/pallas_gw.py:163'),
+    'mu_h_1pass': dict(wrapper=mu_h.mu_h, count='one_pass_launches',
+                       source='tnmf_tpu_torch/csrc/mu_h.cu',
+                       replaces='tnmf_tpu/experimental/pallas_phased.py:169'),
     'inhibited_mu_h': dict(wrapper=inhibit.inhibited_mu_h,
                            source='tnmf_tpu_torch/csrc/inhibited_mu_h.cu',
                            replaces='tnmf_tpu/experimental/pallas_mu.py:213'),
@@ -375,11 +409,12 @@ def bound(n_bytes: float, flops: float, ops_per_s: float) -> tuple:
 
 def reset_counts():
     for k in KERNELS.values():
-        k['wrapper'].launches = 0
+        setattr(k['wrapper'], k.get('count', 'launches'), 0)
 
 
 def counts() -> dict:
-    return {name: k['wrapper'].launches for name, k in KERNELS.items()}
+    return {name: getattr(k['wrapper'], k.get('count', 'launches'))
+            for name, k in KERNELS.items()}
 
 
 @contextlib.contextmanager
@@ -454,7 +489,8 @@ def phase_build():
     log(f'build: {so.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s')
     report = so.with_name(so.name + '.log').read_text().splitlines()
     for line in report:
-        if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
+        if ('registers' in line or 'spill' in line or 'Compiling entry' in line
+                or 'compiled in' in line):
             log('  ' + line.strip())
     hmma = sass_counts(so, 'grad_w_partial', 'HMMA')
     log(f'  K2 SASS: {hmma} HMMA instructions over its grad_w_partial instances')
@@ -488,6 +524,7 @@ def _problem(N, C, S, M, A, mode, seed, use_cross=True):
     (bytes, flops) of the work)."""
     rng = np.random.default_rng(seed)
     plan = ConvPlan.create(mode, S, A)
+    tf32_plan = ConvPlan.create(mode, S, A, precision='default')  # cuDNN with TF32 on
     T = plan.transform_shape
     dev = dict(device=DEVICE, dtype=torch.float32)
     V = torch.tensor(rng.random((N, C) + S), **dev)
@@ -506,6 +543,9 @@ def _problem(N, C, S, M, A, mode, seed, use_cross=True):
     inh = dict(inhibition=0.1, cross_inhibition=0.05, reg=denom, use_same=True,
                use_cross=use_cross)
     nT, nA, nH = math.prod(T), math.prod(A), H.numel()
+    k2_work = (4 * (X2.numel() + nH + 2 * W.numel()), 2 * M * 2 * C * nA * N * nT)
+    k3_work = (4 * (Vp.numel() + Rx.numel() + W.numel() + 2 * nH),
+               2 * 2 * N * M * C * nT * nA + 3 * nH)
     return {
         # at the size of H: the H ratio of the fft and dot strategies
         'mu_ratio': (lambda: mu.mu_ratio(H, hneg, hpos, denom),
@@ -516,13 +556,18 @@ def _problem(N, C, S, M, A, mode, seed, use_cross=True):
                  lambda: mu.mu_w_plain(W, neg, pos, engine.EPS, plan.ndim), None,
                  (4 * 4 * W.numel(), 5 * W.numel())),
         'grad_w': (lambda: gw.grad_w(X2, H, plan), lambda: gw.grad_w_plain(X2, H, plan),
-                   lambda: conv.corr_W(X2, H),
-                   (4 * (X2.numel() + nH + 2 * W.numel()), 2 * M * 2 * C * nA * N * nT)),
+                   lambda: conv.corr_W(X2, H), k2_work),
         'mu_h': (lambda: mu_h.mu_h(Vp, Rx, W, H, denom),
                  lambda: mu_h.mu_h_plain(Vp, Rx, W, H, denom),
-                 lambda: conv.corr_H(VR, W),
-                 (4 * (Vp.numel() + Rx.numel() + W.numel() + 2 * nH),
-                  2 * 2 * N * M * C * nT * nA + 3 * nH)),
+                 lambda: conv.corr_H(VR, W), k3_work),
+        # one TF32 pass: the plain versions round the operands first, the
+        # library calls run cuDNN with TF32 on
+        'grad_w_1pass': (lambda: gw.grad_w(X2, H, plan, 1),
+                         lambda: gw.grad_w_plain(X2, H, plan, 1),
+                         lambda: conv.corr_W(X2, H, tf32_plan), k2_work),
+        'mu_h_1pass': (lambda: mu_h.mu_h(Vp, Rx, W, H, denom, None, 1),
+                       lambda: mu_h.mu_h_plain(Vp, Rx, W, H, denom, None, 1),
+                       lambda: conv.corr_H(VR, W, tf32_plan), k3_work),
         'inhibited_mu_h': (lambda: inhibit.inhibited_mu_h(H, hneg, hpos, ks, **inh),
                            lambda: inhibit.inhibited_mu_h_plain(H, hneg, hpos, ks, **inh),
                            None,
@@ -605,6 +650,7 @@ def phase_kernels() -> dict:
         _compare('inhibited_mu_h', same[0], same[1], 'flagship, runtime tap loop')
     _k4_streamed()
     _mu_w_cases()
+    _one_pass_cases()
     return errors
 
 
@@ -659,6 +705,70 @@ def _mu_w_cases():
             raise AssertionError(f'mu_w at {where}: rel {rel:.3e} (> {MU_W_TOL}?), '
                                  f'bit-identical {same}, zero atom kept {zero_ok}')
 
+
+
+def _one_pass_check(name, kernel, plain, exact, where) -> float:
+    """A one-pass route against its plain version on TF32-rounded operands:
+    in float32 within 1e-4 (two float32 sum orders, cuDNN's among them) and
+    in float64 (``exact``: the products of the rounded operands are exact)
+    within 1e-5, the route's own tolerance.  Returns the float64 distance
+    (max |kernel - exact| / max |exact|)."""
+    _compare(name, kernel, plain, where)
+    got, want = kernel(), exact()
+    if isinstance(want, torch.Tensor):
+        got, want = (got,), (want,)
+    scale = max(float(w.abs().max()) for w in want)
+    rel = max(float((g.double() - w).abs().max()) for g, w in zip(got, want)) / scale
+    log(f'  {name:14s} {where + ", rounded float64":34s} rel={rel:.3e}')
+    if not rel <= ONE_PASS_TOL:
+        raise AssertionError(f'{name} at {where}: {rel:.3e} off its plain version on the '
+                             f'rounded operands in float64 > {ONE_PASS_TOL}')
+    return rel
+
+
+def _one_pass_cases():
+    """K2's and K3's one-pass routes (``passes=1``) at phase 3's shapes and
+    at their edge cases against their plain versions on TF32-rounded
+    operands (:func:`_one_pass_check`; K3 where it takes the tensor-core
+    route, the FP32 route printed), K2 in its groups, each launch counted
+    on its route, and two K2 launches at the flagship bit-identical."""
+    f = FLAGSHIP
+    flagship = (f['N'], f['C'], f['S'], f['M'], f['A'], f['mode'])
+    shapes = [('flagship', flagship), ('2-D 3x2x37x29/5x5x6 circular',
+                                       (3, 2, (37, 29), 5, (5, 6), 'circular')),
+              ('1-D 2x3x301/7x7 valid', (2, 3, (301,), 7, (7,), 'valid'))]
+    k2 = shapes + K2_CASES + [(w, a) for w, a, _ in K2_GROUP_CASES]
+    for i, (where, args) in enumerate(k2):
+        X2, H, plan = _k2_problem(*args, seed=40 + i)
+        reset_counts()
+        _one_pass_check('grad_w_1pass', lambda: gw.grad_w(X2, H, plan, 1),
+                        lambda: gw.grad_w_plain(X2, H, plan, 1),
+                        lambda: gw.grad_w_plain(round_tf32(X2).double(),
+                                                round_tf32(H).double(), plan), where)
+        if gw.grad_w.one_pass_launches != gw.grad_w.launches or not gw.grad_w.launches:
+            raise AssertionError(f'grad_w_1pass at {where}: {gw.grad_w.launches} launches, '
+                                 f'{gw.grad_w.one_pass_launches} on the one-pass route')
+        if where == 'flagship':
+            got, again = gw.grad_w(X2, H, plan, 1), gw.grad_w(X2, H, plan, 1)
+            sync()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError('grad_w_1pass: two launches on the same inputs differ')
+            log(f'  {"grad_w_1pass":14s} {"flagship, two launches":34s} bit-identical')
+    k3 = [(w, a, False) for w, a in shapes] + [(w, a, e) for w, a, e, _ in K3_CASES]
+    for i, (where, args, with_extra) in enumerate(k3):
+        p = _k3_problem(*args, seed=60 + i, with_extra=with_extra)
+        if mu_h.launch_geometry(*p[:4], passes=1)[2]['route'] != 'mma':
+            log(f'  {"mu_h_1pass":14s} {where:34s} takes the FP32 route: float32 at every level')
+            continue
+        reset_counts()
+        Vp, Rx, W, H, denom, extra = p
+        _one_pass_check('mu_h_1pass', lambda: mu_h.mu_h(*p, 1), lambda: mu_h.mu_h_plain(*p, 1),
+                        lambda: mu_h.mu_h_plain(
+                            *(round_tf32(t).double() for t in (Vp, Rx, W)), H.double(), denom,
+                            None if extra is None else extra.double()), where)
+        if mu_h.mu_h.one_pass_launches != mu_h.mu_h.launches or not mu_h.mu_h.launches:
+            raise AssertionError(f'mu_h_1pass at {where}: {mu_h.mu_h.launches} launches, '
+                                 f'{mu_h.mu_h.one_pass_launches} on the one-pass route')
 
 
 def _k2_problem(N, C, S, M, A, mode, seed):
@@ -997,6 +1107,18 @@ def phase_large():
             lib_h = time_ms(lambda: conv.corr_H(VR, W), reps=3)
             log(f'large: library calls: conv.corr_W {lib_w:.2f} ms (grad_w {out["grad_w_ms"]:.2f}), '
                 f'conv.corr_H {lib_h:.2f} ms (mu_h {out["mu_h_ms"]:.2f})')
+            # at precision 'default': K2 in one TF32 pass (and K3's route
+            # there) against cuDNN with TF32 on
+            tf32_plan = ConvPlan.create(nmf._plan.mode, nmf._plan.sample_shape, f['A'],
+                                        precision='default')
+            out['grad_w_1pass_ms'] = time_ms(lambda: gw.grad_w(X2, H, nmf._plan, 1), reps=3)
+            lib_w1 = time_ms(lambda: conv.corr_W(X2, H, tf32_plan), reps=1)
+            lib_h1 = time_ms(lambda: conv.corr_H(VR, W, tf32_plan), reps=3)
+            route = mu_h.launch_geometry(Vp, Rx, W, H, passes=1)[2]['route']
+            log(f'large at default ({card()}): grad_w one pass {out["grad_w_1pass_ms"]:.2f} ms, '
+                f'conv.corr_W with TF32 {lib_w1:.2f} ms; mu_h on its {route} route, '
+                f'conv.corr_H with TF32 {lib_h1:.2f} ms')
+            out.update(corr_W_tf32_ms=lib_w1, corr_H_tf32_ms=lib_h1)
             del VR
             # each kernel: two correlations of N*M*C*prod(T)*prod(A) multiply-adds
             flops = 4 * H.numel() * f['C'] * math.prod(f['A'])
@@ -1511,7 +1633,7 @@ def _fft_parts(nmf) -> dict:
         'its inverse + crop + contiguous': lambda: fft._inverse(
             Gf, (0,) * plan.ndim, plan.transform_shape, plan).contiguous(),
     }
-    with full_fp32_matmul():
+    with matmul_pin(None, DEVICE):
         out = {name: time_ms(fn, reps=3) for name, fn in parts.items()}
     log('  fft flagship parts (ms per call): '
         + ', '.join(f'{k} {v:.4f}' for k, v in out.items()))
@@ -2467,7 +2589,7 @@ def _k5_inputs(rows: int, m: int, length: int, seed: int, layout: str = 'rows',
     Y /= Y.sum(dim=1, keepdim=True)
     Z = (torch.rand((rows, m), generator=g, device=DEVICE) @ Y
          + 0.01 * torch.rand((rows, length), generator=g, device=DEVICE) / length)
-    with full_fp32_matmul():
+    with matmul_pin(None, DEVICE):
         G, P = Y @ Y.T, Z @ Y.T
     X = torch.rand((rows, m), generator=g, device=DEVICE)
     if layout == 'views':
@@ -2640,7 +2762,7 @@ def _hals_plain_nmf(total: dict) -> dict:
                                               inner=inner, update_H=True, update_W=True)
     ms = _hals_ms(run)
     V2, W2, H2 = engine_hals._flatten(Vd, nmf._W, nmf._H)
-    with full_fp32_matmul():
+    with matmul_pin(None, DEVICE):
         grams = time_ms(lambda: (engine_hals._dot(W2, W2.T), engine_hals._dot(V2, W2.T),
                                  engine_hals._dot(H2.T, H2), engine_hals._dot(H2.T, V2)),
                         reps=3)
@@ -2711,7 +2833,7 @@ def _hals_conv_split(V, W, H, plan, l1) -> dict:
         events = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
         host = []
         sync()
-        with full_fp32_matmul():
+        with matmul_pin(None, DEVICE):
             events[0].record()
             for i, (_, fn) in enumerate(stages):
                 t0 = time.perf_counter()
@@ -2847,11 +2969,12 @@ def _export(make, sample_shape, label, **export) -> tuple:
 
 
 def _serve_check(label, served, model, V, n_iter, kernel, refs, transform_kw,
-                 limit=None) -> tuple:
+                 limit=None, also=()) -> tuple:
     """One request of ``V`` (a CUDA tensor) under the TF32 defaults, counts
     reset before and read after, every plain version counting: ``kernel``
-    launched as ``n_iter`` times ``per`` (K5: once per phase), no other
-    kernel and no plain version.  H against ``transform`` on the card
+    launched as ``n_iter`` times ``per`` (K5: once per phase), and so is
+    each count of ``also`` (a route of the same wrapper), no other kernel
+    and no plain version.  H against ``transform`` on the card
     (within ``SERVE_TOL``, bits printed) and against each reference
     ``refs[name]() -> H`` (``limit``: the tolerance of each, default 1e-4).
     Returns the H, the launches, the distances and the request's peak
@@ -2867,7 +2990,7 @@ def _serve_check(label, served, model, V, n_iter, kernel, refs, transform_kw,
     peak = (torch.cuda.max_memory_allocated() - before) / 2**20
     launches = counts()
     want = dict.fromkeys(KERNELS, 0)
-    want[kernel] = n_iter * per
+    want.update(dict.fromkeys((kernel,) + tuple(also), n_iter * per))
     reset_counts()
     H_t = model.transform(V, n_iterations=n_iter, **transform_kw)
     sync()
@@ -3028,27 +3151,322 @@ def _serve_kinds(W: np.ndarray, total: dict) -> dict:
     return out
 
 
+def _flagship_dictionary() -> np.ndarray:
+    """Phase 5's dictionary, for a phase run alone: the same fit of the
+    flagship, plain."""
+    f = FLAGSHIP
+    nmf = TransformInvariantNMF(f['M'], f['A'], reconstruction_mode=f['mode'], seed=SEED,
+                                device=DEVICE)
+    nmf.fit(np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'], dtype=np.float32),
+            n_iterations=N_ITER, sparsity_H=f['sparsity'])
+    return nmf.W
+
+
+def _serve_default(W: np.ndarray, total: dict) -> dict:
+    """One request of the conv flagship's artifact exported at
+    ``precision='default'``: the header records the level, K3 runs its
+    one-pass route once per iteration, and H is bit-equal to ``transform``
+    at 'default'."""
+    f = FLAGSHIP
+    fit = dict(sparsity_H=f['sparsity'])
+
+    def make(use_pallas=None):
+        return TransformInvariantNMF(f['M'], f['A'], h_init='correlate', device=DEVICE,
+                                     precision='default',
+                                     use_pallas=use_pallas).set_dictionary(W)
+    served, model, seconds, size, path = _export(make, f['S'], 'conv flagship at default',
+                                                 n_iterations=SERVE_ITER, **fit)
+    if served.precision != 'default':
+        raise AssertionError(f'the artifact records precision {served.precision!r}')
+    V = torch.as_tensor(np.random.default_rng(SEED + 1).random(
+        (8, f['C']) + f['S'], dtype=np.float32), device=DEVICE)
+    H, launches, rel, peak = _serve_check(
+        'conv flagship at default', served, model, V, SERVE_ITER, ('mu_h', 1),
+        dict(use_pallas_false=lambda: make(use_pallas=False).transform(
+            V, n_iterations=SERVE_ITER, **fit)), fit, dict(use_pallas_false=TF32_FIT_TOL),
+        also=('mu_h_1pass',))
+    H_t = model.transform(V, n_iterations=SERVE_ITER, **fit)
+    if not np.array_equal(H.cpu().numpy(), H_t):
+        raise AssertionError('serving at default: H is not bit-equal to transform at default')
+    for name, n in launches.items():
+        total[name] += n
+    path.unlink()
+    return dict(export_s=seconds, file_bytes=size, request_mib=peak, rel=rel, bit_equal=True,
+                launches_per_iteration={k: n / SERVE_ITER for k, n in launches.items() if n})
+
+
 def phase_serving(W: np.ndarray = None) -> tuple:
     """Phase 17: the serving artifact on the kernels (K3, K4, K1's ratio and
     K5 as custom operators in a ``torch.export`` program), against phase
     5's dictionary ``W`` (run alone: the same fit of the flagship, plain);
     returns the launches and the measurements."""
-    if W is None:
-        f = FLAGSHIP
-        nmf = TransformInvariantNMF(f['M'], f['A'], reconstruction_mode=f['mode'], seed=SEED,
-                                    device=DEVICE)
-        nmf.fit(np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'],
-                                                   dtype=np.float32),
-                n_iterations=N_ITER, sparsity_H=f['sparsity'])
-        W = nmf.W
-        del nmf
+    W = _flagship_dictionary() if W is None else W
     total = dict.fromkeys(KERNELS, 0)
     out = {'conv flagship': _serve_flagship(W, total)}
     out.update(_serve_kinds(W, total))
+    out['conv flagship at default'] = _serve_default(W, total)
     missing = [name for name in ('mu_h', 'inhibited_mu_h', 'mu_ratio', 'hals_sweep')
                if not total[name]]
     if missing:
         raise AssertionError(f'phase 17 launched no {missing}')
+    return total, out
+
+
+# ------------------------------------------------------ phase 18: precision
+
+#: the values of ``precision``; each path is timed at None and 'default'
+LEVELS = (None, 'default', 'high', 'highest')
+#: the levels that run TF32 on the card
+TF32_LEVELS = ('default', 'high')
+#: iterations of each MU fit at each level and of its float64 reference
+PRECISION_ITER = 10
+#: at 'default': the MU fits' energies (relative) and W and H (relative
+#: Frobenius norm) against the float64 fit, and the goldens' energies
+PRECISION_ENERGY_TOL = 1e-3
+PRECISION_FACTOR_TOL = 5e-3
+PRECISION_GOLDEN_RTOL = 1e-3
+#: two fits at a TF32 level whose float32 sums differ in order (kernels
+#: against ``use_pallas=False``): rounding the operands to 10 bits turns a
+#: float32 difference into one of up to 2**-11 of an operand
+TF32_FIT_TOL = 1e-3
+
+
+def _frobenius(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm((a - b).ravel()) / np.linalg.norm(b.ravel()))
+
+
+def _level_fits(label, make, run, expected: dict, one_pass: tuple, total: dict,
+                per: int = PRECISION_ITER) -> tuple:
+    """``run(make(level))`` at every level, counts reset before and read
+    after each: ``expected`` launches at every level, each route of
+    ``one_pass`` launched as often as its wrapper at the TF32 levels and
+    never at the others; W and H at 'default' bit-equal to 'high', at
+    'highest' to None.  Returns the models and the launches per iteration
+    at 'default' (over ``per`` iterations)."""
+    models = {}
+    for level in LEVELS:
+        nmf = make(level)
+        sync()
+        reset_counts()
+        run(nmf)
+        sync()
+        launches = counts()
+        want = dict.fromkeys(KERNELS, 0)
+        want.update(expected)
+        want.update({name: expected[name.removesuffix('_1pass')] if level in TF32_LEVELS else 0
+                     for name in one_pass})
+        log(f'{label} at {level!r}: launches {({k: v for k, v in launches.items() if v})}; '
+            f'energy {nmf._energy_function()!r}')
+        if launches != want:
+            raise AssertionError(f'{label} at {level!r}: launches {launches}, not {want}')
+        for name, n in launches.items():
+            total[name] += n
+        models[level] = nmf
+        if level == 'default':
+            at_default = {k: v / per for k, v in launches.items() if v}
+    for a, b in (('default', 'high'), ('highest', None)):
+        same = all(np.array_equal(x, y) for x, y in ((models[a].W, models[b].W),
+                                                      (models[a].H, models[b].H)))
+        log(f'{label}: {a!r} {"bit-equal to" if same else "DIFFERS from"} {b!r}')
+        if not same:
+            raise AssertionError(f'{label}: precision {a!r} is not bit-equal to {b!r}')
+    return models, at_default
+
+
+def _f64_distance(label, models: dict, ref, hold: bool = True) -> dict:
+    """The energy (relative) and W and H (relative Frobenius norm) of the
+    fits at None and 'default' against the float64 fit ``ref``; at
+    'default' held within 1e-3 and 5e-3 when ``hold``."""
+    e64 = ref._energy_function()
+    out = {}
+    for level in (None, 'default'):
+        m = models[level]
+        out[str(level)] = dict(energy=abs(m._energy_function() - e64) / abs(e64),
+                               W=_frobenius(m.W, ref.W), H=_frobenius(m.H, ref.H))
+    d = out['default']
+    log(f'{label} against float64 after its iterations: at default energy {d["energy"]:.3e}, '
+        f'W {d["W"]:.3e}, H {d["H"]:.3e}; at None energy {out["None"]["energy"]:.3e}, W '
+        f'{out["None"]["W"]:.3e}, H {out["None"]["H"]:.3e}'
+        + ('' if hold else ' (printed, not held)'))
+    if hold and not (d['energy'] <= PRECISION_ENERGY_TOL and max(d['W'], d['H'])
+                     <= PRECISION_FACTOR_TOL):
+        raise AssertionError(f'{label} at default: {d} off float64 (> {PRECISION_ENERGY_TOL} '
+                             f'energy, {PRECISION_FACTOR_TOL} W and H?)')
+    return out
+
+
+def _in_turns(label, models: dict, timer) -> dict:
+    """``timer(model)`` at None and 'default' in turns (None, default,
+    default, None): ms per iteration."""
+    t = [timer(models[level]) for level in (None, 'default', 'default', None)]
+    out = {'None': (t[0] + t[3]) / 2, 'default': (t[1] + t[2]) / 2}
+    log(f'{label} ({card()}): {out["default"]:.4f} ms per iteration at default '
+        f'({t[1]:.4f}/{t[2]:.4f}), {out["None"]:.4f} at None ({t[0]:.4f}/{t[3]:.4f}), in turns')
+    return out
+
+
+def _default_split(nmf) -> dict:
+    """One conv iteration at 'default' by call (ms, CUDA events): the cuDNN
+    reconstruction with TF32 on (and off, for comparison), K3 and K2 on
+    their one-pass routes, K1's W epilogue."""
+    W, H, plan, Vp = nmf._W, nmf._H, nmf._plan, nmf._Vp
+    fp32_plan = ConvPlan.create(plan.mode, plan.sample_shape, plan.atom_shape)
+    R = conv.reconstruct(W, H, plan)
+    Rx = conv.extend_data(R, plan)
+    X2 = torch.cat([Vp, Rx], dim=1)
+    neg, pos = gw.grad_w(X2, H, plan, 1)
+    parts = {
+        'reconstruct (cuDNN, TF32 on)': lambda: conv.reconstruct(W, H, plan),
+        'reconstruct (cuDNN, TF32 off)': lambda: conv.reconstruct(W, H, fp32_plan),
+        'extend + stack': lambda: torch.cat([Vp, conv.extend_data(R, plan)], dim=1),
+        'mu_h one pass': lambda: mu_h.mu_h(Vp, Rx, W, H, engine.EPS + 0.1, None, 1),
+        'grad_w one pass': lambda: gw.grad_w(X2, H, plan, 1),
+        'mu_w': lambda: mu.mu_w(W, neg.contiguous(), pos.contiguous(), engine.EPS, plan.ndim),
+    }
+    out = {name: time_ms(fn) for name, fn in parts.items()}
+    log(f'  conv flagship at default, by call ({card()}): '
+        + ', '.join(f'{k} {v:.4f} ms' for k, v in out.items()))
+    return out
+
+
+def _precision_goldens() -> None:
+    """The golden fixtures at 'default' on the kernels: energies (and the
+    sweep's L1) within 1e-3 of tests/golden_values.json."""
+    goldens = json.loads((ROOT / 'tests' / 'golden_values.json').read_text())
+    fits = [('2d/valid', _image_2d, dict(n_atoms=10, atom_shape=(7, 7)),
+             dict(sparsity_H=0.1), goldens['2d']['valid'], None)]
+    fits += [(f'1d/{mode}', _signal_1d,
+              dict(n_atoms=3, atom_shape=(20,), reconstruction_mode=mode),
+              dict(inhibition_strength=0.1), golden, None)
+             for mode, golden in goldens['1d'].items()]
+    for params in SPARSITY_INHIBITION:
+        key = ','.join(f'{k}={v}' for k, v in sorted(params.items())) or 'plain'
+        golden = goldens['sparsity_inhibition'][key]
+        fits.append((f'sparsity_inhibition {key}', _image_2d,
+                     dict(n_atoms=5, atom_shape=(5, 5)), params, golden['energy'], golden['l1']))
+    for key, data, init, fit, golden, l1 in fits:
+        np.random.seed(42)
+        nmf = TransformInvariantNMF(**init, precision='default', device=DEVICE)
+        reset_counts()
+        nmf.fit(data(), n_iterations=10, **fit)
+        sync()
+        launches = counts()
+        got = {'energy': (nmf._energy_function(), golden)}
+        if l1 is not None:
+            got['L1'] = (float(np.abs(nmf.H).sum(dtype=np.float64)), l1)
+        rel = {k: abs(a - b) / abs(b) for k, (a, b) in got.items()}
+        log(f'  golden {key} at default: ' + ', '.join(
+            f'{k} {a!r} vs {b!r} (rel {rel[k]:.3e})' for k, (a, b) in got.items())
+            + f'; one-pass launches K2 {launches["grad_w_1pass"]}, K3 {launches["mu_h_1pass"]}')
+        if not (all(v <= PRECISION_GOLDEN_RTOL for v in rel.values())
+                and launches['grad_w_1pass'] == 10):
+            raise AssertionError(f'golden {key} at default: {rel} (> {PRECISION_GOLDEN_RTOL}?) '
+                                 f'or launches {launches}')
+
+
+def phase_precision(W: np.ndarray = None) -> tuple:
+    """Phase 18: every path at every level (``_level_fits``), the MU fits
+    at 'default' against float64, times at None and 'default' in turns,
+    the split of a conv iteration at 'default' and the goldens at
+    'default', with phase 5's dictionary ``W`` for ``transform`` (run
+    alone: the same fit); returns the launches and the measurements."""
+    W = _flagship_dictionary() if W is None else W
+    f, d, hp = FLAGSHIP, DOT, HALS_PLAIN
+    total = dict.fromkeys(KERNELS, 0)
+    out = {}
+    n = PRECISION_ITER
+    V = np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    plain = dict(sparsity_H=f['sparsity'])
+    inhibited = dict(sparsity_H=f['sparsity'], inhibition_strength=f['inhibition'])
+
+    def flagship(backend='auto', **fit):
+        def make(level, dtype=torch.float32):
+            return TransformInvariantNMF(f['M'], f['A'], backend=backend, seed=SEED,
+                                         precision=level, dtype=dtype, device=DEVICE)
+        return make, lambda m: m.fit(V, n_iterations=n, **fit)
+
+    for label, backend, fit, expected, one_pass in (
+            ('conv flagship plain', 'auto', plain, dict(mu_h=n, grad_w=n, mu_w=n),
+             ('mu_h_1pass', 'grad_w_1pass')),
+            ('conv flagship inhibited', 'auto', inhibited,
+             dict(inhibited_mu_h=n, grad_w=n, mu_w=n), ('grad_w_1pass',)),
+            ('fft flagship', 'jax_fft', plain, dict(mu_ratio=n, mu_w=n), ())):
+        make, run = flagship(backend, **fit)
+        models, at_default = _level_fits(label, make, run, expected, one_pass, total)
+        ref = make(None, torch.float64)
+        run(ref)
+        out[label] = dict(float64=_f64_distance(label, models, ref),
+                          ms=_in_turns(label, models, lambda m: _ms_per_iteration(m, fit)),
+                          launches_per_iteration_at_default=at_default)
+        if label == 'conv flagship plain':
+            out[label]['split_at_default'] = _default_split(models['default'])
+        del models, ref
+
+    # transform: H-only iterations against phase 5's dictionary, on new data
+    Ve = np.random.default_rng(SEED + 1).random((f['N'], f['C']) + f['S'], dtype=np.float32)
+
+    def encoder(level, dtype=torch.float32):
+        return TransformInvariantNMF(f['M'], f['A'], seed=SEED, precision=level, dtype=dtype,
+                                     device=DEVICE).set_dictionary(W)
+
+    def encode(m):
+        m.transform(Ve, n_iterations=n, **plain)
+    models, at_default = _level_fits('transform', encoder, encode, dict(mu_h=n), ('mu_h_1pass',),
+                                     total)
+    ref = encoder(None, torch.float64)
+    encode(ref)
+    out['transform'] = dict(float64=_f64_distance('transform', models, ref),
+                            ms=_in_turns('transform', models, lambda m: _h_only_ms(m, plain)),
+                            launches_per_iteration_at_default=at_default)
+    del models, ref, Ve, V
+
+    V = np.random.default_rng(SEED).random((d['N'], d['C']) + d['S'], dtype=np.float32)
+    fit = dict(sparsity_H=d['sparsity'])
+
+    def dot(level, dtype=torch.float32):
+        return TransformInvariantNMF(d['M'], d['S'], reconstruction_mode='full', seed=SEED,
+                                     precision=level, dtype=dtype, device=DEVICE)
+
+    def run_dot(m):
+        m.fit(V, n_iterations=n, **fit)
+    models, _ = _level_fits('dot 16384x1x4096/256', dot, run_dot, dict(mu_ratio=n, mu_w=n), (),
+                            total)
+    ref = dot(None, torch.float64)
+    run_dot(ref)
+    out['dot'] = dict(float64=_f64_distance('dot', models, ref),
+                      ms=_in_turns('dot', models, lambda m: _ms_per_iteration(m, fit)))
+    del models, ref, V
+
+    V = np.random.default_rng(SEED + 50).random((hp['N'], 1, hp['F']), dtype=np.float32)
+    inner = engine_hals.auto_inner(hp['M'], hp['F'], 'auto', n_samples=hp['N'])
+
+    def hals_model(level, dtype=torch.float32):
+        return TransformInvariantNMF(hp['M'], (hp['F'],), reconstruction_mode='full',
+                                     seed=SEED, precision=level, dtype=dtype, device=DEVICE)
+
+    def run_hals(m):
+        m.fit(V, n_iterations=HALS_ITER, solver='hals')
+
+    def hals_ms(m):
+        def loop(k):
+            m._W, m._H = engine_hals.fit_loop(m._Vd, m._W, m._H, k, 0., 0., 0., 0., inner=inner,
+                                              update_H=True, update_W=True, plan=m._plan)
+        return _hals_ms(loop)
+    label = f'HALS plain NMF {hp["N"]}x1x{hp["F"]}/{hp["M"]}'
+    models, _ = _level_fits(label, hals_model, run_hals, dict(hals_sweep=2 * HALS_ITER), (),
+                            total, HALS_ITER)
+    ref = hals_model(None, torch.float64)
+    run_hals(ref)
+    # the W sweep amplifies rounding (PERF.md section 6): printed, not held
+    out['hals_plain'] = dict(float64=_f64_distance(label, models, ref, hold=False),
+                             ms=_in_turns(label, models, hals_ms))
+    del models, ref, V
+
+    log('golden fixtures at default:')
+    _precision_goldens()
+    missing = [name for name in ('grad_w_1pass', 'mu_h_1pass') if not total[name]]
+    if missing:
+        raise AssertionError(f'phase 18 launched no {missing}')
     return total, out
 
 
@@ -3091,6 +3509,9 @@ def main() -> int:
     log('the serving artifact (phase 17):')
     srv_launches, srv = phase_serving(W)
     log(f'serving times ({card()}): ' + json.dumps(srv))
+    log('precision (phase 18):')
+    prec_launches, prec = phase_precision(W)
+    log(f'precision times ({card()}): ' + json.dumps(prec))
     srv_per_iteration = {kind: d['launches_per_iteration'] for kind, d in srv.items()}
     k5 = hals_out['k5']
     errors['hals_sweep'] = k5[K5_CASES[0][0]]['max_abs_err']
@@ -3105,7 +3526,8 @@ def main() -> int:
     rows = [dict(name=name, route='cuda', source=k['source'], replaces=k['replaces'],
                  launches=(launches[name] + enc_launches[name] + st_launches[name]
                            + mb_launches[name] + obj_launches[name] + grp_launches[name]
-                           + hals_launches[name] + srv_launches[name]),
+                           + hals_launches[name] + srv_launches[name]
+                           + prec_launches[name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
@@ -3118,6 +3540,11 @@ def main() -> int:
                  serving_launches=srv_launches[name],
                  serving_launches_per_iteration={kind: n.get(name, 0)
                                                  for kind, n in srv_per_iteration.items()},
+                 precision_launches=prec_launches[name],
+                 default_launches_per_iteration={
+                     path: prec[path]['launches_per_iteration_at_default'].get(name, 0)
+                     for path in ('conv flagship plain', 'conv flagship inhibited',
+                                  'transform')},
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     log(device['smi'])  # again here: the build's report may push the first one out of a tail

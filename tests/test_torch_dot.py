@@ -126,12 +126,14 @@ def test_products_ignore_the_callers_matmul_precision(strategy):
 
 
 def test_full_fp32_matmul_restores_on_error():
+    """The matmul pin at a full-float32 level (None here; every level on
+    the CPU) gives the caller's setting back when its block raises."""
     torch.set_float32_matmul_precision('high')
     try:
         with pytest.raises(RuntimeError):
-            with precision.full_fp32_matmul():
+            with precision.matmul_pin(None, 'cpu'):
                 assert torch.get_float32_matmul_precision() == 'highest'
-                with precision.full_fp32_matmul():
+                with precision.matmul_pin('default', 'cpu'):
                     assert torch.get_float32_matmul_precision() == 'highest'
                 assert torch.get_float32_matmul_precision() == 'highest'
                 raise RuntimeError

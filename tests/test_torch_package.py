@@ -211,11 +211,19 @@ def test_fit_arguments_at_jax_defaults_are_accepted():
     assert nmf.n_iterations_ == 1
 
 
-@pytest.mark.parametrize('kwargs', [dict(precision='high'),
-                                    dict(mesh=object()), dict(shard_axis='atoms')])
+@pytest.mark.parametrize('kwargs', [dict(mesh=object()), dict(shard_axis='atoms')])
 def test_unported_constructor_arguments_raise(kwargs):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu', **kwargs)
+
+
+@pytest.mark.parametrize('precision', [None, 'default', 'high', 'highest'])
+def test_precision_is_a_ported_constructor_argument(precision):
+    """``precision`` is taken as the JAX class takes it (ROADMAP item 16)
+    and reaches the fit's plan."""
+    nmf = tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu', precision=precision)
+    nmf.fit(np.ones((1, 1, 8, 8)), n_iterations=1)
+    assert nmf.get_params()['precision'] == nmf._plan.precision == precision
 
 
 def test_minibatch_and_unknown_arguments():

@@ -64,8 +64,8 @@ def test_set_params_reconfigures_and_validates():
     nmf.fit(_make_V(), n_iterations=2)
     nmf.set_params(n_atoms=2, transform_type='shift+rot90+flip')
     assert nmf._W is None and nmf.n_transforms == 8
-    with pytest.raises(NotImplementedError, match='item 16'):
-        nmf.set_params(precision='high')
+    nmf.set_params(precision='high')
+    assert nmf.get_params()['precision'] == 'high' and nmf.n_transforms == 8
 
 
 def test_minibatch_model_parameters():

@@ -14,7 +14,9 @@
 // 64 x 1 x 256 x 256 with 16 atoms of 9 x 9) into a tiny output (2,592
 // values): 23 GFLOP against 0.33 GB of reads.  It is a GEMM, so the tensor
 // cores bound it: with three TF32 products per product (below) 69 GFLOP at
-// 495 TFLOP/s, 0.14 ms, against 0.10 ms of HBM time.  The FP32 FMA kernel of
+// 495 TFLOP/s, 0.14 ms, against 0.10 ms of HBM time; in one TF32 pass
+// (kPasses = 1, the TF32 precision levels) 23 GFLOP, 0.05 ms, so the bytes
+// bound it there.  The FP32 FMA kernel of
 // the first port was bound by shared-memory bank conflicts instead (its
 // 64-float X row pitch put a warp's loads in three banks).  Here the
 // fragment loads from shared memory take most of the time: mma.sync needs
@@ -35,7 +37,10 @@
 // The product is accumulated as small*big + big*small + big*big; the dropped
 // small*small and the two rounding errors are each at most 2^-22 of |a*b|, so
 // every product is within about 3 * 2^-22 = 7e-7 of exact, near float32's own
-// 6e-8.  Every term is accumulated in float32.  The tensor cores' float32
+// 6e-8.  Every term is accumulated in float32.  One pass (kPasses = 1) rounds
+// each operand once (cvt.rna, within 2^-11) and makes the big*big product
+// alone: no small plane is staged, split or loaded, so the split layout holds
+// two planes (raw and big) where 3xTF32 holds three, and chunks can be larger.  The tensor cores' float32
 // accumulation loses low bits over long sums, so the MMA sums restart from
 // zero for each tx row (at most 3 * Tc / 8 = 33 accumulations) and are added
 // to a float32 register total with round-to-nearest; the cross-block pass
@@ -156,7 +161,7 @@ __device__ __forceinline__ void split4(const float4 x, float4& big, float4& smal
 }
 
 // one warp's operands for one k step of 8: the A fragment and kNT B
-// fragments, each as big and small TF32 halves
+// fragments, each as big and small TF32 halves (big alone in one pass)
 template <int kNT>
 struct Frags {
   uint32_t ab[4], as[4];
@@ -165,7 +170,7 @@ struct Frags {
 
 // the fragments of the k step at offset off from the A offset a (rows g and
 // g + 8 are hb apart) and the B offsets b
-template <int kNT>
+template <int kNT, int kPasses>
 __device__ __forceinline__ void load_frags(const float* __restrict__ big,
                                            const float* __restrict__ small, int a, int hb,
                                            const int (&b)[kNT], int off, Frags<kNT>& f) {
@@ -174,57 +179,76 @@ __device__ __forceinline__ void load_frags(const float* __restrict__ big,
   f.ab[1] = __float_as_uint(big[a + hb]);
   f.ab[2] = __float_as_uint(big[a + 4]);
   f.ab[3] = __float_as_uint(big[a + hb + 4]);
-  f.as[0] = __float_as_uint(small[a]);
-  f.as[1] = __float_as_uint(small[a + hb]);
-  f.as[2] = __float_as_uint(small[a + 4]);
-  f.as[3] = __float_as_uint(small[a + hb + 4]);
+  if constexpr (kPasses == 3) {
+    f.as[0] = __float_as_uint(small[a]);
+    f.as[1] = __float_as_uint(small[a + hb]);
+    f.as[2] = __float_as_uint(small[a + 4]);
+    f.as[3] = __float_as_uint(small[a + hb + 4]);
+  }
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
     f.bb[j][0] = __float_as_uint(big[b[j] + off]);
     f.bb[j][1] = __float_as_uint(big[b[j] + off + 4]);
-    f.bs[j][0] = __float_as_uint(small[b[j] + off]);
-    f.bs[j][1] = __float_as_uint(small[b[j] + off + 4]);
+    if constexpr (kPasses == 3) {
+      f.bs[j][0] = __float_as_uint(small[b[j] + off]);
+      f.bs[j][1] = __float_as_uint(small[b[j] + off + 4]);
+    }
   }
 }
 
 // the same from the one raw plane of the compact layout, split as they load;
 // the lane's k columns are c0 and c1 (its own, or column 0 past the valid
 // width of a narrow chunk, where ok0 / ok1 zero A so that B needs no mask)
-template <int kNT>
+template <int kNT, int kPasses>
 __device__ __forceinline__ void load_frags_raw(const float* __restrict__ raw, int a, int hb,
                                                const int (&b)[kNT], int off, int c0, int c1,
                                                bool ok0, bool ok1, Frags<kNT>& f) {
   a += off;
-  split_tf32(ok0 ? raw[a + c0] : 0.f, f.ab[0], f.as[0]);
-  split_tf32(ok0 ? raw[a + hb + c0] : 0.f, f.ab[1], f.as[1]);
-  split_tf32(ok1 ? raw[a + c1] : 0.f, f.ab[2], f.as[2]);
-  split_tf32(ok1 ? raw[a + hb + c1] : 0.f, f.ab[3], f.as[3]);
+  if constexpr (kPasses == 3) {
+    split_tf32(ok0 ? raw[a + c0] : 0.f, f.ab[0], f.as[0]);
+    split_tf32(ok0 ? raw[a + hb + c0] : 0.f, f.ab[1], f.as[1]);
+    split_tf32(ok1 ? raw[a + c1] : 0.f, f.ab[2], f.as[2]);
+    split_tf32(ok1 ? raw[a + hb + c1] : 0.f, f.ab[3], f.as[3]);
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    split_tf32(raw[b[j] + off + c0], f.bb[j][0], f.bs[j][0]);
-    split_tf32(raw[b[j] + off + c1], f.bb[j][1], f.bs[j][1]);
+    for (int j = 0; j < kNT; ++j) {
+      split_tf32(raw[b[j] + off + c0], f.bb[j][0], f.bs[j][0]);
+      split_tf32(raw[b[j] + off + c1], f.bb[j][1], f.bs[j][1]);
+    }
+  } else {
+    f.ab[0] = to_tf32(ok0 ? raw[a + c0] : 0.f);
+    f.ab[1] = to_tf32(ok0 ? raw[a + hb + c0] : 0.f);
+    f.ab[2] = to_tf32(ok1 ? raw[a + c1] : 0.f);
+    f.ab[3] = to_tf32(ok1 ? raw[a + hb + c1] : 0.f);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      f.bb[j][0] = to_tf32(raw[b[j] + off + c0]);
+      f.bb[j][1] = to_tf32(raw[b[j] + off + c1]);
+    }
   }
 }
 
 // 3xTF32: the small terms first, the big product last; the tiles
-// interleave so that kNT independent MMAs are in flight
-template <int kNT>
+// interleave so that kNT independent MMAs are in flight.  One pass: the big
+// product alone
+template <int kNT, int kPasses>
 __device__ __forceinline__ void mma_step(float (&d)[kNT][4], const Frags<kNT>& f) {
+  if constexpr (kPasses == 3) {
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) mma_tf32(d[j], f.as, f.bb[j][0], f.bb[j][1]);
+    for (int j = 0; j < kNT; ++j) mma_tf32(d[j], f.as, f.bb[j][0], f.bb[j][1]);
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) mma_tf32(d[j], f.ab, f.bs[j][0], f.bs[j][1]);
+    for (int j = 0; j < kNT; ++j) mma_tf32(d[j], f.ab, f.bs[j][0], f.bs[j][1]);
+  }
 #pragma unroll
   for (int j = 0; j < kNT; ++j) mma_tf32(d[j], f.ab, f.bb[j][0], f.bb[j][1]);
 }
 
-template <int kNT, int kVec, bool kSplit>
+template <int kNT, int kVec, bool kSplit, int kPasses>
 __global__ void __launch_bounds__(kThreads, 2)
 grad_w_partial(const float* __restrict__ x2, const float* __restrict__ h,
                float* __restrict__ scratch, GradWShape s) {
   extern __shared__ float4 smem_raw[];
-  // kSplit: three planes of one chunk with the same layout, raw (the
-  // cp.async target) and its big and small TF32 halves, split once per
+  // kSplit: planes of one chunk with the same layout, raw (the cp.async
+  // target) and its big and (3xTF32) small TF32 halves, split once per
   // chunk; else the compact layout, raw alone, split as fragments load
   const int xr = s.tr + s.ax - 1;
   const int hsz = s.tr * s.m_rows * s.hp;
@@ -271,9 +295,9 @@ grad_w_partial(const float* __restrict__ x2, const float* __restrict__ h,
   }
   auto load = [&](int a, const int (&b)[kNT], int off, Frags<kNT>& f) {
     if constexpr (kSplit) {
-      load_frags<kNT>(big, small, a, hb, b, off, f);
+      load_frags<kNT, kPasses>(big, small, a, hb, b, off, f);
     } else {
-      load_frags_raw<kNT>(raw, a, hb, b, off, c0, c1, ok0, ok1, f);
+      load_frags_raw<kNT, kPasses>(raw, a, hb, b, off, c0, c1, ok0, ok1, f);
     }
   };
 
@@ -296,10 +320,17 @@ grad_w_partial(const float* __restrict__ x2, const float* __restrict__ h,
     __syncthreads();  // the chunk is in raw, and the last chunk's MMAs are done
     if constexpr (kSplit) {
       for (int i = 4 * threadIdx.x; i < plane; i += 4 * kThreads) {
-        float4 b, l;
-        split4(*reinterpret_cast<const float4*>(raw + i), b, l);
-        *reinterpret_cast<float4*>(raw + plane + i) = b;
-        *reinterpret_cast<float4*>(raw + 2 * plane + i) = l;
+        const float4 x = *reinterpret_cast<const float4*>(raw + i);
+        if constexpr (kPasses == 3) {
+          float4 b, l;
+          split4(x, b, l);
+          *reinterpret_cast<float4*>(raw + plane + i) = b;
+          *reinterpret_cast<float4*>(raw + 2 * plane + i) = l;
+        } else {
+          *reinterpret_cast<float4*>(raw + plane + i) =
+              make_float4(__uint_as_float(to_tf32(x.x)), __uint_as_float(to_tf32(x.y)),
+                          __uint_as_float(to_tf32(x.z)), __uint_as_float(to_tf32(x.w)));
+        }
       }
       __syncthreads();  // raw may be refilled: the next chunk's copies overlap the MMAs
       if (q + gridDim.x < n_chunks) stage<kVec>(x2, h, raw, q + gridDim.x, m_lo, m_hi, s);
@@ -323,14 +354,14 @@ grad_w_partial(const float* __restrict__ x2, const float* __restrict__ h,
         if (n_steps > 0) load(a, b, 0, f0);
         for (int i = 0; i + 1 < n_steps; i += 2) {
           load(a, b, kstep, f1);
-          mma_step<kNT>(d, f0);
+          mma_step<kNT, kPasses>(d, f0);
           a += 2 * kstep;
 #pragma unroll
           for (int j = 0; j < kNT; ++j) b[j] += 2 * kstep;
           if (i + 2 < n_steps) load(a, b, 0, f0);
-          mma_step<kNT>(d, f1);
+          mma_step<kNT, kPasses>(d, f1);
         }
-        if (n_steps & 1) mma_step<kNT>(d, f0);
+        if (n_steps & 1) mma_step<kNT, kPasses>(d, f0);
 #pragma unroll
         for (int j = 0; j < kNT; ++j)
 #pragma unroll
@@ -385,11 +416,11 @@ __global__ void grad_w_reduce(const float* __restrict__ scratch,
   }
 }
 
-template <int kNT, int kVec, bool kSplit>
+template <int kNT, int kVec, bool kSplit, int kPasses>
 cudaError_t launch_partial(const float* x2, const float* h, float* scratch,
                            const GradWShape& s, int grid_x, int grid_y, int smem_bytes,
                            cudaStream_t st) {
-  auto kernel = grad_w_partial<kNT, kVec, kSplit>;
+  auto kernel = grad_w_partial<kNT, kVec, kSplit, kPasses>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return err;
@@ -397,25 +428,36 @@ cudaError_t launch_partial(const float* x2, const float* h, float* scratch,
   return cudaGetLastError();
 }
 
-template <int kVec, bool kSplit>
+template <int kVec, bool kSplit, int kPasses>
 cudaError_t launch_nt(int nt, const float* x2, const float* h, float* scratch,
                       const GradWShape& s, int grid_x, int grid_y, int smem_bytes,
                       cudaStream_t st) {
   switch (nt) {
-    case 1: return launch_partial<1, kVec, kSplit>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
-    case 2: return launch_partial<2, kVec, kSplit>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
-    case 3: return launch_partial<3, kVec, kSplit>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
-    case 4: return launch_partial<4, kVec, kSplit>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 1: return launch_partial<1, kVec, kSplit, kPasses>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 2: return launch_partial<2, kVec, kSplit, kPasses>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 3: return launch_partial<3, kVec, kSplit, kPasses>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 4: return launch_partial<4, kVec, kSplit, kPasses>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int kVec>
+template <int kVec, int kPasses>
 cudaError_t launch_layout(bool split, int nt, const float* x2, const float* h, float* scratch,
                           const GradWShape& s, int grid_x, int grid_y, int smem_bytes,
                           cudaStream_t st) {
-  return split ? launch_nt<kVec, true>(nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st)
-               : launch_nt<kVec, false>(nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+  return split ? launch_nt<kVec, true, kPasses>(nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st)
+               : launch_nt<kVec, false, kPasses>(nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+}
+
+template <int kVec>
+cudaError_t launch_passes(int passes, bool split, int nt, const float* x2, const float* h,
+                          float* scratch, const GradWShape& s, int grid_x, int grid_y,
+                          int smem_bytes, cudaStream_t st) {
+  switch (passes) {
+    case 1: return launch_layout<kVec, 1>(split, nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 3: return launch_layout<kVec, 3>(split, nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -425,11 +467,12 @@ extern "C" int tnmf_grad_w(const float* x2, const float* h, float* out, float* s
                            const int* geometry, const int* group, int grid_x, int grid_y,
                            int smem_bytes, void* stream) {
   // geometry: tr, tc, hp, hw, xw, xp, n_ct, nt, n_items, ipb, ksplit, m_rows,
-  // vec, planes; group: c_off, channels, a_off, atom rows, b_off, atom columns
+  // vec, planes, passes; group: c_off, channels, a_off, atom rows, b_off,
+  // atom columns
   const int* g = geometry;
   const int* gr = group;
-  const int nt = g[7], vec = g[12];
-  const bool split = g[13] == 3;
+  const int nt = g[7], vec = g[12], passes = g[14];
+  const bool split = g[13] > 1;  // raw and big (and small) planes, else the compact layout
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int ex = tx + ax - 1, ey = ty + ay - 1;
   const GradWShape s{n, m, gr[1], tx + gr[3] - 1, ty + gr[5] - 1, tx, ty, gr[3], gr[5],
@@ -438,8 +481,8 @@ extern "C" int tnmf_grad_w(const float* x2, const float* h, float* out, float* s
                      c2, ex, ey, gr[0], gr[2], gr[4], ax, ay};
   const float* xg = x2 + (static_cast<int64_t>(gr[0]) * ex + gr[2]) * ey + gr[4];
   cudaError_t err = vec == 4
-      ? launch_layout<4>(split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st)
-      : launch_layout<1>(split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+      ? launch_passes<4>(passes, split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st)
+      : launch_passes<1>(passes, split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n_out = static_cast<int64_t>(m) * s.c2 * s.ax * s.ay;
   const int blocks = static_cast<int>(std::min<int64_t>((n_out + 255) / 256, 1024));

@@ -40,7 +40,13 @@
 // plane, the block splits it once into big and small TF32 planes (splitting
 // at every fragment load cost more than the MMAs), and the next chunk's
 // copies into the raw plane overlap this chunk's MMAs.  A warp owns work
-// items of one tx row and up to kNT column tiles.
+// items of one tx row and up to kNT column tiles.  In one TF32 pass
+// (kPasses = 1, the TF32 precision levels) W and each window are rounded once
+// (cvt.rna) into a big plane alone and each k step makes 2 MMAs per column
+// tile: a third of the tensor-core work, no small plane to stage or load,
+// so shared memory holds the dictionary's fragments once and two window
+// planes, and larger chunks fit; bytes bound it there (0.05 ms of MMAs at
+// the flagship against 0.18 ms of traffic).
 //
 // mu_h_kernel, the FP32 route of the first port (for shapes whose windows
 // and split dictionary no block can hold).  A block computes a 16 x 64 tile
@@ -252,21 +258,21 @@ __device__ __forceinline__ int tap_offset(int k, const MuHMmaShape& s) {
   return (c * s.xr + a / s.ay) * s.xp + a % s.ay;
 }
 
-template <int kVec>
+template <int kVec, int kPasses>
 __global__ void __launch_bounds__(kThreads, 2)
 mu_h_mma_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
                 const float* __restrict__ w, const float* __restrict__ h,
                 const float* __restrict__ pos_extra, float denom_add,
                 float* __restrict__ out, MuHMmaShape s) {
   extern __shared__ float4 smem_raw[];
-  // the A fragments [n_mt][ks][32 lanes] as big and small TF32 halves, the
-  // tap offset table [ks][4 lanes] (taps 8 st + tig and + 4), and three
-  // window planes of the same layout [2 (Vp, Rx)][c][xr][xp]: raw (the
-  // cp.async target) and this chunk's big and small TF32 halves
+  // the A fragments [n_mt][ks][32 lanes] as big and (3xTF32) small TF32
+  // halves, the tap offset table [ks][4 lanes] (taps 8 st + tig and + 4),
+  // and window planes of the same layout [2 (Vp, Rx)][c][xr][xp]: raw (the
+  // cp.async target) and this chunk's big and (3xTF32) small TF32 halves
   const int frags = s.n_mt * s.ks * 32;
   float4* a_big = smem_raw;
   float4* a_small = a_big + frags;
-  int2* offs = reinterpret_cast<int2*>(a_small + frags);
+  int2* offs = reinterpret_cast<int2*>(a_big + (kPasses == 3 ? 2 : 1) * frags);
   float* raw = reinterpret_cast<float*>(offs + 4 * s.ks);
   const int win = s.c * s.xr * s.xp;  // one tensor's window
   const int plane = 2 * win;          // a multiple of 4
@@ -290,13 +296,18 @@ mu_h_mma_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
     for (int e = 0; e < 4; ++e) {
       const int mm = mt * 16 + (ln >> 2) + 8 * (e & 1);
       const int k = 8 * st + (ln & 3) + 4 * (e >> 1);
-      uint32_t b, l;
-      split_tf32(mm < s.m && k < taps ? w[static_cast<int64_t>(mm) * taps + k] : 0.f, b, l);
-      hi[e] = __uint_as_float(b);
-      lo[e] = __uint_as_float(l);
+      const float x = mm < s.m && k < taps ? w[static_cast<int64_t>(mm) * taps + k] : 0.f;
+      if constexpr (kPasses == 3) {
+        uint32_t b, l;
+        split_tf32(x, b, l);
+        hi[e] = __uint_as_float(b);
+        lo[e] = __uint_as_float(l);
+      } else {
+        hi[e] = __uint_as_float(to_tf32(x));
+      }
     }
     a_big[i] = make_float4(hi[0], hi[1], hi[2], hi[3]);
-    a_small[i] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+    if constexpr (kPasses == 3) a_small[i] = make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
   for (int i = threadIdx.x; i < 4 * s.ks; i += kThreads) {
     const int k = 8 * (i >> 2) + (i & 3);
@@ -309,15 +320,21 @@ mu_h_mma_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
     // split once per chunk rather than at every fragment load
     for (int i = 4 * threadIdx.x; i < plane; i += 4 * kThreads) {
       const float4 x = *reinterpret_cast<const float4*>(raw + i);
-      uint32_t b[4], l[4];
-      split_tf32(x.x, b[0], l[0]);
-      split_tf32(x.y, b[1], l[1]);
-      split_tf32(x.z, b[2], l[2]);
-      split_tf32(x.w, b[3], l[3]);
-      *reinterpret_cast<float4*>(big + i) = make_float4(
-          __uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]), __uint_as_float(b[3]));
-      *reinterpret_cast<float4*>(small + i) = make_float4(
-          __uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+      if constexpr (kPasses == 3) {
+        uint32_t b[4], l[4];
+        split_tf32(x.x, b[0], l[0]);
+        split_tf32(x.y, b[1], l[1]);
+        split_tf32(x.z, b[2], l[2]);
+        split_tf32(x.w, b[3], l[3]);
+        *reinterpret_cast<float4*>(big + i) = make_float4(
+            __uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]), __uint_as_float(b[3]));
+        *reinterpret_cast<float4*>(small + i) = make_float4(
+            __uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]), __uint_as_float(l[3]));
+      } else {
+        *reinterpret_cast<float4*>(big + i) =
+            make_float4(__uint_as_float(to_tf32(x.x)), __uint_as_float(to_tf32(x.y)),
+                        __uint_as_float(to_tf32(x.z)), __uint_as_float(to_tf32(x.w)));
+      }
     }
     __syncthreads();  // raw may be refilled: the next chunk's copies overlap the MMAs
     if (q + gridDim.x < n_chunks) stage_windows<kVec>(vp, rx, raw, q + gridDim.x, s);
@@ -346,11 +363,17 @@ mu_h_mma_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
         const float4* fs = a_small + mt * s.ks * 32 + lane;
         for (int st = 0; st < s.ks; ++st) {
           const int2 o = offs[4 * st + tig];
-          const float4 wb = fb[32 * st], wl = fs[32 * st];
+          const float4 wb = fb[32 * st];
           const uint32_t ab[4] = {__float_as_uint(wb.x), __float_as_uint(wb.y),
                                   __float_as_uint(wb.z), __float_as_uint(wb.w)};
-          const uint32_t as[4] = {__float_as_uint(wl.x), __float_as_uint(wl.y),
-                                  __float_as_uint(wl.z), __float_as_uint(wl.w)};
+          uint32_t as[4];
+          if constexpr (kPasses == 3) {
+            const float4 wl = fs[32 * st];
+            as[0] = __float_as_uint(wl.x);
+            as[1] = __float_as_uint(wl.y);
+            as[2] = __float_as_uint(wl.z);
+            as[3] = __float_as_uint(wl.w);
+          }
           uint32_t vb[kNT][2], vs[kNT][2], rb[kNT][2], rs[kNT][2];
 #pragma unroll
           for (int j = 0; j < kNT; ++j) {
@@ -361,26 +384,30 @@ mu_h_mma_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
               vb[j][1] = __float_as_uint(x1[0]);
               rb[j][0] = __float_as_uint(x0[win]);
               rb[j][1] = __float_as_uint(x1[win]);
-              vs[j][0] = __float_as_uint(x0[plane]);
-              vs[j][1] = __float_as_uint(x1[plane]);
-              rs[j][0] = __float_as_uint(x0[plane + win]);
-              rs[j][1] = __float_as_uint(x1[plane + win]);
+              if constexpr (kPasses == 3) {
+                vs[j][0] = __float_as_uint(x0[plane]);
+                vs[j][1] = __float_as_uint(x1[plane]);
+                rs[j][0] = __float_as_uint(x0[plane + win]);
+                rs[j][1] = __float_as_uint(x1[plane + win]);
+              }
             }
           }
-          // 3xTF32, the small terms first; the tiles and the two
-          // correlations interleave so that independent MMAs are in flight
+          if constexpr (kPasses == 3) {
+            // 3xTF32, the small terms first; the tiles and the two
+            // correlations interleave so that independent MMAs are in flight
 #pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            if (j < nt) {
-              mma_tf32(neg[j], as, vb[j][0], vb[j][1]);
-              mma_tf32(pos[j], as, rb[j][0], rb[j][1]);
+            for (int j = 0; j < kNT; ++j) {
+              if (j < nt) {
+                mma_tf32(neg[j], as, vb[j][0], vb[j][1]);
+                mma_tf32(pos[j], as, rb[j][0], rb[j][1]);
+              }
             }
-          }
 #pragma unroll
-          for (int j = 0; j < kNT; ++j) {
-            if (j < nt) {
-              mma_tf32(neg[j], ab, vs[j][0], vs[j][1]);
-              mma_tf32(pos[j], ab, rs[j][0], rs[j][1]);
+            for (int j = 0; j < kNT; ++j) {
+              if (j < nt) {
+                mma_tf32(neg[j], ab, vs[j][0], vs[j][1]);
+                mma_tf32(pos[j], ab, rs[j][0], rs[j][1]);
+              }
             }
           }
 #pragma unroll
@@ -429,11 +456,11 @@ mu_h_mma_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
   }
 }
 
-template <int kVec>
+template <int kVec, int kPasses>
 cudaError_t launch_mma(const float* vp, const float* rx, const float* w, const float* h,
                        const float* pos_extra, float denom_add, float* out,
                        const MuHMmaShape& s, int grid_x, int smem_bytes, cudaStream_t st) {
-  auto kernel = mu_h_mma_kernel<kVec>;
+  auto kernel = mu_h_mma_kernel<kVec, kPasses>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return err;
@@ -448,14 +475,25 @@ extern "C" int tnmf_mu_h_mma(const float* vp, const float* rx, const float* w,
                              float* out, int n, int m, int c, int tx, int ty, int ax,
                              int ay, const int* geometry, int grid_x, int smem_bytes,
                              void* stream) {
-  // geometry: tr, tc, xr, xw, xp, ks, n_mt, n_groups, vec, pair
+  // geometry: tr, tc, xr, xw, xp, ks, n_mt, n_groups, vec, pair, passes
   const int* g = geometry;
   const MuHMmaShape s{n, m, c, tx + ax - 1, ty + ay - 1, tx, ty, ax, ay,
                       g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7], g[9]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      g[8] == 4 ? launch_mma<4>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st)
-                : launch_mma<1>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st);
+  const bool vec = g[8] == 4;
+  cudaError_t err;
+  switch (g[10]) {
+    case 1:
+      err = vec ? launch_mma<4, 1>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st)
+                : launch_mma<1, 1>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st);
+      break;
+    case 3:
+      err = vec ? launch_mma<4, 3>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st)
+                : launch_mma<1, 3>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

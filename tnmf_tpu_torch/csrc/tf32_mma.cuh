@@ -1,10 +1,17 @@
 // Device helpers shared by the tensor-core kernels (K2 grad_w.cu, K3 mu_h.cu):
-// cp.async copies into shared memory, the 3xTF32 operand split and the
-// mma.sync m16n8k8 TF32 product.
+// cp.async copies into shared memory, the TF32 rounding and 3xTF32 operand
+// split, and the mma.sync m16n8k8 TF32 product.
 //
-// 3xTF32: x is split into big = tf32_rna(x) and small = tf32_rna(x - big),
-// so x = big + small + e with |e| <= 2^-22 |x|; a product a*b is accumulated
-// as small*big + big*small + big*big, within about 3 * 2^-22 of exact.
+// 3xTF32 (kPasses = 3, the full-float32 precision levels): x is split into
+// big = tf32_rna(x) and small = tf32_rna(x - big), so x = big + small + e with
+// |e| <= 2^-22 |x|; a product a*b is accumulated as small*big + big*small +
+// big*big, within about 3 * 2^-22 of exact.
+//
+// One pass (kPasses = 1, the TF32 levels 'default' and 'high'): each operand
+// is rounded once, big = tf32_rna(x) (within 2^-11 |x|), and a product is
+// big*big alone: a third of the tensor-core products and no small halves to
+// stage or load.  The product of two TF32 values is exact in float32, so the
+// result equals a float32 sum over the rounded operands.
 
 #pragma once
 
@@ -34,6 +41,13 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src, bool va
 __device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 __device__ __forceinline__ void wait_copies() { asm volatile("cp.async.wait_all;\n" ::); }
+
+// x rounded to TF32 (round to nearest, ties away from zero)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t big;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  return big;
+}
 
 // x = big + small, both TF32 values (round to nearest, ties away)
 __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {

@@ -25,7 +25,7 @@ the atom normalisation runs through K1's W epilogue
 (lateral inhibition on) through K4
 (:func:`~tnmf_tpu_torch.kernels.inhibit.inhibited_mu_h`).  On CPU tensors
 the same wrappers run their plain versions.  The conv reconstruction stays a
-convolution (cuDNN, TF32 off), as the JAX package left it to XLA.
+convolution (cuDNN), as the JAX package left it to XLA.
 
 Kernel gates, asked before any launch: K2, K3 and K4 serve float32
 problems with 1-D and 2-D shifts, the scope of the JAX package's own
@@ -36,11 +36,18 @@ every device.  K1 is elementwise with a row sum and takes any shape:
 :func:`dtype_reason` gates it on the dtype alone, so a 3-D or rank-4
 float32 fit still runs ``mu_ratio`` and ``mu_w``.
 
-Precision: the fft and dot products (cuBLAS) obey the process-global
-``torch.set_float32_matmul_precision``.  The functions here that run them
-pin full float32 (:func:`~tnmf_tpu_torch.ops.precision.full_fp32_matmul`)
-once, at the outermost call: a fit loop sets it before its first iteration
-and gives the caller's setting back after its last.
+Precision: ``plan.precision`` (the JAX package's ``precision``) sets every
+contraction's, by :func:`~tnmf_tpu_torch.ops.precision.settings`: on
+float32 CUDA tensors 'default' and 'high' run TF32, None and 'highest'
+full float32; on the CPU every level runs full float32.  The fft and dot
+products (cuBLAS) obey the process-global
+``torch.set_float32_matmul_precision``: the functions here that run them
+pin the level's setting (:func:`~tnmf_tpu_torch.ops.precision.matmul_pin`)
+once, at the outermost call, so a fit loop sets it before its first
+iteration and gives the caller's setting back after its last.  The conv
+strategy's convolutions pin cuDNN at the plan's level each
+(:mod:`tnmf_tpu_torch.ops.conv`), and K3 and K2 run their tensor-core
+routes in one TF32 pass at a TF32 level, three (3xTF32) otherwise.
 
 The fit-loop variants (:func:`fit_loop_energies`, :func:`fit_loop_tol`,
 :func:`fit_loop_extrapolated`), the single steps (:func:`update_H_step`,
@@ -100,7 +107,7 @@ from .ops import conv as conv_ops
 from .ops import dot as dot_ops
 from .ops import fft as fft_ops
 from .ops.modes import ConvPlan
-from .ops.precision import exporting, full_fp32_matmul
+from .ops.precision import exporting, matmul_pin, settings
 from .ops.transforms import GroupOps, TransformGroup, expand_w, split_strategy, tie_back
 
 EPS = 1.0e-9  # reference: TransformInvariantNMF.py:166
@@ -141,18 +148,26 @@ def get_ops(strategy):
 
 
 def _pinned(fn):
-    """Run ``fn`` with full float32 products (:func:`full_fp32_matmul`) when
-    its ``strategy`` keyword (or a group's base strategy) is fft or dot; conv
-    runs no matrix product and is left as it was.  Nested calls find the pin
-    set and leave it.  While a program is exported the pin stands aside
+    """Run ``fn`` with its products at the level of its ``plan`` keyword
+    (:func:`~tnmf_tpu_torch.ops.precision.matmul_pin`, for the device and
+    dtype of its first tensor) when its ``strategy`` keyword (or a group's
+    base strategy) is fft or dot; conv runs no matrix product and is left
+    as it was.  Nested calls find the pin set and leave it.  While a
+    program is exported the pin stands aside
     (:func:`~tnmf_tpu_torch.ops.precision.exporting`)."""
     @functools.wraps(fn)
     def call(*args, strategy: Strategy = 'conv', **kwargs):
         if split_strategy(strategy)[0] == 'conv' or exporting():
             return fn(*args, strategy=strategy, **kwargs)
-        with full_fp32_matmul():
+        with matmul_pin(kwargs['plan'].precision, args[0].device, args[0].dtype):
             return fn(*args, strategy=strategy, **kwargs)
     return call
+
+
+def _passes(plan: ConvPlan, t: torch.Tensor) -> int:
+    """K2's and K3's TF32 passes for ``plan``'s precision on tensors like
+    ``t`` (:func:`~tnmf_tpu_torch.ops.precision.settings`)."""
+    return settings(plan.precision, t.device, t.dtype).passes
 
 
 def resolve_strategy(strategy: str, plan: ConvPlan) -> str:
@@ -349,7 +364,8 @@ def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
     and R is masked here, at other betas ``Vp`` is the canonical V and the
     factors are masked.  ``l2`` (None: absent) is the ridge weight on H:
     ``l2 * H`` joins the positive part, as K3's ``pos_extra`` on conv,
-    added to ``pos`` before K1 or K4 elsewhere.
+    added to ``pos`` before K1 or K4 elsewhere.  K3's tensor-core route
+    runs the plan's TF32 passes (:func:`~tnmf_tpu_torch.ops.precision.settings`).
 
     Under a transform group (``strategy = (base, group)``) W is expanded
     once, and the reconstruction and K3 (or the stacked pair before K4)
@@ -365,8 +381,9 @@ def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
     if strategy == 'conv':
         Xv, Xr = _conv_streams(Vp, conv_ops.reconstruct(W, H, plan), plan, beta, mask)
         if not inhibited:
-            return (mu_h if kernels_on else mu_h_plain)(Xv, Xr, W, H, reg, extra)
-        neg, pos = conv_ops.grad_H_pair_prepared(Xv, Xr, W)
+            return (mu_h if kernels_on else mu_h_plain)(Xv, Xr, W, H, reg, extra,
+                                                        _passes(plan, H))
+        neg, pos = conv_ops.grad_H_pair_prepared(Xv, Xr, W, plan)
     else:
         ops = get_ops(strategy)
         neg, pos = _grad_H_pair(ops, strategy, Vp, ops.reconstruct(W, H, plan), W, plan,
@@ -426,11 +443,13 @@ def grad_W_pair_of(Vp: torch.Tensor, R: torch.Tensor, H: torch.Tensor,
                    use_pallas: bool, beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`_grad_W_pair` from a given reconstruction ``R`` (the
     shift-invariant HALS solver passes ``V - E`` from its maintained
-    residual): K2 on the stacked streams on conv."""
+    residual): K2 on the stacked streams on conv (at the plan's TF32
+    passes)."""
     ops = get_ops(strategy)
     if strategy == 'conv':
         grad = grad_w if plain_reason(plan, H.dtype, use_pallas) is None else grad_w_plain
-        return grad(torch.cat(_conv_streams(Vp, R, plan, beta, mask), dim=1), H, plan)
+        return grad(torch.cat(_conv_streams(Vp, R, plan, beta, mask), dim=1), H, plan,
+                    _passes(plan, H))
     if beta == 2.0:
         return ops.grad_W_pair(Vp, R if mask is None else R * mask.to(R.dtype), H, plan)
     A, B = _beta_factors(ops, strategy, Vp, R, plan, beta, mask)
@@ -751,8 +770,7 @@ def correlate_init_H(Vp: torch.Tensor, Vd: torch.Tensor, W: torch.Tensor, *,
     strategy, group = split_strategy(strategy)
     if group is not None:
         W = expand_w(W, group)
-    neg = (conv_ops.corr_H(Vp, W) if strategy == 'conv'
-           else get_ops(strategy).corr_H(Vp, W, plan))
+    neg = get_ops(strategy).corr_H(Vp, W, plan)
     R0 = reconstruct(W, neg.to(W.dtype), plan=plan, strategy=strategy)
     acc = torch.promote_types(Vd.dtype, torch.float32)
     num = torch.sum(Vd.to(acc) * R0.to(acc))

@@ -16,8 +16,11 @@ order, each component solved exactly:
 This is sklearn's ``NMF(solver='cd')`` with the accelerated variant of
 Gillis & Glineur 2012: each Gram pair is exact whatever the other factor
 did last, so ``inner`` sweeps reuse it.  The Grams are four matrix products
-(cuBLAS, full float32 under :func:`~tnmf_tpu_torch.ops.precision.full_fp32_matmul`,
-entered once per loop); each factor's ``inner`` sweeps are one launch of K5
+(cuBLAS at the plan's precision, :func:`~tnmf_tpu_torch.ops.precision.matmul_pin`,
+entered once per loop: TF32 at 'default' and 'high' on the card, full
+float32 otherwise; K5's in-loop products stay float32 at every level, as
+the JAX sweep passes no precision to them); each factor's ``inner`` sweeps
+are one launch of K5
 (:func:`~tnmf_tpu_torch.kernels.hals.hals_sweep`), the W sweep on ``W^T``
 with ``A^T`` so that each step reads the row ``A[j, :]`` as the JAX
 ``_sweep_W`` does.  K5 is gated like K1 (:func:`engine.dtype_reason`):
@@ -48,7 +51,8 @@ from . import engine
 from .kernels.hals import hals_sweep_plain
 from .kernels.ops import hals_sweep
 from .ops import beta as beta_ops
-from .ops.precision import exporting, full_fp32_matmul
+from .ops.modes import ConvPlan
+from .ops.precision import matmul_pin
 
 
 def _acc_dtype(*xs) -> torch.dtype:
@@ -66,13 +70,15 @@ def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _pinned(fn):
-    """Run ``fn`` with full float32 products (one pin per outermost call;
-    none while a program is exported)."""
+    """Run ``fn`` with its products at the precision of its ``plan``
+    keyword (None, or no plan: full float32), for the device and dtype of
+    its first tensor: one pin per outermost call, none while a program is
+    exported (:func:`~tnmf_tpu_torch.ops.precision.matmul_pin`)."""
     @functools.wraps(fn)
     def call(*args, **kwargs):
-        if exporting():
-            return fn(*args, **kwargs)
-        with full_fp32_matmul():
+        plan = kwargs.get('plan')
+        with matmul_pin(None if plan is None else plan.precision, args[0].device,
+                        args[0].dtype):
             return fn(*args, **kwargs)
     return call
 
@@ -130,15 +136,17 @@ def _energy(V2, W2, H2) -> torch.Tensor:
 
 @_pinned
 def update_step(V, W, H, l1, l2, l1w, l2w, *, inner: int, update_H: bool, update_W: bool,
-                use_pallas: bool = True):
-    """One outer iteration on the canonical model shapes.  Returns ``(W, H)``."""
+                use_pallas: bool = True, plan: Optional[ConvPlan] = None):
+    """One outer iteration on the canonical model shapes.  Returns ``(W, H)``.
+    ``plan`` carries the precision of the Grams (the JAX engine's ``plan``
+    keyword); without one they run in full float32."""
     return fit_loop(V, W, H, 1, l1, l2, l1w, l2w, inner=inner, update_H=update_H,
-                    update_W=update_W, use_pallas=use_pallas)
+                    update_W=update_W, use_pallas=use_pallas, plan=plan)
 
 
 @_pinned
 def fit_loop(V, W, H, n_iterations, l1, l2, l1w, l2w, *, inner: int, update_H: bool,
-             update_W: bool, use_pallas: bool = True):
+             update_W: bool, use_pallas: bool = True, plan: Optional[ConvPlan] = None):
     """``n_iterations`` outer iterations.  Returns ``(W, H)``."""
     V2, W2, H2 = _flatten(V, W, H)
     for _ in range(int(n_iterations)):
@@ -149,7 +157,8 @@ def fit_loop(V, W, H, n_iterations, l1, l2, l1w, l2w, *, inner: int, update_H: b
 
 @_pinned
 def fit_loop_energies(V, W, H, l1, l2, l1w, l2w, *, n_iterations: int, inner: int,
-                      update_H: bool, update_W: bool, use_pallas: bool = True):
+                      update_H: bool, update_W: bool, use_pallas: bool = True,
+                      plan: Optional[ConvPlan] = None):
     """``n_iterations`` outer iterations with the energy after each, kept on
     the device.  Returns ``(W, H, energies)``."""
     V2, W2, H2 = _flatten(V, W, H)
@@ -163,7 +172,8 @@ def fit_loop_energies(V, W, H, l1, l2, l1w, l2w, *, n_iterations: int, inner: in
 
 @_pinned
 def fit_loop_tol(V, W, H, n_max, tol, l1, l2, l1w, l2w, *, check_every: int, n_buf: int = 0,
-                 inner: int, update_H: bool, update_W: bool, use_pallas: bool = True):
+                 inner: int, update_H: bool, update_W: bool, use_pallas: bool = True,
+                 plan: Optional[ConvPlan] = None):
     """Adaptive fit by :func:`tnmf_tpu_torch.engine.tol_loop`.  Returns ``(W, H, n_done, e_final,
     trace_or_None)``."""
     V2, W2, H2 = _flatten(V, W, H)

@@ -27,7 +27,10 @@ The phase's correlation is one strided convolution (``F.conv{1,2,3}d``,
 ``stride=A``) of the phase's window of ``E``; the placement one transposed
 convolution (``F.conv_transpose{1,2,3}d``, ``stride=A``), which puts each
 position's atom at its stride-``A`` offset, the JAX ``lhs_dilation`` with
-the flipped kernel; both run in cuDNN with TF32 off.  The transform axes
+the flipped kernel; both run in cuDNN at the plan's precision (TF32 at
+'default' and 'high' on the card, full float32 otherwise), as do the
+phase's product with the Gram and the Gram itself on cuBLAS (the loops'
+pin, :func:`engine_hals._pinned`) and K2 (its TF32 passes).  The transform axes
 are zero-padded up to multiples of ``A`` so that every phase has ``K``
 positions per axis; positions past ``T`` are masked back to their old
 value (zero) after each sweep.  H is carried phase-major, ``(P, n, M,
@@ -53,7 +56,7 @@ from . import engine
 from .engine_hals import _acc_dtype, _pinned, _sweep_H
 from .ops import conv as conv_ops
 from .ops.modes import ConvPlan
-from .ops.precision import fp32_convolutions
+from .ops.precision import convolution_pin
 
 _CONV = {1: (F.conv1d, F.conv_transpose1d), 2: (F.conv2d, F.conv_transpose2d),
          3: (F.conv3d, F.conv_transpose3d)}
@@ -127,7 +130,7 @@ def _sweep_phases(E_pad: torch.Tensor, phases, W: torch.Tensor, G: torch.Tensor,
     corr, place = _convs(plan.ndim)
     Wc = W.to(acc)
     valid = _valid(A, T, K, E_pad.device)
-    with fp32_convolutions():
+    with convolution_pin(plan.precision, E_pad.device, acc):
         for p in range(len(phases)):
             starts = _phase_starts(p, A)
             window = (slice(None), slice(None)) + tuple(

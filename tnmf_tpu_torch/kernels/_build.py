@@ -1,16 +1,17 @@
 """Lazy build and load of the hand-written CUDA kernels.
 
 All ``tnmf_tpu_torch/csrc/*.cu`` files compile with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with :mod:`ctypes`.  The library is named by a hash of the sources
+(``sm_90a``), one ``nvcc`` per source, all started together, and link into
+one shared library with a plain C interface, which is loaded with
+:mod:`ctypes`.  The library is named by a hash of the sources
 and the flags, so an edited source triggers a rebuild and an unchanged one
 loads the cached build.  The build runs at the first kernel launch, never at
 import, so the package imports and its CPU tests run without ``nvcc``.
 
 The build directory (``tnmf_tpu_torch/_build/``) is listed in
 ``.gitignore``.  ``nvcc``'s resource report (``-Xptxas -v``: registers,
-shared memory and spills per kernel) is kept beside the library as
-``<library>.log``.
+shared memory and spills per kernel) and each source's compile time are
+kept beside the library as ``<library>.log``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -28,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE_DIR = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P, _F, _I, _I64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int64
 
@@ -38,14 +41,14 @@ SIGNATURES = {
     'tnmf_mu_ratio': (_P, _P, _P, _F, _P, _I64, _P),
     # w, neg, pos, reg, out, rows, row_len, stream
     'tnmf_mu_w': (_P, _P, _P, _F, _P, _I64, _I64, _P),
-    # x2, h, out, scratch, n, m, c2, tx, ty, ax, ay, geometry (int[14]),
+    # x2, h, out, scratch, n, m, c2, tx, ty, ax, ay, geometry (int[15]),
     # group (int[6]), grid_x, grid_y, smem_bytes, stream
     'tnmf_grad_w': (_P,) * 4 + (_I,) * 7 + (_P, _P) + (_I,) * 3 + (_P,),
     # vp, rx, w, h, pos_extra, denom_add, out, n, m, c, ex, ey, tx, ty, ax, ay,
     # pitch, seg_c, seg_ax, seg_ay, smem_bytes, stream
     'tnmf_mu_h': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 14 + (_P,),
     # vp, rx, w, h, pos_extra, denom_add, out, n, m, c, tx, ty, ax, ay,
-    # geometry (int[10]), grid_x, smem_bytes, stream
+    # geometry (int[11]), grid_x, smem_bytes, stream
     'tnmf_mu_h_mma': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 7 + (_P,) + (_I,) * 2 + (_P,),
     # h, neg, pos, taps, out, n, m, x, y, tx, ty, tile_x, tile_y, hp, xtp, npp,
     # inh, cross, reg, use_same, use_cross, two_d, vec, h_vec, h_bufs, compiled,
@@ -113,22 +116,43 @@ def library_path() -> Path:
     return BUILD_DIR / f'libtnmf_kernels_{h.hexdigest()[:16]}.so'
 
 
-def build() -> Path:
-    """Compile the sources unless a build of them exists; returns its path."""
-    so = library_path()
-    if so.exists():
-        return so
-    compiler = nvcc()
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-    cmd = [compiler, *NVCC_FLAGS, '-o', str(tmp),
-           *(str(p) for p in sorted(SOURCE_DIR.glob('*.cu')))]
+def _run(cmd: list) -> tuple:
+    """Run ``cmd``: ``(its output, its seconds)``; raise with the output
+    when it fails."""
+    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(
             f'nvcc failed with exit code {proc.returncode}:\n'
             f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
-    so.with_name(so.name + '.log').write_text(proc.stdout + proc.stderr)
+    return proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
+def build() -> Path:
+    """Compile the sources unless a build of them exists; returns its path.
+    Each source compiles to an object in its own ``nvcc`` process, all at
+    once, and one more links them."""
+    so = library_path()
+    if so.exists():
+        return so
+    compiler = nvcc()
+    BUILD_DIR.mkdir(exist_ok=True)
+    tag = f'{so.stem}.{os.getpid()}'
+    sources = sorted(SOURCE_DIR.glob('*.cu'))
+    objects = [BUILD_DIR / f'{tag}.{src.stem}.o' for src in sources]
+    tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
+    def compile_one(src: Path, obj: Path) -> tuple:
+        return _run([compiler, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)])
+    try:
+        with ThreadPoolExecutor(len(sources)) as pool:
+            compiled = list(pool.map(compile_one, sources, objects))
+        report = [f'{src.name}: compiled in {seconds:.1f} s\n{out}'
+                  for src, (out, seconds) in zip(sources, compiled)]
+        report.append(_run([compiler, '-shared', '-o', str(tmp), *map(str, objects)])[0])
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    so.with_name(so.name + '.log').write_text(''.join(report))
     os.replace(tmp, so)  # atomic: a concurrent loader never sees a partial file
     return so
 

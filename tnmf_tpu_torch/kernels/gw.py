@@ -13,9 +13,11 @@ A GEMM with a huge contraction (``N*Tx*Ty``, 4.5 M at the flagship
 values): 23 GFLOP against 0.33 GB of reads, a GEMM for the tensor cores.
 The kernel is an implicit GEMM on ``mma.sync`` TF32 tiles (16 atoms x 8
 offsets x 8 positions) with 3xTF32 splitting, which keeps float32 accuracy
-(``ConvPlan.precision`` is ``None``: full float32) at three tensor-core
-products per product: 69 GFLOP at 495 TFLOP/s, a bound of 0.14 ms on an
-H100.  What bounds it on the card is feeding the MMAs: the fragment loads
+(``ConvPlan.precision`` None or 'highest') at three tensor-core products
+per product: 69 GFLOP at 495 TFLOP/s, a bound of 0.14 ms on an H100.  At
+the TF32 levels ('default', 'high') it runs one TF32 pass: each operand
+rounded once (``cvt.rna``), one product per product, no small plane, so a
+chunk of the split layout needs two planes where 3xTF32 needs three.  What bounds it on the card is feeding the MMAs: the fragment loads
 from shared memory.  Rows are the atoms, columns the ``(c2, ax, ay)``
 offsets flattened and padded to a multiple of 8, and the contraction runs
 along ``ty`` of one ``tx`` row; the H and X2 row pitches keep the fragment
@@ -44,6 +46,7 @@ import torch
 
 from ..ops import conv
 from ..ops.modes import ConvPlan
+from ..ops.precision import round_tf32
 from . import _build
 
 # must match grad_w.cu
@@ -62,14 +65,18 @@ _BLOCKS_PER_SM = 2
 _SMEM_BUDGET = (233472 - _BLOCKS_PER_SM * 1024) // _BLOCKS_PER_SM
 
 
-def grad_w_plain(X2: torch.Tensor, H: torch.Tensor,
-                 plan: ConvPlan) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version: stacked ``corr_W`` convolutions, one per
-    sample, summed over the samples.  One convolution over all ``N*Tx*Ty``
-    positions is less accurate on the GPU: at the flagship cuDNN's float32
-    result was 3.3e-4 off a float64 one (relative to its largest value, on
-    an H100, whatever the TF32 settings), the per-sample sum is not."""
-    del plan  # the shapes carry the geometry
+def grad_w_plain(X2: torch.Tensor, H: torch.Tensor, plan: ConvPlan,
+                 passes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version: stacked ``corr_W`` convolutions in full
+    float32, one per sample, summed over the samples.  One convolution over
+    all ``N*Tx*Ty`` positions is less accurate on the GPU: at the flagship
+    cuDNN's float32 result was 3.3e-4 off a float64 one (relative to its
+    largest value, on an H100, whatever the TF32 settings), the per-sample
+    sum is not.  ``passes=1``, the one-pass route's plain version, first
+    rounds both operands to TF32 as the kernel does
+    (:func:`~tnmf_tpu_torch.ops.precision.round_tf32`)."""
+    if passes == 1:
+        X2, H = round_tf32(X2), round_tf32(H)
     G = torch.stack([conv.corr_W(X2[n:n + 1], H[n:n + 1])
                      for n in range(X2.shape[0])]).sum(dim=0)
     c = X2.shape[1] // 2
@@ -85,8 +92,9 @@ def _warp_split(n_mt: int, n_ct: int) -> dict:
     blocks along y and the warps that split one item's ty steps.  Picks the
     tiles per warp with the fewest fragment loads per block and ty step
     (they bound the kernel): ``8 + 4 * nt`` per warp (A and B, big and
-    small), divided over the warps that share an item and multiplied by the
-    blocks that each stage the whole chunk; ties go to more tiles."""
+    small; one pass loads half as many, which picks the same split),
+    divided over the warps that share an item and multiplied by the blocks
+    that each stage the whole chunk; ties go to more tiles."""
     best = None
     for nt in _TILES_PER_WARP:
         n_items = n_mt * -(-n_ct // nt)
@@ -152,11 +160,12 @@ def _pitches(planes: int, tc: int, Ty: int, xr: int, Ax: int, Ay: int, C2: int, 
 
 @functools.lru_cache(maxsize=256)
 def _chunk(N: int, M: int, C2: int, Tx: int, Ty: int, Ax: int, Ay: int,
-           n_sm: int, vec: bool) -> Optional[dict]:
+           n_sm: int, vec: bool, passes: int = 3) -> Optional[dict]:
     """Tiles, chunk sizes, work split, grid and shared memory of one launch
-    over ``C2`` channels and ``Ax x Ay`` offsets: the split layout (three
-    planes) for two blocks per SM, else for one, else the compact layout
-    (one plane, its tightest pitches last); ``None`` when no chunk fits."""
+    over ``C2`` channels and ``Ax x Ay`` offsets: the split layout (raw,
+    big and, for 3 passes, small planes) for two blocks per SM, else for
+    one, else the compact layout (one plane, its tightest pitches last);
+    ``None`` when no chunk fits."""
     n_mt = -(-M // _TILE_M)
     n_ct = -(-(C2 * Ax * Ay) // _TILE_N)  # over the flattened (c2, ax, ay)
     split = _warp_split(n_mt, n_ct)
@@ -164,7 +173,8 @@ def _chunk(N: int, M: int, C2: int, Tx: int, Ty: int, Ax: int, Ay: int,
     n_cy = -(-Ty // _MAX_CHUNK_COLS)
     tc0 = _round_up(-(-Ty // n_cy), _TILE_K)  # near-equal chunks of whole MMA steps
     cols = [tc0] + [c for c in (64, 48, 32, 16, 8) if c < tc0]
-    for planes, limit in ((3, _SMEM_BUDGET), (3, _build.MAX_SMEM_BYTES),
+    split_planes = 3 if passes == 3 else 2
+    for planes, limit in ((split_planes, _SMEM_BUDGET), (split_planes, _build.MAX_SMEM_BYTES),
                           (1, _build.MAX_SMEM_BYTES)):
         for tr in sorted({min(r, Tx) for r in _CHUNK_ROWS}, reverse=True):
             for tc in cols:
@@ -176,7 +186,8 @@ def _chunk(N: int, M: int, C2: int, Tx: int, Ty: int, Ax: int, Ay: int,
                     n_chunks = N * -(-Tx // tr) * -(-Ty // tc)
                     blocks_per_sm = min(_BLOCKS_PER_SM, 233472 // (smem + 1024))
                     return dict(tile_rows=tr, tile_cols=tc, hp=hp, hw=hw, xw=xw, xp=xp,
-                                planes=planes, smem_bytes=smem, blocks_per_sm=blocks_per_sm,
+                                planes=planes, passes=passes, smem_bytes=smem,
+                                blocks_per_sm=blocks_per_sm,
                                 **split, n_mt=n_mt, m_rows=m_rows, n_ct=n_ct,
                                 col_pad=n_ct * _TILE_N - C2 * Ax * Ay, vec=4 if vec else 1,
                                 n_chunks=n_chunks,
@@ -186,37 +197,37 @@ def _chunk(N: int, M: int, C2: int, Tx: int, Ty: int, Ax: int, Ay: int,
 
 
 def _group_chunk(N: int, M: int, Tx: int, Ty: int, group: tuple, n_sm: int,
-                 vec: bool) -> Optional[dict]:
+                 vec: bool, passes: int = 3) -> Optional[dict]:
     """:func:`_chunk` of one launch over ``group = (c_off, channels, a_off,
     rows, b_off, columns)`` of X2: its 16-byte copies need the group's first
     column at a multiple of 4 and whole vectors per row."""
     _, c2, _, ax, b_off, ay = group
     return _chunk(N, M, c2, Tx, Ty, ax, ay, n_sm,
-                  vec and b_off % 4 == 0 and (Ty + ay - 1) % 4 == 0)
+                  vec and b_off % 4 == 0 and (Ty + ay - 1) % 4 == 0, passes)
 
 
 @functools.lru_cache(maxsize=64)
 def _geometry(N: int, M: int, C2: int, Tx: int, Ty: int, Ax: int, Ay: int,
-              n_sm: int, vec: bool = True) -> dict:
+              n_sm: int, vec: bool = True, passes: int = 3) -> dict:
     """The launches of the kernel for one problem: one over all of X2 when
     its chunk fits a block, else groups of it (:func:`_build.segments`; one
     atom column of one channel always fits).  Returns the first launch's
     geometry (:func:`_group_chunk`) with ``groups``, each launch's
     ``(c_off, channels, a_off, rows, b_off, columns)``."""
     def fits(c2, ax, ay):
-        return _group_chunk(N, M, Tx, Ty, (0, c2, 0, ax, 0, ay), n_sm, vec) is not None
+        return _group_chunk(N, M, Tx, Ty, (0, c2, 0, ax, 0, ay), n_sm, vec, passes) is not None
 
     sc, sa, sb = _build.segments(C2, Ax, Ay, fits)
     groups = tuple((c0, min(sc, C2 - c0), a0, min(sa, Ax - a0), b0, min(sb, Ay - b0))
                    for c0 in range(0, C2, sc) for a0 in range(0, Ax, sa)
                    for b0 in range(0, Ay, sb))
-    return dict(_group_chunk(N, M, Tx, Ty, groups[0], n_sm, vec), groups=groups)
+    return dict(_group_chunk(N, M, Tx, Ty, groups[0], n_sm, vec, passes), groups=groups)
 
 
 def _geometry_args(g: dict) -> ctypes.Array:
     """The geometry array of ``tnmf_grad_w``, in its order."""
     keys = ('tile_rows', 'tile_cols', 'hp', 'hw', 'xw', 'xp', 'n_ct', 'nt', 'n_items', 'ipb',
-            'ksplit', 'm_rows', 'vec', 'planes')
+            'ksplit', 'm_rows', 'vec', 'planes', 'passes')
     return (ctypes.c_int * len(keys))(*(g[k] for k in keys))
 
 
@@ -226,13 +237,16 @@ def _group_args(group: tuple) -> ctypes.Array:
     return (ctypes.c_int * 6)(*group)
 
 
-def grad_w(X2: torch.Tensor, H: torch.Tensor,
-           plan: ConvPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+def grad_w(X2: torch.Tensor, H: torch.Tensor, plan: ConvPlan,
+           passes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(neg, pos)`` W-gradient statistics: the plain version for CPU
     tensors, the CUDA kernel for CUDA tensors (float32, contiguous, 1-D or
-    2-D shifts)."""
+    2-D shifts).  ``passes`` is the TF32 products per product: 3 (3xTF32,
+    float32 accuracy) or 1 (one TF32 pass, the TF32 precision levels)."""
+    if passes not in (1, 3):
+        raise ValueError(f'grad_w: passes must be 1 or 3, got {passes!r}')
     if X2.device.type == 'cpu':
-        return grad_w_plain(X2, H, plan)
+        return grad_w_plain(X2, H, plan, passes)
     _build.check_inputs('grad_w', X2, H)
     if plan.ndim not in (1, 2):
         raise ValueError(f'grad_w: the kernel takes 1-D or 2-D shifts, got {plan.ndim}-D')
@@ -248,10 +262,11 @@ def grad_w(X2: torch.Tensor, H: torch.Tensor,
     (Tx, Ty), (Ax, Ay) = T, A
     vec = Ty % 4 == 0 and (Ty + Ay - 1) % 4 == 0 and (X2.data_ptr() | H.data_ptr()) % 16 == 0
     n_sm = torch.cuda.get_device_properties(X2.device).multi_processor_count
-    g = _geometry(N, M, C2, Tx, Ty, Ax, Ay, n_sm, vec)
+    g = _geometry(N, M, C2, Tx, Ty, Ax, Ay, n_sm, vec, passes)
     C = C2 // 2
     out = torch.empty((2, M, C) + plan.atom_shape, device=X2.device, dtype=torch.float32)
-    launches = [(grp, _group_chunk(N, M, Tx, Ty, grp, n_sm, vec)) for grp in g['groups']]
+    launches = [(grp, _group_chunk(N, M, Tx, Ty, grp, n_sm, vec, passes))
+                for grp in g['groups']]
     scratch = torch.empty(max(gg['grid_x'] * gg['ksplit'] * M * grp[1] * grp[3] * grp[5]
                               for grp, gg in launches),
                           device=X2.device, dtype=torch.float32)
@@ -264,8 +279,12 @@ def grad_w(X2: torch.Tensor, H: torch.Tensor,
                 gg['grid_y'], gg['smem_bytes'], _build.stream_of(X2))
             _build.check_launch(err, 'grad_w')
             grad_w.launches += 1
+            if passes == 1:
+                grad_w.one_pass_launches += 1
     return out[0], out[1]
 
 
-#: kernel launches since the last reset (a plain count, read by chip_smoke.py)
+#: kernel launches since the last reset (plain counts, read by chip_smoke.py):
+#: all of them, and those of the one-pass route
 grad_w.launches = 0
+grad_w.one_pass_launches = 0

@@ -18,7 +18,9 @@ routes, chosen from the shapes before the launch (``_geometry``):
 - ``'mma'``, the tensor-core route: an implicit GEMM on ``mma.sync``
   m16n8k8 TF32 with 3xTF32 splitting (full float32 accuracy at three
   tensor-core products per product: 69 GFLOP, 0.14 ms at 495 TFLOP/s, under
-  the 0.18 ms its 609 MB take at 3.35 TB/s).  Rows are the atoms, k the
+  the 0.18 ms its 609 MB take at 3.35 TB/s), or in one TF32 pass
+  (``passes=1``, the TF32 precision levels: each operand rounded once,
+  one product per product, no small planes, so larger chunks fit).  Rows are the atoms, k the
   flattened ``(c, ax, ay)`` taps padded to a multiple of 8, columns runs of
   8 ``ty`` positions; the B fragments are sliding-window reads of the staged
   Vp and Rx windows.  A persistent grid walks chunks of ``(n, tx rows, ty
@@ -30,7 +32,7 @@ routes, chosen from the shapes before the launch (``_geometry``):
   atoms per block, its reduction streamed over the taps in segments that fit
   a block (:func:`_fma_geometry`), so it holds every shape the tensor-core
   route cannot.  A shape whose taps fit one segment runs the first port's
-  kernel as it was.
+  kernel as it was.  It computes in float32 whatever ``passes`` says.
 
 Every 1-D and 2-D shape takes one of the two; any number of samples
 launches.
@@ -45,6 +47,7 @@ from typing import Optional
 import torch
 
 from ..ops import conv
+from ..ops.precision import round_tf32
 from . import _build
 
 # the FP32 route's tiles; must match mu_h.cu (mu_h_kernel)
@@ -70,9 +73,14 @@ _ROUTES = ('mma', 'fma')
 
 def mu_h_plain(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor,
                H: torch.Tensor, denom_add: float,
-               pos_extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain PyTorch version: the stacked ``corr_H`` convolution, then
-    the ratio (the same order of operations as ``engine._mu_H``)."""
+               pos_extra: Optional[torch.Tensor] = None, passes: int = 3) -> torch.Tensor:
+    """The plain PyTorch version: the stacked ``corr_H`` convolution in full
+    float32, then the ratio (the same order of operations as
+    ``engine._mu_H``).  ``passes=1``, the one-pass route's plain version,
+    first rounds the products' operands (the streams and W) to TF32 as the
+    kernel does (:func:`~tnmf_tpu_torch.ops.precision.round_tf32`)."""
+    if passes == 1:
+        Vp, Rx, W = round_tf32(Vp), round_tf32(Rx), round_tf32(W)
     neg, pos = conv.grad_H_pair_prepared(Vp, Rx, W)
     if pos_extra is not None:
         pos = pos + pos_extra
@@ -167,13 +175,15 @@ def _x_pitch(xw: int, xr: int, C: int, Ax: int, Ay: int, ks: int) -> int:
 
 
 def _mma_geometry(N: int, M: int, C: int, Tx: int, Ty: int, Ax: int, Ay: int,
-                  n_sm: int, vec: bool) -> Optional[dict]:
+                  n_sm: int, vec: bool, passes: int = 3) -> Optional[dict]:
     """Chunk, pitches, work split, grid and shared memory of the tensor-core
-    route: the largest chunk whose three window planes and split dictionary
-    fit two blocks per SM, else one; ``None`` when none fits a block."""
+    route: the largest chunk whose window planes (raw, big and, for 3
+    passes, small) and split dictionary fit two blocks per SM, else one;
+    ``None`` when none fits a block."""
     ks = -(-(C * Ax * Ay) // _TILE_K)
     n_mt = -(-M // _TILE_M)
-    fixed = 2 * n_mt * ks * _TILE_M * _TILE_K + 8 * ks  # A fragments, big and small; offsets
+    halves = 2 if passes == 3 else 1  # the TF32 halves staged: big (and small)
+    fixed = halves * n_mt * ks * _TILE_M * _TILE_K + 8 * ks  # A fragments; offsets
     n_cy = -(-Ty // _MAX_CHUNK_COLS)
     tc0 = _round_up(-(-Ty // n_cy), _TILE_N)  # near-equal chunks of whole column tiles
     cols = [tc0] + [c for c in (64, 48, 32, 16, 8) if c < tc0]
@@ -183,7 +193,7 @@ def _mma_geometry(N: int, M: int, C: int, Tx: int, Ty: int, Ax: int, Ay: int,
                 xr = tr + Ax - 1
                 xw = _round_up(tc + Ay - 1, 4 if vec else 1)
                 xp = _x_pitch(xw, xr, C, Ax, Ay, ks)
-                smem = 4 * (fixed + 3 * 2 * C * xr * xp)  # raw, big and small planes
+                smem = 4 * (fixed + (1 + halves) * 2 * C * xr * xp)  # raw and the halves
                 if smem > limit:
                     continue
                 n_chunks = N * -(-Tx // tr) * -(-Ty // tc)
@@ -191,7 +201,7 @@ def _mma_geometry(N: int, M: int, C: int, Tx: int, Ty: int, Ax: int, Ay: int,
                 return dict(route='mma', tile_rows=tr, tile_cols=tc, xr=xr, xw=xw, xp=xp,
                             ks=ks, n_mt=n_mt,
                             n_groups=-(-(tc // _TILE_N) // _TILES_PER_ITEM),
-                            vec=4 if vec else 1, smem_bytes=smem,
+                            vec=4 if vec else 1, passes=passes, smem_bytes=smem,
                             blocks_per_sm=blocks_per_sm, n_chunks=n_chunks,
                             grid_x=max(1, min(n_chunks, blocks_per_sm * n_sm)))
     return None
@@ -199,12 +209,12 @@ def _mma_geometry(N: int, M: int, C: int, Tx: int, Ty: int, Ax: int, Ay: int,
 
 @functools.lru_cache(maxsize=256)
 def _geometry(N: int, M: int, C: int, Tx: int, Ty: int, Ax: int, Ay: int, n_sm: int,
-              vec: bool = True, routes: tuple = _ROUTES) -> dict:
+              vec: bool = True, routes: tuple = _ROUTES, passes: int = 3) -> dict:
     """The route and its geometry for one problem: the tensor-core route
-    when its chunk fits a block (and ``routes`` offers it), else the
-    streamed FP32 route, which holds every shape."""
+    (in ``passes`` TF32 passes) when its chunk fits a block (and ``routes``
+    offers it), else the streamed FP32 route, which holds every shape."""
     if 'mma' in routes:
-        g = _mma_geometry(N, M, C, Tx, Ty, Ax, Ay, n_sm, vec)
+        g = _mma_geometry(N, M, C, Tx, Ty, Ax, Ay, n_sm, vec, passes)
         if g is not None:
             return g
     return dict(route='fma', **_fma_geometry(C, Ax, Ay))
@@ -213,14 +223,15 @@ def _geometry(N: int, M: int, C: int, Tx: int, Ty: int, Ax: int, Ay: int, n_sm: 
 def _mma_args(g: dict, pair: bool) -> ctypes.Array:
     """The geometry array of ``tnmf_mu_h_mma``, in its order."""
     vals = [g[k] for k in ('tile_rows', 'tile_cols', 'xr', 'xw', 'xp', 'ks', 'n_mt',
-                           'n_groups', 'vec')] + [int(pair)]
+                           'n_groups', 'vec')] + [int(pair), g['passes']]
     return (ctypes.c_int * len(vals))(*vals)
 
 
 def launch_geometry(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor,
-                    H: torch.Tensor) -> tuple:
-    """``((Tx, Ty), (Ax, Ay), geometry)`` of a launch on these CUDA tensors,
-    with the route it takes; a 1-D problem is a 2-D one with one row."""
+                    H: torch.Tensor, passes: int = 3) -> tuple:
+    """``((Tx, Ty), (Ax, Ay), geometry)`` of a launch on these CUDA tensors
+    in ``passes`` TF32 passes, with the route it takes; a 1-D problem is a
+    2-D one with one row."""
     N, M = H.shape[:2]
     C = W.shape[1]
     T, A = tuple(H.shape[2:]), tuple(W.shape[2:])
@@ -229,15 +240,20 @@ def launch_geometry(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor,
     (Tx, Ty), (Ax, Ay) = T, A
     vec = (Ty + Ay - 1) % 4 == 0 and (Vp.data_ptr() | Rx.data_ptr()) % 16 == 0
     n_sm = torch.cuda.get_device_properties(H.device).multi_processor_count
-    return T, A, _geometry(N, M, C, Tx, Ty, Ax, Ay, n_sm, vec, _ROUTES)
+    return T, A, _geometry(N, M, C, Tx, Ty, Ax, Ay, n_sm, vec, _ROUTES, passes)
 
 
 def mu_h(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
-         denom_add: float, pos_extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+         denom_add: float, pos_extra: Optional[torch.Tensor] = None,
+         passes: int = 3) -> torch.Tensor:
     """Fused H update: the plain version for CPU tensors, a CUDA kernel for
-    CUDA tensors (float32, contiguous, 1-D or 2-D shifts)."""
+    CUDA tensors (float32, contiguous, 1-D or 2-D shifts).  ``passes`` is
+    the tensor-core route's TF32 products per product: 3 (3xTF32, float32
+    accuracy) or 1 (one TF32 pass, the TF32 precision levels)."""
+    if passes not in (1, 3):
+        raise ValueError(f'mu_h: passes must be 1 or 3, got {passes!r}')
     if Vp.device.type == 'cpu':
-        return mu_h_plain(Vp, Rx, W, H, denom_add, pos_extra)
+        return mu_h_plain(Vp, Rx, W, H, denom_add, pos_extra, passes)
     extra = () if pos_extra is None else (pos_extra,)
     _build.check_inputs('mu_h', Vp, Rx, W, H, *extra)
     nd = H.dim() - 2
@@ -252,7 +268,7 @@ def mu_h(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
         raise ValueError(
             f'mu_h: shapes Vp {tuple(Vp.shape)}, Rx {tuple(Rx.shape)}, '
             f'W {tuple(W.shape)}, H {tuple(H.shape)} do not fit together')
-    (Tx, Ty), (Ax, Ay), g = launch_geometry(Vp, Rx, W, H)
+    (Tx, Ty), (Ax, Ay), g = launch_geometry(Vp, Rx, W, H, passes)
     out = torch.empty_like(H)
     pe = None if pos_extra is None else pos_extra.data_ptr()
     lib = _build.library()
@@ -271,8 +287,12 @@ def mu_h(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                 g['smem_bytes'], _build.stream_of(H))
     _build.check_launch(err, 'mu_h')
     mu_h.launches += 1
+    if g['route'] == 'mma' and passes == 1:
+        mu_h.one_pass_launches += 1
     return out
 
 
-#: kernel launches since the last reset (a plain count, read by chip_smoke.py)
+#: kernel launches since the last reset (plain counts, read by chip_smoke.py):
+#: all of them, and those of the tensor-core route in one pass
 mu_h.launches = 0
+mu_h.one_pass_launches = 0

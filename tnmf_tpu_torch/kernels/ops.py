@@ -54,8 +54,10 @@ def _hals_sweep_fake(X, G, P, l1, l2, inner):
 
 _define('mu_ratio(Tensor arr, Tensor neg, Tensor pos, float reg) -> Tensor',
         lambda *args: _mu.mu_ratio(*args), lambda arr, *args: torch.empty_like(arr))
+# ``passes`` (K3's TF32 passes) defaults to 3, so that a program exported
+# before it existed calls the 3xTF32 route as it did
 _define('mu_h(Tensor Vp, Tensor Rx, Tensor W, Tensor H, float denom_add, '
-        'Tensor? pos_extra) -> Tensor',
+        'Tensor? pos_extra, int passes=3) -> Tensor',
         lambda *args: _mu_h.mu_h(*args), lambda Vp, Rx, W, H, *args: torch.empty_like(H))
 _define('inhibited_mu_h(Tensor H, Tensor neg, Tensor pos, Tensor[] kernels, float inhibition, '
         'float cross_inhibition, float reg, bool use_same, bool use_cross) -> Tensor',
@@ -79,9 +81,10 @@ def mu_ratio(arr: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
 
 
 def mu_h(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
-         denom_add: float, pos_extra: torch.Tensor | None = None) -> torch.Tensor:
+         denom_add: float, pos_extra: torch.Tensor | None = None,
+         passes: int = 3) -> torch.Tensor:
     """:func:`tnmf_tpu_torch.kernels.mu_h.mu_h` through ``tnmf::mu_h``."""
-    return mu_h_op(Vp, Rx, W, H, float(denom_add), pos_extra)
+    return mu_h_op(Vp, Rx, W, H, float(denom_add), pos_extra, int(passes))
 
 
 def inhibited_mu_h(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor, kernels: Sequence,

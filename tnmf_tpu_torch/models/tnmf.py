@@ -79,7 +79,6 @@ _ITEM = 'ROADMAP.md queue 1, item {}'
 _UNPORTED_INIT = {
     'mesh': (None, _ITEM.format(14)),
     'shard_axis': ('samples', _ITEM.format(14)),
-    'precision': (None, _ITEM.format(16)),
 }
 
 def _is_default(value, default) -> bool:
@@ -290,10 +289,23 @@ class TransformInvariantNMF:
         (K2 and K3 take the factor streams ``V * R**(beta-2)`` and
         ``R**(beta-1)``).  Checkpoints do not store it: pass it to
         :meth:`load` again.
+    precision : {None, 'default', 'high', 'highest'}, optional
+        Keyword.  The multiply precision of the contractions, the JAX
+        package's switch of speed for accuracy; on the card
+        (:func:`tnmf_tpu_torch.ops.precision.settings`) ``'default'`` and
+        ``'high'`` run TF32 (JAX's "tensorfloat32" on a GPU: 10 mantissa
+        bits per operand, float32 sums): cuDNN's convolutions and cuBLAS's
+        products with TF32 on, and K3 and K2 in one TF32 pass on their
+        tensor cores.  ``None`` and ``'highest'`` compute in full float32
+        (3xTF32 in K3 and K2), the same bits.  K1, K4 and K5 compute in
+        float32 at every level; on the CPU, and for float64, every level is
+        full precision.  Any other value raises ``ValueError`` when a fit
+        builds its plan, as in the JAX package.  Checkpoints do not store
+        it; serving artifacts record it.
 
-    The JAX package's other later parameters (``shard_axis``,
-    ``precision``) are taken by keyword and raise ``NotImplementedError``
-    unless they hold their default.  ``get_params`` / ``set_params`` hand
+    The JAX package's other later parameter ``shard_axis`` is taken by
+    keyword and raises ``NotImplementedError`` unless it holds its
+    default.  ``get_params`` / ``set_params`` hand
     the constructor's arguments back as given (the sklearn protocol, with
     ``device`` among them).
     """
@@ -307,7 +319,7 @@ class TransformInvariantNMF:
                  init: str = 'host', transform_type: Union[str, TransformGroup] = 'shift',
                  w_init: str = 'random', h_init: str = 'random', device='cuda',
                  use_pallas: Optional[bool] = None, beta_loss: Union[float, str] = 2.0,
-                 **unported):
+                 precision: Optional[str] = None, **unported):
         unported = dict(mesh=mesh, **unported)
         _reject_unported('TransformInvariantNMF', unported, _UNPORTED_INIT)
         # the arguments as given, for get_params / set_params / clone
@@ -317,7 +329,7 @@ class TransformInvariantNMF:
             reconstruction_mode=reconstruction_mode, dtype=dtype, seed=seed,
             fft_policy=fft_policy, init=init, transform_type=transform_type, w_init=w_init,
             h_init=h_init, device=device, use_pallas=use_pallas, beta_loss=beta_loss,
-            **{name: unported.get(name, default)
+            precision=precision, **{name: unported.get(name, default)
                for name, (default, _) in _UNPORTED_INIT.items()})
         self.n_atoms = int(n_atoms)
         self.atom_shape = tuple(int(a) for a in atom_shape)
@@ -336,6 +348,8 @@ class TransformInvariantNMF:
                 f'unknown backend {backend!r}; choose one of {sorted(_BACKEND_STRATEGY)}') from e
         self._reconstruction_mode = reconstruction_mode
         self._fft_policy = fft_policy
+        # checked where a plan is built (ConvPlan), as the JAX package does
+        self._precision = precision
         if init not in ('host', 'device'):
             raise ValueError(f"init must be 'host' or 'device', got {init!r}")
         if w_init not in ('random', 'patches', 'nndsvd'):
@@ -545,7 +559,7 @@ class TransformInvariantNMF:
 
     def _plan_for(self, sample_shape) -> ConvPlan:
         return ConvPlan.create(self._reconstruction_mode, sample_shape, self.atom_shape,
-                               self._fft_policy)
+                               self._fft_policy, precision=self._precision)
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -967,7 +981,7 @@ class TransformInvariantNMF:
         from .. import engine_hals, engine_hals_conv as ehc
         V, l1, l2, l1w, l2w = self._Vd, float(l1), float(l2), float(l1w), float(l2w)
         flags = dict(update_H=update_H, update_W=update_W,
-                     use_pallas=self._use_pallas is not False)
+                     use_pallas=self._use_pallas is not False, plan=self._plan)
         if math.prod(self._plan.transform_shape) != 1:
             if not ehc.applicable(self._plan):
                 raise ValueError(
@@ -990,7 +1004,7 @@ class TransformInvariantNMF:
             inner = 1 if hals_inner in (None, 'auto') else int(hals_inner)
             if inner < 1:
                 raise ValueError('hals_inner must be >= 1 or "auto"')
-            flags.update(inner=inner, plan=self._plan)
+            flags['inner'] = inner
             loops = dict(
                 loop_tol=lambda n, t, ce, nb: ehc.fit_loop_tol(
                     V, self._W, self._H, n, t, l1, l2, check_every=ce, n_buf=nb, **flags),

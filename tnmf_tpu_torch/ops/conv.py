@@ -14,33 +14,43 @@ every convolution runs with zero padding:
 The space-to-depth output blocking of the JAX module is not ported: it only
 fills the TPU matrix unit's 128 lanes.
 
-On the GPU these convolutions go to cuDNN with TF32 switched off, so they
-compute in full float32 like the hand-written kernels they are held
-against (``torch.backends.cudnn.allow_tf32`` defaults to True).
+On the GPU these convolutions go to cuDNN at the plan's precision
+(:func:`~tnmf_tpu_torch.ops.precision.convolution_pin`): TF32 at 'default'
+and 'high', full float32 otherwise, as the JAX module passes
+``plan.lax_precision`` to each convolution
+(``torch.backends.cudnn.allow_tf32`` defaults to True, so the pin sets it
+either way).  The prepared-stream primitives take the plan as an optional
+last argument, as the fft and dot modules' do; without one (the kernels'
+plain versions) they compute in full float32.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .modes import ConvPlan
-from .precision import fp32_convolutions
+from .precision import convolution_pin
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
-def _conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Zero-padding, stride-1 cross-correlation in full precision."""
+def _level(plan: Optional[ConvPlan]) -> Optional[str]:
+    """The precision of ``plan``; None (full float32) without one."""
+    return None if plan is None else plan.precision
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, level: Optional[str] = None) -> torch.Tensor:
+    """Zero-padding, stride-1 cross-correlation at the precision ``level``."""
     try:
         conv = _CONV[x.dim() - 2]
     except KeyError:
         raise NotImplementedError(
             'direct-conv strategy supports up to 3 shift dimensions; the fft '
             "strategy takes any number (backend='jax_fft', or 'auto')") from None
-    with fp32_convolutions():
+    with convolution_pin(level, x.device, x.dtype):
         return conv(x, w)
 
 
@@ -120,35 +130,37 @@ def reconstruct(W: torch.Tensor, H: torch.Tensor, plan: ConvPlan) -> torch.Tenso
     """``R[n,c,*S] = sum_m (H[n,m] * W[m,c])``, the model reconstruction."""
     Hp = _extend_H(H, plan)
     Wk = torch.flip(W.transpose(0, 1), dims=plan.shift_axes)
-    return _conv(Hp, Wk)
+    return _conv(Hp, Wk, plan.precision)
 
 
-def corr_H(Xp: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+def corr_H(Xp: torch.Tensor, W: torch.Tensor,
+           plan: Optional[ConvPlan] = None) -> torch.Tensor:
     """``G[n,m,t] = sum_{c,a} Xp[n,c,t+a] * W[m,c,a]`` (no flip) for a
     mode-extended data-space tensor ``Xp`` of any batch extent."""
-    return _conv(Xp, W)
+    return _conv(Xp, W, _level(plan))
 
 
-def corr_W(Xp: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+def corr_W(Xp: torch.Tensor, H: torch.Tensor,
+           plan: Optional[ConvPlan] = None) -> torch.Tensor:
     """``G[m,c,a] = sum_{n,t} Xp[n,c,a+t] * H[n,m,t]`` for a mode-extended
     ``Xp`` of any channel extent (channels ride the conv's batch role)."""
-    return _conv(Xp.transpose(0, 1), H.transpose(0, 1)).transpose(0, 1)
+    return _conv(Xp.transpose(0, 1), H.transpose(0, 1), _level(plan)).transpose(0, 1)
 
 
-def grad_H_pair_prepared(Ap: torch.Tensor, Bp: torch.Tensor,
-                         W: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def grad_H_pair_prepared(Ap: torch.Tensor, Bp: torch.Tensor, W: torch.Tensor,
+                         plan: Optional[ConvPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(neg, pos) H-gradient correlations of two prepared streams, as one
     convolution with the streams stacked along the batch axis."""
-    G2 = corr_H(torch.cat([Ap, Bp], dim=0), W)
+    G2 = corr_H(torch.cat([Ap, Bp], dim=0), W, plan)
     n = Ap.shape[0]
     return G2[:n], G2[n:]
 
 
-def grad_W_pair_prepared(Ap: torch.Tensor, Bp: torch.Tensor,
-                         H: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def grad_W_pair_prepared(Ap: torch.Tensor, Bp: torch.Tensor, H: torch.Tensor,
+                         plan: Optional[ConvPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(neg, pos) W-gradient correlations of two prepared streams, stacked
     along the channel axis (the conv's batch role)."""
-    G2 = corr_W(torch.cat([Ap, Bp], dim=1), H)
+    G2 = corr_W(torch.cat([Ap, Bp], dim=1), H, plan)
     c = Ap.shape[1]
     return G2[:, :c], G2[:, c:]
 
@@ -156,10 +168,10 @@ def grad_W_pair_prepared(Ap: torch.Tensor, Bp: torch.Tensor,
 def grad_H_pair(Vp: torch.Tensor, R: torch.Tensor, W: torch.Tensor,
                 plan: ConvPlan) -> Tuple[torch.Tensor, torch.Tensor]:
     """(neg, pos) parts of dE/dH."""
-    return grad_H_pair_prepared(Vp, extend_data(R, plan), W)
+    return grad_H_pair_prepared(Vp, extend_data(R, plan), W, plan)
 
 
 def grad_W_pair(Vp: torch.Tensor, R: torch.Tensor, H: torch.Tensor,
                 plan: ConvPlan) -> Tuple[torch.Tensor, torch.Tensor]:
     """(neg, pos) parts of dE/dW."""
-    return grad_W_pair_prepared(Vp, extend_data(R, plan), H)
+    return grad_W_pair_prepared(Vp, extend_data(R, plan), H, plan)

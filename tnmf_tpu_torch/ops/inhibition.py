@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .precision import fp32_convolutions
+from .precision import convolution_pin
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
@@ -87,7 +87,9 @@ def convolve_multi_1d(arr: torch.Tensor, kernels: Sequence, axes: Sequence[int])
     spatial = tuple(arr.shape[lead:])
     nd = len(spatial)
     out = arr if nd not in _CONV else arr.reshape((-1, 1) + spatial)
-    with fp32_convolutions():
+    # float32 at every level: the JAX package runs this stencil without
+    # its precision
+    with convolution_pin(None, arr.device, arr.dtype):
         for axis, kernel in zip(axes, kernels):
             k = torch.as_tensor(kernel, dtype=arr.dtype, device=arr.device)
             r = (k.shape[0] - 1) // 2

@@ -97,8 +97,11 @@ class ConvPlan:
     """Static description of one conv-NMF problem geometry.
 
     ``n_samples`` is not part of the plan: the operators accept any leading
-    batch size.  ``precision`` is carried for parity with the JAX package;
-    the port computes in full float32 (or the storage dtype) for every value.
+    batch size.  ``precision`` is the JAX package's level (None, 'default',
+    'high' or 'highest'); :func:`tnmf_tpu_torch.ops.precision.settings`
+    maps it to the card's units (TF32 at 'default' and 'high', full float32
+    at None and 'highest'), and every operator and kernel of the plan's
+    contractions reads it there.
     """
     mode: str
     sample_shape: Tuple[int, ...]

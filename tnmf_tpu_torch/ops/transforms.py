@@ -147,7 +147,7 @@ class GroupOps:
     ``grad_H_pair`` / ``grad_W_pair`` and the prepared-stream primitives)
     on top of a base strategy module: the dictionary is expanded before
     every call that reads it, and the W statistics are tied back.  The
-    primitives keep the base module's signature (conv's take no plan)."""
+    primitives keep the base module's signature (conv's plan is optional)."""
 
     def __init__(self, base, group: TransformGroup):
         self.base = base

@@ -25,12 +25,17 @@ the conv strategy, K1 ``tnmf::mu_ratio`` on fft and dot, K4
 ``solver='hals'``, and no plain version; a CPU program calls the same
 operators, whose bodies run the plain versions on CPU tensors.
 
-Precision: the graph does not carry cuDNN's and cuBLAS's TF32 flags, and
-the engine's pins stand aside while it is traced
+Precision: a program is exported at the model's ``precision`` and the
+header records it as ``'precision'`` (the JAX header bakes it into its
+program and has no such key; an artifact without it, written before the
+port took ``precision``, is ``None``).  K3's pass count is a constant of
+the traced ``tnmf::mu_h`` call, but the graph does not carry cuDNN's and
+cuBLAS's TF32 flags, and the engine's pins stand aside while it is traced
 (:func:`~tnmf_tpu_torch.ops.precision.exporting`).  :class:`ServingModel`
 runs every loaded program inside
-:func:`~tnmf_tpu_torch.ops.precision.full_fp32`, so an artifact computes in
-full float32 whatever the caller's TF32 settings.
+:func:`~tnmf_tpu_torch.ops.precision.pinned` at the header's level, so an
+artifact computes at its own precision whatever the caller's TF32
+settings.
 
 With ``include_decoder=True`` the file also carries the reconstruction
 ``H -> R`` as a second program (cuDNN or cuFFT, no kernel of the port).
@@ -62,7 +67,7 @@ from torch._higher_order_ops.while_loop import while_loop
 from . import engine, engine_hals
 from . import engine_hals_conv as ehc
 from .ops.modes import ConvPlan
-from .ops.precision import full_fp32
+from .ops.precision import pinned
 
 _MAGIC = b'TNMFSRT1'
 #: the JAX package's artifacts (StableHLO), which this loader refuses
@@ -281,7 +286,7 @@ def _programs(recipe: _Recipe, device: str, batch_size: Optional[int],
     if r.solver == 'mu':
         encoder = _MUEncoder(r, device)
     else:
-        with full_fp32():  # the Gram the fit's loops form, pinned as they pin it
+        with pinned(r.plan.precision, W.device, W.dtype):  # as the fit's loops pin it
             G = ehc.gram_W(W)
         encoder = (_HALSEncoder if math.prod(r.plan.transform_shape) == 1
                    else _ConvHALSEncoder)(r, device, G=G)
@@ -400,6 +405,7 @@ def export_serving(model, *,
         'l2_H': float(l2_H),
         'beta_loss': float(recipe.beta),
         'solver': solver,
+        'precision': plan.precision,
     }
     return _assemble(header, payloads, path)
 
@@ -431,7 +437,8 @@ class ServingModel:
     A tensor input runs the program of its device's platform and gives a
     tensor on that device; a NumPy array runs on the artifact's first
     platform that this process can use (``'cuda'`` needs a card) and gives
-    a NumPy array.  Each program is deserialized at its first use."""
+    a NumPy array.  Each program is deserialized at its first use, and runs
+    under the pins of the header's ``'precision'`` (None when absent)."""
 
     def __init__(self, payloads: dict, header: dict):
         self._payloads = payloads
@@ -445,6 +452,11 @@ class ServingModel:
     @property
     def platforms(self) -> tuple:
         return tuple(self.header['platforms'])
+
+    @property
+    def precision(self):
+        """The precision level the programs were exported at."""
+        return self.header.get('precision')
 
     def _module(self, name: str, platform: str):
         key = f'{name}@{platform}'
@@ -481,7 +493,7 @@ class ServingModel:
             raise ValueError(
                 f'input shape {tuple(V.shape)} does not match the '
                 f'artifact signature {tuple(exp_shape)}')
-        with full_fp32():
+        with pinned(self.precision, platform):
             H = self._module('transform', platform)(V, torch.tensor(int(n), dtype=torch.int64))
         return H.cpu().numpy() if as_numpy else H
 
@@ -509,7 +521,7 @@ class ServingModel:
                 'this artifact has no decoder section; export with '
                 'include_decoder=True to serve inverse_transform')
         H, platform, as_numpy = self._input(H)
-        with full_fp32():
+        with pinned(self.precision, platform):
             R = self._module('inverse_transform', platform)(H)
         return R.cpu().numpy() if as_numpy else R
 

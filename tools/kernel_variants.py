@@ -59,7 +59,10 @@ _XOR = '''__device__ __forceinline__ void xor_tf32(float (&d)[4], const uint32_t
 ''' + MARK
 
 _SPLIT = 'for (int i = 4 * threadIdx.x; i < plane; i += 4 * kThreads) {'
-_SPLIT_PER_LOAD = ('\n'.join(' ' * 14 + old for old, _ in _B_LOADS),
+# the big halves' loads, then the small halves' (3xTF32 only)
+_SPLIT_PER_LOAD = ('\n'.join([' ' * 14 + old for old, _ in _B_LOADS[:4]]
+                             + [' ' * 14 + 'if constexpr (kPasses == 3) {']
+                             + [' ' * 16 + old for old, _ in _B_LOADS[4:]] + [' ' * 14 + '}']),
                    '\n'.join(' ' * 14 + f'split_tf32(x{i}[{off} - plane], {b}b[j][{i}], {b}s[j][{i}]);'
                              for b, off in (('v', 0), ('r', 'win')) for i in (0, 1)))
 
@@ -170,7 +173,10 @@ def time_package(root: Path) -> dict:
     k4_digest, k4_inside = hashlib.sha256(), False
     for line in sass.splitlines():
         if 'Function :' in line:
-            inside = 'grad_w' in line
+            # the 3xTF32 instances alone: a parent without the one-pass route
+            # has no other (a one-pass instance's name ends its template
+            # arguments with kPasses = 1)
+            inside = 'grad_w' in line and 'ELi1EEEv' not in line
             k4_inside = 'inhibited_mu_h_kernel' in line and 'Li17E' in line
         elif '/*' in line:
             if inside:
@@ -181,7 +187,8 @@ def time_package(root: Path) -> dict:
     for line in so.with_name(so.name + '.log').read_text().splitlines():
         if 'Compiling entry' in line:
             entry = line
-        elif 'Used ' in line and 'mu_h_mma_kernelILi4' in entry:
+        elif ('Used ' in line and 'mu_h_mma_kernelILi4E' in entry
+              and 'ILi4ELi1E' not in entry):  # the 3xTF32 instance
             regs = int(line.split('Used ')[1].split()[0])
     routes = mu_h._ROUTES
     mu_h._ROUTES = ('fma',)

@@ -39,6 +39,15 @@ failure (exit code != 0, no result line):
    flagship, at the small ragged shapes above and at K2's and K3's edge
    cases (K3 where it takes the tensor-core route), K2 also in its groups,
    against float64 on the rounded operands, and two launches bit-identical;
+   then each kernel's model-axis launch (the sweeps' vmap rules: one launch
+   for S models) at S = 1 and S = 3 against its plain version over the
+   models, at the flagship and the small ragged shapes above: K1's ratio
+   and W epilogue, K2, K3 on its tensor-core route at 3 and 1 passes (the
+   data stream shared by the models, or per model with pos_extra) and on
+   its FP32 route, K4 with compiled taps; K4 streamed and K2 in channel
+   groups (one launch per group) at S = 2; each within the limits above,
+   each model's bits against its own single launch printed and required
+   equal at S = 1, and a K4 model of strength 0 bit-equal to K1's ratio;
 4. golden: the seeded golden fits of tests/golden_values.json in float32 on
    the card: the 2-D fixture ('2d'/'valid'), the 1-D pulse train with
    inhibition ('1d', four modes) and the regularizer sweep
@@ -210,13 +219,29 @@ failure (exit code != 0, no result line):
    1e-3 of the float64 fit after 10 iterations and W and H within 5e-3
    (relative Frobenius norm), HALS's distances printed; ms per iteration
    at None and 'default' in turns (CUDA events); the golden fixtures at
-   'default' within 1e-3 of tests/golden_values.json.
+   'default' within 1e-3 of tests/golden_values.json;
+19. the MU sweeps (``sweep_fit``): (a) the conv flagship, 8 models (seeds
+   0-3 x sparsity 0.05, 0.1); (b) the inhibited flagship, 4 models
+   (inhibition 0, 0.05, 0.1, 0.2; 17 x 17 taps); (c) the fft flagship, 2
+   models; (d) the golden 2-D fixture, 64 models, also with ``tol`` (each
+   model's n_iters printed) and ``record_energies``; (e) plain NMF on dot
+   (16384 x 1 x 4096, 256 atoms), 4 models; 10 iterations for (a) and
+   (d), 3 for the others, counts reset before and read after each run:
+   each kernel of the path launched
+   once per iteration over the model axis for all the models; each model
+   within 1e-4 of its single fit from the same init on the kernels
+   (``engine.fit_loop``) and of the same sweep with ``use_pallas=False``;
+   ms per sweep iteration beside the S single fits' per iteration in
+   turns (CUDA events), peak memory, the batched reconstruction's ms per
+   call; then each model-axis launch at these runs' shapes against its S
+   single launches and its plain version over the models, with its bound.
 
 Phases 7, 10, 12, 13, 14, 15, 16 and 17 hold fits on the kernels against the
 same fits with ``use_pallas=False`` (the model's kernel/plain switch).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launches on the main paths, error, times and bound; the last line is
+launches on the main paths (phase 19's over the model axis also apart),
+error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -235,8 +260,9 @@ import numpy as np
 import torch
 
 from tnmf_tpu_torch import (MiniBatchAlgorithm, TransformInvariantNMF, engine, engine_hals,
-                            engine_hals_conv, load_serving)
+                            engine_hals_conv, load_serving, sweep_fit)
 from tnmf_tpu_torch.kernels import _build, gw, hals, inhibit, mu, mu_h
+from tnmf_tpu_torch.models import sweep
 from tnmf_tpu_torch.ops import conv
 from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
 from tnmf_tpu_torch.ops.modes import ConvPlan
@@ -328,6 +354,8 @@ K4_STREAMED_CASES = [
 WIDE_RANGE = 120
 #: mu_w against its plain version (max|kernel - plain| / max|plain|)
 MU_W_TOL = 1e-6
+#: the model counts of phase 3's model-axis launches
+MODEL_AXIS_COUNTS = (1, 3)
 # K2 at the edges of its tiling: (where, (N, C, S, M, A, mode))
 K2_CASES = [
     ('2-D 3 atoms valid', (2, 1, (40, 37), 3, (9, 9), 'valid')),
@@ -410,6 +438,8 @@ def bound(n_bytes: float, flops: float, ops_per_s: float) -> tuple:
 def reset_counts():
     for k in KERNELS.values():
         setattr(k['wrapper'], k.get('count', 'launches'), 0)
+        if hasattr(k['wrapper'], 'model_launches'):
+            k['wrapper'].model_launches = 0
 
 
 def counts() -> dict:
@@ -534,7 +564,7 @@ def _problem(N, C, S, M, A, mode, seed, use_cross=True):
     Vp = conv.prepare_data(V, plan)
     Rx = conv.extend_data(conv.reconstruct(W, H, plan), plan)
     X2 = torch.cat([Vp, Rx], dim=1)
-    neg, pos = gw.grad_w_plain(X2, H, plan)
+    neg, pos = gw.grad_w_plain(X2, H)
     neg, pos = neg.contiguous(), pos.contiguous()
     hneg, hpos = (g.contiguous() for g in conv.grad_H_pair_prepared(Vp, Rx, W))
     VR = torch.cat([Vp, Rx], dim=0)
@@ -555,15 +585,15 @@ def _problem(N, C, S, M, A, mode, seed, use_cross=True):
         'mu_w': (lambda: mu.mu_w(W, neg, pos, engine.EPS, plan.ndim),
                  lambda: mu.mu_w_plain(W, neg, pos, engine.EPS, plan.ndim), None,
                  (4 * 4 * W.numel(), 5 * W.numel())),
-        'grad_w': (lambda: gw.grad_w(X2, H, plan), lambda: gw.grad_w_plain(X2, H, plan),
+        'grad_w': (lambda: gw.grad_w(X2, H), lambda: gw.grad_w_plain(X2, H),
                    lambda: conv.corr_W(X2, H), k2_work),
         'mu_h': (lambda: mu_h.mu_h(Vp, Rx, W, H, denom),
                  lambda: mu_h.mu_h_plain(Vp, Rx, W, H, denom),
                  lambda: conv.corr_H(VR, W), k3_work),
         # one TF32 pass: the plain versions round the operands first, the
         # library calls run cuDNN with TF32 on
-        'grad_w_1pass': (lambda: gw.grad_w(X2, H, plan, 1),
-                         lambda: gw.grad_w_plain(X2, H, plan, 1),
+        'grad_w_1pass': (lambda: gw.grad_w(X2, H, 1),
+                         lambda: gw.grad_w_plain(X2, H, 1),
                          lambda: conv.corr_W(X2, H, tf32_plan), k2_work),
         'mu_h_1pass': (lambda: mu_h.mu_h(Vp, Rx, W, H, denom, None, 1),
                        lambda: mu_h.mu_h_plain(Vp, Rx, W, H, denom, None, 1),
@@ -575,7 +605,7 @@ def _problem(N, C, S, M, A, mode, seed, use_cross=True):
     }
 
 
-def _compare(name, kernel, plain, where) -> float:
+def _compare(name, kernel, plain, where, tol=TOL) -> float:
     got, want = kernel(), plain()
     sync()
     if isinstance(want, torch.Tensor):
@@ -589,9 +619,9 @@ def _compare(name, kernel, plain, where) -> float:
         scale = max(scale, float(w.abs().max()))
     rel = abs_err / scale
     log(f'  {name:14s} {where:34s} max_abs_err={abs_err:.3e} rel={rel:.3e}')
-    if not rel <= TOL:
+    if not rel <= tol:
         raise AssertionError(f'{name} at {where}: kernel disagrees with its plain '
-                             f'version (relative error {rel:.3e} > {TOL})')
+                             f'version (relative error {rel:.3e} > {tol})')
     return abs_err
 
 
@@ -613,17 +643,17 @@ def phase_kernels() -> dict:
         k2 = _k2_problem(*args, seed=10 + i)
         _compare('grad_w', lambda: gw.grad_w(*k2), lambda: gw.grad_w_plain(*k2), where)
     for i, (where, args, n_groups) in enumerate(K2_GROUP_CASES):
-        X2, H, plan = _k2_problem(*args, seed=30 + i)
+        X2, H = _k2_problem(*args, seed=30 + i)
         gw.grad_w.launches = 0
-        _compare('grad_w', lambda: gw.grad_w(X2, H, plan), lambda: gw.grad_w_plain(X2, H, plan),
+        _compare('grad_w', lambda: gw.grad_w(X2, H), lambda: gw.grad_w_plain(X2, H),
                  f'{where} ({n_groups})')
         if gw.grad_w.launches != n_groups:
             raise AssertionError(f'grad_w at {where}: {gw.grad_w.launches} launches, '
                                  f'not {n_groups} groups')
         # sums over up to 371 k positions: which of the two is off float64
-        f64 = gw.grad_w_plain(X2.double(), H.double(), plan)
+        f64 = gw.grad_w_plain(X2.double(), H.double())
         scale = max(float(w.abs().max()) for w in f64)
-        rel = [max(float((g.double() - w).abs().max()) for g, w in zip(fn(X2, H, plan), f64))
+        rel = [max(float((g.double() - w).abs().max()) for g, w in zip(fn(X2, H), f64))
                / scale for fn in (gw.grad_w, gw.grad_w_plain)]
         log(f'  {"grad_w":14s} {where + " against float64":34s} kernel rel={rel[0]:.3e}, '
             f'plain rel={rel[1]:.3e}')
@@ -651,7 +681,143 @@ def phase_kernels() -> dict:
     _k4_streamed()
     _mu_w_cases()
     _one_pass_cases()
+    _model_axis_cases()
     return errors
+
+
+def _stacked(rng, shape, S):
+    """S random non-negative tensors of ``shape``, stacked on axis 0."""
+    return torch.tensor(rng.random((S,) + tuple(shape)), device=DEVICE, dtype=torch.float32)
+
+
+def _model_axis_check(name, models, plain, single, where, S, tol=TOL) -> None:
+    """One model-axis launch (``models()``, counted: one launch) against
+    its plain version over the model axis (``plain(s)`` per model) within
+    ``tol``, and against each model's own single launch (``single(s)``):
+    bit-equal required at S = 1, printed otherwise."""
+    wrapper = KERNELS[name]['wrapper']
+    before, model_before = wrapper.launches, wrapper.model_launches
+    got = models()
+    sync()
+    if (wrapper.launches - before, wrapper.model_launches - model_before) != (1, 1):
+        raise AssertionError(f'{name} at {where}, S={S}: {wrapper.launches - before} launches, '
+                             f'{wrapper.model_launches - model_before} over the model axis')
+    pair = isinstance(got, tuple)
+    want = [plain(s) for s in range(S)]
+    want = tuple(map(torch.stack, zip(*want))) if pair else torch.stack(want)
+    _compare(name, lambda: got, lambda: want, f'{where} S={S}', tol)
+    parts = got if pair else (got,)
+    equal = all(torch.equal(p[s], q) for s in range(S)
+                for p, q in zip(parts, single(s) if pair else (single(s),)))
+    log(f'  {name:14s} {where + f" S={S}":34s} each model bit-equal to its single launch: '
+        f'{equal}')
+    if S == 1 and not equal:
+        raise AssertionError(f'{name} at {where}: the S = 1 model-axis launch differs from '
+                             'the single launch')
+
+
+def _model_axis_cases() -> None:
+    """Each kernel's model-axis launch (the sweeps' vmap rules) against its
+    plain version over the model axis, at S = 1 and S = 3, at the flagship
+    and at the small ragged shapes: K1's ratio and W epilogue, K2 (also in
+    channel groups), K3 on its tensor-core route at 3 and 1 passes (the
+    data stream shared by the models, and per model with pos_extra) and
+    on its FP32 route, K4 with its compiled taps and streamed, a model of
+    strength 0 bit-equal to K1's ratio (an exact no-op)."""
+    f = FLAGSHIP
+    cases = [
+        ('flagship 64x1x256x256/16x9x9', (f['N'], f['C'], f['S'], f['M'], f['A'], f['mode']),
+         True),
+        ('2-D 3x2x37x29/5x5x6 circular', (3, 2, (37, 29), 5, (5, 6), 'circular'), False),
+        ('1-D 2x3x301/7x7 valid', (2, 3, (301,), 7, (7,), 'valid'), True),
+    ]
+    for i, (where, (N, C, Ss, M, A, mode), shared) in enumerate(cases):
+        plan = ConvPlan.create(mode, Ss, A)
+        T = plan.transform_shape
+        E = tuple(t + a - 1 for t, a in zip(T, A))
+        for S in MODEL_AXIS_COUNTS:
+            rng = np.random.default_rng(100 + 10 * i + S)
+            W, H = _stacked(rng, (M, C) + A, S), _stacked(rng, (N, M) + T, S)
+            Rx, neg, pos = _stacked(rng, (N, C) + E, S), *(_stacked(rng, (M, C) + A, S)
+                                                         for _ in range(2))
+            hneg, hpos = (_stacked(rng, (N, M) + T, S) for _ in range(2))
+            Vp = _stacked(rng, (N, C) + E, 1)[0] if shared else _stacked(rng, (N, C) + E, S)
+            extra = None if shared else 0.1 * H
+
+            def vp(s):
+                return Vp if shared else Vp[s]
+
+            def pe(s):
+                return None if extra is None else extra[s]
+            regs = engine.EPS + torch.tensor([0.1, 0.05, 0.2][:S], device=DEVICE)
+            r = [float(x) for x in regs]
+            nd = plan.ndim
+            _model_axis_check('mu_ratio', lambda: mu.mu_ratio(H, hneg, hpos, regs, True),
+                              lambda s: mu.mu_ratio_plain(H[s], hneg[s], hpos[s], r[s]),
+                              lambda s: mu.mu_ratio(H[s], hneg[s], hpos[s], r[s]), where, S)
+            _model_axis_check('mu_w', lambda: mu.mu_w(W, neg, pos, engine.EPS, nd, True),
+                              lambda s: mu.mu_w_plain(W[s], neg[s], pos[s], engine.EPS, nd),
+                              lambda s: mu.mu_w(W[s], neg[s], pos[s], engine.EPS, nd), where,
+                              S, MU_W_TOL)
+            X2 = torch.cat([(Vp.expand((S,) + Vp.shape) if shared else Vp), Rx], dim=2)
+            _model_axis_check('grad_w', lambda: gw.grad_w_models(X2, H),
+                              lambda s: gw.grad_w_plain(X2[s], H[s]),
+                              lambda s: gw.grad_w(X2[s], H[s]), where, S)
+            for passes in (3, 1):
+                name = 'mu_h' if passes == 3 else 'mu_h_1pass'
+                _model_axis_check(
+                    'mu_h', lambda: mu_h.mu_h_models(Vp, Rx, W, H, regs, extra, passes),
+                    lambda s: mu_h.mu_h_plain(vp(s), Rx[s], W[s], H[s], r[s], pe(s), passes),
+                    lambda s: mu_h.mu_h(vp(s), Rx[s], W[s], H[s], r[s], pe(s), passes),
+                    f'{where} {name}', S)
+            with fma_route():
+                _model_axis_check(
+                    'mu_h', lambda: mu_h.mu_h_models(Vp, Rx, W, H, regs, extra),
+                    lambda s: mu_h.mu_h_plain(vp(s), Rx[s], W[s], H[s], r[s], pe(s)),
+                    lambda s: mu_h.mu_h(vp(s), Rx[s], W[s], H[s], r[s], pe(s)),
+                    f'{where} FP32 route', S)
+            ks = tuple(torch.tensor(k, device=DEVICE, dtype=torch.float32)
+                       for k in inhibition_kernels(tuple(a - 1 for a in A)))
+            _k4_model_axis(H, hneg, hpos, ks, regs, where, S)
+    # K4 streamed, K2 in channel groups: two models each
+    rng = np.random.default_rng(SEED + 2)
+    where, dims, ranges = K4_STREAMED_CASES[0]
+    H, hneg, hpos = (_stacked(rng, dims, 2) for _ in range(3))
+    regs = engine.EPS + torch.tensor([0.1, 0.2], device=DEVICE)
+    _k4_model_axis(H, hneg, hpos, inhibition_kernels(ranges), regs, where, 2)
+    where, args, n_groups = K2_GROUP_CASES[0]
+    X2, H = _k2_problem(*args, seed=40)
+    X2 = torch.stack([X2, X2.flip(0)])
+    H = torch.stack([H, 2 * H])
+    before = gw.grad_w.launches
+    _compare('grad_w', lambda: gw.grad_w_models(X2, H),
+             lambda: tuple(torch.stack(p) for p in zip(*(gw.grad_w_plain(X2[s], H[s])
+                                                         for s in range(2)))),
+             f'{where} S=2')
+    if gw.grad_w.launches - before != n_groups:
+        raise AssertionError(f'grad_w at {where}, S=2: {gw.grad_w.launches - before} '
+                             f'launches, not one per group ({n_groups})')
+
+
+def _k4_model_axis(H, neg, pos, ks, regs, where, S) -> None:
+    """K4's model-axis launch with per-model strengths, same- and
+    cross-atom; at S = 3 model 1's strengths are 0, and its update must be
+    K1's ratio bit for bit."""
+    inh = torch.tensor([0.3, 0.0, 0.1][:S], device=DEVICE)
+    cross = torch.tensor([0.2, 0.0, 0.05][:S], device=DEVICE)
+    f = [(float(inh[s]), float(cross[s]), float(regs[s])) for s in range(S)]
+    kw = dict(use_same=True, use_cross=True)
+    got = inhibit.inhibited_mu_h_models(H, neg, pos, ks, inh, cross, regs, **kw)
+    _model_axis_check('inhibited_mu_h', lambda: inhibit.inhibited_mu_h_models(
+        H, neg, pos, ks, inh, cross, regs, **kw),
+        lambda s: inhibit.inhibited_mu_h_plain(H[s], neg[s], pos[s], ks, *f[s], **kw),
+        lambda s: inhibit.inhibited_mu_h(H[s], neg[s], pos[s], ks, *f[s], **kw), where, S)
+    if S >= 2:
+        ratio = mu.mu_ratio(H[1], neg[1], pos[1], f[1][2])
+        if not torch.equal(got[1], ratio):
+            raise AssertionError(f'inhibited_mu_h at {where}: strength 0 is not an exact '
+                                 'no-op (the model differs from K1\'s ratio)')
+        log(f'  {"inhibited_mu_h":14s} {where + " strength 0":34s} bit-equal to K1\'s ratio')
 
 
 def _k4_streamed():
@@ -739,17 +905,17 @@ def _one_pass_cases():
               ('1-D 2x3x301/7x7 valid', (2, 3, (301,), 7, (7,), 'valid'))]
     k2 = shapes + K2_CASES + [(w, a) for w, a, _ in K2_GROUP_CASES]
     for i, (where, args) in enumerate(k2):
-        X2, H, plan = _k2_problem(*args, seed=40 + i)
+        X2, H = _k2_problem(*args, seed=40 + i)
         reset_counts()
-        _one_pass_check('grad_w_1pass', lambda: gw.grad_w(X2, H, plan, 1),
-                        lambda: gw.grad_w_plain(X2, H, plan, 1),
+        _one_pass_check('grad_w_1pass', lambda: gw.grad_w(X2, H, 1),
+                        lambda: gw.grad_w_plain(X2, H, 1),
                         lambda: gw.grad_w_plain(round_tf32(X2).double(),
-                                                round_tf32(H).double(), plan), where)
+                                                round_tf32(H).double()), where)
         if gw.grad_w.one_pass_launches != gw.grad_w.launches or not gw.grad_w.launches:
             raise AssertionError(f'grad_w_1pass at {where}: {gw.grad_w.launches} launches, '
                                  f'{gw.grad_w.one_pass_launches} on the one-pass route')
         if where == 'flagship':
-            got, again = gw.grad_w(X2, H, plan, 1), gw.grad_w(X2, H, plan, 1)
+            got, again = gw.grad_w(X2, H, 1), gw.grad_w(X2, H, 1)
             sync()
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError('grad_w_1pass: two launches on the same inputs differ')
@@ -772,29 +938,29 @@ def _one_pass_cases():
 
 
 def _k2_problem(N, C, S, M, A, mode, seed):
-    """Random non-negative X2 and H of one K2 problem, and its plan."""
+    """Random non-negative X2 and H of one K2 problem."""
     rng = np.random.default_rng(seed)
     plan = ConvPlan.create(mode, S, A)
     T = plan.transform_shape
     E = tuple(t + a - 1 for t, a in zip(T, A))
     dev = dict(device=DEVICE, dtype=torch.float32)
     return (torch.tensor(rng.random((N, 2 * C) + E), **dev),
-            torch.tensor(rng.random((N, M) + T), **dev), plan)
+            torch.tensor(rng.random((N, M) + T), **dev))
 
 
 def _k2_float64_and_determinism():
     """K2 at the flagship against per-sample float64 ``corr_W`` sums on the
     card, and two launches bit for bit."""
     f = FLAGSHIP
-    X2, H, plan = _k2_problem(f['N'], f['C'], f['S'], f['M'], f['A'], f['mode'], seed=0)
-    got = gw.grad_w(X2, H, plan)
-    want = gw.grad_w_plain(X2.double(), H.double(), plan)
+    X2, H = _k2_problem(f['N'], f['C'], f['S'], f['M'], f['A'], f['mode'], seed=0)
+    got = gw.grad_w(X2, H)
+    want = gw.grad_w_plain(X2.double(), H.double())
     scale = max(float(w.abs().max()) for w in want)
     rel = max(float((g.double() - w).abs().max()) for g, w in zip(got, want)) / scale
     log(f'  {"grad_w":14s} {"flagship against float64":34s} rel={rel:.3e}')
     if not rel <= F64_TOL:
         raise AssertionError(f'grad_w at the flagship: {rel:.3e} off float64 > {F64_TOL}')
-    again = gw.grad_w(X2, H, plan)
+    again = gw.grad_w(X2, H)
     sync()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError('grad_w: two launches on the same inputs differ')
@@ -1100,7 +1266,7 @@ def phase_large():
             groups = len(gw._geometry(*gw_dims(nmf._plan, H, 2 * f['C']))['groups'])
             out['mu_h_ms'] = time_ms(lambda: mu_h.mu_h(Vp, Rx, W, H, engine.EPS + 0.1), reps=3)
             X2 = torch.cat([Vp, Rx], dim=1)
-            out['grad_w_ms'] = time_ms(lambda: gw.grad_w(X2, H, nmf._plan), reps=3)
+            out['grad_w_ms'] = time_ms(lambda: gw.grad_w(X2, H), reps=3)
             # the nearest single PyTorch calls (cuDNN, TF32 off), as in phase 9
             lib_w = time_ms(lambda: conv.corr_W(X2, H), reps=1)
             VR = torch.cat([Vp, Rx], dim=0)
@@ -1111,7 +1277,7 @@ def phase_large():
             # there) against cuDNN with TF32 on
             tf32_plan = ConvPlan.create(nmf._plan.mode, nmf._plan.sample_shape, f['A'],
                                         precision='default')
-            out['grad_w_1pass_ms'] = time_ms(lambda: gw.grad_w(X2, H, nmf._plan, 1), reps=3)
+            out['grad_w_1pass_ms'] = time_ms(lambda: gw.grad_w(X2, H, 1), reps=3)
             lib_w1 = time_ms(lambda: conv.corr_W(X2, H, tf32_plan), reps=1)
             lib_h1 = time_ms(lambda: conv.corr_H(VR, W, tf32_plan), reps=3)
             route = mu_h.launch_geometry(Vp, Rx, W, H, passes=1)[2]['route']
@@ -1302,7 +1468,7 @@ def phase_times(nmf) -> dict:
     # the W epilogue fused (mu_w) against the pair it replaced (K1's ratio,
     # then the normalisation's sum, compare, ones, where and divide), in turns
     neg, pos = gw.grad_w(torch.cat([nmf._Vp, conv.extend_data(conv.reconstruct(W, H, plan),
-                                                              plan)], dim=1), H, plan)
+                                                              plan)], dim=1), H)
 
     def pair():
         return engine._normalize_W(mu.mu_ratio(W, neg, pos, engine.EPS), plan.ndim)
@@ -2083,12 +2249,12 @@ def _objective_parts(nmf) -> dict:
     R = conv.reconstruct(W, H, plan)
     Xv, Xr = engine._conv_streams(Vp, R, plan, b, mask)
     X2 = torch.cat([Xv, Xr], dim=1)
-    neg, pos = gw.grad_w(X2, H, plan)
+    neg, pos = gw.grad_w(X2, H)
     parts = {'reconstruct': lambda: conv.reconstruct(W, H, plan),
              'streams': lambda: engine._conv_streams(Vp, R, plan, b, mask),
              'mu_h': lambda: mu_h.mu_h(Xv, Xr, W, H, engine.EPS + FLAGSHIP['sparsity']),
              'cat X2': lambda: torch.cat([Xv, Xr], dim=1),
-             'grad_w': lambda: gw.grad_w(X2, H, plan),
+             'grad_w': lambda: gw.grad_w(X2, H),
              'mu_w': lambda: mu.mu_w(W, neg, pos, engine.EPS, plan.ndim)}
     return {k: time_ms(fn, reps=5) for k, fn in parts.items()}
 
@@ -2309,7 +2475,7 @@ def _group_parts(nmf, fit: dict) -> dict:
     R = conv.reconstruct(We, H, plan)
     Xv, Xr = engine._conv_streams(Vp, R, plan, 2.0, None)
     X2 = torch.cat([Xv, Xr], dim=1)
-    neg, pos = gw.grad_w(X2, H, plan)
+    neg, pos = gw.grad_w(X2, H)
     tneg, tpos = tie_back(neg, group), tie_back(pos, group)
     hneg, hpos = (g.contiguous() for g in conv.grad_H_pair_prepared(Xv, Xr, We))
     reg = engine.EPS + fit['sparsity_H']
@@ -2322,7 +2488,7 @@ def _group_parts(nmf, fit: dict) -> dict:
              'inhibited_mu_h': lambda: inhibit.inhibited_mu_h(
                  H, hneg, hpos, nmf._kernels, f['inhibition'], f['cross'], reg),
              'cat X2': lambda: torch.cat([Xv, Xr], dim=1),
-             'grad_w': lambda: gw.grad_w(X2, H, plan),
+             'grad_w': lambda: gw.grad_w(X2, H),
              'tie_back': lambda: (tie_back(neg, group), tie_back(pos, group)),
              'mu_w': lambda: mu.mu_w(W, tneg, tpos, engine.EPS, plan.ndim)}
     _, _, g3 = mu_h.launch_geometry(Xv, Xr, We, H)
@@ -3314,13 +3480,13 @@ def _default_split(nmf) -> dict:
     R = conv.reconstruct(W, H, plan)
     Rx = conv.extend_data(R, plan)
     X2 = torch.cat([Vp, Rx], dim=1)
-    neg, pos = gw.grad_w(X2, H, plan, 1)
+    neg, pos = gw.grad_w(X2, H, 1)
     parts = {
         'reconstruct (cuDNN, TF32 on)': lambda: conv.reconstruct(W, H, plan),
         'reconstruct (cuDNN, TF32 off)': lambda: conv.reconstruct(W, H, fp32_plan),
         'extend + stack': lambda: torch.cat([Vp, conv.extend_data(R, plan)], dim=1),
         'mu_h one pass': lambda: mu_h.mu_h(Vp, Rx, W, H, engine.EPS + 0.1, None, 1),
-        'grad_w one pass': lambda: gw.grad_w(X2, H, plan, 1),
+        'grad_w one pass': lambda: gw.grad_w(X2, H, 1),
         'mu_w': lambda: mu.mu_w(W, neg.contiguous(), pos.contiguous(), engine.EPS, plan.ndim),
     }
     out = {name: time_ms(fn) for name, fn in parts.items()}
@@ -3470,6 +3636,302 @@ def phase_precision(W: np.ndarray = None) -> tuple:
     return total, out
 
 
+# ----------------------------------------------------------- phase 19: sweeps
+
+#: iterations of the sweep runs (a) and (d), of (b), (c) and (e) (fewer, to
+#: keep the whole script near 10 minutes), and of the timed sweeps (by
+#: difference of 2n and n iterations)
+SWEEP_ITER = 10
+SWEEP_SHORT_ITER = 3
+SWEEP_TIMED = 5
+#: a sweep's models against their single fits and against the plain sweep
+#: (max|a - b| / max|b| of W and H per model, and of the energies)
+SWEEP_TOL = 1e-4
+#: (d) the golden 2-D fixture: models; the tol run's n_iterations, tol, check
+SWEEP_GOLDEN_MODELS = 64
+SWEEP_GOLDEN_TOL = dict(n_iterations=60, tol=1e-5, tol_check_every=5)
+#: (e) plain NMF on dot
+SWEEP_DOT = dict(N=16384, F=4096, M=256, models=4)
+
+
+def _rel_t(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def model_counts() -> dict:
+    """Each kernel's launches over a model axis (0 for a row that counts
+    another route, or a kernel without a model axis)."""
+    return {name: 0 if 'count' in k else getattr(k['wrapper'], 'model_launches', 0)
+            for name, k in KERNELS.items()}
+
+
+def _sweep_reference(V, M, A, models: int, seeds, kw: dict):
+    """What each model of a sweep starts from and runs on: the S inits
+    drawn as ``sweep_fit`` draws them (``seeds``: a vector of per-model
+    seeds, or the scalar seed of one generator), and a model of the same
+    configuration set up by ``fit(V, n_iterations=0)`` for its plan,
+    strategy, prepared data and inhibition taps."""
+    backend = {'fft': 'jax_fft', 'conv': 'jax_conv'}.get(kw.get('strategy'), 'auto')
+    ref = TransformInvariantNMF(M, A, device=DEVICE, backend=backend, init='device',
+                                reconstruction_mode=kw.get('reconstruction_mode', 'valid'),
+                                inhibition_range=kw.get('inhibition_range'))
+    ref.fit(V, n_iterations=0)
+    gens = [torch.Generator(device=DEVICE).manual_seed(int(x)) for x in np.atleast_1d(seeds)]
+    W0, H0 = sweep._draw(gens, models, tuple(ref._W.shape), tuple(ref._H.shape),
+                         ref._plan.ndim, torch.float32, torch.device(DEVICE))
+    return ref, W0, H0
+
+
+def _sweep_run(label, V, M, A, expected: tuple, seeds, kw: dict, n_iter: int):
+    """One sweep of ``n_iter`` iterations through ``sweep_fit`` (counts
+    reset before and read after: each of ``expected`` launched once per
+    iteration over the model
+    axis, no other kernel), its models held within 1e-4 of their single
+    fits from the same inits on the kernels (``engine.fit_loop``, float
+    strengths) and of the same sweep with ``use_pallas=False``; ms per
+    sweep iteration beside the S single fits' in turns (CUDA events), peak
+    memory and the reconstruction's ms per call.  Returns the run's
+    numbers, the sweep's result and the single fits' model."""
+    vec = np.ndim(seeds) > 0
+    models = len(seeds) if vec else kw.pop('n_models')
+    seed_kw = dict(seed=np.asarray(seeds)) if vec else dict(n_models=models, seed=seeds)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = sweep_fit(V, M, A, n_iterations=n_iter, device=DEVICE, **seed_kw, **kw)
+    sync()
+    launches, on_axis = counts(), model_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(dict.fromkeys(expected, n_iter))
+    if launches != want or any(on_axis[k] != n_iter for k in expected):
+        raise AssertionError(f'{label}: launches {launches} ({on_axis} over the model axis), '
+                             f'not {want}: each kernel once per iteration for all {models}')
+    E = res.energies
+    if tuple(E.shape) != (models,) or not bool(torch.isfinite(E).all()):
+        raise AssertionError(f'{label}: energies {E}')
+    plain = sweep_fit(V, M, A, n_iterations=n_iter, device=DEVICE, use_pallas=False,
+                      **seed_kw, **kw)
+    off_plain = max(max(_rel_t(res.W[s], plain.W[s]), _rel_t(res.H[s], plain.H[s]))
+                    for s in range(models))
+    off_plain_e = _rel_t(E, plain.energies)
+    del plain
+    ref, W0, H0 = _sweep_reference(V, M, A, models, seeds, kw)
+    sp, inh, cross = (np.broadcast_to(np.asarray(kw.get(k, 0.), np.float32), (models,))
+                      for k in ('sparsity', 'inhibition', 'cross_inhibition'))
+    flags = dict(plan=ref._plan, strategy=ref._strategy, use_inhibition=bool(np.any(inh > 0)),
+                 use_cross=bool(np.any(cross > 0)))
+
+    def single(s, n=n_iter):
+        return engine.fit_loop(ref._Vp, W0[s], H0[s], n, float(sp[s]), float(inh[s]),
+                               float(cross[s]), ref._kernels, **flags)
+    off_single, equal = 0., True
+    for s in range(models):
+        Ws, Hs = single(s)
+        Es = engine.energy(ref._Vd, Ws, Hs, plan=ref._plan, strategy=ref._strategy)
+        off_single = max(off_single, _rel_t(res.W[s], Ws), _rel_t(res.H[s], Hs),
+                         abs(float(E[s]) - float(Es)) / abs(float(Es)))
+        equal = equal and torch.equal(res.W[s], Ws) and torch.equal(res.H[s], Hs)
+    log(f'{label}: {models} models, {n_iter} iterations, peak {peak:.0f} MiB; launches '
+        f'{ {k: v for k, v in launches.items() if v} } (all over the model axis); models off '
+        f'their single fits {off_single:.3e} (bit-equal: {equal}), off the plain sweep '
+        f'{off_plain:.3e} (energies {off_plain_e:.3e}); energies {E.tolist()}')
+    if not max(off_single, off_plain, off_plain_e) <= SWEEP_TOL:
+        raise AssertionError(f'{label}: models off their single fits {off_single:.3e}, off '
+                             f'the plain sweep {off_plain:.3e} / {off_plain_e:.3e} '
+                             f'(> {SWEEP_TOL})')
+
+    def run_sweep(n):
+        return sweep._sweep_from_init(V, W0, H0, n_iterations=n, device=DEVICE,
+                                      seeds=res.seeds, **kw)
+
+    def sweep_ms():
+        return (time_ms(lambda: run_sweep(2 * SWEEP_TIMED), reps=1)
+                - time_ms(lambda: run_sweep(SWEEP_TIMED), reps=1)) / SWEEP_TIMED
+
+    def singles_ms():
+        return time_ms(lambda: [single(s, SWEEP_TIMED) for s in range(models)],
+                       reps=1) / SWEEP_TIMED
+    t = [fn() for fn in (sweep_ms, singles_ms, singles_ms, sweep_ms)]
+    plan, strategy = ref._plan, ref._strategy
+    vrec = torch.func.vmap(lambda W, H: engine.reconstruct(W, H, plan=plan, strategy=strategy))
+    rec = time_ms(lambda: vrec(res.W, res.H))
+    rec1 = time_ms(lambda: engine.reconstruct(res.W[0], res.H[0], plan=plan, strategy=strategy))
+    out = dict(models=models, sweep_ms_per_iteration=(t[0] + t[3]) / 2,
+               singles_ms_per_iteration=(t[1] + t[2]) / 2, peak_mib=peak,
+               reconstruction_ms=rec, single_reconstruction_ms=rec1,
+               off_single_fits=off_single, bit_equal_to_single_fits=equal,
+               off_plain_sweep=max(off_plain, off_plain_e),
+               iterations=n_iter,
+               launches_per_iteration={k: v / n_iter for k, v in launches.items() if v})
+    log(f'{label} ({card()}): sweep {t[0]:.4f}/{t[3]:.4f} ms per iteration for all '
+        f'{models} models, {models} single fits {t[1]:.4f}/{t[2]:.4f} ms per iteration, in '
+        f'turns; reconstruction {rec:.4f} ms per call ({models} models batched), one '
+        f'model\'s {rec1:.4f} ms')
+    return out, res, ref
+
+
+def _sweep_golden_loops(V, res, kw: dict) -> dict:
+    """The golden fixture's sweep with ``tol`` over a grid of sparsities
+    (n_iters per model; each kernel launched once per iteration the sweep
+    ran) and with
+    ``record_energies`` (traces of every iteration, the last the final
+    energy, the state that of the plain sweep run)."""
+    models = SWEEP_GOLDEN_MODELS
+    reset_counts()
+    # a grid of sparsities, so that the models converge at different blocks
+    grid = dict(kw, sparsity=np.linspace(0., 1., models, dtype=np.float32))
+    tolled = sweep_fit(V, 10, (7, 7), n_models=models, seed=SEED, device=DEVICE, **grid,
+                       **SWEEP_GOLDEN_TOL)
+    sync()
+    n_iters = tolled.n_iters.tolist()
+    ran, per = max(n_iters), SWEEP_GOLDEN_TOL['tol_check_every']
+    launches = {k: v for k, v in counts().items() if v}
+    log(f'golden sweep, tol {SWEEP_GOLDEN_TOL["tol"]}: n_iters per model {n_iters}; the sweep '
+        f'ran {ran} iterations; launches {launches}')
+    if (any(n % per and n != SWEEP_GOLDEN_TOL['n_iterations'] for n in n_iters)
+            or any(v != ran for v in launches.values())
+            or not bool(torch.isfinite(tolled.energies).all())):
+        raise AssertionError(f'golden sweep with tol: n_iters {n_iters}, launches {launches}')
+    reset_counts()
+    traced = sweep_fit(V, 10, (7, 7), n_models=models, seed=SEED, n_iterations=SWEEP_ITER,
+                       record_energies=True, device=DEVICE, **kw)
+    sync()
+    tr = traced.energy_traces
+    same = torch.equal(traced.W, res.W) and torch.equal(traced.H, res.H)
+    launches = {k: v for k, v in counts().items() if v}
+    log(f'golden sweep, record_energies: traces {tuple(tr.shape)}, state bit-equal to the '
+        f'sweep without traces: {same}; launches {launches}')
+    if (tuple(tr.shape) != (models, SWEEP_ITER) or not torch.equal(tr[:, -1], traced.energies)
+            or _rel_t(traced.W, res.W) > 1e-6 or _rel_t(traced.energies, res.energies) > 1e-6
+            or any(v != SWEEP_ITER for v in launches.values())):
+        raise AssertionError('golden sweep with record_energies: traces or state differ')
+    return dict(n_iters=n_iters, traced_bit_equal=same)
+
+
+def _sweep_kernel_times() -> dict:
+    """Each kernel's model-axis launch at phase 19's shapes against its S
+    single launches and its plain version over the models, in turns, with
+    its bound: K3, K2 and ``mu_w`` at (a), K4 at (b), ``mu_ratio`` at (c)."""
+    f = FLAGSHIP
+    rng = np.random.default_rng(SEED + 19)
+    plan = ConvPlan.create(f['mode'], f['S'], f['A'])
+    T, A, N, C, M = plan.transform_shape, f['A'], f['N'], f['C'], f['M']
+    E = tuple(t + a - 1 for t, a in zip(T, A))
+    out = {}
+
+    def timed(name, S, models, singles, plain, work):
+        m1, s1, s2, m2 = (time_ms(fn, reps=3) for fn in (models, singles, singles, models))
+        p = time_ms(plain, reps=1)
+        bound_ms, bound_by = bound(*work, OPS_PER_S[name])
+        ms = (m1 + m2) / 2
+        out[name] = dict(models=S, ms=ms, single_launches_ms=(s1 + s2) / 2, plain_ms=p,
+                         bound_ms=bound_ms, bound_by=bound_by)
+        log(f'  {name:14s} S={S}: one launch {m1:.4f}/{m2:.4f} ms, {S} single launches '
+            f'{s1:.4f}/{s2:.4f} ms, plain over the models {p:.4f} ms, bound {bound_ms:.4f} ms '
+            f'({bound_by}), {100 * bound_ms / ms:.1f} % of bound')
+    S = 8
+    W, H = _stacked(rng, (M, C) + A, S), _stacked(rng, (N, M) + T, S)
+    Vp, Rx = _stacked(rng, (N, C) + E, 1)[0], _stacked(rng, (N, C) + E, S)
+    regs = engine.EPS + torch.tensor([0.05] * 4 + [0.1] * 4, device=DEVICE)
+    r = regs.tolist()
+    nT, nA, nH = math.prod(T), math.prod(A), H[0].numel()
+    g = mu_h.launch_geometry(Vp, Rx[0], W[0], H[0])[2]
+    log(f'  mu_h           S={S}: route {g["route"]}, {g.get("grid_x", 0)} persistent blocks per '
+        f'model, each staging its model\'s split dictionary once: {S * g.get("grid_x", 0)} '
+        'stagings a launch, no restage')
+    timed('mu_h', S, lambda: mu_h.mu_h_models(Vp, Rx, W, H, regs),
+          lambda: [mu_h.mu_h(Vp, Rx[s], W[s], H[s], r[s]) for s in range(S)],
+          lambda: [mu_h.mu_h_plain(Vp, Rx[s], W[s], H[s], r[s]) for s in range(S)],
+          (4 * (Vp.numel() + Rx.numel() + W.numel() + 2 * H.numel()),
+           S * (2 * 2 * N * M * C * nT * nA + 3 * nH)))
+    X2 = torch.cat([Vp.expand((S,) + Vp.shape), Rx], dim=2)
+    timed('grad_w', S, lambda: gw.grad_w_models(X2, H),
+          lambda: [gw.grad_w(X2[s], H[s]) for s in range(S)],
+          lambda: [gw.grad_w_plain(X2[s], H[s]) for s in range(S)],
+          (4 * (X2.numel() + H.numel() + 2 * W.numel()), S * 2 * M * 2 * C * nA * N * nT))
+    neg, pos = _stacked(rng, (M, C) + A, S), _stacked(rng, (M, C) + A, S)
+    timed('mu_w', S, lambda: mu.mu_w(W, neg, pos, engine.EPS, 2, True),
+          lambda: [mu.mu_w(W[s], neg[s], pos[s], engine.EPS, 2) for s in range(S)],
+          lambda: [mu.mu_w_plain(W[s], neg[s], pos[s], engine.EPS, 2) for s in range(S)],
+          (4 * 4 * W.numel(), 5 * W.numel()))
+    del W, H, Vp, Rx, X2
+    S = 4
+    H, hneg, hpos = (_stacked(rng, (N, M) + T, S) for _ in range(3))
+    ks = tuple(torch.tensor(k, device=DEVICE, dtype=torch.float32)
+               for k in inhibition_kernels((8, 8)))
+    inh = torch.tensor([0., 0.05, 0.1, 0.2], device=DEVICE)
+    zero, regs = torch.zeros(S, device=DEVICE), torch.full((S,), engine.EPS + 0.1, device=DEVICE)
+    i4 = inh.tolist()
+    timed('inhibited_mu_h', S,
+          lambda: inhibit.inhibited_mu_h_models(H, hneg, hpos, ks, inh, zero, regs),
+          lambda: [inhibit.inhibited_mu_h(H[s], hneg[s], hpos[s], ks, i4[s], 0.,
+                                          engine.EPS + 0.1) for s in range(S)],
+          lambda: [inhibit.inhibited_mu_h_plain(H[s], hneg[s], hpos[s], ks, i4[s], 0.,
+                                                engine.EPS + 0.1) for s in range(S)],
+          (4 * 4 * H.numel(), H.numel() * (2 * sum(k.numel() for k in ks) + 10)))
+    S = 2
+    H, hneg, hpos = H[:S], hneg[:S], hpos[:S]
+    regs = regs[:S]
+    timed('mu_ratio', S, lambda: mu.mu_ratio(H, hneg, hpos, regs, True),
+          lambda: [mu.mu_ratio(H[s], hneg[s], hpos[s], engine.EPS + 0.1) for s in range(S)],
+          lambda: [mu.mu_ratio_plain(H[s], hneg[s], hpos[s], engine.EPS + 0.1)
+                   for s in range(S)],
+          (4 * 4 * H.numel(), 3 * H.numel()))
+    return out
+
+
+def phase_sweeps() -> tuple:
+    """The MU sweeps (``sweep_fit``): (a) the conv flagship, 8 models
+    (seeds 0-3 x sparsity 0.05, 0.1); (b) the inhibited flagship, 4 models
+    (inhibition 0, 0.05, 0.1, 0.2, 17 x 17 taps); (c) the fft flagship, 2
+    models; (d) the golden 2-D fixture, 64 models, also with ``tol`` and
+    ``record_energies``; (e) plain NMF on dot, 4 models; (a) and (d) for
+    ``SWEEP_ITER`` iterations, the others for ``SWEEP_SHORT_ITER``.
+    Returns each kernel's launches over the model axis and the runs'
+    numbers."""
+    f = FLAGSHIP
+    total = dict.fromkeys(KERNELS, 0)
+    out = {}
+    V = torch.tensor(np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'],
+                                                        dtype=np.float32), device=DEVICE)
+    runs = [
+        ('a', '(a) conv flagship sweep', ('mu_h', 'grad_w', 'mu_w'), np.array([0, 1, 2, 3] * 2),
+         dict(sparsity=np.array([0.05] * 4 + [0.1] * 4, np.float32))),
+        ('b', '(b) inhibited flagship sweep', ('inhibited_mu_h', 'grad_w', 'mu_w'), SEED,
+         dict(n_models=4, sparsity=f['sparsity'], inhibition_range=(8, 8),
+              inhibition=np.array([0., 0.05, 0.1, 0.2], np.float32))),
+        ('c', '(c) fft flagship sweep', ('mu_ratio', 'mu_w'), SEED,
+         dict(n_models=2, sparsity=f['sparsity'], strategy='fft')),
+    ]
+    for key, label, expected, seeds, kw in runs:
+        out[key], res, ref = _sweep_run(label, V, f['M'], f['A'], expected, seeds, kw,
+                                        SWEEP_ITER if key == 'a' else SWEEP_SHORT_ITER)
+        del res, ref
+    del V
+    image = torch.tensor(_image_2d(), device=DEVICE, dtype=torch.float32)
+    gkw = dict(sparsity=0.1)
+    out['d'], res, ref = _sweep_run('(d) golden 2-D fixture sweep', image, 10, (7, 7),
+                                    ('mu_h', 'grad_w', 'mu_w'), SEED,
+                                    dict(n_models=SWEEP_GOLDEN_MODELS, **gkw), SWEEP_ITER)
+    out['d'].update(_sweep_golden_loops(image, res, gkw))
+    del res, ref
+    d = SWEEP_DOT
+    V = torch.tensor(np.random.default_rng(SEED).random((d['N'], 1, d['F']), dtype=np.float32),
+                     device=DEVICE)
+    out['e'], res, ref = _sweep_run('(e) plain NMF on dot sweep', V, d['M'], (d['F'],),
+                                    ('mu_ratio', 'mu_w'), SEED,
+                                    dict(n_models=d['models'], sparsity=0.1,
+                                         reconstruction_mode='full'), SWEEP_SHORT_ITER)
+    del res, ref, V
+    for run in out.values():
+        for name, n in run['launches_per_iteration'].items():
+            total[name] += round(n * run['iterations'])
+    log(f'model-axis kernels at phase 19\'s shapes ({card()}):')
+    out['kernels'] = _sweep_kernel_times()
+    return total, out
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -3512,6 +3974,9 @@ def main() -> int:
     log('precision (phase 18):')
     prec_launches, prec = phase_precision(W)
     log(f'precision times ({card()}): ' + json.dumps(prec))
+    log('the sweeps (phase 19):')
+    sw_launches, sw = phase_sweeps()
+    log(f'sweep times ({card()}): ' + json.dumps(sw))
     srv_per_iteration = {kind: d['launches_per_iteration'] for kind, d in srv.items()}
     k5 = hals_out['k5']
     errors['hals_sweep'] = k5[K5_CASES[0][0]]['max_abs_err']
@@ -3527,7 +3992,7 @@ def main() -> int:
                  launches=(launches[name] + enc_launches[name] + st_launches[name]
                            + mb_launches[name] + obj_launches[name] + grp_launches[name]
                            + hals_launches[name] + srv_launches[name]
-                           + prec_launches[name]),
+                           + prec_launches[name] + sw_launches[name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
@@ -3545,6 +4010,10 @@ def main() -> int:
                      path: prec[path]['launches_per_iteration_at_default'].get(name, 0)
                      for path in ('conv flagship plain', 'conv flagship inhibited',
                                   'transform')},
+                 model_launches=sw_launches[name],
+                 sweep_launches_per_iteration={
+                     run: sw[run]['launches_per_iteration'].get(name, 0) for run in 'abcde'},
+                 model_axis=sw['kernels'].get(name),
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     log(device['smi'])  # again here: the build's report may push the first one out of a tail

@@ -90,7 +90,7 @@ def test_grad_w_matches_pallas_all_modes(mode):
     jplan, plan, X2, H = _gw_problem(mode, (20, 17), (5, 4), N=3, C=2, M=4)
     neg0, pos0 = pallas_gw.grad_w_gemm(jnp.asarray(X2), jnp.asarray(H), plan=jplan,
                                        interpret=True)
-    neg1, pos1 = gw.grad_w(_t(X2), _t(H), plan)
+    neg1, pos1 = gw.grad_w(_t(X2), _t(H))
     np.testing.assert_allclose(neg1.numpy(), np.asarray(neg0), rtol=2e-5)
     np.testing.assert_allclose(pos1.numpy(), np.asarray(pos0), rtol=2e-5)
 
@@ -103,7 +103,7 @@ def test_grad_w_matches_pallas_geometries(S, A, N, C, M):
     jplan, plan, X2, H = _gw_problem('valid', S, A, N=N, C=C, M=M, seed=1)
     neg0, pos0 = pallas_gw.grad_w_gemm(jnp.asarray(X2), jnp.asarray(H), plan=jplan,
                                        interpret=True)
-    neg1, pos1 = gw.grad_w(_t(X2), _t(H), plan)
+    neg1, pos1 = gw.grad_w(_t(X2), _t(H))
     np.testing.assert_allclose(neg1.numpy(), np.asarray(neg0), rtol=2e-5)
     np.testing.assert_allclose(pos1.numpy(), np.asarray(pos0), rtol=2e-5)
 
@@ -121,7 +121,7 @@ def test_grad_w_1d_matches_conv(mode):
     R = jconv.reconstruct(W, H, jplan)
     want = jconv.grad_W_pair(Vp, R, H, jplan)
     X2 = np.concatenate([np.asarray(Vp), np.asarray(jconv.extend_data(R, jplan))], axis=1)
-    got = gw.grad_w(_t(X2), _t(H), plan)
+    got = gw.grad_w(_t(X2), _t(H))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10)
 

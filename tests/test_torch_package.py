@@ -103,7 +103,7 @@ def test_cpu_tensors_take_plain_versions():
     assert torch.equal(mu.mu_ratio(W, W, W, 0.5), mu.mu_ratio_plain(W, W, W, 0.5))
     assert torch.equal(mu.mu_w(W, W, W, 0.5, 2), mu.mu_w_plain(W, W, W, 0.5, 2))
     X2 = torch.cat([Vp, Rx], dim=1)
-    for a, b in zip(gw.grad_w(X2, H, plan), gw.grad_w_plain(X2, H, plan)):
+    for a, b in zip(gw.grad_w(X2, H), gw.grad_w_plain(X2, H)):
         assert torch.equal(a, b)
     assert torch.equal(mu_h.mu_h(Vp, Rx, W, H, 0.1), mu_h.mu_h_plain(Vp, Rx, W, H, 0.1))
     ks = inhibition_kernels((1, 2))
@@ -121,7 +121,7 @@ def test_non_cpu_tensors_never_take_plain_versions():
     with pytest.raises(ValueError, match='expected CUDA'):
         mu.mu_w(W, W, W, 0.5, 2)
     with pytest.raises(ValueError, match='expected CUDA'):
-        gw.grad_w(torch.cat([Vp, Rx], dim=1), H, plan)
+        gw.grad_w(torch.cat([Vp, Rx], dim=1), H)
     with pytest.raises(ValueError, match='expected CUDA'):
         mu_h.mu_h(Vp, Rx, W, H, 0.1)
     with pytest.raises(ValueError, match='expected CUDA'):

@@ -323,13 +323,13 @@ def test_grad_w_one_pass_plain_is_the_plain_version_on_rounded_operands():
     plan = ConvPlan.create('valid', (10, 9), (4, 3))
     X2 = torch.rand((2, 4, 16, 13), generator=g)
     H = torch.rand((2, 3) + plan.transform_shape, generator=g)
-    want = gw.grad_w_plain(precision.round_tf32(X2), precision.round_tf32(H), plan)
-    for got in (gw.grad_w_plain(X2, H, plan, 1), gw.grad_w(X2, H, plan, 1)):
+    want = gw.grad_w_plain(precision.round_tf32(X2), precision.round_tf32(H))
+    for got in (gw.grad_w_plain(X2, H, 1), gw.grad_w(X2, H, 1)):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert all(torch.equal(a, b) for a, b in zip(gw.grad_w(X2, H, plan),
-                                                 gw.grad_w_plain(X2, H, plan)))
+    assert all(torch.equal(a, b) for a, b in zip(gw.grad_w(X2, H),
+                                                 gw.grad_w_plain(X2, H)))
     with pytest.raises(ValueError, match='passes'):
-        gw.grad_w(X2, H, plan, 2)
+        gw.grad_w(X2, H, 2)
 
 
 # --------------------------------------- the level reaching K2's and K3's launches
@@ -399,7 +399,7 @@ def test_grad_w_launches_its_passes(passes, meta_launch):
     plan = ConvPlan.create('valid', (10, 9), (4, 3))
     X2 = torch.empty((2, 4, 16, 13), device='meta')
     H = torch.empty((2, 3) + plan.transform_shape, device='meta')
-    gw.grad_w(X2, H, plan, passes)
+    gw.grad_w(X2, H, passes)
     (name, args), = meta_launch.calls
     geometry = list(args[11])
     assert name == 'tnmf_grad_w' and geometry[-2:] == [2 if passes == 1 else 3, passes]

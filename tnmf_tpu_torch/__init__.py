@@ -15,22 +15,27 @@ minibatch and streaming fits (the five algorithms of
 :class:`MiniBatchAlgorithm`, ``fit_stream``, ``partial_fit``,
 :class:`MiniBatchTransformInvariantNMF`), the transform groups
 (``transform_type``), ``init='device'``, ``w_init``, the sklearn
-protocol and the HALS solvers (``fit(solver='hals')``, whose sweeps run
-through K5); ``use_pallas=False`` runs the kernels' plain versions (see
-ROADMAP.md for the rest)::
+protocol, the HALS solvers (``fit(solver='hals')``, whose sweeps run
+through K5) and the MU hyperparameter sweeps (:func:`sweep_fit`, many
+models at once, each kernel launched once for all of them);
+``use_pallas=False`` runs the kernels' plain versions (see ROADMAP.md for
+the rest)::
 
     from tnmf_tpu_torch import MiniBatchAlgorithm, TransformInvariantNMF
     nmf = TransformInvariantNMF(n_atoms=16, atom_shape=(9, 9), device='cuda')
     nmf.fit(V, n_iterations=100, sparsity_H=0.1, inhibition_strength=0.1)
     nmf.fit(V, algorithm=MiniBatchAlgorithm.ASG_MU, batch_size=16, n_epochs=10)
     d4 = TransformInvariantNMF(16, (9, 9), transform_type='shift+rot90+flip', init='device')
+    res = sweep_fit(V, 16, (9, 9), n_models=8, n_iterations=100, sparsity=[0.05, 0.1] * 4)
 """
 
 from .engine_minibatch import MiniBatchAlgorithm
+from .models.sweep import SweepResult, sweep_fit
 from .models.tnmf import MiniBatchTransformInvariantNMF, TransformInvariantNMF, from_numpy
 from .serving import ServingModel, export_serving, load_serving
 
 __all__ = ['TransformInvariantNMF', 'MiniBatchTransformInvariantNMF', 'MiniBatchAlgorithm',
-           'from_numpy', 'export_serving', 'load_serving', 'ServingModel']
+           'from_numpy', 'export_serving', 'load_serving', 'ServingModel', 'SweepResult',
+           'sweep_fit']
 
 __version__ = '0.3.0.dev0'

@@ -77,6 +77,17 @@
 // own strides, and the reduction pass writes its block of the output; a
 // problem that fits runs as one group, the whole of X2.
 //
+// The model axis: a sweep of S models is one launch with gridDim.z = S.
+// Model z reads its own X2 and H (the S stacks are contiguous, (S, N, C2,
+// Ex, Ey) and (S, N, M, Tx, Ty)), its blocks walk its own chunks on the
+// single model's grid and write their own scratch slots, and the reduction
+// pass (gridDim.y = S) writes out[half][z]: (2, S, M, C, Ax, Ay), so each
+// half is a contiguous (S, M, C, Ax, Ay) stack.  Every model is summed in
+// the order of its own single launch, so it gets that launch's bits.  The
+// model offsets are in the kModels instances of both passes: a single
+// launch runs instances with no model-axis code, which keep a single
+// model's registers and schedule.
+//
 // The chunk sizes, pitches, layout, work split, grid, shared memory and
 // groups come from the wrapper (tnmf_tpu_torch/kernels/gw.py, _geometry), which must use
 // the same tile sizes, thread count and shared layout as here.
@@ -105,6 +116,7 @@ struct GradWShape {
   int m_rows;           // H rows (atoms) a block stages: those of its row tiles
   int x_c2, x_ex, x_ey; // X2's own channels and extents (its strides)
   int c_off, a_off, b_off, x_ax, x_ay;  // where the group starts; the atoms' shape
+  int models;           // the model axis (gridDim.z of the partial pass)
 };
 
 // stage chunk q = (n, rx, ry) of H and X2 into buf; warps take whole rows,
@@ -242,11 +254,18 @@ __device__ __forceinline__ void mma_step(float (&d)[kNT][4], const Frags<kNT>& f
   for (int j = 0; j < kNT; ++j) mma_tf32(d[j], f.ab, f.bb[j][0], f.bb[j][1]);
 }
 
-template <int kNT, int kVec, bool kSplit, int kPasses>
+template <int kNT, int kVec, bool kSplit, int kPasses, bool kModels>
 __global__ void __launch_bounds__(kThreads, 2)
 grad_w_partial(const float* __restrict__ x2, const float* __restrict__ h,
                float* __restrict__ scratch, GradWShape s) {
   extern __shared__ float4 smem_raw[];
+  if constexpr (kModels) {
+    // model blockIdx.z: its X2 and H stacks and its blocks' scratch slots
+    x2 += blockIdx.z * (static_cast<int64_t>(s.n) * s.x_c2 * s.x_ex * s.x_ey);
+    h += blockIdx.z * (static_cast<int64_t>(s.n) * s.m * s.tx * s.ty);
+    scratch += blockIdx.z * (static_cast<int64_t>(gridDim.x) * s.ksplit * s.m * s.c2 * s.ax *
+                             s.ay);
+  }
   // kSplit: planes of one chunk with the same layout, raw (the cp.async
   // target) and its big and (3xTF32) small TF32 halves, split once per
   // chunk; else the compact layout, raw alone, split as fragments load
@@ -393,12 +412,14 @@ grad_w_partial(const float* __restrict__ x2, const float* __restrict__ h,
   }
 }
 
+template <bool kModels>
 __global__ void grad_w_reduce(const float* __restrict__ scratch,
                               float* __restrict__ out, int n_parts,
                               GradWShape s) {
   const int64_t a_sz = static_cast<int64_t>(s.ax) * s.ay;
   const int64_t n_out = static_cast<int64_t>(s.m) * s.c2 * a_sz;
   const int c = s.x_c2 / 2;
+  if constexpr (kModels) scratch += blockIdx.y * (n_parts * n_out);  // model blockIdx.y
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        o < n_out; o += stride) {
@@ -411,51 +432,56 @@ __global__ void grad_w_reduce(const float* __restrict__ scratch,
     const int m = static_cast<int>(o / (a_sz * s.c2));
     const int half = cc / c, ch = cc % c;
     const int64_t at = static_cast<int64_t>(s.a_off + sp / s.ay) * s.x_ay + s.b_off + sp % s.ay;
-    out[((static_cast<int64_t>(half) * s.m + m) * c + ch) * s.x_ax * s.x_ay + at] =
-        static_cast<float>(sum);
+    if constexpr (kModels) {
+      out[(((static_cast<int64_t>(half) * s.models + blockIdx.y) * s.m + m) * c + ch) *
+              s.x_ax * s.x_ay + at] = static_cast<float>(sum);
+    } else {
+      out[((static_cast<int64_t>(half) * s.m + m) * c + ch) * s.x_ax * s.x_ay + at] =
+          static_cast<float>(sum);
+    }
   }
 }
 
-template <int kNT, int kVec, bool kSplit, int kPasses>
+template <int kNT, int kVec, bool kSplit, int kPasses, bool kModels>
 cudaError_t launch_partial(const float* x2, const float* h, float* scratch,
                            const GradWShape& s, int grid_x, int grid_y, int smem_bytes,
                            cudaStream_t st) {
-  auto kernel = grad_w_partial<kNT, kVec, kSplit, kPasses>;
+  auto kernel = grad_w_partial<kNT, kVec, kSplit, kPasses, kModels>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(grid_x, grid_y), kThreads, smem_bytes, st>>>(x2, h, scratch, s);
+  kernel<<<dim3(grid_x, grid_y, s.models), kThreads, smem_bytes, st>>>(x2, h, scratch, s);
   return cudaGetLastError();
 }
 
-template <int kVec, bool kSplit, int kPasses>
+template <int kVec, bool kSplit, int kPasses, bool kModels>
 cudaError_t launch_nt(int nt, const float* x2, const float* h, float* scratch,
                       const GradWShape& s, int grid_x, int grid_y, int smem_bytes,
                       cudaStream_t st) {
   switch (nt) {
-    case 1: return launch_partial<1, kVec, kSplit, kPasses>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
-    case 2: return launch_partial<2, kVec, kSplit, kPasses>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
-    case 3: return launch_partial<3, kVec, kSplit, kPasses>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
-    case 4: return launch_partial<4, kVec, kSplit, kPasses>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 1: return launch_partial<1, kVec, kSplit, kPasses, kModels>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 2: return launch_partial<2, kVec, kSplit, kPasses, kModels>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 3: return launch_partial<3, kVec, kSplit, kPasses, kModels>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 4: return launch_partial<4, kVec, kSplit, kPasses, kModels>(x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <int kVec, int kPasses>
+template <int kVec, int kPasses, bool kModels>
 cudaError_t launch_layout(bool split, int nt, const float* x2, const float* h, float* scratch,
                           const GradWShape& s, int grid_x, int grid_y, int smem_bytes,
                           cudaStream_t st) {
-  return split ? launch_nt<kVec, true, kPasses>(nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st)
-               : launch_nt<kVec, false, kPasses>(nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+  return split ? launch_nt<kVec, true, kPasses, kModels>(nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st)
+               : launch_nt<kVec, false, kPasses, kModels>(nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
 }
 
-template <int kVec>
+template <int kVec, bool kModels>
 cudaError_t launch_passes(int passes, bool split, int nt, const float* x2, const float* h,
                           float* scratch, const GradWShape& s, int grid_x, int grid_y,
                           int smem_bytes, cudaStream_t st) {
   switch (passes) {
-    case 1: return launch_layout<kVec, 1>(split, nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
-    case 3: return launch_layout<kVec, 3>(split, nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 1: return launch_layout<kVec, 1, kModels>(split, nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+    case 3: return launch_layout<kVec, 3, kModels>(split, nt, x2, h, scratch, s, grid_x, grid_y, smem_bytes, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -465,10 +491,11 @@ cudaError_t launch_passes(int passes, bool split, int nt, const float* x2, const
 extern "C" int tnmf_grad_w(const float* x2, const float* h, float* out, float* scratch,
                            int n, int m, int c2, int tx, int ty, int ax, int ay,
                            const int* geometry, const int* group, int grid_x, int grid_y,
-                           int smem_bytes, void* stream) {
+                           int smem_bytes, int models, void* stream) {
   // geometry: tr, tc, hp, hw, xw, xp, n_ct, nt, n_items, ipb, ksplit, m_rows,
   // vec, planes, passes; group: c_off, channels, a_off, atom rows, b_off,
-  // atom columns
+  // atom columns; models: the S stacked models (1: a single problem)
+  if (models < 1 || models > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int* g = geometry;
   const int* gr = group;
   const int nt = g[7], vec = g[12], passes = g[14];
@@ -478,14 +505,21 @@ extern "C" int tnmf_grad_w(const float* x2, const float* h, float* out, float* s
   const GradWShape s{n, m, gr[1], tx + gr[3] - 1, ty + gr[5] - 1, tx, ty, gr[3], gr[5],
                      g[0], g[1], g[2], g[3], g[4], g[5], g[6], (g[6] + nt - 1) / nt,
                      g[8], g[9], g[10], g[11],
-                     c2, ex, ey, gr[0], gr[2], gr[4], ax, ay};
+                     c2, ex, ey, gr[0], gr[2], gr[4], ax, ay, models};
   const float* xg = x2 + (static_cast<int64_t>(gr[0]) * ex + gr[2]) * ey + gr[4];
-  cudaError_t err = vec == 4
-      ? launch_passes<4>(passes, split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st)
-      : launch_passes<1>(passes, split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st);
+  const bool axis = models > 1;
+  cudaError_t err =
+      vec == 4 ? (axis ? launch_passes<4, true>(passes, split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st)
+                       : launch_passes<4, false>(passes, split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st))
+               : (axis ? launch_passes<1, true>(passes, split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st)
+                       : launch_passes<1, false>(passes, split, nt, xg, h, scratch, s, grid_x, grid_y, smem_bytes, st));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n_out = static_cast<int64_t>(m) * s.c2 * s.ax * s.ay;
   const int blocks = static_cast<int>(std::min<int64_t>((n_out + 255) / 256, 1024));
-  grad_w_reduce<<<blocks, 256, 0, st>>>(scratch, out, grid_x * s.ksplit, s);
+  if (axis) {
+    grad_w_reduce<true><<<dim3(blocks, models), 256, 0, st>>>(scratch, out, grid_x * s.ksplit, s);
+  } else {
+    grad_w_reduce<false><<<blocks, 256, 0, st>>>(scratch, out, grid_x * s.ksplit, s);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,6 +71,14 @@
 // inhibited_mu_h_segments_plain, sums in its order); every stencil that
 // fits in one piece runs the kernel above.
 //
+// The model axis: a sweep of S models is one launch over S * N samples,
+// the models' (N, M, X, Y) stacks back to back.  With a per-model vector
+// of strengths (inh[S], cross[S], reg[S] in device memory) sample n reads
+// its model's at n / N (the kernel's kModels instances); without one every
+// sample reads the scalars (the instances of a single launch).  A
+// strength of 0 adds 0 * term, so a sweep that turns an inhibition term on
+// for some models leaves the others' updates as they were.
+//
 // The tile sizes, pitches, buffers, segments and shared memory come from
 // the wrapper (tnmf_tpu_torch/kernels/inhibit.py, _geometry), which must use
 // the same layout and items as here.
@@ -95,6 +103,39 @@ struct InhShape {
   int h_bufs;            // H tile buffers: 2 (the next atom's copied during this one's
                          // passes) or 1 (copied after its epilogue)
   int seg_x, seg_y;      // taps of a segment along x and y (tx and ty: one piece)
+};
+
+// the model axis, a kernel parameter of its own: inside InhShape it moved
+// the register allocation of the single launches' instances
+struct ModelAxis {
+  const float* strengths;  // per model: inh[models], cross[models], reg[models]; or null
+  int n_per_model, models;
+};
+
+// sample n's strengths.  A launch over a model axis (kModels) reads its
+// model's (n / n_per_model) from the per-model vector once; a single
+// launch holds nothing and reads the scalars from the kernel's parameters
+// where they are used
+template <bool kModels>
+struct SampleStrengths {
+  __device__ __forceinline__ SampleStrengths(int64_t, const ModelAxis&) {}
+  __device__ __forceinline__ float inh(const InhShape& s) const { return s.inh; }
+  __device__ __forceinline__ float cross(const InhShape& s) const { return s.cross; }
+  __device__ __forceinline__ float reg(const InhShape& s) const { return s.reg; }
+};
+
+template <>
+struct SampleStrengths<true> {
+  float inh_, cross_, reg_;
+  __device__ __forceinline__ SampleStrengths(int64_t n, const ModelAxis& a) {
+    const int64_t y = n / a.n_per_model;
+    inh_ = a.strengths[y];
+    cross_ = a.strengths[a.models + y];
+    reg_ = a.strengths[2 * a.models + y];
+  }
+  __device__ __forceinline__ float inh(const InhShape&) const { return inh_; }
+  __device__ __forceinline__ float cross(const InhShape&) const { return cross_; }
+  __device__ __forceinline__ float reg(const InhShape&) const { return reg_; }
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -187,12 +228,13 @@ struct Tiling {
 
 // The streamed route (see the header): one block's tile, the taps walked in
 // segments through one H buffer.
-template <bool kTwoD, int kVec, bool kCross>
+template <bool kTwoD, int kVec, bool kCross, bool kModels>
 __device__ __forceinline__ void streamed(const float* __restrict__ h,
                                          const float* __restrict__ neg,
                                          const float* __restrict__ pos,
                                          const float* __restrict__ taps,
-                                         float* __restrict__ out, const InhShape& s) {
+                                         float* __restrict__ out, const InhShape& s,
+                                         const ModelAxis& a) {
   constexpr int kSX = Tiling<kTwoD>::kSX;
   constexpr int kSY = Tiling<kTwoD>::kSY;
   extern __shared__ float4 smem_raw[];
@@ -211,6 +253,7 @@ __device__ __forceinline__ void streamed(const float* __restrict__ h,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int64_t n = static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
   if (n >= s.n) return;
+  const SampleStrengths<kModels> sv(n, a);
   const int n_ty = (s.y + s.tile_y - 1) / s.tile_y;
   const int x0 = (blockIdx.x / n_ty) * s.tile_x;
   const int y0 = (blockIdx.x % n_ty) * s.tile_y;
@@ -341,15 +384,15 @@ __device__ __forceinline__ void streamed(const float* __restrict__ h,
       for (int j = 0; j < kSY; ++j) {
         const float hv = gy0 + j < s.y ? __ldg(h + at + j) : 0.f;
         float p = nr[nps_sz + j];
-        if (s.use_same) p += s.inh * (g[j] - hv);
+        if (s.use_same) p += sv.inh(s) * (g[j] - hv);
         if constexpr (kCross) {
           if constexpr (kTwoD) {
-            p += s.cross * (ssum[j * kThreads + tid] - g[j]);
+            p += sv.cross(s) * (ssum[j * kThreads + tid] - g[j]);
           } else {
-            p += s.cross * (rsum - g[j]);
+            p += sv.cross(s) * (rsum - g[j]);
           }
         }
-        o[j] = hv * nr[j] / (p + s.reg);
+        o[j] = hv * nr[j] / (p + sv.reg(s));
       }
       float* dst = out + at;
 #pragma unroll
@@ -369,13 +412,13 @@ __device__ __forceinline__ void streamed(const float* __restrict__ h,
 // four blocks per SM (64 registers a thread) with the tap count compiled
 // in; three (up to 85 registers) for the runtime tap loop, whose window
 // spills at 64 (its 2-D cross-atom instances still spill a few words)
-template <bool kTwoD, int kVec, bool kCross, int kTaps, bool kStream>
+template <bool kTwoD, int kVec, bool kCross, bool kModels, int kTaps, bool kStream>
 __global__ void __launch_bounds__(kThreads, kTaps > 0 ? 4 : 3)
 inhibited_mu_h_kernel(const float* __restrict__ h, const float* __restrict__ neg,
                       const float* __restrict__ pos, const float* __restrict__ taps,
-                      float* __restrict__ out, InhShape s) {
+                      float* __restrict__ out, InhShape s, ModelAxis a) {
   if constexpr (kStream) {
-    streamed<kTwoD, kVec, kCross>(h, neg, pos, taps, out, s);
+    streamed<kTwoD, kVec, kCross, kModels>(h, neg, pos, taps, out, s, a);
     return;
   }
   constexpr int kSX = Tiling<kTwoD>::kSX;
@@ -401,6 +444,7 @@ inhibited_mu_h_kernel(const float* __restrict__ h, const float* __restrict__ neg
   // the samples run along y, and on along z past a grid's 65535 rows
   const int64_t n = static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
   if (n >= s.n) return;
+  const SampleStrengths<kModels> sv(n, a);
   const int n_ty = (s.y + s.tile_y - 1) / s.tile_y;
   const int x0 = (blockIdx.x / n_ty) * s.tile_x;
   const int y0 = (blockIdx.x % n_ty) * s.tile_y;
@@ -593,15 +637,15 @@ inhibited_mu_h_kernel(const float* __restrict__ h, const float* __restrict__ neg
 #pragma unroll
       for (int j = 0; j < kSY; ++j) {
         float p = pv[j];
-        if (s.use_same) p += s.inh * (g[j] - hv[j]);
+        if (s.use_same) p += sv.inh(s) * (g[j] - hv[j]);
         if constexpr (kCross) {
           if constexpr (kTwoD) {
-            p += s.cross * (ssum[j * kThreads + tid] - g[j]);
+            p += sv.cross(s) * (ssum[j * kThreads + tid] - g[j]);
           } else {
-            p += s.cross * (rsum[j] - g[j]);
+            p += sv.cross(s) * (rsum[j] - g[j]);
           }
         }
-        o[j] = hv[j] * nv[j] / (p + s.reg);
+        o[j] = hv[j] * nv[j] / (p + sv.reg(s));
       }
       float* dst = out + sample + mm * plane + static_cast<int64_t>(gx) * s.y + gy0;
 #pragma unroll
@@ -625,11 +669,11 @@ inhibited_mu_h_kernel(const float* __restrict__ h, const float* __restrict__ neg
   }
 }
 
-template <bool kTwoD, int kVec, bool kCross, int kTaps, bool kStream = false>
+template <bool kTwoD, int kVec, bool kCross, bool kModels, int kTaps, bool kStream = false>
 cudaError_t launch(const float* h, const float* neg, const float* pos,
-                   const float* taps, float* out, const InhShape& s,
+                   const float* taps, float* out, const InhShape& s, const ModelAxis& a,
                    int smem_bytes, cudaStream_t st) {
-  auto kernel = inhibited_mu_h_kernel<kTwoD, kVec, kCross, kTaps, kStream>;
+  auto kernel = inhibited_mu_h_kernel<kTwoD, kVec, kCross, kModels, kTaps, kStream>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return err;
@@ -637,33 +681,42 @@ cudaError_t launch(const float* h, const float* neg, const float* pos,
       ((s.x + s.tile_x - 1) / s.tile_x) * ((s.y + s.tile_y - 1) / s.tile_y);
   const int ny = s.n < 65535 ? s.n : 65535;
   kernel<<<dim3(n_tiles, ny, (s.n + ny - 1) / ny), kThreads, smem_bytes, st>>>(h, neg, pos,
-                                                                              taps, out, s);
+                                                                              taps, out, s, a);
   return cudaGetLastError();
 }
 
 // 2-D tiles with a tap count compiled in (the wrapper pads the taps of both
 // axes with zeros to it), else the runtime tap loop, in one piece or streamed
-template <bool kTwoD, int kVec, bool kCross>
+template <bool kTwoD, int kVec, bool kCross, bool kModels>
 cudaError_t launch_taps(int compiled, const float* h, const float* neg, const float* pos,
-                        const float* taps, float* out, const InhShape& s, int smem_bytes,
-                        cudaStream_t st) {
+                        const float* taps, float* out, const InhShape& s, const ModelAxis& a,
+                        int smem_bytes, cudaStream_t st) {
   if (s.seg_x < s.tx || s.seg_y < s.ty)
-    return launch<kTwoD, kVec, kCross, 0, true>(h, neg, pos, taps, out, s, smem_bytes, st);
+    return launch<kTwoD, kVec, kCross, kModels, 0, true>(h, neg, pos, taps, out, s, a, smem_bytes, st);
   if constexpr (kTwoD) {
-    if (compiled == 9) return launch<kTwoD, kVec, kCross, 9>(h, neg, pos, taps, out, s, smem_bytes, st);
-    if (compiled == 17) return launch<kTwoD, kVec, kCross, 17>(h, neg, pos, taps, out, s, smem_bytes, st);
+    if (compiled == 9) return launch<kTwoD, kVec, kCross, kModels, 9>(h, neg, pos, taps, out, s, a, smem_bytes, st);
+    if (compiled == 17) return launch<kTwoD, kVec, kCross, kModels, 17>(h, neg, pos, taps, out, s, a, smem_bytes, st);
   }
   if (compiled) return cudaErrorInvalidValue;
-  return launch<kTwoD, kVec, kCross, 0>(h, neg, pos, taps, out, s, smem_bytes, st);
+  return launch<kTwoD, kVec, kCross, kModels, 0>(h, neg, pos, taps, out, s, a, smem_bytes, st);
+}
+
+template <bool kTwoD, int kVec, bool kCross>
+cudaError_t launch_models(const float* h, const float* neg, const float* pos,
+                          const float* taps, float* out, const InhShape& s, const ModelAxis& a,
+                          int compiled, int smem_bytes, cudaStream_t st) {
+  return a.strengths != nullptr
+      ? launch_taps<kTwoD, kVec, kCross, true>(compiled, h, neg, pos, taps, out, s, a, smem_bytes, st)
+      : launch_taps<kTwoD, kVec, kCross, false>(compiled, h, neg, pos, taps, out, s, a, smem_bytes, st);
 }
 
 template <bool kTwoD, int kVec>
 cudaError_t launch_cross(bool cross, int compiled, const float* h, const float* neg,
                          const float* pos, const float* taps, float* out, const InhShape& s,
-                         int smem_bytes, cudaStream_t st) {
+                         const ModelAxis& a, int smem_bytes, cudaStream_t st) {
   return cross
-      ? launch_taps<kTwoD, kVec, true>(compiled, h, neg, pos, taps, out, s, smem_bytes, st)
-      : launch_taps<kTwoD, kVec, false>(compiled, h, neg, pos, taps, out, s, smem_bytes, st);
+      ? launch_models<kTwoD, kVec, true>(h, neg, pos, taps, out, s, a, compiled, smem_bytes, st)
+      : launch_models<kTwoD, kVec, false>(h, neg, pos, taps, out, s, a, compiled, smem_bytes, st);
 }
 
 }  // namespace
@@ -674,7 +727,8 @@ extern "C" int tnmf_inhibited_mu_h(const float* h, const float* neg, const float
                                    int xtp, int npp, float inh, float cross, float reg,
                                    int use_same, int use_cross, int two_d, int vec,
                                    int h_vec, int h_bufs, int compiled, int seg_x, int seg_y,
-                                   int smem_bytes, void* stream) {
+                                   int smem_bytes, const float* strengths, int n_per_model,
+                                   int models, void* stream) {
   // vec: Y % 4 == 0 and 16-byte aligned tensors (neg/pos copies, H' stores);
   // h_vec: vec and ry % 4 == 0 as well (H tile copies); compiled: 0, or the
   // tap count of both axes (2-D tiles); seg_x, seg_y: the taps of a segment
@@ -687,16 +741,19 @@ extern "C" int tnmf_inhibited_mu_h(const float* h, const float* neg, const float
       (segmented && (compiled || h_vec || h_bufs != 1 || (two_d && seg_y != ty))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (models < 1 || n_per_model < 1 || static_cast<int64_t>(n_per_model) * models != n)
+    return static_cast<int>(cudaErrorInvalidValue);
   const InhShape s{n, m, x, y, tx, ty, tile_x, tile_y, hp, xtp, npp, inh, cross, reg,
                    use_same, h_vec, h_bufs, seg_x, seg_y};
+  const ModelAxis a{strengths, n_per_model, models};
   const bool c = use_cross != 0;
   cudaError_t err;
   if (two_d) {
-    err = vec ? launch_cross<true, 4>(c, compiled, h, neg, pos, taps, out, s, smem_bytes, st)
-              : launch_cross<true, 1>(c, compiled, h, neg, pos, taps, out, s, smem_bytes, st);
+    err = vec ? launch_cross<true, 4>(c, compiled, h, neg, pos, taps, out, s, a, smem_bytes, st)
+              : launch_cross<true, 1>(c, compiled, h, neg, pos, taps, out, s, a, smem_bytes, st);
   } else {
-    err = vec ? launch_cross<false, 4>(c, compiled, h, neg, pos, taps, out, s, smem_bytes, st)
-              : launch_cross<false, 1>(c, compiled, h, neg, pos, taps, out, s, smem_bytes, st);
+    err = vec ? launch_cross<false, 4>(c, compiled, h, neg, pos, taps, out, s, a, smem_bytes, st)
+              : launch_cross<false, 1>(c, compiled, h, neg, pos, taps, out, s, a, smem_bytes, st);
   }
   return static_cast<int>(err);
 }

@@ -66,6 +66,19 @@
 // loads of data and 2 of weights for 64 FMAs.  The window pitch is padded to
 // 16 mod 32 words so the two rows a warp spans fall on disjoint banks.
 //
+// The model axis: a sweep of S models is one launch, the models along
+// gridDim.y of either route.  Model y reads its own Rx, W, H and pos_extra
+// and writes its own out (contiguous S stacks), and Vp at a model stride of
+// its own: 0 where the sweep's models share one data stream (beta = 2
+// without a mask), so Vp is never copied S times.  Its denom_add is
+// denoms[y] from its per-model vector.  The tensor-core route's blocks are
+// persistent per model: each stages its model's split dictionary once and
+// walks that model's chunks as a single launch does, so no block restages
+// W, and every model gets the bits of its own single launch.  The model
+// offsets and the vector are in the kModels instances of either kernel: a
+// single launch runs instances with no model-axis code, which keep a
+// single model's registers and schedule.
+//
 // The shared-memory sizes, pitches and tiles come from the wrapper, which
 // must use the same tile constants and shared layouts as here.
 
@@ -88,13 +101,46 @@ struct MuHShape {
   int n, m, c, ex, ey, tx, ty, ax, ay;
   int pitch;       // staged window row pitch (floats)
   int sc, sa, sb;  // a segment's channels, atom rows and atom columns
+  int64_t vp_ms;   // Vp's model stride (floats; 0: shared by the models)
+  const float* denoms;  // the models' denom_add (the kModels instance)
 };
 
+// where model blockIdx.y of a launch over the model axis starts in each
+// operand (floats)
+struct ModelOffsets {
+  int64_t vp, rx, w, h;
+};
+
+__device__ __forceinline__ ModelOffsets model_offsets(int64_t vp_ms, int n, int m, int c,
+                                                      int ex, int ey, int tx, int ty, int ax,
+                                                      int ay) {
+  const int64_t y = blockIdx.y;
+  return ModelOffsets{y * vp_ms, y * (static_cast<int64_t>(n) * c * ex * ey),
+                      y * (static_cast<int64_t>(m) * c * ax * ay),
+                      y * (static_cast<int64_t>(n) * m * tx * ty)};
+}
+
+// model blockIdx.y's operands and denom_add (denoms[y])
+#define TO_MODEL(s)                                                                         \
+  do {                                                                                      \
+    const ModelOffsets mo =                                                                 \
+        model_offsets(s.vp_ms, s.n, s.m, s.c, s.ex, s.ey, s.tx, s.ty, s.ax, s.ay);          \
+    vp += mo.vp;                                                                            \
+    rx += mo.rx;                                                                            \
+    w += mo.w;                                                                              \
+    h += mo.h;                                                                              \
+    out += mo.h;                                                                            \
+    if (pos_extra != nullptr) pos_extra += mo.h;                                            \
+    denom_add = s.denoms[blockIdx.y];                                                       \
+  } while (0)
+
+template <bool kModels>
 __global__ void __launch_bounds__(kCols * kRows, 2)
 mu_h_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
             const float* __restrict__ w, const float* __restrict__ h,
             const float* __restrict__ pos_extra, float denom_add,
             float* __restrict__ out, MuHShape s) {
+  if constexpr (kModels) TO_MODEL(s);
   extern __shared__ float4 smem_raw[];
   float* smem = reinterpret_cast<float*>(smem_raw);
   const int xr = kTileX + s.sa - 1;  // window rows of a segment (the row stride)
@@ -218,6 +264,8 @@ struct MuHMmaShape {
   int n_mt;        // row tiles of 16 atoms
   int n_groups;    // work items per chunk row: groups of up to kNT column tiles
   int pair;        // H, pos_extra and out rows take float2 accesses
+  int64_t vp_ms;   // Vp's model stride (floats; 0: shared by the models)
+  const float* denoms;  // the models' denom_add (the kModels instance)
 };
 
 // stage the Vp and Rx windows of chunk q = (n, rx, ry) into buf
@@ -258,12 +306,13 @@ __device__ __forceinline__ int tap_offset(int k, const MuHMmaShape& s) {
   return (c * s.xr + a / s.ay) * s.xp + a % s.ay;
 }
 
-template <int kVec, int kPasses>
+template <int kVec, int kPasses, bool kModels>
 __global__ void __launch_bounds__(kThreads, 2)
 mu_h_mma_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
                 const float* __restrict__ w, const float* __restrict__ h,
                 const float* __restrict__ pos_extra, float denom_add,
                 float* __restrict__ out, MuHMmaShape s) {
+  if constexpr (kModels) TO_MODEL(s);
   extern __shared__ float4 smem_raw[];
   // the A fragments [n_mt][ks][32 lanes] as big and (3xTF32) small TF32
   // halves, the tap offset table [ks][4 lanes] (taps 8 st + tig and + 4),
@@ -456,40 +505,59 @@ mu_h_mma_kernel(const float* __restrict__ vp, const float* __restrict__ rx,
   }
 }
 
-template <int kVec, int kPasses>
+template <int kVec, int kPasses, bool kModels>
 cudaError_t launch_mma(const float* vp, const float* rx, const float* w, const float* h,
                        const float* pos_extra, float denom_add, float* out,
-                       const MuHMmaShape& s, int grid_x, int smem_bytes, cudaStream_t st) {
-  auto kernel = mu_h_mma_kernel<kVec, kPasses>;
+                       const MuHMmaShape& s, int grid_x, int models, int smem_bytes,
+                       cudaStream_t st) {
+  auto kernel = mu_h_mma_kernel<kVec, kPasses, kModels>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<grid_x, kThreads, smem_bytes, st>>>(vp, rx, w, h, pos_extra, denom_add, out, s);
+  kernel<<<dim3(grid_x, models), kThreads, smem_bytes, st>>>(vp, rx, w, h, pos_extra,
+                                                             denom_add, out, s);
   return cudaGetLastError();
+}
+
+template <int kVec, int kPasses>
+cudaError_t launch_models(const float* vp, const float* rx, const float* w, const float* h,
+                          const float* pos_extra, float denom_add, float* out,
+                          const MuHMmaShape& s, int grid_x, int models, int smem_bytes,
+                          cudaStream_t st) {
+  return s.denoms != nullptr
+      ? launch_mma<kVec, kPasses, true>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, models, smem_bytes, st)
+      : launch_mma<kVec, kPasses, false>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, models, smem_bytes, st);
 }
 
 }  // namespace
 
 extern "C" int tnmf_mu_h_mma(const float* vp, const float* rx, const float* w,
                              const float* h, const float* pos_extra, float denom_add,
-                             float* out, int n, int m, int c, int tx, int ty, int ax,
-                             int ay, const int* geometry, int grid_x, int smem_bytes,
+                             float* out, int n, int m, int c, int tx, int ty, int ax, int ay,
+                             const int* geometry, int grid_x, int smem_bytes,
+                             const float* denoms, int models, int64_t vp_model_stride,
                              void* stream) {
-  // geometry: tr, tc, xr, xw, xp, ks, n_mt, n_groups, vec, pair, passes
+  // geometry: tr, tc, xr, xw, xp, ks, n_mt, n_groups, vec, pair, passes;
+  // models: the S stacked models along the grid's y, denoms their
+  // denom_add, vp_model_stride Vp's model stride (0: shared); a single
+  // problem is null denoms and one model
+  if (models < 1 || models > 65535 || (denoms == nullptr && models != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int* g = geometry;
   const MuHMmaShape s{n, m, c, tx + ax - 1, ty + ay - 1, tx, ty, ax, ay,
-                      g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7], g[9]};
+                      g[0], g[1], g[2], g[3], g[4], g[5], g[6], g[7], g[9], vp_model_stride,
+                      denoms};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = g[8] == 4;
   cudaError_t err;
   switch (g[10]) {
     case 1:
-      err = vec ? launch_mma<4, 1>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st)
-                : launch_mma<1, 1>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st);
+      err = vec ? launch_models<4, 1>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, models, smem_bytes, st)
+                : launch_models<1, 1>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, models, smem_bytes, st);
       break;
     case 3:
-      err = vec ? launch_mma<4, 3>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st)
-                : launch_mma<1, 3>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, smem_bytes, st);
+      err = vec ? launch_models<4, 3>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, models, smem_bytes, st)
+                : launch_models<1, 3>(vp, rx, w, h, pos_extra, denom_add, out, s, grid_x, models, smem_bytes, st);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -499,21 +567,26 @@ extern "C" int tnmf_mu_h_mma(const float* vp, const float* rx, const float* w,
 
 extern "C" int tnmf_mu_h(const float* vp, const float* rx, const float* w,
                          const float* h, const float* pos_extra, float denom_add,
-                         float* out, int n, int m, int c, int ex, int ey, int tx,
-                         int ty, int ax, int ay, int pitch, int seg_c, int seg_ax,
-                         int seg_ay, int smem_bytes, void* stream) {
+                         float* out, int n, int m, int c, int ex, int ey, int tx, int ty,
+                         int ax, int ay, int pitch, int seg_c, int seg_ax, int seg_ay,
+                         int smem_bytes, const float* denoms, int models,
+                         int64_t vp_model_stride, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const MuHShape s{n, m, c, ex, ey, tx, ty, ax, ay, pitch, seg_c, seg_ax, seg_ay};
+  if (models < 1 || models > 65535 || (denoms == nullptr && models != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const MuHShape s{n, m, c, ex, ey, tx, ty, ax, ay, pitch, seg_c, seg_ax, seg_ay,
+                   vp_model_stride, denoms};
   // the tiles of every sample along x (at most 2^31 - 1 blocks), the atom groups along z
   const int64_t blocks = static_cast<int64_t>((tx + kTileX - 1) / kTileX) *
                          ((ty + kTileY - 1) / kTileY) * n;
   if (blocks > 2147483647 || (m + kMB - 1) / kMB > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto kernel = denoms != nullptr ? mu_h_kernel<true> : mu_h_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      mu_h_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(blocks), 1, (m + kMB - 1) / kMB);
-  mu_h_kernel<<<grid, dim3(kCols, kRows), smem_bytes, st>>>(vp, rx, w, h, pos_extra,
-                                                            denom_add, out, s);
+  const dim3 grid(static_cast<unsigned>(blocks), models, (m + kMB - 1) / kMB);
+  kernel<<<grid, dim3(kCols, kRows), smem_bytes, st>>>(vp, rx, w, h, pos_extra, denom_add,
+                                                       out, s);
   return static_cast<int>(cudaGetLastError());
 }

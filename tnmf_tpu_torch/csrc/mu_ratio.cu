@@ -26,6 +26,16 @@
 // memory by one warp), so two launches give the same bits; each thread then
 // divides the elements it wrote.  Any row length runs.
 //
+// The model axis: tnmf_mu_ratio takes the S models of a sweep in one launch
+// when it is given a per-model vector regs: the tensors are (S, ...) stacks
+// of per_model elements each, and element i reads its model's
+// regs[i / per_model] from device memory (per-model strengths never come
+// to the host).  The vector loop then runs when per_model is a multiple of
+// 4 (a vector lies within one model), so each model gets the bits of its
+// own launch with the scalar reg.  mu_w takes a model axis with no change:
+// W's reg is the constant EPS and its rows are independent, so S models are
+// S * M * C rows of one launch.
+//
 // Both divisions are IEEE (no fast-math), in the plain version's order,
 // (arr * neg) / (pos + reg).
 
@@ -39,19 +49,27 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 4096;
 
+// element i's reg: its model's regs[i / per_model], else the scalar
+__device__ __forceinline__ float reg_of(const float* regs, float reg, int64_t i,
+                                        int64_t per_model) {
+  return regs != nullptr ? regs[i / per_model] : reg;
+}
+
 __global__ void mu_ratio_vec4(const float4* __restrict__ arr,
                               const float4* __restrict__ neg,
                               const float4* __restrict__ pos, float reg,
+                              const float* __restrict__ regs, int64_t per_model4,
                               float4* __restrict__ out, int64_t n4) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n4; i += stride) {
     const float4 a = arr[i], g = neg[i], p = pos[i];
+    const float r = reg_of(regs, reg, i, per_model4);
     float4 o;
-    o.x = a.x * g.x / (p.x + reg);
-    o.y = a.y * g.y / (p.y + reg);
-    o.z = a.z * g.z / (p.z + reg);
-    o.w = a.w * g.w / (p.w + reg);
+    o.x = a.x * g.x / (p.x + r);
+    o.y = a.y * g.y / (p.y + r);
+    o.z = a.z * g.z / (p.z + r);
+    o.w = a.w * g.w / (p.w + r);
     out[i] = o;
   }
 }
@@ -59,12 +77,12 @@ __global__ void mu_ratio_vec4(const float4* __restrict__ arr,
 __global__ void mu_ratio_scalar(const float* __restrict__ arr,
                                 const float* __restrict__ neg,
                                 const float* __restrict__ pos, float reg,
-                                float* __restrict__ out, int64_t start,
-                                int64_t n) {
+                                const float* __restrict__ regs, int64_t per_model,
+                                float* __restrict__ out, int64_t start, int64_t n) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = start + static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        i < n; i += stride) {
-    out[i] = arr[i] * neg[i] / (pos[i] + reg);
+    out[i] = arr[i] * neg[i] / (pos[i] + reg_of(regs, reg, i, per_model));
   }
 }
 
@@ -104,26 +122,30 @@ int blocks_for(int64_t work) {
 
 }  // namespace
 
-extern "C" int tnmf_mu_ratio(const float* arr, const float* neg,
-                             const float* pos, float reg, float* out,
+extern "C" int tnmf_mu_ratio(const float* arr, const float* neg, const float* pos,
+                             float reg, const float* regs, int64_t per_model, float* out,
                              int64_t n, void* stream) {
+  // regs: the per-model vector of a launch over a model axis of per_model
+  // elements per model, or null (every element reads reg)
+  if (regs != nullptr && per_model <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uintptr_t bits = reinterpret_cast<uintptr_t>(arr) |
                          reinterpret_cast<uintptr_t>(neg) |
                          reinterpret_cast<uintptr_t>(pos) |
                          reinterpret_cast<uintptr_t>(out);
-  const int64_t n4 = (bits % 16 == 0) ? n / 4 : 0;
+  const int64_t n4 = (bits % 16 == 0 && (regs == nullptr || per_model % 4 == 0)) ? n / 4 : 0;
   if (n4 > 0) {
     mu_ratio_vec4<<<blocks_for(n4), kThreads, 0, st>>>(
         reinterpret_cast<const float4*>(arr), reinterpret_cast<const float4*>(neg),
-        reinterpret_cast<const float4*>(pos), reg, reinterpret_cast<float4*>(out), n4);
+        reinterpret_cast<const float4*>(pos), reg, regs, per_model / 4,
+        reinterpret_cast<float4*>(out), n4);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int64_t rest = n - 4 * n4;
   if (rest > 0) {
-    mu_ratio_scalar<<<blocks_for(rest), kThreads, 0, st>>>(arr, neg, pos, reg, out,
-                                                           4 * n4, n);
+    mu_ratio_scalar<<<blocks_for(rest), kThreads, 0, st>>>(arr, neg, pos, reg, regs, per_model,
+                                                           out, 4 * n4, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

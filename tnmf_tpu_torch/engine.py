@@ -87,6 +87,15 @@ transform).  :func:`_mu_H` expands W once per H step and hands the same
 :func:`grad_W_stats` ties K2's (or the strategy's) ``(M*G, C, *A)``
 statistics back before :func:`apply_W_update`, so ``mu_w`` and
 ``ortho_W`` act on the canonical W only.
+
+Strengths (``sparsity``, ``inhibition``, ``cross_inhibition``, ``l2``,
+``ortho``) are Python floats in a single fit, or 0-d tensors: a sweep
+(:mod:`tnmf_tpu_torch.models.sweep`) runs these functions under
+:func:`torch.func.vmap` with per-model strengths, which ride in the
+storage dtype as in the JAX package.  A float strength keeps the single
+fit's arithmetic (and bits); a tensor reaches the kernels through the
+operators' ``.t`` overloads, whose vmap rules launch each kernel once for
+all the models (:mod:`tnmf_tpu_torch.kernels.ops`).
 """
 
 from __future__ import annotations
@@ -97,11 +106,11 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from .kernels.gw import grad_w, grad_w_plain
+from .kernels.gw import grad_w_plain
 from .kernels.inhibit import inhibited_mu_h_plain
-from .kernels.mu import mu_ratio_plain, mu_w, mu_w_plain
+from .kernels.mu import mu_ratio_plain, mu_w_plain
 from .kernels.mu_h import mu_h_plain
-from .kernels.ops import inhibited_mu_h, mu_h, mu_ratio
+from .kernels.ops import grad_w, inhibited_mu_h, mu_h, mu_ratio, mu_w
 from .ops import beta as beta_ops
 from .ops import conv as conv_ops
 from .ops import dot as dot_ops
@@ -374,10 +383,10 @@ def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
     strategy, group = split_strategy(strategy)
     if group is not None:
         W = expand_w(W, group)
-    reg = EPS + float(sparsity)
+    reg = EPS + _strength(sparsity)
     kernels_on = plain_reason(plan, H.dtype, use_pallas) is None
     inhibited = use_inhibition or use_cross
-    extra = None if l2 is None else float(l2) * H
+    extra = None if l2 is None else _strength(l2) * H
     if strategy == 'conv':
         Xv, Xr = _conv_streams(Vp, conv_ops.reconstruct(W, H, plan), plan, beta, mask)
         if not inhibited:
@@ -394,8 +403,14 @@ def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
         ratio = mu_ratio if dtype_reason(H.dtype, use_pallas) is None else mu_ratio_plain
         return ratio(H, neg, pos, reg)
     update = inhibited_mu_h if kernels_on else inhibited_mu_h_plain
-    return update(H, neg, pos, kernels, float(inhibition), float(cross_inhibition), reg,
-                  use_same=use_inhibition, use_cross=use_cross)
+    return update(H, neg, pos, kernels, _strength(inhibition), _strength(cross_inhibition),
+                  reg, use_same=use_inhibition, use_cross=use_cross)
+
+
+def _strength(x):
+    """A strength as the engine computes with it: a tensor (a sweep's, in
+    the storage dtype) as it is, anything else as a Python float."""
+    return x if isinstance(x, torch.Tensor) else float(x)
 
 
 def _normalize_W(W: torch.Tensor, n_shift_axes: int) -> torch.Tensor:
@@ -448,7 +463,7 @@ def grad_W_pair_of(Vp: torch.Tensor, R: torch.Tensor, H: torch.Tensor,
     ops = get_ops(strategy)
     if strategy == 'conv':
         grad = grad_w if plain_reason(plan, H.dtype, use_pallas) is None else grad_w_plain
-        return grad(torch.cat(_conv_streams(Vp, R, plan, beta, mask), dim=1), H, plan,
+        return grad(torch.cat(_conv_streams(Vp, R, plan, beta, mask), dim=1), H,
                     _passes(plan, H))
     if beta == 2.0:
         return ops.grad_W_pair(Vp, R if mask is None else R * mask.to(R.dtype), H, plan)
@@ -464,7 +479,7 @@ def _ortho_positive_term(W: torch.Tensor, ortho: float) -> torch.Tensor:
     """Gradient of the cross-atom orthogonality penalty ``(ortho/2) *
     sum_{m != m'} <W_m, W_m'>``: ``ortho * sum_{m' != m} W_m'``, nonnegative,
     so it joins the positive part (the JAX engine's ``_ortho_positive_term``)."""
-    return float(ortho) * (W.sum(dim=0, keepdim=True) - W)
+    return _strength(ortho) * (W.sum(dim=0, keepdim=True) - W)
 
 
 def apply_W_update(W: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,

@@ -37,23 +37,27 @@ _P, _F, _I, _I64 = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int64
 
 #: C entry points and their argument types; each returns a cudaError_t
 SIGNATURES = {
-    # arr, neg, pos, reg, out, n, stream
-    'tnmf_mu_ratio': (_P, _P, _P, _F, _P, _I64, _P),
+    # arr, neg, pos, reg, regs (per model, or null), per_model, out, n, stream
+    'tnmf_mu_ratio': (_P, _P, _P, _F, _P, _I64, _P, _I64, _P),
     # w, neg, pos, reg, out, rows, row_len, stream
     'tnmf_mu_w': (_P, _P, _P, _F, _P, _I64, _I64, _P),
     # x2, h, out, scratch, n, m, c2, tx, ty, ax, ay, geometry (int[15]),
-    # group (int[6]), grid_x, grid_y, smem_bytes, stream
-    'tnmf_grad_w': (_P,) * 4 + (_I,) * 7 + (_P, _P) + (_I,) * 3 + (_P,),
+    # group (int[6]), grid_x, grid_y, smem_bytes, models, stream
+    'tnmf_grad_w': (_P,) * 4 + (_I,) * 7 + (_P, _P) + (_I,) * 4 + (_P,),
     # vp, rx, w, h, pos_extra, denom_add, out, n, m, c, ex, ey, tx, ty, ax, ay,
-    # pitch, seg_c, seg_ax, seg_ay, smem_bytes, stream
-    'tnmf_mu_h': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 14 + (_P,),
+    # pitch, seg_c, seg_ax, seg_ay, smem_bytes, denoms (per model, or null),
+    # models, vp_model_stride, stream
+    'tnmf_mu_h': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 14 + (_P, _I, _I64, _P),
     # vp, rx, w, h, pos_extra, denom_add, out, n, m, c, tx, ty, ax, ay,
-    # geometry (int[11]), grid_x, smem_bytes, stream
-    'tnmf_mu_h_mma': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 7 + (_P,) + (_I,) * 2 + (_P,),
+    # geometry (int[11]), grid_x, smem_bytes, denoms, models, vp_model_stride,
+    # stream
+    'tnmf_mu_h_mma': (_P, _P, _P, _P, _P, _F, _P) + (_I,) * 7 + (_P,) + (_I,) * 2
+                     + (_P, _I, _I64, _P),
     # h, neg, pos, taps, out, n, m, x, y, tx, ty, tile_x, tile_y, hp, xtp, npp,
     # inh, cross, reg, use_same, use_cross, two_d, vec, h_vec, h_bufs, compiled,
-    # seg_x, seg_y, smem_bytes, stream
-    'tnmf_inhibited_mu_h': (_P,) * 5 + (_I,) * 11 + (_F,) * 3 + (_I,) * 10 + (_P,),
+    # seg_x, seg_y, smem_bytes, strengths (per model, or null), n_per_model,
+    # models, stream
+    'tnmf_inhibited_mu_h': (_P,) * 5 + (_I,) * 11 + (_F,) * 3 + (_I,) * 10 + (_P, _I, _I, _P),
     # x, g, p, out, each with its row and column strides; l1, l2, inner, rows,
     # m, rows_per_block, resident, smem_bytes, stream
     'tnmf_hals_sweep': (_P, _I64, _I64) * 4 + (_F, _F, _I, _I64, _I, _I, _I, _I, _P),
@@ -195,6 +199,24 @@ def check_inputs(name: str, *tensors: torch.Tensor, contiguous: bool = True) -> 
                 '(bf16 storage: ROADMAP.md queue 2)')
         if contiguous and not t.is_contiguous():
             raise ValueError(f'{name}: expected contiguous tensors')
+
+
+def model_value(x, s: int):
+    """Model ``s``'s value of a per-model strength: ``x[s]`` of an
+    ``(S,)`` tensor, ``x`` itself of a float shared by the models."""
+    return x[s] if isinstance(x, torch.Tensor) else x
+
+
+def model_vector(x, S: int, device: torch.device) -> torch.Tensor:
+    """A per-model strength as the contiguous float32 ``(S,)`` vector a
+    kernel reads on ``device``: an ``(S,)`` tensor converted (no host
+    copy), a float filled in (rounded to float32 as a ``float`` argument
+    of the C entry points is)."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full((S,), float(x), dtype=torch.float32, device=device)
+    if tuple(x.shape) != (S,):
+        raise ValueError(f'expected one value per model, shape ({S},), got {tuple(x.shape)}')
+    return x.to(device=device, dtype=torch.float32).contiguous()
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -34,6 +34,11 @@ shape runs.
 Per-warp partial sums are reduced in a second pass in a fixed order
 (deterministic, no float atomics).  The TPU kernel's own fold (rows
 ``(ax, m)``, columns ``(ay, c)``) served the TPU's 128 x 128 matrix unit.
+
+The model axis (:func:`grad_w_models`, a sweep's S models in one launch
+per group): the models run along the grid's z, each on the single model's
+geometry with its own scratch slots, so each model is summed in the order
+of its own launch and gets its bits.
 """
 
 from __future__ import annotations
@@ -45,7 +50,6 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops import conv
-from ..ops.modes import ConvPlan
 from ..ops.precision import round_tf32
 from . import _build
 
@@ -65,8 +69,7 @@ _BLOCKS_PER_SM = 2
 _SMEM_BUDGET = (233472 - _BLOCKS_PER_SM * 1024) // _BLOCKS_PER_SM
 
 
-def grad_w_plain(X2: torch.Tensor, H: torch.Tensor, plan: ConvPlan,
-                 passes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+def grad_w_plain(X2: torch.Tensor, H: torch.Tensor, passes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version: stacked ``corr_W`` convolutions in full
     float32, one per sample, summed over the samples.  One convolution over
     all ``N*Tx*Ty`` positions is less accurate on the GPU: at the flagship
@@ -237,38 +240,43 @@ def _group_args(group: tuple) -> ctypes.Array:
     return (ctypes.c_int * 6)(*group)
 
 
-def grad_w(X2: torch.Tensor, H: torch.Tensor, plan: ConvPlan,
-           passes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(neg, pos)`` W-gradient statistics: the plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors (float32, contiguous, 1-D or
-    2-D shifts).  ``passes`` is the TF32 products per product: 3 (3xTF32,
-    float32 accuracy) or 1 (one TF32 pass, the TF32 precision levels)."""
-    if passes not in (1, 3):
-        raise ValueError(f'grad_w: passes must be 1 or 3, got {passes!r}')
-    if X2.device.type == 'cpu':
-        return grad_w_plain(X2, H, plan, passes)
-    _build.check_inputs('grad_w', X2, H)
-    if plan.ndim not in (1, 2):
-        raise ValueError(f'grad_w: the kernel takes 1-D or 2-D shifts, got {plan.ndim}-D')
-    T, A = plan.transform_shape, plan.atom_shape
+def _shapes(X2: torch.Tensor, H: torch.Tensor) -> tuple:
+    """``(T, A)``: the shift and atom shapes of one model's ``X2 (N, C2,
+    *E)`` and ``H (N, M, *T)``, read from them (``A = E - T + 1``)."""
+    T = tuple(H.shape[2:])
+    A = tuple([e - t + 1 for e, t in zip(X2.shape[2:], T)])
     N, C2 = X2.shape[:2]
-    M = H.shape[1]
-    if (C2 % 2 or H.shape[0] != N or tuple(H.shape[2:]) != T
-            or tuple(X2.shape[2:]) != tuple(t + a - 1 for t, a in zip(T, A))):
+    if len(T) not in (1, 2):
+        raise ValueError(f'grad_w: the kernel takes 1-D or 2-D shifts, got {len(T)}-D')
+    if C2 % 2 or H.shape[0] != N or X2.dim() != H.dim() or min(A) < 1:
         raise ValueError(f'grad_w: X2 {tuple(X2.shape)} and H {tuple(H.shape)} '
-                         f'do not fit the plan (T={T}, A={A})')
-    if plan.ndim == 1:  # a 1-D problem is a 2-D one with one row
+                         'do not fit together')
+    return T, A
+
+
+def _launch(X2: torch.Tensor, H: torch.Tensor, T: tuple, A: tuple, passes: int,
+            models: int, axis: bool = False) -> torch.Tensor:
+    """The launches of the kernel for ``models`` stacked problems of
+    ``(N, C2, *E)`` and ``(N, M, *T)`` each: ``out (2, models, M, C, *A)``
+    over a model axis (``axis``, counted as such too), ``(2, M, C, *A)``
+    for a single problem.  Counts them."""
+    _build.check_inputs('grad_w', X2, H)
+    N, C2 = X2.shape[-len(T) - 2:-len(T)]
+    M = H.shape[-len(T) - 1]
+    A_out = A
+    if len(T) == 1:  # a 1-D problem is a 2-D one with one row
         T, A = (1,) + T, (1,) + A
     (Tx, Ty), (Ax, Ay) = T, A
     vec = Ty % 4 == 0 and (Ty + Ay - 1) % 4 == 0 and (X2.data_ptr() | H.data_ptr()) % 16 == 0
     n_sm = torch.cuda.get_device_properties(X2.device).multi_processor_count
     g = _geometry(N, M, C2, Tx, Ty, Ax, Ay, n_sm, vec, passes)
     C = C2 // 2
-    out = torch.empty((2, M, C) + plan.atom_shape, device=X2.device, dtype=torch.float32)
+    out = torch.empty((2,) + ((models,) if axis else ()) + (M, C) + A_out, device=X2.device,
+                      dtype=torch.float32)
     launches = [(grp, _group_chunk(N, M, Tx, Ty, grp, n_sm, vec, passes))
                 for grp in g['groups']]
-    scratch = torch.empty(max(gg['grid_x'] * gg['ksplit'] * M * grp[1] * grp[3] * grp[5]
-                              for grp, gg in launches),
+    scratch = torch.empty(models * max(gg['grid_x'] * gg['ksplit'] * M * grp[1] * grp[3] * grp[5]
+                                       for grp, gg in launches),
                           device=X2.device, dtype=torch.float32)
     lib = _build.library()
     with torch.cuda.device(X2.device):
@@ -276,15 +284,52 @@ def grad_w(X2: torch.Tensor, H: torch.Tensor, plan: ConvPlan,
             err = lib.tnmf_grad_w(
                 X2.data_ptr(), H.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                 N, M, C2, Tx, Ty, Ax, Ay, _geometry_args(gg), _group_args(grp), gg['grid_x'],
-                gg['grid_y'], gg['smem_bytes'], _build.stream_of(X2))
+                gg['grid_y'], gg['smem_bytes'], models, _build.stream_of(X2))
             _build.check_launch(err, 'grad_w')
             grad_w.launches += 1
+            grad_w.model_launches += axis
             if passes == 1:
                 grad_w.one_pass_launches += 1
+    return out
+
+
+def grad_w(X2: torch.Tensor, H: torch.Tensor,
+           passes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(neg, pos)`` W-gradient statistics: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (float32, contiguous, 1-D or
+    2-D shifts; the shapes are read from the tensors).  ``passes`` is the
+    TF32 products per product: 3 (3xTF32, float32 accuracy) or 1 (one TF32
+    pass, the TF32 precision levels)."""
+    if passes not in (1, 3):
+        raise ValueError(f'grad_w: passes must be 1 or 3, got {passes!r}')
+    if X2.device.type == 'cpu':
+        return grad_w_plain(X2, H, passes)
+    out = _launch(X2, H, *_shapes(X2, H), passes, 1)
+    return out[0], out[1]
+
+
+def grad_w_models(X2: torch.Tensor, H: torch.Tensor,
+                  passes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`grad_w` over a model axis: ``X2 (S, N, C2, *E)`` and ``H
+    (S, N, M, *T)`` stack a sweep's S models; returns ``(neg, pos)``, each
+    ``(S, M, C, *A)``.  The plain version model by model for CPU tensors;
+    on CUDA tensors one launch per group for all S models (the grid's z),
+    each model summed in its own launch's order."""
+    if passes not in (1, 3):
+        raise ValueError(f'grad_w: passes must be 1 or 3, got {passes!r}')
+    if X2.shape[0] != H.shape[0]:
+        raise ValueError(f'grad_w: X2 {tuple(X2.shape)} and H {tuple(H.shape)} '
+                         'stack different model counts')
+    if X2.device.type == 'cpu':
+        pairs = [grad_w_plain(X2[s], H[s], passes) for s in range(X2.shape[0])]
+        return torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+    out = _launch(X2, H, *_shapes(X2[0], H[0]), passes, X2.shape[0], axis=True)
     return out[0], out[1]
 
 
 #: kernel launches since the last reset (plain counts, read by chip_smoke.py):
-#: all of them, and those of the one-pass route
+#: all of them, those over a model axis (:func:`grad_w_models`) and those of
+#: the one-pass route
 grad_w.launches = 0
+grad_w.model_launches = 0
 grad_w.one_pass_launches = 0

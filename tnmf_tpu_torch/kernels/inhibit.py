@@ -38,12 +38,18 @@ each thread's output (rows) before the ratio is taken once.  Every stencil
 that fits in one piece runs as before, so :func:`_geometry` never raises
 for a 1-D or 2-D stencil.  Only the streamed route sums in another order:
 :func:`inhibited_mu_h_segments_plain` sums in its order.
+
+The model axis (:func:`inhibited_mu_h_models`, a sweep's S models in one
+launch): the stacks ``(S, N, M, *T)`` are ``S * N`` samples of one launch,
+and each sample reads its model's strengths (``inh``, ``cross`` and
+``reg``, ``(S,)`` vectors on the card) at ``sample / N``.  A model's
+strength of 0 adds ``0 * term``: its update is the uninhibited one.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -345,8 +351,20 @@ def inhibited_mu_h(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
     if len(ks) != nd or any(k.numel() % 2 == 0 for k in ks):
         raise ValueError(f'inhibited_mu_h: expected {nd} kernels of odd length, '
                          f'got lengths {[k.numel() for k in ks]}')
+    cross = cross_scale(cross_inhibition, H.shape[1]) if use_cross else 0.
+    return _launch(H, neg, pos, ks, inhibition, cross, reg, None, 1, use_same, use_cross)
+
+
+def _launch(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor, ks: list, inhibition: float,
+            cross: float, reg: float, strengths: Optional[torch.Tensor], models: int,
+            use_same: bool, use_cross: bool) -> torch.Tensor:
+    """One launch over the ``N`` samples of ``H`` (``models`` stacked
+    problems of ``N / models`` samples each): ``strengths``, the per-model
+    ``[inh, cross, reg]`` vectors concatenated, or the scalars (``cross``
+    already divided by ``M - 1``).  Counts it (``strengths``: as a launch
+    over a model axis too)."""
+    nd = H.dim() - 2
     N, M = H.shape[:2]
-    cross = cross_scale(cross_inhibition, M) if use_cross else 0.
     out = torch.empty_like(H)
     if out.numel() == 0:
         return out
@@ -363,11 +381,58 @@ def inhibited_mu_h(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
             N, M, X, Y, tx, ty, g['tile_x'], g['tile_y'], g['hp'], g['xtp'], g['npp'],
             float(inhibition), float(cross), float(reg), int(use_same), int(use_cross),
             int(g['two_d']), int(g['vec']), int(g['h_vec']), g['h_bufs'], compiled, g['seg_x'],
-            g['seg_y'], g['smem_bytes'], _build.stream_of(H))
+            g['seg_y'], g['smem_bytes'], None if strengths is None else strengths.data_ptr(),
+            N // models, models, _build.stream_of(H))
     _build.check_launch(err, 'inhibited_mu_h')
     inhibited_mu_h.launches += 1
+    inhibited_mu_h.model_launches += strengths is not None
     return out
 
 
-#: kernel launches since the last reset (a plain count, read by chip_smoke.py)
+def inhibited_mu_h_models(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
+                          kernels: Sequence, inhibition, cross_inhibition, reg, *,
+                          use_same: bool = True, use_cross: bool = False) -> torch.Tensor:
+    """:func:`inhibited_mu_h` over a model axis: ``H``, ``neg`` and ``pos``
+    are ``(S, N, M, *T)`` stacks of a sweep's S models and each strength
+    an ``(S,)`` tensor of the models' values (or one float for all).  The
+    plain version model by model for CPU tensors; on CUDA tensors one
+    launch over the ``S * N`` samples, each reading its model's strengths
+    (each model bit-equal to its own :func:`inhibited_mu_h` launch)."""
+    S = H.shape[0]
+    if H.device.type == 'cpu':
+        return torch.stack([
+            inhibited_mu_h_plain(H[s], neg[s], pos[s], kernels,
+                                 _build.model_value(inhibition, s),
+                                 _build.model_value(cross_inhibition, s),
+                                 _build.model_value(reg, s),
+                                 use_same=use_same, use_cross=use_cross)
+            for s in range(S)])
+    _build.check_inputs('inhibited_mu_h', H, neg, pos)
+    nd = H.dim() - 3
+    if nd not in (1, 2):
+        raise ValueError(f'inhibited_mu_h: the kernel takes 1-D or 2-D shifts, got {nd}-D')
+    if neg.shape != H.shape or pos.shape != H.shape:
+        raise ValueError(f'inhibited_mu_h: shapes H {tuple(H.shape)}, '
+                         f'neg {tuple(neg.shape)}, pos {tuple(pos.shape)} differ')
+    ks = [torch.as_tensor(k, dtype=torch.float32, device=H.device).reshape(-1)
+          for k in kernels]
+    if len(ks) != nd or any(k.numel() % 2 == 0 for k in ks):
+        raise ValueError(f'inhibited_mu_h: expected {nd} kernels of odd length, '
+                         f'got lengths {[k.numel() for k in ks]}')
+
+    def vec64(x):  # the per-model values in float64, as the scalars are formed
+        if isinstance(x, torch.Tensor):
+            return x.to(device=H.device, dtype=torch.float64).reshape(S)
+        return torch.full((S,), float(x), dtype=torch.float64, device=H.device)
+    cross = (cross_scale(vec64(cross_inhibition), H.shape[2]) if use_cross
+             else torch.zeros(S, dtype=torch.float64, device=H.device))
+    strengths = torch.cat([vec64(inhibition), cross, vec64(reg)]).to(torch.float32)
+    flat = (S * H.shape[1],) + tuple(H.shape[2:])
+    return _launch(H.reshape(flat), neg.reshape(flat), pos.reshape(flat), ks, 0., 0., 0.,
+                   strengths, S, use_same, use_cross).reshape(H.shape)
+
+
+#: kernel launches since the last reset (plain counts, read by chip_smoke.py):
+#: all of them, and those over a model axis (:func:`inhibited_mu_h_models`)
 inhibited_mu_h.launches = 0
+inhibited_mu_h.model_launches = 0

@@ -36,6 +36,17 @@ routes, chosen from the shapes before the launch (``_geometry``):
 
 Every 1-D and 2-D shape takes one of the two; any number of samples
 launches.
+
+The model axis (:func:`mu_h_models`, a sweep's S models in one launch):
+the models run along the grid's y on either route, each on the single
+model's geometry.  Rx, W, H and ``pos_extra`` are per model, and so is
+``denom_add`` (an ``(S,)`` vector read on the card); ``Vp`` is read at a
+model stride of 0 where the models share it (the data stream at beta = 2
+without a mask), so it is not copied S times.  The tensor-core route's
+persistent blocks each serve one model: every block stages its model's
+split dictionary once, as in a single launch (S times the single
+launch's ``grid_x`` stagings in all, no restaging), and each model gets
+its own launch's bits.
 """
 
 from __future__ import annotations
@@ -243,6 +254,62 @@ def launch_geometry(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor,
     return T, A, _geometry(N, M, C, Tx, Ty, Ax, Ay, n_sm, vec, _ROUTES, passes)
 
 
+def _check(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+           pos_extra: Optional[torch.Tensor]) -> None:
+    """Raise unless one model's operands fit together."""
+    nd = H.dim() - 2
+    if nd not in (1, 2):
+        raise ValueError(f'mu_h: the kernel takes 1-D or 2-D shifts, got {nd}-D')
+    N, M = H.shape[:2]
+    T, A = tuple(H.shape[2:]), tuple(W.shape[2:])
+    if (Vp.shape != Rx.shape or tuple(Vp.shape[:2]) != (N, W.shape[1]) or W.shape[0] != M
+            or tuple(Vp.shape[2:]) != tuple(t + a - 1 for t, a in zip(T, A))
+            or (pos_extra is not None and pos_extra.shape != H.shape)):
+        raise ValueError(
+            f'mu_h: shapes Vp {tuple(Vp.shape)}, Rx {tuple(Rx.shape)}, '
+            f'W {tuple(W.shape)}, H {tuple(H.shape)} do not fit together')
+
+
+def _launch(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+            denom_add: float, denoms: Optional[torch.Tensor],
+            pos_extra: Optional[torch.Tensor], passes: int, models: int = 1,
+            vp_model_stride: int = 0) -> torch.Tensor:
+    """One launch: a single problem with ``denom_add``, or (``denoms``
+    given, one per model) ``models`` problems whose operands have a leading
+    model axis, ``Vp`` at ``vp_model_stride`` (0 where shared); the route
+    and geometry of one model's.  Counts it (``denoms``: as a launch over a
+    model axis too)."""
+    Vp1, Rx1, W1, H1 = ((Vp, Rx, W, H) if denoms is None
+                        else (Vp[0] if vp_model_stride else Vp, Rx[0], W[0], H[0]))
+    (Tx, Ty), (Ax, Ay), g = launch_geometry(Vp1, Rx1, W1, H1, passes)
+    N, M = H1.shape[:2]
+    C = W1.shape[1]
+    out = torch.empty_like(H)
+    pe = None if pos_extra is None else pos_extra.data_ptr()
+    dp = None if denoms is None else denoms.data_ptr()
+    lib = _build.library()
+    with torch.cuda.device(H.device):
+        if g['route'] == 'mma':
+            pair = Ty % 2 == 0 and (H.data_ptr() | out.data_ptr() | (pe or 0)) % 8 == 0
+            err = lib.tnmf_mu_h_mma(
+                Vp.data_ptr(), Rx.data_ptr(), W.data_ptr(), H.data_ptr(), pe,
+                float(denom_add), out.data_ptr(), N, M, C, Tx, Ty, Ax, Ay,
+                _mma_args(g, pair), g['grid_x'], g['smem_bytes'], dp, models,
+                vp_model_stride, _build.stream_of(H))
+        else:
+            err = lib.tnmf_mu_h(
+                Vp.data_ptr(), Rx.data_ptr(), W.data_ptr(), H.data_ptr(), pe,
+                float(denom_add), out.data_ptr(), N, M, C, Tx + Ax - 1, Ty + Ay - 1,
+                Tx, Ty, Ax, Ay, g['pitch'], g['seg_c'], g['seg_ax'], g['seg_ay'],
+                g['smem_bytes'], dp, models, vp_model_stride, _build.stream_of(H))
+    _build.check_launch(err, 'mu_h')
+    mu_h.launches += 1
+    mu_h.model_launches += denoms is not None
+    if g['route'] == 'mma' and passes == 1:
+        mu_h.one_pass_launches += 1
+    return out
+
+
 def mu_h(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
          denom_add: float, pos_extra: Optional[torch.Tensor] = None,
          passes: int = 3) -> torch.Tensor:
@@ -256,43 +323,45 @@ def mu_h(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
         return mu_h_plain(Vp, Rx, W, H, denom_add, pos_extra, passes)
     extra = () if pos_extra is None else (pos_extra,)
     _build.check_inputs('mu_h', Vp, Rx, W, H, *extra)
-    nd = H.dim() - 2
-    if nd not in (1, 2):
-        raise ValueError(f'mu_h: the kernel takes 1-D or 2-D shifts, got {nd}-D')
-    N, M = H.shape[:2]
-    C = W.shape[1]
-    T, A = tuple(H.shape[2:]), tuple(W.shape[2:])
-    if (Vp.shape != Rx.shape or tuple(Vp.shape[:2]) != (N, C) or W.shape[0] != M
-            or tuple(Vp.shape[2:]) != tuple(t + a - 1 for t, a in zip(T, A))
-            or (pos_extra is not None and pos_extra.shape != H.shape)):
-        raise ValueError(
-            f'mu_h: shapes Vp {tuple(Vp.shape)}, Rx {tuple(Rx.shape)}, '
-            f'W {tuple(W.shape)}, H {tuple(H.shape)} do not fit together')
-    (Tx, Ty), (Ax, Ay), g = launch_geometry(Vp, Rx, W, H, passes)
-    out = torch.empty_like(H)
-    pe = None if pos_extra is None else pos_extra.data_ptr()
-    lib = _build.library()
-    with torch.cuda.device(H.device):
-        if g['route'] == 'mma':
-            pair = Ty % 2 == 0 and (H.data_ptr() | out.data_ptr() | (pe or 0)) % 8 == 0
-            err = lib.tnmf_mu_h_mma(
-                Vp.data_ptr(), Rx.data_ptr(), W.data_ptr(), H.data_ptr(), pe,
-                float(denom_add), out.data_ptr(), N, M, C, Tx, Ty, Ax, Ay,
-                _mma_args(g, pair), g['grid_x'], g['smem_bytes'], _build.stream_of(H))
-        else:
-            err = lib.tnmf_mu_h(
-                Vp.data_ptr(), Rx.data_ptr(), W.data_ptr(), H.data_ptr(), pe,
-                float(denom_add), out.data_ptr(), N, M, C, Tx + Ax - 1, Ty + Ay - 1,
-                Tx, Ty, Ax, Ay, g['pitch'], g['seg_c'], g['seg_ax'], g['seg_ay'],
-                g['smem_bytes'], _build.stream_of(H))
-    _build.check_launch(err, 'mu_h')
-    mu_h.launches += 1
-    if g['route'] == 'mma' and passes == 1:
-        mu_h.one_pass_launches += 1
-    return out
+    _check(Vp, Rx, W, H, pos_extra)
+    return _launch(Vp, Rx, W, H, denom_add, None, pos_extra, passes)
+
+
+def mu_h_models(Vp: torch.Tensor, Rx: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+                denom_add, pos_extra: Optional[torch.Tensor] = None,
+                passes: int = 3) -> torch.Tensor:
+    """:func:`mu_h` over a model axis: ``Rx (S, N, C, *E)``, ``W (S, M, C,
+    *A)``, ``H`` and ``pos_extra`` ``(S, N, M, *T)`` stack a sweep's S
+    models, ``denom_add`` is an ``(S,)`` tensor (or one float for all) and
+    ``Vp`` is either shared, ``(N, C, *E)``, or per model.  The plain
+    version model by model for CPU tensors; one launch for all S models
+    on CUDA tensors, each model bit-equal to its own :func:`mu_h` launch."""
+    if passes not in (1, 3):
+        raise ValueError(f'mu_h: passes must be 1 or 3, got {passes!r}')
+    S = H.shape[0]
+    shared = Vp.dim() == H.dim() - 1
+    if Vp.device.type == 'cpu':
+        return torch.stack([
+            mu_h_plain(Vp if shared else Vp[s], Rx[s], W[s], H[s],
+                       _build.model_value(denom_add, s),
+                       None if pos_extra is None else pos_extra[s], passes)
+            for s in range(S)])
+    extra = () if pos_extra is None else (pos_extra,)
+    _build.check_inputs('mu_h', Vp, Rx, W, H, *extra)
+    if Rx.shape[0] != S or W.shape[0] != S or not (shared or Vp.shape[0] == S):
+        raise ValueError(f'mu_h: Vp {tuple(Vp.shape)}, Rx {tuple(Rx.shape)}, '
+                         f'W {tuple(W.shape)} and H {tuple(H.shape)} stack different '
+                         'model counts')
+    _check(Vp if shared else Vp[0], Rx[0], W[0], H[0],
+           None if pos_extra is None else pos_extra[0])
+    denoms = _build.model_vector(denom_add, S, H.device)
+    return _launch(Vp, Rx, W, H, 0., denoms, pos_extra, passes, S,
+                   0 if shared else Vp[0].numel())
 
 
 #: kernel launches since the last reset (plain counts, read by chip_smoke.py):
-#: all of them, and those of the tensor-core route in one pass
+#: all of them, those over a model axis (:func:`mu_h_models`) and those of
+#: the tensor-core route in one pass
 mu_h.launches = 0
+mu_h.model_launches = 0
 mu_h.one_pass_launches = 0

@@ -57,8 +57,9 @@ def resolve_inhibition_range(
     return rng
 
 
-def cross_scale(cross_inhibition: float, n_atoms: int) -> float:
-    """The cross-atom weight ``cross / (n_atoms - 1)``.  With one atom there
+def cross_scale(cross_inhibition, n_atoms: int):
+    """The cross-atom weight ``cross / (n_atoms - 1)`` (a tensor of
+    strengths, a sweep's, divides in its own dtype).  With one atom there
     is no other atom to inhibit: the JAX package's default route divides by
     zero there (NaN activations) and its Pallas kernel silently drops the
     term, so the port refuses the case."""
@@ -66,6 +67,8 @@ def cross_scale(cross_inhibition: float, n_atoms: int) -> float:
         raise ValueError(
             'cross_atom_inhibition_strength > 0 needs at least 2 atoms '
             f'(it scales by 1/(n_atoms - 1)), got n_atoms={n_atoms}')
+    if isinstance(cross_inhibition, torch.Tensor):
+        return cross_inhibition / (n_atoms - 1)
     return float(cross_inhibition) / (n_atoms - 1)
 
 

@@ -19,9 +19,12 @@ the rows of a shift-invariant phase (50176 x 16; CUDA events, two windows
 of 20 launches).  The variants run
 in the order given and then in reverse, so each one is timed twice around
 the others.  Each process also times one MU iteration of the golden 2-D
-fit (five windows of 10 iterations) and prints the registers of K3's
+fit and of the inhibited golden 1-D fit (nine windows of 10 iterations
+each) and prints the registers of K3's
 tensor-core kernel, a digest of its library's K2 SASS, which shows whether
-a change meant to leave K2 alone did, and digests of the bits of K3's, K2's
+a change meant to leave K2 alone did (with ``--parent``, each variant's
+single-launch instances of K2-K4 against the parent's, function by
+function), and digests of the bits of K3's, K2's
 and K4's outputs at the flagship, of the golden 2-D and 1-D fits (W, H and
 the energy, seeded as tests/fixtures.py seeds them), of the H updates
 alone (W held) of the golden 1-D fit and of the inhibited settings of the
@@ -36,7 +39,9 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -133,6 +138,37 @@ def make_copy(name: str) -> Path:
     return dst
 
 
+#: the kernels of K2, K3 and K4 whose single-launch instances
+#: :func:`single_sass` compares: where each has its ``kModels`` template
+#: argument, and how many template arguments it then has
+_MODEL_ARG = {'grad_w_partial': (4, 5), 'grad_w_reduce': (0, 1),
+              'inhibited_mu_h_kernel': (3, 6), 'mu_h_mma_kernel': (2, 3), 'mu_h_kernel': (0, 1)}
+
+
+def single_sass(sass: str) -> dict:
+    """A digest of each single-launch instance's SASS (addresses dropped)
+    in ``cuobjdump -sass`` output, by kernel and template arguments
+    without ``kModels``; a model-axis instance (``kModels`` = 1) is left
+    out, and a package without the model axis has no such argument."""
+    out, key, lines = {}, None, []
+    for line in sass.splitlines() + ['Function : end']:
+        if 'Function :' in line:
+            if key is not None:
+                out[key] = hashlib.sha256('\n'.join(lines).encode()).hexdigest()[:16]
+            key, lines = None, []
+            m = re.search(r'\d+(' + '|'.join(_MODEL_ARG) + r')(I((?:L[ib]-?\d+E)+)E)?', line)
+            if m:
+                args = re.findall(r'L[ib](-?\d+)E', m.group(3) or '')
+                at, count = _MODEL_ARG[m.group(1)]
+                if len(args) == count:
+                    if args.pop(at) == '1':
+                        continue
+                key = f'{m.group(1)}<{", ".join(args)}>'
+        elif key is not None and '/*' in line and ';' in line:
+            lines.append(re.sub(r'^/\*[0-9a-f]+\*/\s*', '', line.split(';')[0].strip()))
+    return out
+
+
 def time_package(root: Path) -> dict:
     """In this process: K3 and K2 at the flagship from the package in
     ``root``, its K3 registers and its K2 SASS digest."""
@@ -153,6 +189,8 @@ def time_package(root: Path) -> dict:
         return torch.tensor(rng.random(shape), device='cuda', dtype=torch.float32)
     Vp, Rx, W, H = t(64, 1, 272, 272), t(64, 1, 272, 272), t(16, 1, 9, 9), t(64, 16, 264, 264)
     X2, plan = torch.cat([Vp, Rx], dim=1), ConvPlan.create('valid', (256, 256), (9, 9))
+    # K2's wrapper reads its shapes from the tensors; a parent's took the plan
+    k2_args = (X2, H) + ((plan,) if 'plan' in inspect.signature(gw.grad_w).parameters else ())
 
     def ms(fn):
         fn()
@@ -173,11 +211,17 @@ def time_package(root: Path) -> dict:
     k4_digest, k4_inside = hashlib.sha256(), False
     for line in sass.splitlines():
         if 'Function :' in line:
-            # the 3xTF32 instances alone: a parent without the one-pass route
-            # has no other (a one-pass instance's name ends its template
-            # arguments with kPasses = 1)
-            inside = 'grad_w' in line and 'ELi1EEEv' not in line
-            k4_inside = 'inhibited_mu_h_kernel' in line and 'Li17E' in line
+            # the 3xTF32 instances of a single launch alone: a parent
+            # without the one-pass route and the model axis has no other (a
+            # one-pass instance's name ends its template arguments with
+            # kPasses = 1, or with kPasses = 1 and kModels = 0; a model-axis
+            # instance's with kModels = 1)
+            inside = ('grad_w' in line and not re.search(r'Li1E(?:Lb0E)?EEv', line)
+                      and not re.search(r'Lb1EE+v', line))
+            # the 17-tap instances of a single launch alone (a model-axis
+            # instance's name has kModels = 1 just before its tap count)
+            k4_inside = ('inhibited_mu_h_kernel' in line and 'Li17E' in line
+                         and not re.search(r'ELb[01]ELb1ELi17E', line))
         elif '/*' in line:
             if inside:
                 digest.update(line.split(';')[0].strip().encode())
@@ -188,7 +232,8 @@ def time_package(root: Path) -> dict:
         if 'Compiling entry' in line:
             entry = line
         elif ('Used ' in line and 'mu_h_mma_kernelILi4E' in entry
-              and 'ILi4ELi1E' not in entry):  # the 3xTF32 instance
+              and 'ILi4ELi1E' not in entry  # the 3xTF32 instance
+              and 'Lb1EEv' not in entry):  # of a single launch (kModels = 0)
             regs = int(line.split('Used ')[1].split()[0])
     routes = mu_h._ROUTES
     mu_h._ROUTES = ('fma',)
@@ -204,14 +249,15 @@ def time_package(root: Path) -> dict:
                 inhibited_mu_h_ms=ms(lambda: k4(True)),
                 inhibited_mu_h_same_ms=ms(lambda: k4(False)),
                 mu_h_fma_ms=fma_ms,
-                grad_w_ms=ms(lambda: gw.grad_w(X2, H, plan)),
+                grad_w_ms=ms(lambda: gw.grad_w(*k2_args)),
                 hals_sweep_ms={where: ms(lambda a=a: hals.hals_sweep(*a))
                                for where, a in k5.items()},
                 mu_h_mma_registers=regs,
                 grad_w_sass=digest.hexdigest()[:16],
                 inhibited_mu_h_17_sass=k4_digest.hexdigest()[:16],
+                single_sass=single_sass(sass),
                 bits=dict(mu_h=bits(mu_h.mu_h(Vp, Rx, W, H, 0.1)), mu_h_fma=bits(fma_out),
-                          grad_w=bits(*gw.grad_w(X2, H, plan)),
+                          grad_w=bits(*gw.grad_w(*k2_args)),
                 inhibited_mu_h=bits(k4(True), k4(False)),
                 hals_sweep={where: bits(hals.hals_sweep(*a)) for where, a in k5.items()},
                 **golden_bits()))
@@ -267,13 +313,16 @@ def golden_bits() -> dict:
     nmf = TransformInvariantNMF(n_atoms=10, atom_shape=(7, 7), device='cuda')
     nmf.fit(image, sparsity_H=0.1, n_iterations=10)
     out['golden_2d'] = (bits(nmf._W, nmf._H), repr(nmf._energy_function()))
-    out['golden_2d_ms'] = [golden_2d_ms(nmf) for _ in range(5)]
+    out['golden_2d_ms'] = [golden_ms(nmf, 0.1) for _ in range(9)]
     for key, update_W in (('golden_1d', True), ('golden_1d_H', False)):
         nmf = TransformInvariantNMF(n_atoms=3, atom_shape=(20,), device='cuda')
         np.random.seed(42)  # the pulse train reseeds; the fit draws after it
         signal, _ = generate_pulse_train(pulse_length=20, n_pulses=5)
         nmf.fit(signal[None], n_iterations=10, inhibition_strength=0.1, update_W=update_W)
         out[key] = (bits(nmf._W, nmf._H), repr(nmf._energy_function()))
+        if update_W:
+            out['golden_1d_ms'] = [golden_ms(nmf, 0.0, 0.1, 0.0, nmf._kernels,
+                                             use_inhibition=True) for _ in range(9)]
     h = []
     for fit in (dict(inhibition_strength=0.1), dict(inhibition_strength=1.0),
                 dict(cross_atom_inhibition_strength=0.5),
@@ -287,14 +336,14 @@ def golden_bits() -> dict:
     return out
 
 
-def golden_2d_ms(nmf) -> float:
-    """Device time of one MU iteration of the fitted golden 2-D model (CUDA
-    events around 10 iterations, after one)."""
+def golden_ms(nmf, *strengths, **flags) -> float:
+    """Device time of one MU iteration of a fitted golden model with
+    ``strengths`` (CUDA events around 10 iterations, after one)."""
     import torch
     from tnmf_tpu_torch import engine
 
     def run(n):
-        engine.fit_loop(nmf._Vp, nmf._W, nmf._H, n, 0.1, plan=nmf._plan)
+        engine.fit_loop(nmf._Vp, nmf._W, nmf._H, n, *strengths, plan=nmf._plan, **flags)
     run(1)
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -342,7 +391,18 @@ def main() -> int:
               f'{r["mu_h_mma_registers"]}  K2 SASS {r["grad_w_sass"]}  K4 17-tap SASS '
               f'{r["inhibited_mu_h_17_sass"]}  golden 2-D ms/it '
               + '/'.join(f'{t:.4f}' for t in r['bits'].pop('golden_2d_ms'))
+              + '  golden 1-D inhibited ms/it '
+              + '/'.join(f'{t:.4f}' for t in r['bits'].pop('golden_1d_ms'))
               + f'  bits {r["bits"]}', flush=True)
+    if 'parent' in results:
+        want = results['parent'][0]['single_sass']
+        for name, runs in results.items():
+            if name != 'parent':
+                got = runs[0]['single_sass']
+                differ = sorted(k for k in want if got.get(k) != want[k])
+                print(f'{name}: SASS of the single-launch instances of K2-K4 against the '
+                      f'parent\'s: {len(want) - len(differ)} of {len(want)} equal; differ: '
+                      f'{differ}', flush=True)
     print(json.dumps(results))
     return 0
 

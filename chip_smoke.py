@@ -48,6 +48,12 @@ failure (exit code != 0, no result line):
    groups (one launch per group) at S = 2; each within the limits above,
    each model's bits against its own single launch printed and required
    equal at S = 1, and a K4 model of strength 0 bit-equal to K1's ratio;
+   K5's model-axis launch (per-model ``l1`` and ``l2``) at S = 1 and S = 3
+   on the H side's row-major operands (16384 x 256, a ragged 1000 x 37 at
+   2 passes) and the W side's transposed views (4096 x 256, and 1000 x 37
+   with a G the models share at model stride 0) within 1e-5 of its plain
+   version over the models, the output in X's layout, each model's bits
+   equal to its own single launch (required at every S);
 4. golden: the seeded golden fits of tests/golden_values.json in float32 on
    the card: the 2-D fixture ('2d'/'valid'), the 1-D pulse train with
    inhibition ('1d', four modes) and the regularizer sweep
@@ -233,14 +239,29 @@ failure (exit code != 0, no result line):
    (``engine.fit_loop``) and of the same sweep with ``use_pallas=False``;
    ms per sweep iteration beside the S single fits' per iteration in
    turns (CUDA events), peak memory, the batched reconstruction's ms per
-   call; then each model-axis launch at these runs' shapes against its S
-   single launches and its plain version over the models, with its bound.
+   call; then the HALS sweeps (``solver='hals'``): (f) plain NMF at
+   16384 x 1 x 4096 with 256 atoms (``hals_inner='auto'``), 4 models of
+   sparsity 0, 0.05, 0.1, 0.2 and ``l2=0.1``, 10 iterations; (g) an alpha
+   grid on 1024 x 1 x 256 with 16 atoms, 64 models of sparsity
+   ``linspace(0, 0.3)``, 10 iterations, also with ``tol`` (each model's
+   n_iters printed) and ``record_energies``; counts reset before and read
+   after each: K5 twice per iteration over the model axis (H side, W
+   side) for all the models, no other kernel; from the sweep's own inits
+   (3 iterations for (f)) each model within 1e-4 of the same sweep with
+   ``use_pallas=False`` and of its single fit on the kernels
+   (``engine_hals.fit_loop``), or, where float32 rounding moves it farther
+   (C1), no farther from the float64 sweep than twice the plain sweep;
+   ms per sweep iteration beside the S single fits' in turns, peak
+   memory, the seconds these runs took; then each model-axis launch at
+   these runs' shapes against its S single launches and its plain version
+   over the models, with its bound (K5 at (f)'s two sides, S = 4).
 
 Phases 7, 10, 12, 13, 14, 15, 16 and 17 hold fits on the kernels against the
 same fits with ``use_pallas=False`` (the model's kernel/plain switch).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
-launches on the main paths (phase 19's over the model axis also apart),
+launches on the main paths (phase 19's over the model axis also apart, K5's
+from the HALS sweeps (f) and (g)),
 error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -690,11 +711,13 @@ def _stacked(rng, shape, S):
     return torch.tensor(rng.random((S,) + tuple(shape)), device=DEVICE, dtype=torch.float32)
 
 
-def _model_axis_check(name, models, plain, single, where, S, tol=TOL) -> None:
+def _model_axis_check(name, models, plain, single, where, S, tol=TOL,
+                      require_equal: bool = False) -> None:
     """One model-axis launch (``models()``, counted: one launch) against
     its plain version over the model axis (``plain(s)`` per model) within
     ``tol``, and against each model's own single launch (``single(s)``):
-    bit-equal required at S = 1, printed otherwise."""
+    bit-equal required at S = 1 (at every S with ``require_equal``),
+    printed otherwise."""
     wrapper = KERNELS[name]['wrapper']
     before, model_before = wrapper.launches, wrapper.model_launches
     got = models()
@@ -711,9 +734,10 @@ def _model_axis_check(name, models, plain, single, where, S, tol=TOL) -> None:
                 for p, q in zip(parts, single(s) if pair else (single(s),)))
     log(f'  {name:14s} {where + f" S={S}":34s} each model bit-equal to its single launch: '
         f'{equal}')
-    if S == 1 and not equal:
-        raise AssertionError(f'{name} at {where}: the S = 1 model-axis launch differs from '
-                             'the single launch')
+    if (S == 1 or require_equal) and not equal:
+        raise AssertionError(f'{name} at {where}: the S = {S} model-axis launch differs from '
+                             'the single launches')
+    return got
 
 
 def _model_axis_cases() -> None:
@@ -797,6 +821,55 @@ def _model_axis_cases() -> None:
     if gw.grad_w.launches - before != n_groups:
         raise AssertionError(f'grad_w at {where}, S=2: {gw.grad_w.launches - before} '
                              f'launches, not one per group ({n_groups})')
+    _k5_model_axis()
+
+
+#: K5's model-axis launches in phase 3: (where, rows, components, length of
+#: the factor the Gram sums over, passes, layout, whether the models share
+#: G); the main paths' two sides and a ragged shape
+K5_MODEL_AXIS_CASES = [
+    ('H side 16384x256', 16384, 256, 4096, 1, 'rows', False),
+    ('W side 4096x256', 4096, 256, 16384, 1, 'views', False),
+    ('ragged 1000x37, 2 passes', 1000, 37, 300, 2, 'rows', False),
+    ('W side 1000x37, G shared', 1000, 37, 300, 1, 'views', True),
+]
+
+
+def _k5_stack(parts, layout: str) -> torch.Tensor:
+    """The S models' operands stacked on a model axis in their layout:
+    row-major, or (``'views'``) each a transposed view of a contiguous
+    matrix, as the W side of a sweep launches them."""
+    if layout == 'views':
+        return torch.stack([t.T for t in parts]).transpose(1, 2)
+    return torch.stack(parts)
+
+
+def _k5_model_axis() -> None:
+    """K5's model-axis launch (the HALS sweeps' vmap rule) at S = 1 and
+    S = 3 against its plain version over the models within ``K5_TOL``, on
+    the H side's row-major operands and the W side's transposed views (a G
+    the models share at model stride 0 too), with per-model ``l1`` and
+    ``l2``; each model bit-equal to its own single launch, required; the
+    output in X's layout."""
+    for i, (where, rows, m, length, inner, layout, shared) in enumerate(K5_MODEL_AXIS_CASES):
+        for S in MODEL_AXIS_COUNTS:
+            parts = [_k5_inputs(rows, m, length, SEED + 80 + 10 * i + s, layout)
+                     for s in range(S)]
+            X, G, P = (_k5_stack([p[k] for p in parts], layout) for k in range(3))
+            if shared:
+                G = G[0].expand(S, m, m)
+            l1 = torch.tensor([0.1, 0.0, 0.3][:S], device=DEVICE) / length
+            l2 = torch.tensor([0.0, 0.05, 0.02][:S], device=DEVICE)
+            f = [(float(l1[s]), float(l2[s])) for s in range(S)]
+            got = _model_axis_check(
+                'hals_sweep', lambda: hals.hals_sweep_models(X, G, P, l1, l2, inner),
+                lambda s: hals.hals_sweep_plain(X[s], G[s], P[s], *f[s], inner),
+                lambda s: hals.hals_sweep(X[s], G[s], P[s], *f[s], inner),
+                f'{where} ({layout})', S, K5_TOL, require_equal=True)
+            if got.stride() != X.stride():
+                raise AssertionError(f'hals_sweep at {where}, S={S}: output strides '
+                                     f'{got.stride()}, not X\'s {X.stride()}')
+            del X, G, P, parts, got
 
 
 def _k4_model_axis(H, neg, pos, ks, regs, where, S) -> None:
@@ -3652,6 +3725,12 @@ SWEEP_GOLDEN_MODELS = 64
 SWEEP_GOLDEN_TOL = dict(n_iterations=60, tol=1e-5, tol_check_every=5)
 #: (e) plain NMF on dot
 SWEEP_DOT = dict(N=16384, F=4096, M=256, models=4)
+#: (f) plain-NMF HALS at the repository's size (BASELINE.md:62), 4 models of
+#: an alpha grid; (g) a launch-bound alpha grid of 64 models (also with tol
+#: and record_energies)
+SWEEP_HALS = dict(N=16384, F=4096, M=256, sparsity=[0.0, 0.05, 0.1, 0.2], l2=0.1)
+SWEEP_HALS_GRID = dict(N=1024, F=256, M=16, models=64, sparsity_max=0.3)
+SWEEP_HALS_TOL = dict(n_iterations=60, tol=1e-5, tol_check_every=5)
 
 
 def _rel_t(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -3809,6 +3888,218 @@ def _sweep_golden_loops(V, res, kw: dict) -> dict:
     return dict(n_iters=n_iters, traced_bit_equal=same)
 
 
+def _hals_sweep_run(label, V, M: int, kw: dict, n_iter: int, n_check: int) -> tuple:
+    """One HALS sweep (``sweep_fit(solver='hals')``, plain NMF in 'full'
+    mode) of ``n_iter`` iterations, counts reset before and read after: K5
+    twice per iteration over the model axis (the H side, then the W side)
+    for all the models, no other kernel.  Then, from the sweep's own inits,
+    ``n_check`` iterations of the sweep on the kernels against the same
+    sweep with ``use_pallas=False``, against each model's single fit on the
+    kernels (``engine_hals.fit_loop``, float strengths) and against the
+    sweep in float64 (the plain versions): each model within
+    ``SWEEP_TOL``, or, where float32 rounding moves a model farther (C1:
+    the nearly rank-one W-side Gram of plain NMF), no farther from float64
+    than twice the plain sweep is (phase 16's rule, the plain versions'
+    distance taken over the sweep's models as phase 16 takes it over a
+    fit); energies within ``SWEEP_TOL``; the Gram products' rounding,
+    batched and one model at a time, printed.  Then ms per sweep iteration beside the S single fits'
+    in turns (CUDA events) and peak memory.  Returns the run's numbers and
+    the sweep's result."""
+    models = kw.pop('n_models')
+    fit = dict(reconstruction_mode='full', solver='hals', **kw)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = sweep_fit(V, M, tuple(V.shape[2:]), n_models=models, seed=SEED, n_iterations=n_iter,
+                    device=DEVICE, **fit)
+    sync()
+    launches, on_axis = counts(), model_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    want = dict.fromkeys(KERNELS, 0)
+    want['hals_sweep'] = 2 * n_iter
+    if launches != want or on_axis['hals_sweep'] != 2 * n_iter:
+        raise AssertionError(f'{label}: launches {launches} ({on_axis} over the model axis), '
+                             f'not {want}: K5 twice per iteration for all {models} models')
+    E = res.energies
+    if tuple(E.shape) != (models,) or not bool(torch.isfinite(E).all()):
+        raise AssertionError(f'{label}: energies {E}')
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    W0, H0 = sweep._draw([gen], models, tuple(res.W.shape[1:]), tuple(res.H.shape[1:]), 1,
+                         torch.float32, torch.device(DEVICE))
+    strengths = dict(sparsity=kw.get('sparsity', 0.), l2=kw.get('l2', 0.))
+    inner = engine_hals.auto_inner(M, math.prod(V.shape[1:]), kw.get('hals_inner', 'auto'),
+                                   n_samples=V.shape[0])
+
+    def run(n, V=V, W0=W0, H0=H0, **more):
+        return sweep._sweep_from_init_hals(V, W0, H0, n_iterations=n, device=DEVICE,
+                                           **strengths, **more)
+    again = run(n_iter)
+    if not (torch.equal(again.W, res.W) and torch.equal(again.H, res.H)):
+        raise AssertionError(f'{label}: the sweep from its own inits differs from sweep_fit')
+    del again
+    kern, plain = run(n_check), run(n_check, use_pallas=False)
+    exact = run(n_check, V=V.double(), W0=W0.double(), H0=H0.double())
+    sp, l2 = (np.broadcast_to(np.asarray(strengths[k], np.float32), (models,))
+              for k in ('sparsity', 'l2'))
+
+    def single(s, n):
+        return engine_hals.fit_loop(V, W0[s], H0[s], n, float(sp[s]), float(l2[s]), 0., 0.,
+                                    inner=inner, update_H=True, update_W=True)
+
+    def off(a, b):  # W and H of one model, each (W, H)
+        return max(_rel_t(a[0].double(), b[0].double()), _rel_t(a[1].double(), b[1].double()))
+    rows, off_e = [], _rel_t(kern.energies, plain.energies)
+    for s in range(models):
+        one = single(s, n_check)
+        k, p_, x = ((r.W[s], r.H[s]) for r in (kern, plain, exact))
+        row = dict(off_plain=off(k, p_), off_single=off(k, one), kernels_float64=off(k, x),
+                   plain_float64=off(p_, x), single_float64=off(one, x),
+                   bit_equal_single=bool(torch.equal(k[0], one[0]) and torch.equal(k[1], one[1])))
+        rows.append(row)
+        Es = engine_hals._energy(*engine_hals._flatten(V, *one))
+        off_e = max(off_e, abs(float(kern.energies[s]) - float(Es)) / abs(float(Es)))
+    worst = {k: max(r[k] for r in rows) for k in rows[0] if k != 'bit_equal_single'}
+    # the plain versions' own distance from float64, over the sweep (phase
+    # 16 takes it over a fit's W and H)
+    limit = max(SWEEP_TOL, 2 * worst['plain_float64'])
+    c1 = [s for s, r in enumerate(rows) if max(r['off_plain'], r['off_single']) > SWEEP_TOL]
+    log(f'{label}: {models} models, {n_iter} iterations, inner {inner}, peak {peak:.0f} MiB; '
+        f'launches {launches} ({on_axis["hals_sweep"]} over the model axis); at {n_check} '
+        f'iterations, worst over the models: off the plain sweep {worst["off_plain"]:.3e} '
+        f'(energies {off_e:.3e}), off their single fits {worst["off_single"]:.3e} '
+        f'(bit-equal: {all(r["bit_equal_single"] for r in rows)}); from float64: kernels '
+        f'{worst["kernels_float64"]:.3e}, plain {worst["plain_float64"]:.3e}, single fits '
+        f'{worst["single_float64"]:.3e}; models past {SWEEP_TOL} (C1 rule, limit '
+        f'{limit:.3e} from float64): {c1}; energies {E.tolist()}')
+    log(f'{label}: per model, from float64, kernels/plain/single fits: '
+        + ', '.join(f'{r["kernels_float64"]:.2e}/{r["plain_float64"]:.2e}/'
+                    f'{r["single_float64"]:.2e}' for r in rows))
+    gram_errors = _hals_gram_errors(V, W0, H0)
+    bad = [s for s in c1 if rows[s]['kernels_float64'] > limit]
+    if bad or not off_e <= SWEEP_TOL:
+        raise AssertionError(f'{label}: models {bad} off their references beyond the C1 '
+                             f'limit {limit:.3e} ({[rows[s] for s in bad]}), or energies '
+                             f'{off_e:.3e} off the plain sweep or the single fits')
+    del kern, plain, exact
+
+    def sweep_ms():
+        return (time_ms(lambda: run(2 * SWEEP_TIMED), reps=1)
+                - time_ms(lambda: run(SWEEP_TIMED), reps=1)) / SWEEP_TIMED
+
+    def singles_ms():
+        return time_ms(lambda: [single(s, SWEEP_TIMED) for s in range(models)],
+                       reps=1) / SWEEP_TIMED
+    t = [fn() for fn in (sweep_ms, singles_ms, singles_ms, sweep_ms)]
+    out = dict(models=models, inner=inner, sweep_ms_per_iteration=(t[0] + t[3]) / 2,
+               singles_ms_per_iteration=(t[1] + t[2]) / 2, peak_mib=peak,
+               check_iterations=n_check, worst=worst, c1_models=c1, c1_limit=limit,
+               gram_errors=gram_errors,
+               off_plain_energies=off_e, iterations=n_iter,
+               launches_per_iteration={k: v / n_iter for k, v in launches.items() if v})
+    log(f'{label} ({card()}): sweep {t[0]:.4f}/{t[3]:.4f} ms per iteration for all '
+        f'{models} models, {models} single fits {t[1]:.4f}/{t[2]:.4f} ms per iteration, in '
+        f'turns')
+    return out, res
+
+
+def _hals_gram_errors(V, W0, H0) -> dict:
+    """The four Gram products of a HALS iteration at the sweep's inits,
+    batched over the models as the sweep forms them (under vmap) and one
+    model at a time as a single fit does, each against float64: max|G -
+    G64| / max|G64| over the models."""
+    V2 = V.reshape(V.shape[0], -1)
+    W2, H2 = W0.reshape(W0.shape[0], W0.shape[1], -1), H0.reshape(H0.shape[:3])
+
+    def grams(V2, W2, H2):
+        return (engine_hals._dot(W2, W2.T), engine_hals._dot(V2, W2.T),
+                engine_hals._dot(H2.T, H2), engine_hals._dot(H2.T, V2))
+    with matmul_pin(None, DEVICE):
+        batched = torch.func.vmap(grams, in_dims=(None, 0, 0))(V2, W2, H2)
+        single = [torch.stack(t) for t in zip(*(grams(V2, W2[s], H2[s])
+                                                for s in range(W2.shape[0])))]
+        exact = torch.func.vmap(grams, in_dims=(None, 0, 0))(V2.double(), W2.double(),
+                                                             H2.double())
+    out = {name: dict(batched=_rel_t(b.double(), x), single=_rel_t(o.double(), x))
+           for name, b, o, x in zip(('W W^T', 'V W^T', 'H^T H', 'H^T V'), batched, single, exact)}
+    log('  Gram products at the inits against float64, batched (the sweep) / one model at a '
+        'time (single fits): ' + ', '.join(f'{k} {v["batched"]:.2e}/{v["single"]:.2e}'
+                                          for k, v in out.items()))
+    return out
+
+
+def _hals_sweep_loops(V, M: int, res, kw: dict) -> dict:
+    """(g) with ``tol`` (n_iters per model; K5 twice per iteration the sweep
+    ran, over the model axis) and with ``record_energies`` (traces of every
+    iteration, the last the final energy, the state that of the sweep
+    without traces)."""
+    models = kw['n_models']
+    fit = dict(kw, reconstruction_mode='full', solver='hals', seed=SEED, device=DEVICE)
+    reset_counts()
+    tolled = sweep_fit(V, M, tuple(V.shape[2:]), **fit, **SWEEP_HALS_TOL)
+    sync()
+    n_iters = tolled.n_iters.tolist()
+    ran, per = max(n_iters), SWEEP_HALS_TOL['tol_check_every']
+    launches = {k: v for k, v in counts().items() if v}
+    log(f'(g) HALS alpha grid, tol {SWEEP_HALS_TOL["tol"]}: n_iters per model {n_iters}; the '
+        f'sweep ran {ran} iterations; launches {launches} '
+        f'({model_counts()["hals_sweep"]} over the model axis)')
+    if (any(n % per and n != SWEEP_HALS_TOL['n_iterations'] for n in n_iters)
+            or launches != {'hals_sweep': 2 * ran}
+            or model_counts()['hals_sweep'] != 2 * ran
+            or not bool(torch.isfinite(tolled.energies).all())):
+        raise AssertionError(f'(g) with tol: n_iters {n_iters}, launches {launches}')
+    reset_counts()
+    traced = sweep_fit(V, M, tuple(V.shape[2:]), n_iterations=SWEEP_ITER, record_energies=True,
+                       **fit)
+    sync()
+    tr = traced.energy_traces
+    same = torch.equal(traced.W, res.W) and torch.equal(traced.H, res.H)
+    launches = {k: v for k, v in counts().items() if v}
+    log(f'(g) HALS alpha grid, record_energies: traces {tuple(tr.shape)}, state bit-equal to '
+        f'the sweep without traces: {same}; launches {launches}')
+    if (tuple(tr.shape) != (models, SWEEP_ITER) or not torch.equal(tr[:, -1], traced.energies)
+            or _rel_t(traced.W, res.W) > 1e-6 or _rel_t(traced.energies, res.energies) > 1e-6
+            or launches != {'hals_sweep': 2 * SWEEP_ITER}):
+        raise AssertionError('(g) with record_energies: traces or state differ')
+    return dict(n_iters=n_iters, traced_bit_equal=same)
+
+
+#: K5's model-axis launch timed at (f)'s two sides: (where, rows,
+#: components, length of the factor the Gram sums over, layout)
+K5_MODEL_AXIS_TIMED = [('H side 16384x256', 16384, 256, 4096, 'rows'),
+                       ('W side 4096x256', 4096, 256, 16384, 'views')]
+
+
+def _k5_model_axis_times(S: int = 4) -> dict:
+    """K5's model-axis launch at the two sides of (f) (16384 x 256
+    row-major, 4096 x 256 on transposed views) against its S single
+    launches and its plain version over the models, in turns, with its
+    bound (S times the single launch's)."""
+    out = {}
+    for where, rows, m, length, layout in K5_MODEL_AXIS_TIMED:
+        parts = [_k5_inputs(rows, m, length, SEED + 90 + s, layout) for s in range(S)]
+        X, G, P = (_k5_stack([p[k] for p in parts], layout) for k in range(3))
+        l1 = torch.tensor([0.0, 0.05, 0.1, 0.2][:S], device=DEVICE) / length
+        f = l1.tolist()
+        m1, s1, s2, m2 = (time_ms(fn, reps=3) for fn in (
+            lambda: hals.hals_sweep_models(X, G, P, l1, 0.0, 1),
+            lambda: [hals.hals_sweep(X[s], G[s], P[s], f[s], 0.0, 1) for s in range(S)],
+            lambda: [hals.hals_sweep(X[s], G[s], P[s], f[s], 0.0, 1) for s in range(S)],
+            lambda: hals.hals_sweep_models(X, G, P, l1, 0.0, 1)))
+        p = time_ms(lambda: [hals.hals_sweep_plain(X[s], G[s], P[s], f[s], 0.0, 1)
+                             for s in range(S)], reps=1)
+        bound_ms, bound_by = bound(S * 4 * (3 * rows * m + m * m), S * 2.0 * rows * m * m,
+                                   FP32_FLOP_PER_S)
+        ms = (m1 + m2) / 2
+        out[where] = dict(models=S, ms=ms, single_launches_ms=(s1 + s2) / 2, plain_ms=p,
+                          bound_ms=bound_ms, bound_by=bound_by, layout=layout)
+        log(f'  hals_sweep     {where} S={S} ({layout}): one launch {m1:.4f}/{m2:.4f} ms, {S} '
+            f'single launches {s1:.4f}/{s2:.4f} ms, plain over the models {p:.4f} ms, bound '
+            f'{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f} % of bound')
+        del X, G, P, parts
+    return out
+
+
 def _sweep_kernel_times() -> dict:
     """Each kernel's model-axis launch at phase 19's shapes against its S
     single launches and its plain version over the models, in turns, with
@@ -3887,7 +4178,9 @@ def phase_sweeps() -> tuple:
     (inhibition 0, 0.05, 0.1, 0.2, 17 x 17 taps); (c) the fft flagship, 2
     models; (d) the golden 2-D fixture, 64 models, also with ``tol`` and
     ``record_energies``; (e) plain NMF on dot, 4 models; (a) and (d) for
-    ``SWEEP_ITER`` iterations, the others for ``SWEEP_SHORT_ITER``.
+    ``SWEEP_ITER`` iterations, the others for ``SWEEP_SHORT_ITER``.  The
+    HALS sweeps: (f) plain NMF at 16384 x 1 x 4096, 4 models; (g) an alpha
+    grid of 64 small models, also with ``tol`` and ``record_energies``.
     Returns each kernel's launches over the model axis and the runs'
     numbers."""
     f = FLAGSHIP
@@ -3924,11 +4217,35 @@ def phase_sweeps() -> tuple:
                                     dict(n_models=d['models'], sparsity=0.1,
                                          reconstruction_mode='full'), SWEEP_SHORT_ITER)
     del res, ref, V
+    t0 = time.perf_counter()
+    h = SWEEP_HALS
+    V = torch.tensor(np.random.default_rng(SEED + 50).random((h['N'], 1, h['F']),
+                                                            dtype=np.float32), device=DEVICE)
+    out['f'], res = _hals_sweep_run(
+        f'(f) plain-NMF HALS sweep {h["N"]}x1x{h["F"]}/{h["M"]}', V, h['M'],
+        dict(n_models=len(h['sparsity']), sparsity=np.asarray(h['sparsity'], np.float32),
+             l2=h['l2']), SWEEP_ITER, SWEEP_SHORT_ITER)
+    del res, V
+    g = SWEEP_HALS_GRID
+    V = torch.tensor(np.random.default_rng(SEED + 70).random((g['N'], 1, g['F']),
+                                                            dtype=np.float32), device=DEVICE)
+    gkw = dict(n_models=g['models'],
+               sparsity=np.linspace(0., g['sparsity_max'], g['models'], dtype=np.float32))
+    out['g'], res = _hals_sweep_run(f'(g) HALS alpha grid {g["N"]}x1x{g["F"]}/{g["M"]}', V,
+                                    g['M'], dict(gkw), SWEEP_ITER, SWEEP_ITER)
+    out['g'].update(_hals_sweep_loops(V, g['M'], res, gkw))
+    del res, V
+    hals_seconds = time.perf_counter() - t0
     for run in out.values():
         for name, n in run['launches_per_iteration'].items():
             total[name] += round(n * run['iterations'])
     log(f'model-axis kernels at phase 19\'s shapes ({card()}):')
     out['kernels'] = _sweep_kernel_times()
+    t0 = time.perf_counter()
+    out['kernels']['hals_sweep'] = _k5_model_axis_times()
+    out['hals_seconds'] = hals_seconds + time.perf_counter() - t0
+    log(f'phase 19\'s HALS sweeps (f), (g) and K5\'s model-axis times took '
+        f'{out["hals_seconds"]:.1f} s')
     return total, out
 
 
@@ -4012,7 +4329,7 @@ def main() -> int:
                                   'transform')},
                  model_launches=sw_launches[name],
                  sweep_launches_per_iteration={
-                     run: sw[run]['launches_per_iteration'].get(name, 0) for run in 'abcde'},
+                     run: sw[run]['launches_per_iteration'].get(name, 0) for run in 'abcdefg'},
                  model_axis=sw['kernels'].get(name),
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]

@@ -1,15 +1,17 @@
-"""The JAX package's MU sweeps run from given PRNG keys, for the port's
-sweep tests: the preparation of ``tnmf_tpu.models.sweep.sweep_fit``'s MU
-branch (strategy, per-model strengths, inhibition taps, mask, prepared
-data) without its float32 cast, so that float64 data runs in float64, and
-the inits ``jax.vmap(init_one)(keys)`` that ``_sweep_impl`` draws, which
-the port's ``_sweep_from_init`` then starts from."""
+"""The JAX package's sweeps run from given PRNG keys, for the port's sweep
+tests: the preparation of ``tnmf_tpu.models.sweep.sweep_fit``'s MU branch
+(strategy, per-model strengths, inhibition taps, mask, prepared data) and
+of its HALS branch (per-model ``l1``/``l2`` in the accumulation dtype, the
+inner-sweep count) without its float32 cast, so that float64 data runs in
+float64, and the inits ``jax.vmap(init_one)(keys)`` that ``_sweep_impl``
+and ``_sweep_impl_hals`` draw, which the port's ``_sweep_from_init`` and
+``_sweep_from_init_hals`` then start from."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tnmf_tpu import engine
+from tnmf_tpu import engine, engine_hals
 from tnmf_tpu.models import sweep
 from tnmf_tpu.ops.inhibition import inhibition_kernels, resolve_inhibition_range
 from tnmf_tpu.ops.modes import ConvPlan
@@ -84,4 +86,32 @@ def run(V, keys, n_atoms, atom_shape, *, impl='plain', n_iterations=5, sparsity=
         out = fn(Vp, V, keys, sp, inh, cross, kernels, mask, l2v, orv,
                  n_iterations=n_iterations, **statics)
     W0, H0 = inits(V, keys, n_atoms, atom_shape, mode=mode, transform_type=transform_type)
+    return W0, H0, tuple(np.asarray(x) for x in out)
+
+
+def run_hals(V, keys, n_atoms, *, impl='plain', n_iterations=5, sparsity=0.0, l2=0.0,
+             hals_inner='auto', tol=None, check_every=10):
+    """``(W0, H0, out)`` of the HALS sweep on plain-NMF data ``V (n, C,
+    *sample)`` (atoms as large as the samples, mode ``'full'``): the inits
+    and the output of ``_sweep_impl_hals`` (``impl='plain'``: W, H,
+    energies; ``'traced'``: W, H, traces) or ``_sweep_impl_hals_tol``
+    (``'tol'``: W, H, energies, n_iters), as NumPy arrays."""
+    V = jnp.asarray(V)
+    atom_shape = tuple(V.shape[2:])
+    plan = ConvPlan.create('full', atom_shape, atom_shape)
+    S = keys.shape[0]
+    acc = jnp.promote_types(V.dtype, jnp.float32)
+    l1v = sweep._per_model(sparsity, S, 'sparsity', acc)
+    l2v = sweep._per_model(l2, S, 'l2', acc)
+    inner = engine_hals.auto_inner(n_atoms, int(V.shape[1] * np.prod(atom_shape)), hals_inner,
+                                   n_samples=int(V.shape[0]))
+    statics = dict(n_atoms=n_atoms, inner=inner, plan=plan)
+    if impl == 'tol':
+        out = sweep._sweep_impl_hals_tol(V, keys, l1v, l2v, jnp.asarray(n_iterations, jnp.int32),
+                                         jnp.asarray(tol, acc), check_every=check_every,
+                                         **statics)
+    else:
+        out = sweep._sweep_impl_hals(V, keys, l1v, l2v, n_iterations=n_iterations,
+                                     trace=impl == 'traced', **statics)
+    W0, H0 = inits(V, keys, n_atoms, atom_shape, mode='full')
     return W0, H0, tuple(np.asarray(x) for x in out)

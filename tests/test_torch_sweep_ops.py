@@ -1,17 +1,20 @@
 """The model axis of the kernels' operators and the sweep's own parts, on
 the CPU: each operator's vmap rule (one call of the kernel's model-axis
 wrapper for all the models) against a Python loop of the operator over the
-models, bit for bit; the ``.t`` overloads against the default ones; the
-schemas that exported programs rely on, unchanged; a sweep of one model
-against ``engine.fit_loop`` from the same init; the seeded draws; the
-float32 cast of float64 data; ``SweepResult``."""
+models, bit for bit; K5's rule passing each operand's strides as they are
+(no copy, a shared operand at model stride 0); the ``.t`` overloads
+against the default ones; the schemas that exported programs rely on,
+unchanged; a sweep of one model against ``engine.fit_loop`` from the same
+init; the seeded draws; the float32 cast of float64 data; ``SweepResult``."""
+
+import contextlib
 
 import numpy as np
 import pytest
 import torch
 
 from tnmf_tpu_torch import SweepResult, engine, sweep_fit
-from tnmf_tpu_torch.kernels import gw, inhibit, mu, mu_h
+from tnmf_tpu_torch.kernels import _build, gw, hals, inhibit, mu, mu_h
 from tnmf_tpu_torch.kernels import ops as kops
 from tnmf_tpu_torch.models import sweep
 from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
@@ -33,7 +36,8 @@ def calls(monkeypatch):
     counts = {}
     for mod, name, axis_at in ((mu, 'mu_ratio', 4), (mu, 'mu_w', 5), (gw, 'grad_w_models', None),
                                (mu_h, 'mu_h_models', None),
-                               (inhibit, 'inhibited_mu_h_models', None)):
+                               (inhibit, 'inhibited_mu_h_models', None),
+                               (hals, 'hals_sweep_models', None)):
         def counting(*args, _fn=getattr(mod, name), _name=name, _at=axis_at, **kwargs):
             if _at is None or (len(args) > _at and args[_at]):
                 counts[_name] = counts.get(_name, 0) + 1
@@ -137,6 +141,103 @@ def test_mu_w_and_grad_w_rules(nd, calls):
     assert calls == {'mu_w': 1, 'grad_w_models': 1}
 
 
+def _hals_problem(side: str, rows: int = 11, m: int = 5):
+    """``X (S, rows, m)``, ``G (S, m, m)``, ``P (S, rows, m)`` as a sweep's H
+    side launches them (row-major), or as its W side does (transposed views
+    of contiguous ``(S, m, rows)`` and ``(S, m, m)`` stacks)."""
+    gen = torch.Generator().manual_seed(7)
+    Y = _rand(gen, S, m, 3 * m)
+    G = Y @ Y.transpose(1, 2)
+    P = _rand(gen, S, rows, m) @ G
+    X = _rand(gen, S, rows, m)
+    if side == 'W':
+        X, G, P = (t.transpose(1, 2).contiguous().transpose(1, 2) for t in (X, G, P))
+    return X, G, P
+
+
+@pytest.mark.parametrize('side', ['H', 'W'])
+def test_hals_sweep_rules(side, calls):
+    """K5's vmap rule on both schemas (float strengths: the default one;
+    tensors: ``.t``), and with a G the models share, against a loop of the
+    operator over the models; each model in X's layout."""
+    X, G, P = _hals_problem(side)
+    l1 = torch.tensor([0.1, 0.0, 0.3], dtype=F64)
+    l2 = torch.tensor([0.0, 0.2, 0.05], dtype=F64)
+    got = torch.func.vmap(kops.hals_sweep, in_dims=(0, 0, 0, None, None, None))(
+        X, G, P, 0.1, 0.05, 2)
+    _equal(got, torch.stack([kops.hals_sweep(X[s], G[s], P[s], 0.1, 0.05, 2)
+                             for s in range(S)]))
+    got = torch.func.vmap(kops.hals_sweep, in_dims=(0, 0, 0, 0, 0, None))(X, G, P, l1, l2, 2)
+    _equal(got, torch.stack([kops.hals_sweep(X[s], G[s], P[s], float(l1[s]), float(l2[s]), 2)
+                             for s in range(S)]))
+    got = torch.func.vmap(kops.hals_sweep, in_dims=(0, None, 0, 0, None, None))(
+        X, G[1], P, l1, 0.05, 1)
+    _equal(got, torch.stack([kops.hals_sweep(X[s], G[1], P[s], float(l1[s]), 0.05, 1)
+                             for s in range(S)]))
+    assert calls == {'hals_sweep_models': 3}
+    out = hals.hals_sweep_models(X, G, P, l1, l2, 1)
+    assert out.stride() == X.stride()
+
+
+def test_hals_sweep_rule_launches_strided_operands_without_a_copy(monkeypatch):
+    """Under vmap on tensors off the CPU, K5's rule calls the C entry of the
+    model axis once, with each operand's own address and its model, row
+    and column strides: the W side's transposed views with no copy
+    (``contiguous`` and ``clone`` of an operand refuse while it runs), the
+    G the models share at model stride 0, the output in X's layout and the
+    single launch's geometry.  Meta tensors stand in for CUDA ones, and a
+    recording library for the kernel."""
+    rows, m = 40, 6
+    launches = []
+
+    class Lib:
+        def tnmf_hals_sweep_models(self, *args):
+            launches.append(args)
+            return 0
+    monkeypatch.setattr(hals, '_multiprocessors', lambda device: 132)
+    monkeypatch.setattr(_build, 'library', lambda: Lib())
+    monkeypatch.setattr(_build, 'check_inputs', lambda *a, **k: None)
+    monkeypatch.setattr(_build, 'stream_of', lambda t: 0)
+    monkeypatch.setattr(torch.cuda, 'device', lambda d: contextlib.nullcontext())
+    meta = dict(device='meta', dtype=torch.float32)
+    X = torch.empty(S, m, rows, **meta).transpose(1, 2)
+    P = torch.empty(S, m, rows, **meta).transpose(1, 2)
+    G = torch.empty(m, m, **meta).T
+    l1 = torch.empty(S, **meta)
+    seen = []
+
+    def record(fn):
+        def call(*args, **kwargs):
+            seen.append(args)
+            return fn(*args, **kwargs)
+        return call
+    monkeypatch.setattr(hals, 'hals_sweep_models', record(hals.hals_sweep_models))
+    model_launches = hals.hals_sweep.model_launches
+
+    def refuse(t, *a, **k):
+        if t.dim() >= 2:
+            raise AssertionError('an operand was copied')
+        return t
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.Tensor, 'contiguous', refuse)
+        mp.setattr(torch.Tensor, 'clone', refuse)
+        out = torch.func.vmap(kops.hals_sweep, in_dims=(0, None, 0, 0, None, None))(
+            X, G, P, l1, 0.0, 2)
+    (args,), ((Xs, Gs, Ps, *_),) = launches, seen
+    assert out.shape == X.shape and out.stride() == X.stride()
+    assert Gs.stride() == (0, 1, m) and Xs.stride() == X.stride() and Ps.stride() == P.stride()
+    geo = hals.launch_geometry(rows, m, X.device)
+    assert args[:4] == (X.data_ptr(), m * rows, 1, rows)
+    assert args[4:8] == (G.data_ptr(), 0, 1, m)
+    assert args[8:12] == (P.data_ptr(), m * rows, 1, rows)
+    assert args[13:16] == (m * rows, 1, rows)  # the output: X's layout
+    assert args[18:] == (S, 2, rows, m, geo['rows_per_block'], int(geo['resident']),
+                         geo['smem_bytes'], 0)
+    assert hals.hals_sweep.model_launches == model_launches + 1
+    hals.hals_sweep.launches -= 1
+    hals.hals_sweep.model_launches = model_launches
+
+
 def test_tensor_overloads_match_default_ones():
     """A ``.t`` call outside vmap (a model axis of one) against the default
     overload with the same strengths as floats."""
@@ -148,6 +249,14 @@ def test_tensor_overloads_match_default_ones():
            kops.mu_h_op(p['Vp'], Rx, W, H, 0.25, None, 3))
     _equal(kops.inhibited_mu_h_t_op(H, neg, pos, p['ks'], t, t, t, True, True),
            kops.inhibited_mu_h_op(H, neg, pos, p['ks'], 0.25, 0.25, 0.25, True, True))
+    for side in ('H', 'W'):
+        X, G, P = (x[0] for x in _hals_problem(side))
+        got = kops.hals_sweep_t_op(X, G, P, t, 0.5 * t, 2)
+        _equal(got, kops.hals_sweep_op(X, G, P, 0.25, 0.125, 2))
+        assert got.stride() == X.stride()
+    assert str(torch.ops.tnmf.hals_sweep.t._schema) == (
+        'tnmf::hals_sweep.t(Tensor X, Tensor G, Tensor P, Tensor l1, Tensor l2, int inner) '
+        '-> Tensor')
 
 
 def test_old_schemas_unchanged():

@@ -2,9 +2,10 @@
 float64 on the CPU: ``tol`` against ``_sweep_impl_tol`` (the same
 iterations per model, and a frozen model's state unchanged after it
 froze), ``record_energies`` against ``_sweep_impl_traced``; then
-``sweep_fit``'s validation with the JAX package's error texts, and the
-parts not ported (``mesh``, ``solver='hals'``) raising
-``NotImplementedError`` with their ROADMAP items."""
+``sweep_fit``'s validation with the JAX package's error texts (HALS's
+rejections of the MU-only knobs and of a non-degenerate geometry too),
+and the part not ported (``mesh``) raising ``NotImplementedError`` with
+its ROADMAP item."""
 
 import numpy as np
 import pytest
@@ -102,7 +103,18 @@ ERRORS = [
     ('unknown solver', dict(n_models=2, solver='cd'), ValueError, "solver must be 'mu' or "
      "'hals'"),
     ('mesh', dict(n_models=2, mesh=object()), NotImplementedError, r'item 14e\b'),
-    ('hals', dict(n_models=2, solver='hals'), NotImplementedError, 'item 14b-ii'),
+    ('hals group', dict(n_models=2, solver='hals', transform_type='shift+flip'), ValueError,
+     'transform groups are MU-only'),
+    ('hals beta', dict(n_models=2, solver='hals', beta_loss=1.0), ValueError,
+     "solver='hals' requires beta_loss=2"),
+    ('hals mask', dict(n_models=2, solver='hals', mask=np.ones((2, 1, 10, 10))), ValueError,
+     'masked/weighted sweeps are MU-only'),
+    ('hals inhibition', dict(n_models=2, solver='hals', inhibition=[0.0, 0.1]), ValueError,
+     'MU-only regularizers'),
+    ('hals geometry', dict(n_models=2, solver='hals'), ValueError,
+     'degenerate plain-NMF geometry'),
+    ('hals mesh', dict(n_models=2, solver='hals', mesh=object()), NotImplementedError,
+     r'item 14e\b'),
 ]
 
 

@@ -73,6 +73,14 @@
 //     with no copy, and the output takes X's layout.
 // Any m and any row count run: the last panel and the last chunk may be
 // partial (zero-filled), the last tile may have fewer rows.
+//
+// The model axis (a sweep's S models, tnmf_hals_sweep_models): model
+// blockIdx.y reads its X, G and P and writes its output at their own model
+// strides (0 for an operand the models share), and its l1 and l2 from
+// per-model vectors.  Each model keeps the single launch's geometry and sum
+// order, so its bits are those of its own single launch.  The model offsets
+// are in the kModels instances: a single launch runs instances with no
+// model-axis code.
 
 #include <cuda_runtime.h>
 
@@ -100,6 +108,14 @@ static_assert(kChunk == kPanel && kChunk / 4 == kColGroups, "K5's tiling");
 struct Operand {
   const float* p;
   int64_t sr, sc;  // row and column strides, elements
+};
+
+// the model axis of a kModels instance: each operand's model stride
+// (elements; 0 where the models share it) and the models' l1 and l2
+struct Models {
+  int64_t x, g, p, out;
+  const float* l1;
+  const float* l2;
 };
 
 __device__ __forceinline__ void copy_async4(float* dst, const float* src, bool valid) {
@@ -163,10 +179,19 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch, const float* sr
   }
 }
 
-template <int kTR, bool kResident, bool kGT>
+template <int kTR, bool kResident, bool kGT, bool kModels>
 __global__ void __launch_bounds__(kThreads)
 hals_sweep_kernel(Operand x, Operand g, Operand p, float* out, int64_t osr, int64_t osc,
-                  float l1, float l2, int inner, int64_t rows, int m) {
+                  float l1, float l2, int inner, int64_t rows, int m, Models models) {
+  if constexpr (kModels) {  // model blockIdx.y's operands and strengths
+    const int64_t y = blockIdx.y;
+    x.p += y * models.x;
+    g.p += y * models.g;
+    p.p += y * models.p;
+    out += y * models.out;
+    l1 = models.l1[y];
+    l2 = models.l2[y];
+  }
   constexpr int kRT = kRowGroups * kTR;  // rows of the tile
   extern __shared__ __align__(16) float smem[];
   const int mc = (m + kChunk - 1) / kChunk * kChunk;  // m in whole chunks
@@ -453,19 +478,50 @@ int64_t required_smem(int rt, int m, bool resident) {
   return 4 * (xs + 2 * rt * kSPitch + (kStages * kChunk + 2 * kPanel) * kGPitch);
 }
 
-template <int kTR, bool kResident, bool kGT>
+template <int kTR, bool kResident, bool kGT, bool kModels>
 cudaError_t launch(const Operand& x, const Operand& g, const Operand& p, float* out,
                    int64_t osr, int64_t osc, float l1, float l2, int inner, int64_t rows, int m,
-                   unsigned blocks, int smem_bytes, cudaStream_t stream) {
-  auto kernel = hals_sweep_kernel<kTR, kResident, kGT>;
+                   const Models& models, unsigned n_models, unsigned blocks, int smem_bytes,
+                   cudaStream_t stream) {
+  auto kernel = hals_sweep_kernel<kTR, kResident, kGT, kModels>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
   }
-  kernel<<<blocks, kThreads, smem_bytes, stream>>>(x, g, p, out, osr, osc, l1, l2, inner, rows,
-                                                   m);
+  kernel<<<dim3(blocks, n_models), kThreads, smem_bytes, stream>>>(x, g, p, out, osr, osc, l1,
+                                                                   l2, inner, rows, m, models);
   return cudaGetLastError();
+}
+
+using Launch = cudaError_t (*)(const Operand&, const Operand&, const Operand&, float*, int64_t,
+                               int64_t, float, float, int, int64_t, int, const Models&,
+                               unsigned, unsigned, int, cudaStream_t);
+
+// the instance of a geometry: rows_per_block 16, 32 or 64, the tile
+// resident or streamed, G column-major (kGT: its chunks are copied column by
+// column) or not
+template <bool kModels>
+Launch pick(int rows_per_block, bool resident, bool gt) {
+  const Launch table[3][2][2] = {
+      {{&launch<1, false, false, kModels>, &launch<1, false, true, kModels>},
+       {&launch<1, true, false, kModels>, &launch<1, true, true, kModels>}},
+      {{&launch<2, false, false, kModels>, &launch<2, false, true, kModels>},
+       {&launch<2, true, false, kModels>, &launch<2, true, true, kModels>}},
+      {{&launch<4, false, false, kModels>, &launch<4, false, true, kModels>},
+       {&launch<4, true, false, kModels>, &launch<4, true, true, kModels>}}};
+  return table[rows_per_block / 32][resident][gt];
+}
+
+// the checks both entries make: 0 when the geometry may launch
+int check_geometry(int64_t rows, int m, int rows_per_block, int resident, int smem_bytes,
+                   int64_t& blocks) {
+  if (rows_per_block != 16 && rows_per_block != 32 && rows_per_block != 64)
+    return static_cast<int>(cudaErrorInvalidValue);
+  blocks = (rows + rows_per_block - 1) / rows_per_block;
+  if (blocks > INT_MAX || smem_bytes < required_smem(rows_per_block, m, resident != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 }  // namespace
@@ -480,27 +536,37 @@ extern "C" int tnmf_hals_sweep(const float* x, int64_t x_sr, int64_t x_sc, const
                                float l2, int inner, int64_t rows, int m, int rows_per_block,
                                int resident, int smem_bytes, void* stream) {
   if (rows <= 0 || m <= 0) return 0;
-  if (rows_per_block != 16 && rows_per_block != 32 && rows_per_block != 64)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t blocks = (rows + rows_per_block - 1) / rows_per_block;
-  if (blocks > INT_MAX || smem_bytes < required_smem(rows_per_block, m, resident != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
+  int64_t blocks;
+  if (const int err = check_geometry(rows, m, rows_per_block, resident, smem_bytes, blocks))
+    return err;
   const Operand xo{x, x_sr, x_sc}, go{g, g_sr, g_sc}, po{p, p_sr, p_sc};
-  using Launch = cudaError_t (*)(const Operand&, const Operand&, const Operand&, float*,
-                                 int64_t, int64_t, float, float, int, int64_t, int, unsigned,
-                                 int, cudaStream_t);
-  // column-major G: its chunks are copied column by column (kGT)
-  const bool gt = g_sc != 1 && g_sr == 1;
-  const Launch table[3][2][2] = {
-      {{&launch<1, false, false>, &launch<1, false, true>},
-       {&launch<1, true, false>, &launch<1, true, true>}},
-      {{&launch<2, false, false>, &launch<2, false, true>},
-       {&launch<2, true, false>, &launch<2, true, true>}},
-      {{&launch<4, false, false>, &launch<4, false, true>},
-       {&launch<4, true, false>, &launch<4, true, true>}}};
-  const Launch fn = table[rows_per_block / 32][resident != 0][gt];
-  const cudaError_t err = fn(xo, go, po, out, o_sr, o_sc, l1, l2, inner, rows, m,
+  const Launch fn = pick<false>(rows_per_block, resident != 0, g_sc != 1 && g_sr == 1);
+  return static_cast<int>(fn(xo, go, po, out, o_sr, o_sc, l1, l2, inner, rows, m, Models{}, 1,
                              static_cast<unsigned>(blocks), smem_bytes,
-                             static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err);
+                             static_cast<cudaStream_t>(stream)));
+}
+
+// The model axis: `models` problems of tnmf_hals_sweep's shapes in one
+// launch, model s at x + s x_ms, g + s g_ms, p + s p_ms and out + s o_ms
+// (a model stride of 0 shares the operand; out's must not), with l1[s] and
+// l2[s] from device vectors; each model on the geometry given, the single
+// launch's of (rows, m).  G is column-major (kGT) when model 0's is.
+extern "C" int tnmf_hals_sweep_models(
+    const float* x, int64_t x_ms, int64_t x_sr, int64_t x_sc, const float* g, int64_t g_ms,
+    int64_t g_sr, int64_t g_sc, const float* p, int64_t p_ms, int64_t p_sr, int64_t p_sc,
+    float* out, int64_t o_ms, int64_t o_sr, int64_t o_sc, const float* l1, const float* l2,
+    int models, int inner, int64_t rows, int m, int rows_per_block, int resident,
+    int smem_bytes, void* stream) {
+  if (models < 1 || models > 65535 || l1 == nullptr || l2 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || m <= 0) return 0;
+  int64_t blocks;
+  if (const int err = check_geometry(rows, m, rows_per_block, resident, smem_bytes, blocks))
+    return err;
+  const Operand xo{x, x_sr, x_sc}, go{g, g_sr, g_sc}, po{p, p_sr, p_sc};
+  const Models mo{x_ms, g_ms, p_ms, o_ms, l1, l2};
+  const Launch fn = pick<true>(rows_per_block, resident != 0, g_sc != 1 && g_sr == 1);
+  return static_cast<int>(fn(xo, go, po, out, o_sr, o_sc, 0.f, 0.f, inner, rows, m, mo,
+                             static_cast<unsigned>(models), static_cast<unsigned>(blocks),
+                             smem_bytes, static_cast<cudaStream_t>(stream)));
 }

@@ -83,17 +83,19 @@ def _pinned(fn):
     return call
 
 
-def _sweep_H(H: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: float, l2: float,
-             inner: int, use_pallas: bool = True) -> torch.Tensor:
+def _sweep_H(H: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1, l2, inner: int,
+             use_pallas: bool = True) -> torch.Tensor:
     """``inner`` Gauss–Seidel passes over the ``m`` columns of ``H (rows,
-    m)``: K5 where the gate allows it, else its plain version."""
+    m)``: K5 where the gate allows it, else its plain version.  ``l1`` and
+    ``l2`` are floats, or 0-d tensors (a sweep's per-model strengths under
+    :func:`torch.func.vmap`, which reach K5 through ``tnmf::hals_sweep.t``)."""
     if engine.dtype_reason(H.dtype, use_pallas) is None:
         return hals_sweep(H, G, P, l1, l2, inner)
     return hals_sweep_plain(H, G, P, l1, l2, inner)
 
 
-def _sweep_W(W: torch.Tensor, A: torch.Tensor, B: torch.Tensor, l1: float, l2: float,
-             inner: int, use_pallas: bool = True) -> torch.Tensor:
+def _sweep_W(W: torch.Tensor, A: torch.Tensor, B: torch.Tensor, l1, l2, inner: int,
+             use_pallas: bool = True) -> torch.Tensor:
     """``inner`` passes over the ``m`` dictionary rows of ``W (m, F)``: the
     H sweep on ``W^T`` with ``A^T`` and ``B^T``."""
     return _sweep_H(W.T, A.T, B.T, l1, l2, inner, use_pallas).T
@@ -102,18 +104,26 @@ def _sweep_W(W: torch.Tensor, A: torch.Tensor, B: torch.Tensor, l1: float, l2: f
 def _iteration(V2, W2, H2, l1, l2, l1w, l2w, *, inner: int, update_H: bool,
                update_W: bool, use_pallas: bool = True):
     """One outer iteration: H sweeps (fresh Grams), then W sweeps.
-    ``l1``/``l2`` regularize H, ``l1w``/``l2w`` the dictionary."""
+    ``l1``/``l2`` regularize H, ``l1w``/``l2w`` the dictionary: floats, or
+    0-d tensors, cast to the Grams' dtype as the JAX ``_iteration`` casts
+    them.  No branch reads a tensor's value, so the sweeps run it under
+    :func:`torch.func.vmap`."""
     if update_H:
         Wt = W2.to(_acc_dtype(W2)).T
         G = _dot(W2, Wt)                                  # (m, m)
         P = _dot(V2, Wt)                                  # (n, m)
-        H2 = _sweep_H(H2, G, P, l1, l2, inner, use_pallas)
+        H2 = _sweep_H(H2, G, P, _like(l1, G), _like(l2, G), inner, use_pallas)
     if update_W:
         Ht = H2.to(_acc_dtype(H2)).T
         A = _dot(Ht, H2)                                  # (m, m)
         B = _dot(Ht, V2)                                  # (m, F)
-        W2 = _sweep_W(W2, A, B, l1w, l2w, inner, use_pallas)
+        W2 = _sweep_W(W2, A, B, _like(l1w, A), _like(l2w, A), inner, use_pallas)
     return W2, H2
+
+
+def _like(x, G: torch.Tensor):
+    """A strength in the Grams' dtype: a tensor cast, a float as it is."""
+    return x.to(G.dtype) if isinstance(x, torch.Tensor) else x
 
 
 def _flatten(V, W, H):

@@ -61,6 +61,11 @@ SIGNATURES = {
     # x, g, p, out, each with its row and column strides; l1, l2, inner, rows,
     # m, rows_per_block, resident, smem_bytes, stream
     'tnmf_hals_sweep': (_P, _I64, _I64) * 4 + (_F, _F, _I, _I64, _I, _I, _I, _I, _P),
+    # x, g, p, out, each with its model, row and column strides; l1, l2 (per
+    # model), models, inner, rows, m, rows_per_block, resident, smem_bytes,
+    # stream
+    'tnmf_hals_sweep_models': (_P, _I64, _I64, _I64) * 4 + (_P, _P, _I, _I, _I64, _I, _I, _I,
+                                                             _I, _P),
 }
 
 #: the largest dynamic shared memory a Hopper block may opt in to (bytes)

@@ -17,6 +17,12 @@ transposed views launch as they are, with no copy, and the output takes
 X's layout (``W^T``'s output is a transposed view of a contiguous ``(m,
 F)`` tensor).
 
+:func:`hals_sweep_models` runs a sweep's S models in one launch (the
+model axis of ``tnmf::hals_sweep``'s vmap rule, :mod:`.ops`): each operand
+is read through its own model, row and column strides (an operand the
+models share at model stride 0), each model on the single launch's
+geometry, so that each model's bits are those of its own launch.
+
 :func:`hals_sweep_panels_plain` sums in the kernel's order (panel
 products, then a running correlation inside each panel); the tests hold it
 to :func:`hals_sweep_plain` and to the JAX package's sweep.
@@ -124,9 +130,19 @@ def launch_geometry(rows: int, m: int, device: torch.device) -> dict:
 def launch_operands(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor,
                     out: torch.Tensor) -> tuple:
     """The tensor arguments of the C entry, as the kernel reads them: each
-    operand's address and its row and column strides in elements (no copy:
-    a transposed view launches with its base's address)."""
+    operand's address and its strides in elements (row and column; model,
+    row and column over a model axis; no copy: a transposed view launches
+    with its base's address)."""
     return tuple(v for t in (X, G, P, out) for v in (t.data_ptr(), *t.stride()))
+
+
+def _check(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, inner: int) -> None:
+    rows, m = X.shape[-2:]
+    if G.shape[-2:] != (m, m) or P.shape[-2:] != X.shape[-2:]:
+        raise ValueError(f'hals_sweep: X {tuple(X.shape)}, G {tuple(G.shape)} and P '
+                         f'{tuple(P.shape)} do not fit')
+    if int(inner) < 1:
+        raise ValueError(f'hals_sweep: inner must be >= 1, got {inner!r}')
 
 
 def hals_sweep(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: float, l2: float,
@@ -139,11 +155,7 @@ def hals_sweep(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: float, l2:
     if X.device.type == 'cpu':
         return hals_sweep_plain(X, G, P, l1, l2, inner)
     rows, m = X.shape
-    if G.shape != (m, m) or P.shape != X.shape:
-        raise ValueError(f'hals_sweep: X {tuple(X.shape)}, G {tuple(G.shape)} and P '
-                         f'{tuple(P.shape)} do not fit')
-    if int(inner) < 1:
-        raise ValueError(f'hals_sweep: inner must be >= 1, got {inner!r}')
+    _check(X, G, P, inner)
     _build.check_inputs('hals_sweep', X, G, P, contiguous=False)
     out = torch.empty_like(X)
     if X.numel() == 0:
@@ -160,5 +172,58 @@ def hals_sweep(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: float, l2:
     return out
 
 
-#: kernel launches since the last reset (a plain count, read by chip_smoke.py)
+def _output(X: torch.Tensor) -> torch.Tensor:
+    """The output of a launch over the model axis, ``(S, rows, m)``: each
+    model's in X's layout, column-major where X's models are (the W side's
+    transposed views), else row-major; never at model stride 0."""
+    S, rows, m = X.shape
+    if X.stride(1) == 1 and X.stride(2) != 1:
+        return X.new_empty((S, m, rows)).transpose(1, 2)
+    return X.new_empty((S, rows, m))
+
+
+def hals_sweep_models(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1, l2,
+                      inner: int) -> torch.Tensor:
+    """:func:`hals_sweep` over a model axis: ``X (S, rows, m)``, ``G (S, m,
+    m)`` and ``P (S, rows, m)`` stack a sweep's S models (any strides; an
+    operand the models share at model stride 0, as ``expand`` makes it),
+    ``l1`` and ``l2`` are ``(S,)`` tensors or floats for all.  The plain
+    version model by model for CPU tensors; one launch for all S models on
+    CUDA tensors, each model on the single launch's geometry and so
+    bit-equal to its own :func:`hals_sweep` launch.  Returns ``(S, rows,
+    m)``, each model in X's layout (:func:`_output`)."""
+    S = X.shape[0]
+    if G.shape[0] != S or P.shape[0] != S:
+        raise ValueError(f'hals_sweep: X {tuple(X.shape)}, G {tuple(G.shape)} and P '
+                         f'{tuple(P.shape)} stack different model counts')
+    _check(X, G, P, inner)
+    out = _output(X)
+    if X.device.type == 'cpu':
+        for s in range(S):
+            out[s] = hals_sweep_plain(X[s], G[s], P[s], _build.model_value(l1, s),
+                                      _build.model_value(l2, s), inner)
+        return out
+    _build.check_inputs('hals_sweep', X, G, P, contiguous=False)
+    if S > 65535:
+        raise ValueError(f'hals_sweep: at most 65535 models a launch, got {S}')
+    if out.numel() == 0:
+        return out
+    rows, m = X.shape[1:]
+    l1v, l2v = (_build.model_vector(x, S, X.device) for x in (l1, l2))
+    geo = launch_geometry(rows, m, X.device)
+    lib = _build.library()
+    with torch.cuda.device(X.device):
+        err = lib.tnmf_hals_sweep_models(
+            *launch_operands(X, G, P, out), l1v.data_ptr(), l2v.data_ptr(), S, int(inner),
+            rows, m, geo['rows_per_block'], int(geo['resident']), geo['smem_bytes'],
+            _build.stream_of(X))
+    _build.check_launch(err, 'hals_sweep')
+    hals_sweep.launches += 1
+    hals_sweep.model_launches += 1
+    return out
+
+
+#: kernel launches since the last reset (plain counts, read by chip_smoke.py):
+#: all of them, and those over a model axis (:func:`hals_sweep_models`)
 hals_sweep.launches = 0
+hals_sweep.model_launches = 0

@@ -21,20 +21,24 @@ calls.  The kernels look the wrappers up at each call, so a wrapper
 replaced on its module is the one the operator runs.
 
 The model axis (the sweeps, :mod:`tnmf_tpu_torch.models.sweep`): the MU
-step's operators, and K1's W epilogue ``tnmf::mu_w`` and K2 ``tnmf::grad_w``
-beside them, each have a :func:`torch.library.register_vmap` rule, so that
-under :func:`torch.func.vmap` over a sweep's S models each makes one launch
-of the kernel's model-axis wrapper (``*_models``, or K1's wrappers with
-``model_axis=True``) for all of them, never S launches.  A ``float`` argument cannot carry a per-model value, so the
-strengths of the MU step come as tensors through the ``.t`` overloads
-(``tnmf::mu_ratio.t``, ``tnmf::mu_h.t``, ``tnmf::inhibited_mu_h.t``); the
+step's operators, K1's W epilogue ``tnmf::mu_w`` and K2 ``tnmf::grad_w``
+beside them, and K5 ``tnmf::hals_sweep`` each have a
+:func:`torch.library.register_vmap` rule, so that under
+:func:`torch.func.vmap` over a sweep's S models each makes one launch of
+the kernel's model-axis wrapper (``*_models``, or K1's wrappers with
+``model_axis=True``) for all of them, never S launches.  A ``float``
+argument cannot carry a per-model value, so per-model strengths come as
+tensors through the ``.t`` overloads (``tnmf::mu_ratio.t``,
+``tnmf::mu_h.t``, ``tnmf::inhibited_mu_h.t``, ``tnmf::hals_sweep.t``); the
 default overloads keep their schemas, so that exported programs load and
 compute as before.  A ``.t`` call outside vmap is a model axis of one.  A
 rule materialises every per-model operand with the model axis first and
 contiguous (an operand the vmap does not batch is broadcast), except
 K3's ``Vp``, which the kernel reads at a model stride of 0 when the models
-share it.  On CPU tensors the model-axis wrappers run the plain version
-over the models.
+share it, and K5's operands, which it reads through their strides as they
+are (the W side's transposed views with no copy, and on its column-major
+G route; an operand the models share at model stride 0).  On CPU tensors
+the model-axis wrappers run the plain version over the models.
 
 The engine calls the kernels through the functions below, which keep the
 wrappers' signatures (and pick the ``.t`` overload when a strength is a
@@ -126,6 +130,10 @@ _define('grad_w(Tensor X2, Tensor H, int passes=3) -> (Tensor, Tensor)',
         lambda X2, H, passes=3: _gw.grad_w(X2, H, passes), _grad_w_fake)
 _define('hals_sweep(Tensor X, Tensor G, Tensor P, float l1, float l2, int inner) -> Tensor',
         lambda *args: _hals.hals_sweep(*args), _hals_sweep_fake)
+_define('hals_sweep.t(Tensor X, Tensor G, Tensor P, Tensor l1, Tensor l2, int inner) -> Tensor',
+        lambda X, G, P, l1, l2, inner:
+        _hals.hals_sweep_models(X[None], G[None], P[None], _one(l1), _one(l2), inner)[0],
+        _hals_sweep_fake)
 
 mu_ratio_op = torch.ops.tnmf.mu_ratio.default
 mu_ratio_t_op = torch.ops.tnmf.mu_ratio.t
@@ -136,6 +144,7 @@ inhibited_mu_h_t_op = torch.ops.tnmf.inhibited_mu_h.t
 mu_w_op = torch.ops.tnmf.mu_w.default
 grad_w_op = torch.ops.tnmf.grad_w.default
 hals_sweep_op = torch.ops.tnmf.hals_sweep.default
+hals_sweep_t_op = torch.ops.tnmf.hals_sweep.t
 
 
 # --------------------------------------------------------------- vmap rules
@@ -192,11 +201,25 @@ def _grad_w_vmap(info, in_dims, X2, H, passes=3):
     return _gw.grad_w_models(_stack(X2, in_dims[0], S), _stack(H, in_dims[1], S), passes), (0, 0)
 
 
+def _hals_sweep_vmap(info, in_dims, X, G, P, l1, l2, inner):
+    # the operands' strides as they are, not _stack's copies: the W side's
+    # transposed views launch as they are (K5's column-major G route), and
+    # an operand the vmap does not batch is read at model stride 0
+    S = info.batch_size
+
+    def models(x, dim):
+        return x.expand((S,) + tuple(x.shape)) if dim is None else x.movedim(dim, 0)
+    return _hals.hals_sweep_models(models(X, in_dims[0]), models(G, in_dims[1]),
+                                   models(P, in_dims[2]), _strength(l1, in_dims[3], S),
+                                   _strength(l2, in_dims[4], S), inner), 0
+
+
 for _name, _rule in (('mu_ratio', _mu_ratio_vmap), ('mu_ratio.t', _mu_ratio_vmap),
                      ('mu_h', _mu_h_vmap), ('mu_h.t', _mu_h_vmap),
                      ('inhibited_mu_h', _inhibited_mu_h_vmap),
                      ('inhibited_mu_h.t', _inhibited_mu_h_vmap),
-                     ('mu_w', _mu_w_vmap), ('grad_w', _grad_w_vmap)):
+                     ('mu_w', _mu_w_vmap), ('grad_w', _grad_w_vmap),
+                     ('hals_sweep', _hals_sweep_vmap), ('hals_sweep.t', _hals_sweep_vmap)):
     torch.library.register_vmap(f'tnmf::{_name}', _rule, lib=_LIB)
 
 
@@ -266,7 +289,10 @@ def grad_w(X2: torch.Tensor, H: torch.Tensor, passes: int = 3):
     return _gw.grad_w(X2, H, passes)
 
 
-def hals_sweep(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: float, l2: float,
+def hals_sweep(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1, l2,
                inner: int) -> torch.Tensor:
-    """:func:`tnmf_tpu_torch.kernels.hals.hals_sweep` through ``tnmf::hals_sweep``."""
+    """:func:`tnmf_tpu_torch.kernels.hals.hals_sweep` through ``tnmf::hals_sweep``
+    (``.t`` when a strength is a tensor)."""
+    if isinstance(l1, torch.Tensor) or isinstance(l2, torch.Tensor):
+        return hals_sweep_t_op(X, G, P, _as_tensor(l1, G), _as_tensor(l2, G), int(inner))
     return hals_sweep_op(X, G, P, float(l1), float(l2), int(inner))

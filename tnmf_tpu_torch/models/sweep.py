@@ -1,11 +1,12 @@
 """Hyperparameter sweeps: many independent TNMF models fitted on the same
 data at once, with one launch of each kernel for all of them.
 
-Port of the multiplicative-update half of :mod:`tnmf_tpu.models.sweep`.
-Users fit the same data many times (restarts over seeds, grids over
-sparsity or inhibition) and keep the best model.  A Python loop of S fits
-costs S times the launches, and small fits are bound by the host's rate of
-launches; here the model axis is folded into each launch instead.  The
+Port of :mod:`tnmf_tpu.models.sweep`, MU and HALS.  Users fit the same
+data many times (restarts over seeds, grids over sparsity or inhibition,
+sklearn users' alpha grids over ``NMF(solver='cd')``) and keep the best
+model.  A Python loop of S fits costs S times the launches, and small fits
+are bound by the host's rate of launches; here the model axis is folded
+into each launch instead.  The
 JAX package's ``jax.vmap(fit_one)`` is :func:`torch.func.vmap` over the
 port's own single-model engine (:mod:`tnmf_tpu_torch.engine`): W and H gain
 a leading model axis, the data and its loop-invariant preparation are
@@ -21,6 +22,14 @@ denominator, bit for bit the update without the term.  Anything that
 changes the step's structure (mode, beta, strategy, atom count and shape,
 inhibition range) is one value per sweep.
 
+``solver='hals'`` (plain-NMF geometry only) runs :func:`torch.func.vmap`
+over :func:`tnmf_tpu_torch.engine_hals._iteration` instead, the JAX
+package's ``_hals_vmap_pieces``: the four Gram products batch, and each
+side's Gauss–Seidel sweep is one launch of K5 for all S models
+(``tnmf::hals_sweep``'s vmap rule, :func:`~tnmf_tpu_torch.kernels.hals.hals_sweep_models`).
+Its per-model ``l1`` (``sparsity``) and ``l2`` ride in the accumulation
+dtype, as in the JAX package; the dictionary side is unregularized.
+
 Initialization: each model draws ``1 - U[0, 1)`` on the sweep's device,
 first its H, then its W (sum-normalised), from a ``torch.Generator``: one
 per entry of a vector of seeds, or, with ``n_models`` and a scalar seed,
@@ -29,21 +38,22 @@ and so on.  The draws are the port's own: the JAX package's PRNG keys
 give other numbers, and a sweep started from the JAX package's inits
 (:func:`_sweep_from_init`) follows its trajectory.
 
-Not ported here: the HALS sweeps (``solver='hals'``, ROADMAP.md queue 1,
-item 14b-ii) and ``mesh=`` (item 14e).
+Not ported here: ``mesh=`` (ROADMAP.md queue 1, item 14e).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .. import engine
+from .. import engine, engine_hals
 from ..ops.inhibition import inhibition_kernels, resolve_inhibition_range
 from ..ops.modes import ConvPlan
+from ..ops.precision import matmul_pin
 from ..ops.transforms import make_group
 from .tnmf import _ITEM, _torch_dtype, from_numpy
 
@@ -171,8 +181,17 @@ def sweep_fit(
     ``record_energies``, which records every model's objective after every
     iteration (one more reconstruction per iteration).
 
-    Not ported: ``solver='hals'`` (ROADMAP.md queue 1, item 14b-ii) and
-    ``mesh`` (item 14e) raise ``NotImplementedError``.
+    ``solver='hals'`` runs every model with exact block coordinate
+    descent instead of MU (the model class's ``fit(solver='hals')``,
+    :mod:`tnmf_tpu_torch.engine_hals`): the degenerate plain-NMF geometry
+    only, with ``sparsity`` (L1 on H) and ``l2`` grids, ``tol`` and
+    ``record_energies``; the MU-only knobs (inhibition, ortho, masks,
+    ``beta_loss != 2``, transform groups) are rejected with the JAX
+    package's errors.  ``hals_inner`` as in the model class (``'auto'`` by
+    default).
+
+    Not ported: ``mesh`` (ROADMAP.md queue 1, item 14e) raises
+    ``NotImplementedError``.
     """
     device = torch.device(device)
     V = torch.as_tensor(V, device=device)
@@ -216,12 +235,14 @@ def sweep_fit(
     if solver not in ('mu', 'hals'):
         raise ValueError(f"solver must be 'mu' or 'hals', got {solver!r}")
     if solver == 'hals':
-        raise NotImplementedError(
-            "sweep_fit(solver='hals') is not ported to tnmf_tpu_torch yet; see "
-            + _ITEM.format('14b-ii'))
-    del hals_inner  # a HALS knob
+        _check_hals(group, beta_loss, mask, inhibition, cross_inhibition, ortho, plan)
     W0, H0 = _draw(gens, n_models, (n_atoms, V.shape[1]) + atom_shape,
                    (V.shape[0], n_maps) + plan.transform_shape, plan.ndim, V.dtype, device)
+    if solver == 'hals':
+        return _sweep_from_init_hals(
+            V, W0, H0, seeds=seeds, n_iterations=n_iterations, sparsity=sparsity, l2=l2,
+            hals_inner=hals_inner, precision=precision, record_energies=record_energies,
+            tol=tol, tol_check_every=tol_check_every, device=device, use_pallas=use_pallas)
     return _sweep_from_init(
         V, W0, H0, seeds=seeds, n_iterations=n_iterations, sparsity=sparsity,
         inhibition=inhibition, cross_inhibition=cross_inhibition, l2=l2, ortho=ortho,
@@ -320,6 +341,94 @@ def _sweep_from_init(
                            energy_traces=traces)
     W, H = torch.func.vmap(fit_one)(W0, H0, *strengths)
     return SweepResult(W=W, H=H, energies=venergy(W, H), seeds=seeds)
+
+
+def _check_hals(group, beta_loss, mask, inhibition, cross_inhibition, ortho,
+                plan: ConvPlan) -> None:
+    """The JAX package's rejections of ``solver='hals'``, in its order and
+    with its messages (``tnmf_tpu/models/sweep.py:482-511``)."""
+    if group is not None:
+        raise ValueError("transform groups are MU-only under "
+                         "solver='hals' (plain-NMF geometry)")
+    if float(beta_loss) != 2.0:
+        raise ValueError("solver='hals' requires beta_loss=2 "
+                         '(Frobenius) — no closed-form coordinate '
+                         'minimizer exists for other divergences')
+    if mask is not None:
+        raise ValueError("masked/weighted sweeps are MU-only under "
+                         "solver='hals'")
+    if _any_positive(inhibition) or _any_positive(cross_inhibition) or _any_positive(ortho):
+        raise ValueError("inhibition / cross_inhibition / ortho are "
+                         "MU-only regularizers under solver='hals' "
+                         '(the exact sweep minimizes the L1/L2-'
+                         'regularized Frobenius objective)')
+    if math.prod(plan.transform_shape) != 1:
+        raise ValueError(
+            "solver='hals' requires the degenerate plain-NMF geometry "
+            "(mode 'full' with atom_shape == sample_shape)")
+
+
+def _sweep_from_init_hals(
+    V, W0, H0, *, seeds=None, n_iterations: int = 100, sparsity=0.0, l2=0.0,
+    hals_inner='auto', precision: Optional[str] = None, record_energies: bool = False,
+    tol: Optional[float] = None, tol_check_every: int = 10, device='cuda',
+    use_pallas: bool = True,
+) -> SweepResult:
+    """The HALS sweep from given inits (the plain-NMF geometry, which
+    :func:`sweep_fit` checks): ``W0 (S, n_atoms, C, *atom_shape)`` and
+    ``H0 (S, n_samples, n_atoms, 1, ...)``, NumPy arrays or tensors.  The
+    JAX package's ``_sweep_impl_hals`` (plain and traced) and
+    ``_sweep_impl_hals_tol``: :func:`torch.func.vmap` over
+    :func:`engine_hals._iteration` with the model's ``l1``/``l2`` on H and
+    none on W, the Grams at ``precision`` (pinned once around the loop,
+    as :func:`engine_hals.fit_loop` pins it).  ``V`` is fitted in its own
+    dtype; the other keywords are :func:`sweep_fit`'s."""
+    device = torch.device(device)
+    V = torch.as_tensor(V, device=device)
+    W0, H0 = (x.to(device=device, dtype=V.dtype) if isinstance(x, torch.Tensor)
+              else from_numpy(x, device=device, dtype=V.dtype)[0] for x in (W0, H0))
+    S, n_atoms = W0.shape[:2]
+    seeds = np.arange(S, dtype=np.uint32) if seeds is None else seeds
+    acc = torch.promote_types(V.dtype, torch.float32)
+    l1v = _per_model(sparsity, S, 'sparsity', acc, device)
+    l2v = _per_model(l2, S, 'l2', acc, device)
+    inner = engine_hals.auto_inner(n_atoms, math.prod(W0.shape[2:]), hals_inner,
+                                   n_samples=int(V.shape[0]))
+    _check_loop(record_energies, tol, tol_check_every)
+    V2 = V.reshape(V.shape[0], -1)
+
+    def flat(W, H):
+        return W.reshape(W.shape[0], -1), H.reshape(H.shape[0], H.shape[1])
+
+    def iter_one(W, H, l1, l2):
+        W2, H2 = engine_hals._iteration(V2, *flat(W, H), l1, l2, 0.0, 0.0, inner=inner,
+                                        update_H=True, update_W=True, use_pallas=use_pallas)
+        return W2.reshape(W.shape), H2.reshape(H.shape)
+
+    def fit_one(W, H, l1, l2):
+        for _ in range(int(n_iterations)):
+            W, H = iter_one(W, H, l1, l2)
+        return W, H
+
+    def energy_one(W, H):
+        return engine_hals._energy(V2, *flat(W, H))
+
+    viter, venergy = torch.func.vmap(iter_one), torch.func.vmap(energy_one)
+    with matmul_pin(precision, device, V.dtype):
+        if tol is not None:
+            W, H, E, iters = _tol_loop(viter, venergy, W0, H0, (l1v, l2v), int(n_iterations),
+                                       tol, int(tol_check_every))
+            return SweepResult(W=W, H=H, energies=E, seeds=seeds, n_iters=iters)
+        if record_energies:
+            traces = torch.empty((S, int(n_iterations)), dtype=acc, device=device)
+            W, H = W0, H0
+            for i in range(int(n_iterations)):
+                W, H = viter(W, H, l1v, l2v)
+                traces[:, i] = venergy(W, H)
+            return SweepResult(W=W, H=H, energies=traces[:, -1], seeds=seeds,
+                               energy_traces=traces)
+        W, H = torch.func.vmap(fit_one)(W0, H0, l1v, l2v)
+        return SweepResult(W=W, H=H, energies=venergy(W, H), seeds=seeds)
 
 
 def _tol_loop(vstep, venergy, W: torch.Tensor, H: torch.Tensor, strengths: tuple,

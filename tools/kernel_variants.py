@@ -23,7 +23,7 @@ fit and of the inhibited golden 1-D fit (nine windows of 10 iterations
 each) and prints the registers of K3's
 tensor-core kernel, a digest of its library's K2 SASS, which shows whether
 a change meant to leave K2 alone did (with ``--parent``, each variant's
-single-launch instances of K2-K4 against the parent's, function by
+single-launch instances of K2-K5 against the parent's, function by
 function), and digests of the bits of K3's, K2's
 and K4's outputs at the flagship, of the golden 2-D and 1-D fits (W, H and
 the energy, seeded as tests/fixtures.py seeds them), of the H updates
@@ -111,8 +111,7 @@ VARIANTS = {
                     for old in _K5_LOADS],
     # K5 staging a column-major G (the W side's A^T) element by element into
     # row-major chunks, not column by column
-    'k5_g_walk': [('hals_sweep.cu', 'const bool gt = g_sc != 1 && g_sr == 1;',
-                   'const bool gt = false;')],
+    'k5_g_walk': [('hals_sweep.cu', 'g_sc != 1 && g_sr == 1)', 'false)')],
     # K5 with 4-byte copies only (no 16-byte cp.async for contiguous rows)
     'k5_4byte_copies': [('hals_sweep.cu', _K5_WIDE, _K5_WIDE.replace('if (', 'if (false && '))],
 }
@@ -138,11 +137,12 @@ def make_copy(name: str) -> Path:
     return dst
 
 
-#: the kernels of K2, K3 and K4 whose single-launch instances
-#: :func:`single_sass` compares: where each has its ``kModels`` template
-#: argument, and how many template arguments it then has
+#: the kernels of K2-K5 whose single-launch instances :func:`single_sass`
+#: compares: where each has its ``kModels`` template argument, and how many
+#: template arguments it then has
 _MODEL_ARG = {'grad_w_partial': (4, 5), 'grad_w_reduce': (0, 1),
-              'inhibited_mu_h_kernel': (3, 6), 'mu_h_mma_kernel': (2, 3), 'mu_h_kernel': (0, 1)}
+              'inhibited_mu_h_kernel': (3, 6), 'mu_h_mma_kernel': (2, 3), 'mu_h_kernel': (0, 1),
+              'hals_sweep_kernel': (3, 4)}
 
 
 def single_sass(sass: str) -> dict:
@@ -400,7 +400,7 @@ def main() -> int:
             if name != 'parent':
                 got = runs[0]['single_sass']
                 differ = sorted(k for k in want if got.get(k) != want[k])
-                print(f'{name}: SASS of the single-launch instances of K2-K4 against the '
+                print(f'{name}: SASS of the single-launch instances of K2-K5 against the '
                       f'parent\'s: {len(want) - len(differ)} of {len(want)} equal; differ: '
                       f'{differ}', flush=True)
     print(json.dumps(results))

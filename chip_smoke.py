@@ -247,21 +247,35 @@ failure (exit code != 0, no result line):
    n_iters printed) and ``record_energies``; counts reset before and read
    after each: K5 twice per iteration over the model axis (H side, W
    side) for all the models, no other kernel; from the sweep's own inits
-   (3 iterations for (f)) each model within 1e-4 of the same sweep with
-   ``use_pallas=False`` and of its single fit on the kernels
-   (``engine_hals.fit_loop``), or, where float32 rounding moves it farther
+   (3 iterations for (f)) each model within 1e-4 of its single fit on the
+   kernels (``engine_hals.fit_loop``; the sweep forms each model's Gram
+   products alone, C2) and of the same sweep with ``use_pallas=False``,
+   or, where K5's rounding against its plain version's moves it farther
    (C1), no farther from the float64 sweep than twice the plain sweep;
    ms per sweep iteration beside the S single fits' in turns, peak
    memory, the seconds these runs took; then each model-axis launch at
    these runs' shapes against its S single launches and its plain version
-   over the models, with its bound (K5 at (f)'s two sides, S = 4).
+   over the models, with its bound (K5 at (f)'s two sides, S = 4);
+20. the multi-scale model (``MultiScaleTNMF``) at the repository's
+   multi-scale configuration (``benchmarks/large_scale.py:97``: 64 x 1 x
+   256 x 256, 12 atoms of 9 x 9 and 4 of 5 x 5, 'valid', both scales on
+   conv), counts reset before and read after each run: a fit with K3, K2
+   and ``mu_w`` twice per iteration (once per scale), every scale's W and H
+   within 1e-4 of the fit on the plain versions and of the float64 fit, ms
+   per iteration in turns with the plain versions', the four
+   reconstructions' share, peak memory; a small conv + fft fit (K3 and
+   ``mu_ratio`` in one iteration) held the same way; ``transform`` (K3
+   twice per H-only iteration) against the plain versions and its ms per
+   H-only iteration; the checkpoint served as a ``torch.export`` artifact,
+   a request of 8 samples within 1e-5 of ``transform``, timed in turns with
+   it; and a one-scale model bit-equal to ``TransformInvariantNMF``.
 
-Phases 7, 10, 12, 13, 14, 15, 16 and 17 hold fits on the kernels against the
-same fits with ``use_pallas=False`` (the model's kernel/plain switch).
+Phases 7, 10, 12, 13, 14, 15, 16, 17 and 20 hold fits on the kernels against
+the same fits with ``use_pallas=False`` (the model's kernel/plain switch).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths (phase 19's over the model axis also apart, K5's
-from the HALS sweeps (f) and (g)),
+from the HALS sweeps (f) and (g); phase 20's also apart),
 error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -280,10 +294,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tnmf_tpu_torch import (MiniBatchAlgorithm, TransformInvariantNMF, engine, engine_hals,
-                            engine_hals_conv, load_serving, sweep_fit)
+from tnmf_tpu_torch import (MiniBatchAlgorithm, MultiScaleTNMF, TransformInvariantNMF, engine,
+                            engine_hals, engine_hals_conv, load_serving, sweep_fit)
 from tnmf_tpu_torch.kernels import _build, gw, hals, inhibit, mu, mu_h
-from tnmf_tpu_torch.models import sweep
+from tnmf_tpu_torch.models import multiscale, sweep
 from tnmf_tpu_torch.ops import conv
 from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
 from tnmf_tpu_torch.ops.modes import ConvPlan
@@ -3893,18 +3907,21 @@ def _hals_sweep_run(label, V, M: int, kw: dict, n_iter: int, n_check: int) -> tu
     mode) of ``n_iter`` iterations, counts reset before and read after: K5
     twice per iteration over the model axis (the H side, then the W side)
     for all the models, no other kernel.  Then, from the sweep's own inits,
-    ``n_check`` iterations of the sweep on the kernels against the same
-    sweep with ``use_pallas=False``, against each model's single fit on the
-    kernels (``engine_hals.fit_loop``, float strengths) and against the
-    sweep in float64 (the plain versions): each model within
-    ``SWEEP_TOL``, or, where float32 rounding moves a model farther (C1:
-    the nearly rank-one W-side Gram of plain NMF), no farther from float64
-    than twice the plain sweep is (phase 16's rule, the plain versions'
-    distance taken over the sweep's models as phase 16 takes it over a
-    fit); energies within ``SWEEP_TOL``; the Gram products' rounding,
-    batched and one model at a time, printed.  Then ms per sweep iteration beside the S single fits'
-    in turns (CUDA events) and peak memory.  Returns the run's numbers and
-    the sweep's result."""
+    ``n_check`` iterations of the sweep on the kernels against each
+    model's single fit on the kernels (``engine_hals.fit_loop``, float
+    strengths): each model within ``SWEEP_TOL`` (the sweep forms each
+    model's Gram products alone, so bit-equal is expected and printed);
+    against the same sweep with ``use_pallas=False`` and against the sweep
+    in float64 (the plain versions): each model within ``SWEEP_TOL``, or,
+    where K5's float32 rounding against its plain version's moves a model
+    farther (C1: the nearly rank-one W-side Gram of plain NMF), no farther
+    from float64 than twice the plain sweep is (phase 16's rule, the plain
+    versions' distance taken over the sweep's models as phase 16 takes it
+    over a fit); energies within ``SWEEP_TOL``; the Gram products'
+    rounding, as the sweep forms them and one model at a time, printed.
+    Then ms per sweep iteration beside the S single fits' in turns (CUDA
+    events) and peak memory.  Returns the run's numbers and the sweep's
+    result."""
     models = kw.pop('n_models')
     fit = dict(reconstruction_mode='full', solver='hals', **kw)
     sync()
@@ -3962,7 +3979,8 @@ def _hals_sweep_run(label, V, M: int, kw: dict, n_iter: int, n_check: int) -> tu
     # the plain versions' own distance from float64, over the sweep (phase
     # 16 takes it over a fit's W and H)
     limit = max(SWEEP_TOL, 2 * worst['plain_float64'])
-    c1 = [s for s, r in enumerate(rows) if max(r['off_plain'], r['off_single']) > SWEEP_TOL]
+    c1 = [s for s, r in enumerate(rows) if r['off_plain'] > SWEEP_TOL]
+    off_single = [s for s, r in enumerate(rows) if not r['off_single'] <= SWEEP_TOL]
     log(f'{label}: {models} models, {n_iter} iterations, inner {inner}, peak {peak:.0f} MiB; '
         f'launches {launches} ({on_axis["hals_sweep"]} over the model axis); at {n_check} '
         f'iterations, worst over the models: off the plain sweep {worst["off_plain"]:.3e} '
@@ -3976,10 +3994,12 @@ def _hals_sweep_run(label, V, M: int, kw: dict, n_iter: int, n_check: int) -> tu
                     f'{r["single_float64"]:.2e}' for r in rows))
     gram_errors = _hals_gram_errors(V, W0, H0)
     bad = [s for s in c1 if rows[s]['kernels_float64'] > limit]
-    if bad or not off_e <= SWEEP_TOL:
-        raise AssertionError(f'{label}: models {bad} off their references beyond the C1 '
-                             f'limit {limit:.3e} ({[rows[s] for s in bad]}), or energies '
-                             f'{off_e:.3e} off the plain sweep or the single fits')
+    if bad or off_single or not off_e <= SWEEP_TOL:
+        raise AssertionError(f'{label}: models {off_single} more than {SWEEP_TOL} off their '
+                             f'single fits, models {bad} off the plain sweep and float64 '
+                             f'beyond the C1 limit {limit:.3e} '
+                             f'({[rows[s] for s in set(bad) | set(off_single)]}), or '
+                             f'energies {off_e:.3e} off the plain sweep or the single fits')
     del kern, plain, exact
 
     def sweep_ms():
@@ -4004,9 +4024,9 @@ def _hals_sweep_run(label, V, M: int, kw: dict, n_iter: int, n_check: int) -> tu
 
 def _hals_gram_errors(V, W0, H0) -> dict:
     """The four Gram products of a HALS iteration at the sweep's inits,
-    batched over the models as the sweep forms them (under vmap) and one
-    model at a time as a single fit does, each against float64: max|G -
-    G64| / max|G64| over the models."""
+    as the sweep forms them (under vmap: ``tnmf::matmul``, one product per
+    model) and one model at a time as a single fit does, each against
+    float64: max|G - G64| / max|G64| over the models."""
     V2 = V.reshape(V.shape[0], -1)
     W2, H2 = W0.reshape(W0.shape[0], W0.shape[1], -1), H0.reshape(H0.shape[:3])
 
@@ -4019,10 +4039,10 @@ def _hals_gram_errors(V, W0, H0) -> dict:
                                                 for s in range(W2.shape[0])))]
         exact = torch.func.vmap(grams, in_dims=(None, 0, 0))(V2.double(), W2.double(),
                                                              H2.double())
-    out = {name: dict(batched=_rel_t(b.double(), x), single=_rel_t(o.double(), x))
+    out = {name: dict(sweep=_rel_t(b.double(), x), single=_rel_t(o.double(), x))
            for name, b, o, x in zip(('W W^T', 'V W^T', 'H^T H', 'H^T V'), batched, single, exact)}
-    log('  Gram products at the inits against float64, batched (the sweep) / one model at a '
-        'time (single fits): ' + ', '.join(f'{k} {v["batched"]:.2e}/{v["single"]:.2e}'
+    log('  Gram products at the inits against float64, the sweep\'s / one model at a '
+        'time (single fits): ' + ', '.join(f'{k} {v["sweep"]:.2e}/{v["single"]:.2e}'
                                           for k, v in out.items()))
     return out
 
@@ -4217,6 +4237,23 @@ def phase_sweeps() -> tuple:
                                     dict(n_models=d['models'], sparsity=0.1,
                                          reconstruction_mode='full'), SWEEP_SHORT_ITER)
     del res, ref, V
+    hals_seconds = _hals_sweeps(out)
+    for run in out.values():
+        for name, n in run['launches_per_iteration'].items():
+            total[name] += round(n * run['iterations'])
+    log(f'model-axis kernels at phase 19\'s shapes ({card()}):')
+    out['kernels'] = _sweep_kernel_times()
+    t0 = time.perf_counter()
+    out['kernels']['hals_sweep'] = _k5_model_axis_times()
+    out['hals_seconds'] = hals_seconds + time.perf_counter() - t0
+    log(f'phase 19\'s HALS sweeps (f), (g) and K5\'s model-axis times took '
+        f'{out["hals_seconds"]:.1f} s')
+    return total, out
+
+
+def _hals_sweeps(out: dict) -> float:
+    """Phase 19's HALS sweeps (f) and (g), their numbers into ``out``;
+    returns the seconds they took."""
     t0 = time.perf_counter()
     h = SWEEP_HALS
     V = torch.tensor(np.random.default_rng(SEED + 50).random((h['N'], 1, h['F']),
@@ -4235,17 +4272,263 @@ def phase_sweeps() -> tuple:
                                     g['M'], dict(gkw), SWEEP_ITER, SWEEP_ITER)
     out['g'].update(_hals_sweep_loops(V, g['M'], res, gkw))
     del res, V
-    hals_seconds = time.perf_counter() - t0
-    for run in out.values():
-        for name, n in run['launches_per_iteration'].items():
-            total[name] += round(n * run['iterations'])
-    log(f'model-axis kernels at phase 19\'s shapes ({card()}):')
-    out['kernels'] = _sweep_kernel_times()
+    return time.perf_counter() - t0
+
+
+# ---------------------------------------------------- phase 20: multi-scale
+
+#: the repository's multi-scale configuration (benchmarks/large_scale.py:97
+#: ``run_multiscale``): 64 x 1 x 256 x 256, 12 atoms of 9 x 9 and 4 of 5 x 5,
+#: 'valid', float32, both scales on conv; per-scale sparsity
+MULTISCALE = dict(N=64, C=1, S=(256, 256), M=(12, 4), A=((9, 9), (5, 5)), mode='valid',
+                  sparsity=(0.1, 0.05))
+#: a small fit with one conv and one fft scale ('auto': 31 x 31 atoms on 128 x 128)
+MULTISCALE_MIXED = dict(N=8, C=1, S=(128, 128), M=(6, 2), A=((5, 5), (31, 31)),
+                        sparsity=(0.1, 0.05))
+#: iterations of the checked fits (against the plain versions and float64)
+MS_CHECK_ITER = 3
+#: timed iterations (CUDA events) after a warm-up; the plain version's window
+MS_TIMED = 10
+MS_PLAIN_TIMED = 3
+#: the serving request's batch and iterations
+MS_SERVE_BATCH = 8
+MS_SERVE_ITER = 10
+
+
+def _ms_rel(a: tuple, b: tuple) -> float:
+    """The worst max|a - b| / max|b| over the scales."""
+    return max(_rel(x, y) for x, y in zip(a, b))
+
+
+def _ms_fit(label, make, V, fit: dict, n_iter: int, expected: dict) -> tuple:
+    """``make(dtype).fit(V, n_iter, **fit)`` on the kernels, counts reset
+    before and read after (``expected``: each kernel's launches per
+    iteration, none of any other), W and H of every scale within 1e-4 of
+    the same fit on the plain versions and of the float64 fit (which
+    launches no kernel).  Returns the model, the launches, the distances and
+    the peak device memory (MiB)."""
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    model = make(torch.float32).fit(V, n_iterations=n_iter, **fit)
+    sync()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({k: v * n_iter for k, v in expected.items()})
+    if launches != want:
+        raise AssertionError(f'{label}: launches {launches}, not {want}')
+    plain = make(torch.float32, use_pallas=False).fit(V, n_iterations=n_iter, **fit)
+    rel = dict(plain_versions=max(_ms_rel(model.W, plain.W), _ms_rel(model.H, plain.H)))
+    del plain
+    reset_counts()
+    exact = make(torch.float64).fit(V, n_iterations=n_iter, **fit)
+    sync()
+    if any(counts().values()):
+        raise AssertionError(f'{label}: the float64 fit launched {counts()}')
+    rel['float64'] = max(_ms_rel(model.W, exact.W), _ms_rel(model.H, exact.H))
+    del exact
+    e = model._energy_function()
+    log(f'{label}: strategies {model._strategies}, {n_iter} iterations, launches '
+        f'{ {k: v for k, v in launches.items() if v} }, peak {peak:.0f} MiB; W, H off the '
+        f'plain versions {rel["plain_versions"]:.3e}, off float64 {rel["float64"]:.3e}; '
+        f'energy {e!r}')
+    if not (math.isfinite(e) and rel['plain_versions'] <= TOL and rel['float64'] <= TOL):
+        raise AssertionError(f'{label}: energy {e}, W and H off {rel} (> {TOL}?)')
+    return model, launches, rel, peak
+
+
+def _ms_iteration_ms(model, sp: tuple, n: int, update_W: bool = True) -> float:
+    """ms per joint iteration (or per H-only one) on ``model``'s state at
+    the per-scale sparsities ``sp``, CUDA events around ``ms_fit_loop``."""
+    def run():
+        model._Ws, model._Hs = multiscale.ms_fit_loop(
+            model._Vd, model._Vps, model._Ws, model._Hs, n, sp, model._mask_d,
+            update_W=update_W, **model._statics())
+    return time_ms(run, reps=1) / n
+
+
+def _ms_split(model) -> dict:
+    """One joint iteration's reconstructions (two per scale, one per
+    half), each scale's timed alone (CUDA events, 10 calls)."""
+    out = {}
+    for k, (W, H, plan, strat) in enumerate(zip(model._Ws, model._Hs, model._plans,
+                                                model._strategies)):
+        out[f'reconstruction scale {k} ({model.atom_shapes[k]}, {model.n_atoms[k]} atoms)'] = \
+            time_ms(lambda: engine.reconstruct(W, H, plan=plan, strategy=strat))
+    return out
+
+
+def phase_multiscale() -> tuple:
+    """Phase 20: ``MultiScaleTNMF`` at the repository's multi-scale
+    configuration (``MULTISCALE``), on the kernels: a fit of
+    ``MS_CHECK_ITER`` iterations, counts reset before and read after (K3, K2
+    and ``mu_w`` twice per iteration, one launch per scale; no other
+    kernel), W and H of every scale within 1e-4 of the fit on the plain
+    versions and of the float64 fit; ms per iteration (CUDA events,
+    ``MS_TIMED`` iterations after a warm-up) in turns with the plain
+    versions' (``MS_PLAIN_TIMED``), the four reconstructions' share, peak
+    memory; a small conv + fft fit (``mu_ratio`` on the fft scale) held the
+    same way; ``transform`` (K3 twice per H-only iteration, against the
+    plain versions) and its ms per H-only iteration; the checkpoint loaded
+    with ``h_init='correlate'`` as a serving artifact, one request of
+    ``MS_SERVE_BATCH`` samples (K3 twice per iteration, no plain version)
+    within 1e-5 of ``transform``, timed in turns with it; and a one-scale
+    ``MultiScaleTNMF`` bit-equal to ``TransformInvariantNMF`` at the conv
+    flagship.  Returns the launches and the numbers."""
+    t_phase = time.perf_counter()
+    c = MULTISCALE
+    total = dict.fromkeys(KERNELS, 0)
+    out = {}
+    V = np.random.default_rng(SEED + 20).random((c['N'], c['C']) + c['S'], dtype=np.float32)
+    fit = dict(sparsity_H=c['sparsity'])
+
+    def make(dtype, use_pallas=None, **kw):
+        return MultiScaleTNMF(c['M'], c['A'], reconstruction_mode=c['mode'], seed=SEED,
+                              dtype=dtype, device=DEVICE, use_pallas=use_pallas, **kw)
+    per_iteration = dict(mu_h=2, grad_w=2, mu_w=2)
+    model, launches, rel, peak = _ms_fit('multi-scale flagship', make, V, fit, MS_CHECK_ITER,
+                                         per_iteration)
+    if model._strategies != ('conv', 'conv'):
+        raise AssertionError(f'multi-scale flagship: strategies {model._strategies}')
+    for name, n in launches.items():
+        total[name] += n
+    sp = c['sparsity']
+    plain = make(torch.float32, use_pallas=False).fit(V, n_iterations=1, **fit)
+    _ms_iteration_ms(model, sp, 2)  # warm-up
+    turns = [_ms_iteration_ms(model, sp, MS_TIMED), _ms_iteration_ms(plain, sp, MS_PLAIN_TIMED),
+             _ms_iteration_ms(plain, sp, MS_PLAIN_TIMED), _ms_iteration_ms(model, sp, MS_TIMED)]
+    del plain
+    ms = (turns[0] + turns[3]) / 2
+    split = _ms_split(model)
+    recon = 2 * sum(split.values())
+    out['flagship'] = dict(ms_per_iteration=ms, plain_ms_per_iteration=(turns[1] + turns[2]) / 2,
+                           turns_ms=turns, reconstructions_ms=recon,
+                           reconstruction_share=recon / ms, split_ms=split, peak_mib=peak,
+                           rel=rel, launches_per_iteration=per_iteration)
+    log(f'multi-scale flagship ({card()}): {ms:.4f} ms per iteration (CUDA events, '
+        f'{MS_TIMED} iterations, in turns with the plain versions\' '
+        f'{out["flagship"]["plain_ms_per_iteration"]:.4f}: '
+        f'{[round(t, 4) for t in turns]}); the four reconstructions {recon:.4f} ms '
+        f'({100 * recon / ms:.1f} %): '
+        + ', '.join(f'{k} {v:.4f} ms' for k, v in split.items())
+        + f'; peak {peak:.0f} MiB')
+
+    # one conv and one fft scale: K3 and mu_ratio in one iteration
+    x = MULTISCALE_MIXED
+    Vx = np.random.default_rng(SEED + 21).random((x['N'], x['C']) + x['S'], dtype=np.float32)
+
+    def make_mixed(dtype, use_pallas=None):
+        return MultiScaleTNMF(x['M'], x['A'], seed=SEED, dtype=dtype, device=DEVICE,
+                              use_pallas=use_pallas)
+    mixed, launches, rel, _ = _ms_fit('multi-scale conv + fft', make_mixed, Vx,
+                                      dict(sparsity_H=x['sparsity']), MS_CHECK_ITER,
+                                      dict(mu_h=1, grad_w=1, mu_ratio=1, mu_w=2))
+    if mixed._strategies != ('conv', 'fft'):
+        raise AssertionError(f'multi-scale conv + fft: strategies {mixed._strategies}')
+    for name, n in launches.items():
+        total[name] += n
+    out['mixed'] = dict(rel=rel, strategies=list(mixed._strategies))
+    del mixed
+
+    # transform of new data against the fitted dictionary, from its checkpoint
+    ckpt = Path(tempfile.mkdtemp()) / 'multiscale.npz'
+    model.save(str(ckpt))
+    del model
+
+    def encoder(use_pallas=None, h_init='random'):
+        return MultiScaleTNMF.load(str(ckpt), device=DEVICE, seed=SEED, h_init=h_init,
+                                   use_pallas=use_pallas)
+    V2 = np.random.default_rng(SEED + 22).random((c['N'], c['C']) + c['S'], dtype=np.float32)
+    enc = encoder()
+    reset_counts()
+    H = enc.transform(V2, n_iterations=MS_SERVE_ITER, **fit)
+    sync()
+    launches = counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want['mu_h'] = 2 * MS_SERVE_ITER
+    if launches != want:
+        raise AssertionError(f'multi-scale transform: launches {launches}, not {want}')
+    for name, n in launches.items():
+        total[name] += n
+    rel_t = _ms_rel(H, encoder(use_pallas=False).transform(V2, n_iterations=MS_SERVE_ITER,
+                                                           **fit))
+    h_ms = _ms_iteration_ms(enc, sp, MS_TIMED, update_W=False)
+    del enc
+    out['transform'] = dict(ms_per_h_only_iteration=h_ms, rel_plain_versions=rel_t)
+    log(f'multi-scale transform ({card()}): {MS_SERVE_ITER} iterations, launches '
+        f'{ {k: v for k, v in launches.items() if v} }, H {rel_t:.3e} off the plain versions; '
+        f'{h_ms:.4f} ms per H-only iteration')
+    if not rel_t <= TOL:
+        raise AssertionError(f'multi-scale transform: H off the plain versions by {rel_t:.3e}')
+
+    # the checkpoint as a serving artifact (correlate init, as the artifact)
+    enc = encoder(h_init='correlate')
+    Vb = torch.as_tensor(V2[:MS_SERVE_BATCH], device=DEVICE)
+    enc.transform(Vb, n_iterations=1, **fit)  # the sample geometry
     t0 = time.perf_counter()
-    out['kernels']['hals_sweep'] = _k5_model_axis_times()
-    out['hals_seconds'] = hals_seconds + time.perf_counter() - t0
-    log(f'phase 19\'s HALS sweeps (f), (g) and K5\'s model-axis times took '
-        f'{out["hals_seconds"]:.1f} s')
+    blob = enc.export_serving(n_iterations=MS_SERVE_ITER, **fit)
+    export_s = time.perf_counter() - t0
+    served = load_serving(blob)
+    reset_counts()
+    with every_plain_call() as plain_calls_seen:
+        Hs = served.transform(Vb)
+        sync()
+    launches = counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want['mu_h'] = 2 * MS_SERVE_ITER
+    if launches != want or plain_calls_seen or served.header.get('multiscale') != 2:
+        raise AssertionError(f'multi-scale serving: launches {launches} (not {want}), plain '
+                             f'calls {plain_calls_seen}, header {served.header}')
+    for name, n in launches.items():
+        total[name] += n
+    Ht = enc.transform(Vb, n_iterations=MS_SERVE_ITER, **fit)
+    rel_s = _ms_rel(tuple(h.cpu().numpy() for h in Hs), Ht)
+    bits = all(np.array_equal(h.cpu().numpy(), t) for h, t in zip(Hs, Ht))
+
+    def request():
+        served.transform(Vb)
+
+    def compute():
+        enc.fit(Vb, n_iterations=MS_SERVE_ITER, update_W=False, keep_W=True, **fit)
+    request(), compute()
+    times = [time_ms(fn, reps=3) for fn in (request, compute, compute, request)]
+    out['serving'] = dict(batch=MS_SERVE_BATCH, iterations=MS_SERVE_ITER, export_s=export_s,
+                          file_bytes=len(blob), ms=(times[0] + times[3]) / 2,
+                          transform_ms=(times[1] + times[2]) / 2, turns_ms=times,
+                          rel_transform=rel_s, bit_equal=bits)
+    log(f'multi-scale serving ({card()}): export {export_s:.2f} s, {len(blob)} bytes; batch '
+        f'{MS_SERVE_BATCH}, {MS_SERVE_ITER} iterations: launches '
+        f'{ {k: v for k, v in launches.items() if v} }, H '
+        + ('bit-equal to' if bits else f'{rel_s:.3e} off') + ' transform; '
+        f'{out["serving"]["ms"]:.4f} ms per request, transform\'s compute '
+        f'{out["serving"]["transform_ms"]:.4f} ms, in turns {[round(t, 4) for t in times]}')
+    if not rel_s <= SERVE_TOL:
+        raise AssertionError(f'multi-scale serving: H {rel_s:.3e} off transform > {SERVE_TOL}')
+    ckpt.unlink()
+    del enc, served
+
+    # one scale: the single-scale model's draws and updates, bit for bit
+    f = FLAGSHIP
+    V1 = np.random.default_rng(SEED).random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    reset_counts()
+    one = MultiScaleTNMF((f['M'],), (f['A'],), seed=SEED, device=DEVICE).fit(
+        V1, n_iterations=MS_CHECK_ITER, sparsity_H=f['sparsity'])
+    launches = counts()
+    single = TransformInvariantNMF(f['M'], f['A'], seed=SEED, device=DEVICE)
+    single.fit(V1, n_iterations=MS_CHECK_ITER, sparsity_H=f['sparsity'])
+    same = np.array_equal(one.W[0], single.W) and np.array_equal(one.H[0], single.H)
+    log(f'one-scale MultiScaleTNMF at the conv flagship, {MS_CHECK_ITER} iterations: launches '
+        f'{ {k: v for k, v in launches.items() if v} }; bit-equal to TransformInvariantNMF: '
+        f'{same}')
+    if not same or launches['mu_h'] != MS_CHECK_ITER:
+        raise AssertionError('one-scale MultiScaleTNMF: not bit-equal to '
+                             'TransformInvariantNMF, or K3 not launched once per iteration')
+    for name, n in launches.items():
+        total[name] += n
+    out['one_scale_bit_equal'] = same
+    out['seconds'] = time.perf_counter() - t_phase
+    log(f'phase 20 took {out["seconds"]:.1f} s')
     return total, out
 
 
@@ -4294,6 +4577,9 @@ def main() -> int:
     log('the sweeps (phase 19):')
     sw_launches, sw = phase_sweeps()
     log(f'sweep times ({card()}): ' + json.dumps(sw))
+    log('the multi-scale model (phase 20):')
+    ms_launches, ms_out = phase_multiscale()
+    log(f'multi-scale times ({card()}): ' + json.dumps(ms_out))
     srv_per_iteration = {kind: d['launches_per_iteration'] for kind, d in srv.items()}
     k5 = hals_out['k5']
     errors['hals_sweep'] = k5[K5_CASES[0][0]]['max_abs_err']
@@ -4309,7 +4595,7 @@ def main() -> int:
                  launches=(launches[name] + enc_launches[name] + st_launches[name]
                            + mb_launches[name] + obj_launches[name] + grp_launches[name]
                            + hals_launches[name] + srv_launches[name]
-                           + prec_launches[name] + sw_launches[name]),
+                           + prec_launches[name] + sw_launches[name] + ms_launches[name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
@@ -4331,6 +4617,9 @@ def main() -> int:
                  sweep_launches_per_iteration={
                      run: sw[run]['launches_per_iteration'].get(name, 0) for run in 'abcdefg'},
                  model_axis=sw['kernels'].get(name),
+                 multiscale_launches=ms_launches[name],
+                 multiscale_launches_per_iteration=(
+                     ms_out['flagship']['launches_per_iteration'].get(name, 0)),
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     log(device['smi'])  # again here: the build's report may push the first one out of a tail

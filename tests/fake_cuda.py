@@ -91,6 +91,21 @@ def cuda_programs(recipe, batch_size=None, include_decoder=False) -> dict:
         return serving._programs(recipe, 'cuda', batch_size, include_decoder)
 
 
+def ms_cuda_programs(recipe, batch_size=None, include_decoder=False) -> dict:
+    """:func:`tnmf_tpu_torch.serving._ms_programs` of a multi-scale
+    ``recipe`` on fake CUDA tensors, as :func:`cuda_programs` traces a
+    single-scale one."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_bindings_without_device_guard())
+        mp = stack.enter_context(pytest.MonkeyPatch.context())
+        for module, name in PLAIN:
+            mp.setattr(module, name, _refuse(name))
+        stack.enter_context(FakeTensorMode())
+        recipe = dataclasses.replace(recipe, Ws=tuple(
+            torch.empty(tuple(W.shape), dtype=W.dtype, device='cuda') for W in recipe.Ws))
+        return serving._ms_programs(recipe, 'cuda', batch_size, include_decoder)
+
+
 def kernel_ops(program) -> list:
     """The ``tnmf::`` operators a program calls, loop bodies included, in
     graph order."""

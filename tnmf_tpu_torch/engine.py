@@ -53,7 +53,10 @@ The fit-loop variants (:func:`fit_loop_energies`, :func:`fit_loop_tol`,
 :func:`fit_loop_extrapolated`), the single steps (:func:`update_H_step`,
 :func:`update_W_step`) and the encoder's start (:func:`correlate_init_H`)
 reach the kernels through :func:`_mu_H` and :func:`_mu_W`, which look the
-wrappers up by this module's names at every call.  :func:`_mu_W` is
+wrappers up by this module's names at every call; :func:`_mu_H` is the
+reconstruction followed by :func:`_mu_H_of`, the H step against a given
+reconstruction, which the multi-scale model
+(:mod:`tnmf_tpu_torch.models.multiscale`) calls with the total one.  :func:`_mu_W` is
 :func:`grad_W_stats` followed by :func:`apply_W_update`; the minibatch
 epochs (:mod:`tnmf_tpu_torch.engine_minibatch`) call the two apart, with
 :func:`accumulate_gradient` between them.  The JAX package runs its
@@ -179,11 +182,13 @@ def _passes(plan: ConvPlan, t: torch.Tensor) -> int:
     return settings(plan.precision, t.device, t.dtype).passes
 
 
-def resolve_strategy(strategy: str, plan: ConvPlan) -> str:
+def resolve_strategy(strategy: str, plan: ConvPlan, allow_dot: bool = True) -> str:
     """The lowering a strategy request runs on: the degenerate
-    single-transform problem (plain NMF) goes to 'dot'.  The TPU-only
-    'phased' upgrade of the JAX package never applies here."""
-    if strategy == 'conv' and math.prod(plan.transform_shape) == 1:
+    single-transform problem (plain NMF) goes to 'dot' unless
+    ``allow_dot`` is False (the multi-scale model keeps 'conv' there, as
+    the JAX package's does).  The TPU-only 'phased' upgrade of the JAX
+    package never applies here."""
+    if strategy == 'conv' and allow_dot and math.prod(plan.transform_shape) == 1:
         return 'dot'
     return strategy
 
@@ -383,20 +388,38 @@ def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
     strategy, group = split_strategy(strategy)
     if group is not None:
         W = expand_w(W, group)
+    return _mu_H_of(Vp, get_ops(strategy).reconstruct(W, H, plan), W, H, sparsity, inhibition,
+                    cross_inhibition, kernels, plan=plan, use_inhibition=use_inhibition,
+                    use_cross=use_cross, strategy=strategy, use_pallas=use_pallas, beta=beta,
+                    mask=mask, l2=l2)
+
+
+@_pinned
+def _mu_H_of(Vp: torch.Tensor, R: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
+             sparsity: float, inhibition: float = 0., cross_inhibition: float = 0.,
+             kernels: Sequence = (), *, plan: ConvPlan, use_inhibition: bool = False,
+             use_cross: bool = False, strategy: str = 'conv', use_pallas: bool = True,
+             beta: float = 2.0, mask: Optional[torch.Tensor] = None,
+             l2: Optional[float] = None) -> torch.Tensor:
+    """:func:`_mu_H` against a given reconstruction ``R`` (canonical data
+    layout) on a base ``strategy``, ``W`` the dictionary H's maps take (the
+    expanded one under a group): on conv the streams of
+    :func:`_conv_streams` from ``R``, then K3 (or the pair, then K4); on
+    fft and dot the strategy's gradient pair against ``R``, then K1's
+    ratio (or K4).  The multi-scale model passes the total reconstruction
+    of all its scales (:mod:`tnmf_tpu_torch.models.multiscale`)."""
     reg = EPS + _strength(sparsity)
     kernels_on = plain_reason(plan, H.dtype, use_pallas) is None
     inhibited = use_inhibition or use_cross
     extra = None if l2 is None else _strength(l2) * H
     if strategy == 'conv':
-        Xv, Xr = _conv_streams(Vp, conv_ops.reconstruct(W, H, plan), plan, beta, mask)
+        Xv, Xr = _conv_streams(Vp, R, plan, beta, mask)
         if not inhibited:
             return (mu_h if kernels_on else mu_h_plain)(Xv, Xr, W, H, reg, extra,
                                                         _passes(plan, H))
         neg, pos = conv_ops.grad_H_pair_prepared(Xv, Xr, W, plan)
     else:
-        ops = get_ops(strategy)
-        neg, pos = _grad_H_pair(ops, strategy, Vp, ops.reconstruct(W, H, plan), W, plan,
-                                beta, mask)
+        neg, pos = _grad_H_pair(get_ops(strategy), strategy, Vp, R, W, plan, beta, mask)
     if extra is not None:
         pos = pos + extra
     if not inhibited:  # fft and dot: K1's ratio

@@ -40,6 +40,14 @@ are (the W side's transposed views with no copy, and on its column-major
 G route; an operand the models share at model stride 0).  On CPU tensors
 the model-axis wrappers run the plain version over the models.
 
+The HALS sweeps' Gram products on the card go through ``tnmf::matmul``,
+a plain ``torch.matmul`` whose vmap rule forms one product per model
+rather than one batched product: each model's Grams then have its single
+fit's bits, where cuBLAS's batched product sums in another order and its
+rounding, amplified by the nearly rank-one W-side Gram of plain NMF, moved
+the sweep's models 0.17 off float64 (ROADMAP.md queue 3, C2;
+``engine_hals.PER_MODEL_GRAMS``).
+
 The engine calls the kernels through the functions below, which keep the
 wrappers' signatures (and pick the ``.t`` overload when a strength is a
 tensor), so that a fit, a sweep and a loaded artifact run one code path.
@@ -128,6 +136,10 @@ _define('mu_w(Tensor W, Tensor neg, Tensor pos, float reg, int n_shift_axes) -> 
         lambda *args: _mu.mu_w(*args), _like_first)
 _define('grad_w(Tensor X2, Tensor H, int passes=3) -> (Tensor, Tensor)',
         lambda X2, H, passes=3: _gw.grad_w(X2, H, passes), _grad_w_fake)
+# the HALS sweeps' Gram products: a plain matrix product, defined as an
+# operator only for its vmap rule, which forms each model's product alone
+_define('matmul(Tensor a, Tensor b) -> Tensor', lambda a, b: torch.matmul(a, b),
+        lambda a, b: a.new_empty(tuple(a.shape[:-1]) + tuple(b.shape[-1:])))
 _define('hals_sweep(Tensor X, Tensor G, Tensor P, float l1, float l2, int inner) -> Tensor',
         lambda *args: _hals.hals_sweep(*args), _hals_sweep_fake)
 _define('hals_sweep.t(Tensor X, Tensor G, Tensor P, Tensor l1, Tensor l2, int inner) -> Tensor',
@@ -145,6 +157,7 @@ mu_w_op = torch.ops.tnmf.mu_w.default
 grad_w_op = torch.ops.tnmf.grad_w.default
 hals_sweep_op = torch.ops.tnmf.hals_sweep.default
 hals_sweep_t_op = torch.ops.tnmf.hals_sweep.t
+matmul_op = torch.ops.tnmf.matmul.default
 
 
 # --------------------------------------------------------------- vmap rules
@@ -214,12 +227,23 @@ def _hals_sweep_vmap(info, in_dims, X, G, P, l1, l2, inner):
                                    _strength(l2, in_dims[4], S), inner), 0
 
 
+def _matmul_vmap(info, in_dims, a, b):
+    # one product per model, each on that model's operands as a single fit
+    # holds them (a model's slice keeps the single operand's strides), so
+    # that every model's Gram has the bits of its single fit's; a batched
+    # product sums in another order and rounds up to 17 times more
+    S = info.batch_size
+    aa, bb = ((x,) * S if dim is None else x.unbind(dim) for x, dim in zip((a, b), in_dims))
+    return torch.stack([torch.matmul(x, y) for x, y in zip(aa, bb)]), 0
+
+
 for _name, _rule in (('mu_ratio', _mu_ratio_vmap), ('mu_ratio.t', _mu_ratio_vmap),
                      ('mu_h', _mu_h_vmap), ('mu_h.t', _mu_h_vmap),
                      ('inhibited_mu_h', _inhibited_mu_h_vmap),
                      ('inhibited_mu_h.t', _inhibited_mu_h_vmap),
                      ('mu_w', _mu_w_vmap), ('grad_w', _grad_w_vmap),
-                     ('hals_sweep', _hals_sweep_vmap), ('hals_sweep.t', _hals_sweep_vmap)):
+                     ('hals_sweep', _hals_sweep_vmap), ('hals_sweep.t', _hals_sweep_vmap),
+                     ('matmul', _matmul_vmap)):
     torch.library.register_vmap(f'tnmf::{_name}', _rule, lib=_LIB)
 
 
@@ -296,3 +320,12 @@ def hals_sweep(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1, l2,
     if isinstance(l1, torch.Tensor) or isinstance(l2, torch.Tensor):
         return hals_sweep_t_op(X, G, P, _as_tensor(l1, G), _as_tensor(l2, G), int(inner))
     return hals_sweep_op(X, G, P, float(l1), float(l2), int(inner))
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(a, b)``; through ``tnmf::matmul`` under vmap (a
+    batched operand), whose rule forms one product per model, else
+    ``torch.matmul`` itself."""
+    if _batched(a) or _batched(b):
+        return matmul_op(a, b)
+    return torch.matmul(a, b)

@@ -180,7 +180,7 @@ def _torch_dtype(name) -> torch.dtype:
     if name == 'float64':
         return torch.float64
     raise NotImplementedError(
-        f'{name} storage is not ported to tnmf_tpu_torch yet (ROADMAP.md queue 2, bf16 kernels)')
+        f'{name} storage is not ported to tnmf_tpu_torch yet (ROADMAP.md queue 2, item f)')
 
 
 def from_numpy(W: np.ndarray, H: Optional[np.ndarray] = None, *, device,

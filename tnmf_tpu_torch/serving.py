@@ -40,6 +40,14 @@ settings.
 With ``include_decoder=True`` the file also carries the reconstruction
 ``H -> R`` as a second program (cuDNN or cuFFT, no kernel of the port).
 
+A :class:`~tnmf_tpu_torch.MultiScaleTNMF` exports ``(V, n_iterations) ->
+(H_0, H_1, ...)``: each scale's matched-filter start, then joint
+frozen-dictionary block MU steps in one ``while_loop`` (K3 per conv scale,
+K1's ``tnmf::mu_ratio`` per fft scale), and the summed reconstruction as
+its decoder; its header carries the JAX package's ``'multiscale'`` key
+(the scale count) with per-scale ``n_atoms``, ``atom_shape`` and
+``sparsity_H`` lists.
+
 File format: the JAX package's layout with a magic of its own,
 ``b'TNMFSRT1' + <u32 header length> + <JSON header> + <concatenated
 torch.export.save payloads>``.  The header's ``sections`` dict gives each
@@ -205,6 +213,164 @@ class _ConvHALSEncoder(_Program):
         return ehc._decode_h(H_bm, r.plan, batch_major=True)
 
 
+class _MSProgram(torch.nn.Module):
+    """A multi-scale recipe's dictionaries as buffers ``W0``, ``W1``, ...
+    (each its own copy) on the program's device."""
+
+    def __init__(self, recipe: '_MSRecipe', device: str):
+        super().__init__()
+        self.r = recipe
+        for k, W in enumerate(recipe.Ws):
+            self.register_buffer(f'W{k}', _on(W.detach(), device).clone())
+
+    def _Ws(self) -> tuple:
+        return tuple(getattr(self, f'W{k}') for k in range(len(self.r.plans)))
+
+
+class _MSEncoder(_MSProgram):
+    """``(V, n_iterations) -> (H_0, H_1, ...)``: the per-scale matched-filter
+    start, then joint frozen-dictionary block MU steps (the multi-scale
+    model's ``_step`` with ``update_W=False``, as ``transform`` runs it) in
+    one ``while_loop``."""
+
+    def forward(self, V: torch.Tensor, n_iterations: torch.Tensor) -> tuple:
+        from .models import multiscale as ms
+        r, Ws = self.r, self._Ws()
+        V = V.to(Ws[0].dtype)
+        Vps = tuple(engine.prepare_data(V, plan=p, strategy=s)
+                    for p, s in zip(r.plans, r.strategies))
+        Hs0 = tuple(engine.correlate_init_H(vp, V, W, plan=p, strategy=s)
+                    for vp, W, p, s in zip(Vps, Ws, r.plans, r.strategies))
+        # the canonical V where the beta factors are formed from the total R
+        Vloop = (V,) * len(Ws) if r.beta != 2.0 else Vps
+
+        def step(*Hs):
+            return ms._step(V, Vloop, Ws, Hs, r.sparsities, None, plans=r.plans,
+                            strategies=r.strategies, update_H=True, update_W=False,
+                            beta=r.beta, use_pallas=r.use_pallas)[1]
+
+        return _loop(n_iterations, step, Hs0)
+
+
+class _MSDecoder(_MSProgram):
+    """``(H_0, H_1, ...) -> R``: the summed reconstruction."""
+
+    def forward(self, Hs: tuple) -> torch.Tensor:
+        from .models import multiscale as ms
+        r, Ws = self.r, self._Ws()
+        R = ms._reconstruct(Ws, tuple(h.to(Ws[0].dtype) for h in Hs), r.plans, r.strategies)
+        return R.to(r.in_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class _MSRecipe:
+    """What a multi-scale artifact bakes in."""
+    Ws: tuple
+    plans: tuple
+    strategies: tuple
+    beta: float
+    n_atoms: tuple
+    sparsities: tuple
+    use_pallas: bool
+    in_dtype: torch.dtype
+
+
+def _export_serving_multiscale(model, *, n_iterations, sparsity_H, inhibition_strength,
+                               cross_atom_inhibition_strength, batch_size, path, platforms,
+                               input_dtype, include_decoder, sample_shape) -> bytes:
+    """Multi-scale artifact: one program encoding V into the per-scale
+    activation tuple, optionally the summed reconstruction as decoder (the
+    JAX package's ``_export_serving_multiscale``, its checks in its
+    order)."""
+    from .models.multiscale import _sparsities
+
+    if getattr(model, '_Ws', None) is None:
+        raise RuntimeError(
+            'export_serving() requires a fitted model or a loaded '
+            'checkpoint; call fit() first')
+    if getattr(model, '_plans', None) is None and sample_shape is None:
+        raise RuntimeError(
+            'export_serving(): the model has dictionaries but no sample '
+            'geometry yet; pass sample_shape=... or run one fit first')
+    if inhibition_strength or cross_atom_inhibition_strength:
+        raise ValueError('MultiScaleTNMF has no lateral-inhibition '
+                         'regularizers; only sparsity_H applies')
+    if sample_shape is not None:
+        # the requested geometry's plans and strategies (the model's own chain)
+        plans = tuple(ConvPlan.create(model._mode, tuple(int(s) for s in sample_shape), a,
+                                      precision=model._precision)
+                      for a in model.atom_shapes)
+        strategies = model._strategies_for(plans)
+    else:
+        plans, strategies = model._plans, model._strategies
+    sparsity_H = _sparsities(sparsity_H, model.n_scales)
+    Ws = model._Ws
+    recipe = _MSRecipe(Ws=Ws, plans=plans, strategies=strategies, beta=model._beta,
+                       n_atoms=model.n_atoms, sparsities=sparsity_H,
+                       use_pallas=model._use_pallas is not False,
+                       in_dtype=Ws[0].dtype if input_dtype is None else _torch_dtype(input_dtype))
+    plats = _platforms(model, platforms)
+    n_ch = int(Ws[0].shape[1])
+    payloads = {}
+    for p in plats:
+        for name, program in _ms_programs(recipe, p, batch_size, include_decoder).items():
+            payloads[f'{name}@{p}'] = _serialize(program)
+    header = {
+        'format': 1,
+        'sections': {k: len(v) for k, v in payloads.items()},
+        'library': 'tnmf_tpu_torch',
+        'torch': torch.__version__,
+        'multiscale': int(model.n_scales),
+        'n_iterations': int(n_iterations),
+        'input_shape': ['b' if batch_size is None else int(batch_size),
+                        n_ch] + [int(x) for x in plans[0].sample_shape],
+        'input_dtype': _dtype_name(recipe.in_dtype),
+        'n_atoms': [int(m) for m in model.n_atoms],
+        'n_transforms': 1,
+        'mode': plans[0].mode,
+        'atom_shape': [[int(x) for x in a] for a in model.atom_shapes],
+        'platforms': list(plats),
+        'sparsity_H': list(sparsity_H),
+        'beta_loss': float(model._beta),
+        'precision': plans[0].precision,
+    }
+    return _assemble(header, payloads, path)
+
+
+def _ms_programs(recipe: _MSRecipe, device: str, batch_size: Optional[int],
+                 include_decoder: bool) -> dict:
+    """The exported programs of a multi-scale ``recipe`` on ``device``
+    (:func:`_programs`' counterpart; runs under a ``FakeTensorMode`` as
+    well)."""
+    r = recipe
+    b = 2 if batch_size is None else int(batch_size)
+    dims = None if batch_size is not None else {0: torch.export.Dim('b', min=1)}
+    V0 = torch.zeros((b, int(r.Ws[0].shape[1])) + r.plans[0].sample_shape, dtype=r.in_dtype,
+                     device=device)
+    n0 = torch.ones((), dtype=torch.int64)
+    programs = {'transform': torch.export.export(
+        _MSEncoder(r, device), (V0, n0), dynamic_shapes=dims and (dims, None), strict=False)}
+    if include_decoder:
+        H0 = tuple(torch.zeros((b, m) + p.transform_shape, dtype=r.in_dtype, device=device)
+                   for m, p in zip(r.n_atoms, r.plans))
+        programs['inverse_transform'] = torch.export.export(
+            _MSDecoder(r, device), (H0,), dynamic_shapes=dims and ((dims,) * len(H0),),
+            strict=False)
+    return programs
+
+
+def _platforms(model, platforms) -> tuple:
+    """The platforms to export for: the model's device by default."""
+    plats = (model.device.type,) if platforms is None else tuple(platforms)
+    for p in plats:
+        if p not in PLATFORMS:
+            raise ValueError(f'platforms must be among {PLATFORMS}, got {p!r}')
+    if 'cuda' in plats and not torch.cuda.is_available():
+        raise RuntimeError("export_serving(platforms=('cuda', ...)) exports on the card; "
+                           'torch.cuda.is_available() is False')
+    return plats
+
+
 class _Decoder(_Program):
     """``H -> R``: the reconstruction, H in the public layout."""
 
@@ -366,19 +532,29 @@ def export_serving(model, *,
         geometry, from the same matched-filter init.  HALS artifacts
         reject inhibition.
 
+    A :class:`~tnmf_tpu_torch.MultiScaleTNMF` exports its multi-scale
+    artifact: ``(V, n_iterations) -> (H_0, H_1, ...)`` (the per-scale
+    matched-filter start, then joint block MU steps), ``sparsity_H`` a
+    scalar or one value per scale, the decoder the summed reconstruction;
+    ``l2_H`` and inhibition raise, as in the JAX package.
+
     Returns the artifact bytes.
     """
+    if hasattr(model, 'atom_shapes'):  # MultiScaleTNMF
+        if l2_H:
+            raise ValueError('l2_H is not supported by the MultiScaleTNMF '
+                             'serving export yet; only sparsity_H applies')
+        return _export_serving_multiscale(
+            model, n_iterations=n_iterations, sparsity_H=sparsity_H,
+            inhibition_strength=inhibition_strength,
+            cross_atom_inhibition_strength=cross_atom_inhibition_strength,
+            batch_size=batch_size, path=path, platforms=platforms, input_dtype=input_dtype,
+            include_decoder=include_decoder, sample_shape=sample_shape)
     recipe = _recipe(model, sparsity_H=sparsity_H, inhibition_strength=inhibition_strength,
                      cross_atom_inhibition_strength=cross_atom_inhibition_strength,
                      l2_H=l2_H, input_dtype=input_dtype, sample_shape=sample_shape,
                      solver=solver)
-    plats = (model.device.type,) if platforms is None else tuple(platforms)
-    for p in plats:
-        if p not in PLATFORMS:
-            raise ValueError(f'platforms must be among {PLATFORMS}, got {p!r}')
-    if 'cuda' in plats and not torch.cuda.is_available():
-        raise RuntimeError("export_serving(platforms=('cuda', ...)) exports on the card; "
-                           'torch.cuda.is_available() is False')
+    plats = _platforms(model, platforms)
     payloads = {}
     for p in plats:
         for name, program in _programs(recipe, p, batch_size, include_decoder).items():
@@ -484,7 +660,8 @@ class ServingModel:
     def transform(self, V, n_iterations: Optional[int] = None):
         """Infer activations for ``V`` (``(n, channels, *sample_shape)``,
         a NumPy array or a tensor) with ``n_iterations`` refinement steps
-        (default: the count recorded at export time)."""
+        (default: the count recorded at export time).  Multi-scale
+        artifacts return the per-scale activation tuple."""
         n = self.header['n_iterations'] if n_iterations is None else n_iterations
         V, platform, as_numpy = self._input(V)
         exp_shape = self.header['input_shape']
@@ -495,6 +672,8 @@ class ServingModel:
                 f'artifact signature {tuple(exp_shape)}')
         with pinned(self.precision, platform):
             H = self._module('transform', platform)(V, torch.tensor(int(n), dtype=torch.int64))
+        if isinstance(H, (tuple, list)):  # multi-scale: the per-scale tuple
+            return tuple(h.cpu().numpy() if as_numpy else h for h in H)
         return H.cpu().numpy() if as_numpy else H
 
     __call__ = transform
@@ -515,12 +694,17 @@ class ServingModel:
     def inverse_transform(self, H):
         """Reconstruction from activations (present when the artifact was
         exported with ``include_decoder=True``); inputs and outputs as in
-        :meth:`transform`."""
+        :meth:`transform`.  Multi-scale artifacts take the per-scale
+        activation tuple."""
         if not any(k.startswith('inverse_transform@') for k in self._payloads):
             raise RuntimeError(
                 'this artifact has no decoder section; export with '
                 'include_decoder=True to serve inverse_transform')
-        H, platform, as_numpy = self._input(H)
+        if 'multiscale' in self.header:  # the per-scale tuple
+            parts = [self._input(h) for h in H]
+            H, (_, platform, as_numpy) = tuple(p[0] for p in parts), parts[0]
+        else:
+            H, platform, as_numpy = self._input(H)
         with pinned(self.precision, platform):
             R = self._module('inverse_transform', platform)(H)
         return R.cpu().numpy() if as_numpy else R

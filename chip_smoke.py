@@ -268,14 +268,29 @@ failure (exit code != 0, no result line):
    twice per H-only iteration) against the plain versions and its ms per
    H-only iteration; the checkpoint served as a ``torch.export`` artifact,
    a request of 8 samples within 1e-5 of ``transform``, timed in turns with
-   it; and a one-scale model bit-equal to ``TransformInvariantNMF``.
+   it; and a one-scale model bit-equal to ``TransformInvariantNMF``;
+21. the tools, counts reset before and read after: ``estimate_fit_memory``
+   against the live tensors (persistent entries, bytes) at the conv and fft
+   flagships, shift-invariant HALS at the flagship's data, plain NMF on
+   dot, plain-NMF HALS and the multi-scale configuration, and against
+   ``torch.cuda.max_memory_allocated`` over two iterations at the two
+   flagships and shift-invariant HALS (at least the measured peak, at most
+   1.5 times it); a fit at ``suggest_batch_size``'s n for the flagship
+   geometry with the default budget (0.85 of the card's memory), its peak
+   within the budget; ``trace`` around three flagship iterations, K3's,
+   K2's and ``mu_w``'s kernels in it by name; ``IterationTimer``'s rate
+   within 10 % of CUDA events'; eight ``partial_fit`` steps of 16 flagship
+   samples fed by ``prefetch_to_device`` and by the host in turns, W and H
+   bit-equal, ms per step; ``python -m tnmf_tpu_torch.cli export`` in a
+   subprocess on a flagship checkpoint, its artifact's request of 8
+   samples bit-equal to an in-process ``export_serving``'s.
 
 Phases 7, 10, 12, 13, 14, 15, 16, 17 and 20 hold fits on the kernels against
 the same fits with ``use_pallas=False`` (the model's kernel/plain switch).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths (phase 19's over the model axis also apart, K5's
-from the HALS sweeps (f) and (g); phase 20's also apart),
+from the HALS sweeps (f) and (g); phases 20's and 21's also apart),
 error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -283,6 +298,7 @@ error, times and bound; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -303,6 +319,9 @@ from tnmf_tpu_torch.ops.inhibition import inhibition_kernels
 from tnmf_tpu_torch.ops.modes import ConvPlan
 from tnmf_tpu_torch.ops.precision import matmul_pin, round_tf32
 from tnmf_tpu_torch.ops.transforms import expand_w, make_group, tie_back
+from tnmf_tpu_torch.utils import memory as tools_memory
+from tnmf_tpu_torch.utils import pipeline as tools_pipeline
+from tnmf_tpu_torch.utils import profiling as tools_profiling
 from tnmf_tpu_torch.utils.data_loading import synthetic_face
 from tnmf_tpu_torch.utils.signals import generate_pulse_train
 
@@ -4532,6 +4551,279 @@ def phase_multiscale() -> tuple:
     return total, out
 
 
+#: phase 21 (the tools): iterations of the memory fits, of the traced fit and
+#: of the timed one; the prefetched partial_fit steps; the served batch
+TOOLS_ITER = 2
+TOOLS_TRACE_ITER = 3
+TOOLS_TIMER_ITER = 10
+TOOLS_STEPS = 8
+TOOLS_SERVE_BATCH = 8
+TOOLS_SERVE_ITER = 10
+#: the estimate's peak at most this many times the measured one
+TOOLS_PEAK_RATIO = 1.5
+#: IterationTimer's rate against the CUDA events'
+TOOLS_RATE_TOL = 0.10
+#: the kernels' names in the trace, and the wrappers that launch them
+TOOLS_TRACED = {'mu_h': 'mu_h', 'grad_w': 'grad_w_partial', 'mu_w': 'mu_w_kernel'}
+#: the kernels phase 21 must launch (memory fits, trace, pipeline, serving)
+TOOLS_KERNELS = ('mu_ratio', 'mu_w', 'grad_w', 'mu_h', 'hals_sweep')
+
+
+def _live_entries(est, model) -> dict:
+    """The estimate's persistent entries against the model's live tensors
+    (bytes); raises where one differs."""
+    if isinstance(model, MultiScaleTNMF):
+        live = {'V (device copy)': model._Vd}
+        for k in range(model.n_scales):
+            live.update({f'V prepared, scale {k}': model._Vps[k],
+                         f'H, scale {k} (loop carrier)': model._Hs[k],
+                         f'W, scale {k}': model._Ws[k]})
+    elif est.strategy == 'hals':
+        live = {'V (device copy, flat view)': model._Vd, 'H (n, m)': model._H,
+                'W (m, F)': model._W}
+    elif est.strategy == 'hals-conv':
+        live = {'V (device copy)': model._Vd, 'V prepared (loop-invariant)': model._Vp,
+                "H (canonical, the model's)": model._H, 'W (dictionary)': model._W}
+    else:
+        live = {'V (device copy)': model._Vd, 'V prepared (loop-invariant)': model._Vp,
+                'H (loop carrier)': model._H, 'W (dictionary)': model._W}
+    out = {}
+    for name, t in live.items():
+        b = t.numel() * t.element_size()
+        if est.tensors[name][2] != b:
+            raise AssertionError(f'memory estimate: {name} {est.tensors[name]} against the live '
+                                 f'{tuple(t.shape)} of {b} bytes')
+        out[name] = b
+    return out
+
+
+def _memory_fit(label, model, V: np.ndarray, bound: bool, solver='mu', **fit) -> dict:
+    """Estimate, then ``TOOLS_ITER`` iterations from NumPy data with the
+    allocator's peak reset before: the persistent entries against the live
+    tensors; with ``bound``, the measured peak (over the allocations before
+    the fit) at most the estimate's and the estimate at most
+    ``TOOLS_PEAK_RATIO`` times it."""
+    est = tools_memory.estimate_fit_memory(model, V.shape, **(
+        {} if isinstance(model, MultiScaleTNMF) else dict(solver=solver)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    extra = {} if isinstance(model, MultiScaleTNMF) else dict(solver=solver)
+    model.fit(V, n_iterations=TOOLS_ITER, **extra, **fit)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    live = _live_entries(est, model)
+    ratio = est.peak_bytes / peak
+    log(f'  memory {label}: estimate {est.peak_bytes / 2**20:.2f} MiB (persistent '
+        f'{est.persistent_bytes / 2**20:.2f}), measured peak {peak / 2**20:.2f} MiB over '
+        f'{TOOLS_ITER} iterations, estimate / measured {ratio:.4f}; persistent entries equal '
+        f'the live tensors ({len(live)})')
+    if bound and not 1.0 <= ratio <= TOOLS_PEAK_RATIO:
+        log(str(est))
+        raise AssertionError(f'memory {label}: estimate {est.peak_bytes} B against the measured '
+                             f'peak {peak} B (ratio {ratio:.4f}, allowed 1 to '
+                             f'{TOOLS_PEAK_RATIO})')
+    return dict(estimate_mib=est.peak_bytes / 2**20, measured_mib=peak / 2**20, ratio=ratio)
+
+
+def _tools_memory() -> dict:
+    """The estimate at the conv and fft flagships and shift-invariant HALS
+    at the flagship's data (peaks bounded), plain NMF on dot, plain-NMF HALS
+    and the multi-scale configuration (persistent entries), then a fit at
+    ``suggest_batch_size``'s n for the flagship geometry with the default
+    budget (the card's memory)."""
+    f, d, c = FLAGSHIP, DOT, MULTISCALE
+    rng = np.random.default_rng(SEED + 21)
+    V = rng.random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    out = {}
+    for label, backend in (('conv flagship', 'auto'), ('fft flagship', 'jax_fft')):
+        m = TransformInvariantNMF(f['M'], f['A'], reconstruction_mode=f['mode'], seed=SEED,
+                                  backend=backend, device=DEVICE)
+        out[label] = _memory_fit(label, m, V, True, sparsity_H=f['sparsity'])
+        del m
+    h = HALS_CONV
+    m = TransformInvariantNMF(h['M'], h['A'], reconstruction_mode='full', seed=SEED,
+                              device=DEVICE)
+    out['hals conv'] = _memory_fit('shift-invariant HALS', m, V, True, solver='hals',
+                                   sparsity_H=h['sparsity'])
+    del m
+    ms = MultiScaleTNMF(c['M'], c['A'], reconstruction_mode=c['mode'], seed=SEED, device=DEVICE)
+    out['multiscale'] = _memory_fit('multi-scale', ms, V, False, sparsity_H=c['sparsity'])
+    del ms, V
+    Vd = rng.random((d['N'], 1) + d['S'], dtype=np.float32)
+    for label, solver in (('dot', 'mu'), ('plain-NMF HALS', 'hals')):
+        m = TransformInvariantNMF(d['M'], d['S'], reconstruction_mode='full', seed=SEED,
+                                  device=DEVICE)
+        out[label] = _memory_fit(label, m, Vd, False, solver=solver, sparsity_H=d['sparsity'])
+        del m
+    del Vd
+    gc.collect()
+    torch.cuda.empty_cache()
+    m = TransformInvariantNMF(f['M'], f['A'], reconstruction_mode=f['mode'], init='device',
+                              seed=SEED, device=DEVICE)
+    budget = int(tools_memory._default_budget(m) * 0.85)
+    n = tools_memory.suggest_batch_size(m, f['S'], n_channels=f['C'])
+    V = torch.rand((n, f['C']) + f['S'], device=DEVICE,
+                   generator=torch.Generator(DEVICE).manual_seed(SEED))
+    est = tools_memory.estimate_fit_memory(m, tuple(V.shape)).peak_bytes
+    sync()
+    base = torch.cuda.memory_allocated() - V.numel() * V.element_size()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m.fit(V, n_iterations=TOOLS_ITER, sparsity_H=f['sparsity'])
+    sync()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    e = m._energy_function()
+    log(f'  suggest_batch_size at the flagship geometry: {n} samples for the default budget '
+        f'{budget / 2**30:.2f} GiB (0.85 of the card\'s {budget / 0.85 / 2**30:.2f} GiB); '
+        f'the fit of {TOOLS_ITER} iterations: measured peak {peak / 2**30:.3f} GiB, estimate '
+        f'{est / 2**30:.3f} GiB, {seconds:.2f} s, energy {e!r}')
+    if not (peak <= budget and math.isfinite(e)):
+        raise AssertionError(f'suggest_batch_size: the fit at {n} samples peaked at {peak} B '
+                             f'against the budget {budget} B (energy {e})')
+    out['suggested'] = dict(n=n, budget_gib=budget / 2**30, measured_gib=peak / 2**30,
+                            estimate_gib=est / 2**30)
+    del m, V
+    return out
+
+
+def _tools_profiling() -> dict:
+    """``trace`` around ``TOOLS_TRACE_ITER`` conv-flagship iterations (the
+    file and its kernel events by name), and ``IterationTimer``'s rate
+    against the CUDA events' (``_ms_per_iteration``)."""
+    f = FLAGSHIP
+    V = np.random.default_rng(SEED + 22).random((f['N'], f['C']) + f['S'], dtype=np.float32)
+    m = TransformInvariantNMF(f['M'], f['A'], reconstruction_mode=f['mode'], seed=SEED,
+                              device=DEVICE)
+    fit = dict(sparsity_H=f['sparsity'])
+    m.fit(V, n_iterations=1, **fit)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with tools_profiling.trace(tmp):
+            m.fit(V, n_iterations=TOOLS_TRACE_ITER, keep_W=True, **fit)
+        seconds = time.perf_counter() - t0
+        files = sorted(Path(tmp).rglob('*.json'))
+        if not files:
+            raise AssertionError('trace wrote no file')
+        size = files[0].stat().st_size
+        events = json.loads(files[0].read_text())['traceEvents']
+    kernels = [e['name'] for e in events if e.get('cat') == 'kernel']
+    found = {name: sum(tag in k for k in kernels) for name, tag in TOOLS_TRACED.items()}
+    log(f'  trace of {TOOLS_TRACE_ITER} flagship iterations: {files[0].name}, {size} bytes, '
+        f'{len(kernels)} kernel events, of them by name {found} ({seconds:.2f} s with the '
+        'profiler)')
+    if not all(found[name] >= TOOLS_TRACE_ITER for name in found):
+        raise AssertionError(f'the trace lacks kernels: {found}')
+    timer = tools_profiling.IterationTimer()
+    m.fit(V, n_iterations=TOOLS_TIMER_ITER, keep_W=True, progress_callback=timer, **fit)
+    timer_rate = timer.iterations_per_second
+    event_rate = 1e3 / _ms_per_iteration(m, fit, n=TOOLS_TIMER_ITER)
+    off = abs(timer_rate - event_rate) / event_rate
+    log(f'  IterationTimer: {timer_rate:.3f} iterations/s against {event_rate:.3f} from CUDA '
+        f'events ({100 * off:.2f} % apart)')
+    if not off <= TOOLS_RATE_TOL:
+        raise AssertionError(f'IterationTimer {timer_rate} against CUDA events {event_rate}')
+    return dict(trace_bytes=size, traced_kernels=found, timer_its=timer_rate,
+                event_its=event_rate)
+
+
+def _tools_pipeline() -> dict:
+    """``TOOLS_STEPS`` ``partial_fit`` steps on batches of ``MB_BATCH``
+    flagship samples, fed by ``prefetch_to_device`` and by the host in turns
+    (host, prefetched, prefetched, host): W and H bit-equal, ms per step."""
+    f = FLAGSHIP
+    rng = np.random.default_rng(SEED + 23)
+    batches = [rng.random((MB_BATCH, f['C']) + f['S'], dtype=np.float32)
+               for _ in range(TOOLS_STEPS)]
+
+    def run(feed):
+        m = TransformInvariantNMF(f['M'], f['A'], reconstruction_mode=f['mode'], seed=SEED,
+                                  init='device', device=DEVICE)
+        sync()
+        t0 = time.perf_counter()
+        for b in feed:
+            m.partial_fit(b, sparsity_H=f['sparsity'])
+        sync()
+        return m, 1e3 * (time.perf_counter() - t0) / TOOLS_STEPS
+
+    runs = [run(iter(batches)) if kind == 'host' else
+            run(tools_pipeline.prefetch_to_device(iter(batches), device=DEVICE))
+            for kind in ('host', 'prefetched', 'prefetched', 'host')]
+    ref = runs[0][0]
+    same = all(torch.equal(m._W, ref._W) and torch.equal(m._H, ref._H) for m, _ in runs)
+    host_ms, pre_ms = [runs[0][1], runs[3][1]], [runs[1][1], runs[2][1]]
+    log(f'  partial_fit, {TOOLS_STEPS} steps of {MB_BATCH} samples: ms per step host feed '
+        f'{host_ms[0]:.3f}/{host_ms[1]:.3f}, prefetched {pre_ms[0]:.3f}/{pre_ms[1]:.3f} '
+        f'(in turns); W and H {"bit-equal" if same else "DIFFER"} across the feeds')
+    if not same:
+        raise AssertionError('partial_fit from prefetch_to_device differs from the host feed')
+    return dict(host_ms_per_step=host_ms, prefetched_ms_per_step=pre_ms)
+
+
+def phase_tools() -> tuple:
+    """Phase 21: the port's tools.  ``estimate_fit_memory`` and
+    ``suggest_batch_size`` (``_tools_memory``), ``trace`` and
+    ``IterationTimer`` (``_tools_profiling``), ``prefetch_to_device``
+    (``_tools_pipeline``) and ``python -m tnmf_tpu_torch.cli export`` in a
+    subprocess on a flagship checkpoint, run while the rest goes on, its
+    artifact's 8-sample request bit-equal to an in-process
+    ``export_serving`` at the same settings.  Counts reset before, read
+    after.  Returns the launches and the numbers."""
+    t_phase = time.perf_counter()
+    f = FLAGSHIP
+    tmp = tempfile.TemporaryDirectory()
+    src = TransformInvariantNMF(f['M'], f['A'], reconstruction_mode=f['mode'], seed=SEED,
+                                device=DEVICE)
+    V = np.random.default_rng(SEED + 24).random((TOOLS_SERVE_BATCH, f['C']) + f['S'],
+                                                dtype=np.float32)
+    src.fit(V, n_iterations=1)
+    ckpt, artifact = Path(tmp.name) / 'flagship.npz', Path(tmp.name) / 'flagship.tnmfsrv'
+    src.save(str(ckpt), include_H=True)
+    export = dict(iterations=TOOLS_SERVE_ITER, sparsity=f['sparsity'])
+    child = subprocess.Popen(
+        [sys.executable, '-m', 'tnmf_tpu_torch.cli', 'export', str(ckpt), str(artifact)]
+        + [a for k, v in export.items() for a in (f'--{k}', str(v))],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    reset_counts()
+    try:
+        out = dict(memory=_tools_memory(), profiling=_tools_profiling(),
+                   pipeline=_tools_pipeline())
+        t0 = time.perf_counter()
+        stdout, stderr = child.communicate(timeout=600)
+        waited = time.perf_counter() - t0
+        log(f'  tnmf-tpu-torch export (subprocess, exit {child.returncode}): {stdout.strip()} '
+            f'{stderr.strip()[-500:]} (waited {waited:.1f} s for it)')
+        if child.returncode != 0:
+            raise AssertionError('the export command failed')
+        loaded = TransformInvariantNMF.load(str(ckpt), device=DEVICE)
+        here = load_serving(loaded.export_serving(n_iterations=TOOLS_SERVE_ITER,
+                                                  sparsity_H=f['sparsity']))
+        served = load_serving(str(artifact))
+        Vt = torch.as_tensor(V, device=DEVICE)
+        H_cli, H_here = served.transform(Vt), here.transform(Vt)
+        same = torch.equal(H_cli, H_here) and bool(torch.isfinite(H_cli).all())
+        log(f'  the exported artifact\'s request of {TOOLS_SERVE_BATCH} samples: '
+            f'{"bit-equal to" if same else "DIFFERS from"} the in-process export_serving')
+        if not same:
+            raise AssertionError('the export command\'s artifact differs from export_serving')
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        tmp.cleanup()
+    launches = counts()
+    missing = [name for name in TOOLS_KERNELS if launches[name] == 0]
+    seconds = time.perf_counter() - t_phase
+    log(f'  phase 21 launches {launches}; {seconds:.1f} s')
+    if missing:
+        raise AssertionError(f'phase 21 launched no {missing}')
+    out['seconds'] = seconds
+    return launches, out
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -4580,6 +4872,9 @@ def main() -> int:
     log('the multi-scale model (phase 20):')
     ms_launches, ms_out = phase_multiscale()
     log(f'multi-scale times ({card()}): ' + json.dumps(ms_out))
+    log('the tools (phase 21):')
+    tl_launches, tl_out = phase_tools()
+    log(f'tool numbers ({card()}): ' + json.dumps(tl_out))
     srv_per_iteration = {kind: d['launches_per_iteration'] for kind, d in srv.items()}
     k5 = hals_out['k5']
     errors['hals_sweep'] = k5[K5_CASES[0][0]]['max_abs_err']
@@ -4595,7 +4890,8 @@ def main() -> int:
                  launches=(launches[name] + enc_launches[name] + st_launches[name]
                            + mb_launches[name] + obj_launches[name] + grp_launches[name]
                            + hals_launches[name] + srv_launches[name]
-                           + prec_launches[name] + sw_launches[name] + ms_launches[name]),
+                           + prec_launches[name] + sw_launches[name] + ms_launches[name]
+                           + tl_launches[name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
@@ -4620,6 +4916,7 @@ def main() -> int:
                  multiscale_launches=ms_launches[name],
                  multiscale_launches_per_iteration=(
                      ms_out['flagship']['launches_per_iteration'].get(name, 0)),
+                 tools_launches=tl_launches[name],
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     log(device['smi'])  # again here: the build's report may push the first one out of a tail

@@ -3,7 +3,10 @@ fit(solver='hals') on the degenerate geometry) against the JAX package's, in
 float64 on the CPU: K5's plain version against the JAX sweeps, iterations
 against the float64 Gauss-Seidel oracle, fits through every loop of the
 dispatch, the energy, the dead-component rule, auto_inner, transform and the
-rejections."""
+rejections.  On the CPU the HALS products of a float32 fit accumulate in float64
+and round once (``kernels.hals.dot``, C3), so the CPU's float32 program
+is not the card's arithmetic (float32 cuBLAS); ``chip_smoke.py`` checks
+the card's."""
 
 import numpy as np
 import pytest

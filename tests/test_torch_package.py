@@ -35,7 +35,9 @@ def test_import_leaves_jax_out():
             'tnmf_tpu_torch.kernels.inhibit, tnmf_tpu_torch.ops.inhibition, '
             'tnmf_tpu_torch.ops.fft, tnmf_tpu_torch.ops.dot, '
             'tnmf_tpu_torch.utils.data_loading, tnmf_tpu_torch.utils.signals, '
-            'tnmf_tpu_torch.utils.atoms\n'
+            'tnmf_tpu_torch.utils.atoms, tnmf_tpu_torch.utils.validation, '
+            'tnmf_tpu_torch.utils.memory, tnmf_tpu_torch.utils.profiling, '
+            'tnmf_tpu_torch.utils.pipeline, tnmf_tpu_torch.cli\n'
             'bad = sorted(m for m in sys.modules\n'
             '             if m.split(".")[0] in ("jax", "jaxlib", "tnmf_tpu"))\n'
             'print(bad)')

@@ -8,6 +8,10 @@ phase-blocked sweep per iteration).  Against the port's own
 from one artifact, and below the MU artifact's residual.  The CUDA
 programs, traced under a ``FakeTensorMode``, call K5 ``tnmf::hals_sweep``
 in their loop (once, and once per phase) and no plain version.
+On the CPU the HALS products of a float32 fit accumulate in float64
+and round once (``kernels.hals.dot``, C3), so the CPU's float32 program
+is not the card's arithmetic (float32 cuBLAS); ``chip_smoke.py`` checks
+the card's.
 """
 
 import numpy as np

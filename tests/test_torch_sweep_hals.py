@@ -8,7 +8,12 @@ JAX package's own inits (``jax.vmap(init_one)(keys)``, through
 the port's single ``engine_hals.fit_loop`` from the same init; the
 operators' path (K5's vmap rule, its plain version model by model here)
 against ``use_pallas=False``; ``auto_inner`` against the JAX package's;
-and the JAX package's rejections, message for message."""
+and the JAX package's rejections, message for message.
+
+On the CPU the HALS products of a float32 fit accumulate in float64
+and round once (``kernels.hals.dot``, C3), so the CPU's float32 program
+is not the card's arithmetic (float32 cuBLAS); ``chip_smoke.py`` checks
+the card's."""
 
 import numpy as np
 import pytest

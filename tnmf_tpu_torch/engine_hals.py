@@ -48,8 +48,9 @@ from typing import Optional
 import torch
 
 from . import engine
+from .kernels.hals import dot as _dot  # the Gram products: one per model under vmap
 from .kernels.hals import hals_sweep_plain
-from .kernels.ops import hals_sweep, matmul
+from .kernels.ops import hals_sweep
 from .ops import beta as beta_ops
 from .ops.modes import ConvPlan
 from .ops.precision import matmul_pin
@@ -61,23 +62,6 @@ def _acc_dtype(*xs) -> torch.dtype:
     for x in xs[1:]:
         dtype = torch.promote_types(dtype, x.dtype)
     return torch.promote_types(dtype, torch.float32)
-
-
-#: the devices on which a sweep's vmap forms each model's Gram products
-#: alone (``tnmf::matmul``), so that each model's Grams have its single fit's
-#: bits: cuBLAS's batched product rounds 7 to 17 times more than its single
-#: one, which the nearly rank-one W-side Gram turned into sweeps 0.17 off
-#: float64 (ROADMAP.md queue 3, C2).  The CPU's batched product rounds as
-#: its single ones do, and stays one call.
-PER_MODEL_GRAMS = ('cuda',)
-
-
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Matrix product accumulating in at least float32; under a sweep's
-    vmap one product per model on the devices of :data:`PER_MODEL_GRAMS`."""
-    acc = _acc_dtype(a, b)
-    product = matmul if a.device.type in PER_MODEL_GRAMS else torch.matmul
-    return product(a.to(acc), b.to(acc))
 
 
 def _pinned(fn):

@@ -30,7 +30,9 @@ position's atom at its stride-``A`` offset, the JAX ``lhs_dilation`` with
 the flipped kernel; both run in cuDNN at the plan's precision (TF32 at
 'default' and 'high' on the card, full float32 otherwise), as do the
 phase's product with the Gram and the Gram itself on cuBLAS (the loops'
-pin, :func:`engine_hals._pinned`) and K2 (its TF32 passes).  The transform axes
+pin, :func:`engine_hals._pinned`) and K2 (its TF32 passes).  The two
+products are the HALS solvers' :func:`~tnmf_tpu_torch.kernels.hals.dot`,
+which on the CPU accumulates a float32 product in float64 (C3).  The transform axes
 are zero-padded up to multiples of ``A`` so that every phase has ``K``
 positions per axis; positions past ``T`` are masked back to their old
 value (zero) after each sweep.  H is carried phase-major, ``(P, n, M,
@@ -54,6 +56,7 @@ import torch.nn.functional as F
 
 from . import engine
 from .engine_hals import _acc_dtype, _pinned, _sweep_H
+from .kernels.hals import dot
 from .ops import conv as conv_ops
 from .ops.modes import ConvPlan
 from .ops.precision import convolution_pin
@@ -87,10 +90,10 @@ def _convs(d: int):
 
 def gram_W(W: torch.Tensor) -> torch.Tensor:
     """Dense atom Gram ``G[m, m'] = sum_{c, b} W[m,c,b] W[m',c,b]`` in at
-    least float32."""
+    least float32, a HALS product (:func:`~tnmf_tpu_torch.kernels.hals.dot`:
+    the plain-NMF engine's ``G`` bit for bit)."""
     W2 = W.reshape(W.shape[0], -1)
-    W2 = W2.to(_acc_dtype(W2))
-    return torch.matmul(W2, W2.T)
+    return dot(W2, W2.to(_acc_dtype(W2)).T)
 
 
 def _phase_starts(p: int, A) -> tuple:
@@ -141,7 +144,7 @@ def _sweep_phases(E_pad: torch.Tensor, phases, W: torch.Tensor, G: torch.Tensor,
             # the phase's patch correlations: one strided convolution
             Pc = corr(Esl.to(acc), Wc, stride=A)                     # (n, M, *K)
             Pc = Pc.reshape(n, M, nk).transpose(1, 2).reshape(n * nk, M)
-            P = Pc + torch.matmul(rows.to(acc), G)                   # own term added back
+            P = Pc + dot(rows, G)                                    # own term added back
             # K5's output takes the rows' layout, so this reshape is a view
             new = _sweep_H(rows, G, P, l1, l2, inner, use_pallas).reshape(n, nk, M)
             # positions past T overhang the valid region: keep them as they were

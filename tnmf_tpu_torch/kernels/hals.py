@@ -45,6 +45,24 @@ THREADS, PANEL, CHUNK, STAGES = 128, 32, 32, 4
 _ROWS_PER_BLOCK = (64, 32, 16)
 
 
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The HALS solvers' matrix product, accumulating in at least float32
+    (the JAX package's ``_dot``), through
+    :func:`~tnmf_tpu_torch.kernels.ops.matmul`: under a sweep's vmap one
+    product per model, so that each model has its single fit's bits (a
+    batched product sums in another order: cuBLAS's rounded up to 17 times
+    more, C2; MKL's on AVX-512 apart from its single products, C3;
+    ROADMAP.md queue 3).  On the CPU a float32 product accumulates in
+    float64 and rounds once, so that its bits do not hang on the BLAS's
+    float32 summation order, which differs between MKL's instruction sets
+    and from the JAX package's XLA dot (C3); the card keeps cuBLAS's
+    float32 product at the pinned precision."""
+    from .ops import matmul  # ops imports this module
+    acc = torch.promote_types(torch.promote_types(a.dtype, b.dtype), torch.float32)
+    work = torch.float64 if a.device.type == 'cpu' and acc == torch.float32 else acc
+    return matmul(a.to(work), b.to(work)).to(acc)
+
+
 def hals_sweep_plain(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: float, l2: float,
                      inner: int) -> torch.Tensor:
     """The plain PyTorch version: the JAX package's ``_sweep_H``
@@ -53,14 +71,16 @@ def hals_sweep_plain(X: torch.Tensor, G: torch.Tensor, P: torch.Tensor, l1: floa
     each component ``j``: ``u = P[:, j] - X @ G[:, j] + X[:, j] * G[j, j] -
     l1`` and ``X[:, j] = max(u / max(G[j, j] + l2, tiny), 0)``, kept as it
     was where ``G[j, j] + l2 <= 0`` (sklearn's ``hess != 0`` skip); ``tiny``
-    is float32's smallest normal, the JAX ``_TINY``."""
+    is float32's smallest normal, the JAX ``_TINY``.  Each product ``X @
+    G[:, j]`` is a :func:`dot`: model by model under a sweep's vmap, as
+    K5's vmap rule runs the models, and in float64 on the CPU."""
     X = X.clone()
     tiny = torch.finfo(torch.float32).tiny
     for _ in range(int(inner)):
         for j in range(X.shape[1]):
             gjj = G[j, j]
             xj = X[:, j]
-            u = P[:, j] - X @ G[:, j] + xj * gjj - l1
+            u = P[:, j] - dot(X, G[:, j]) + xj * gjj - l1
             denom = gjj + l2
             new = torch.clamp(u / torch.clamp(denom, min=tiny), min=0.0)
             X[:, j] = torch.where(denom > 0, new, xj)

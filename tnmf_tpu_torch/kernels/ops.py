@@ -40,13 +40,14 @@ are (the W side's transposed views with no copy, and on its column-major
 G route; an operand the models share at model stride 0).  On CPU tensors
 the model-axis wrappers run the plain version over the models.
 
-The HALS sweeps' Gram products on the card go through ``tnmf::matmul``,
-a plain ``torch.matmul`` whose vmap rule forms one product per model
-rather than one batched product: each model's Grams then have its single
-fit's bits, where cuBLAS's batched product sums in another order and its
-rounding, amplified by the nearly rank-one W-side Gram of plain NMF, moved
-the sweep's models 0.17 off float64 (ROADMAP.md queue 3, C2;
-``engine_hals.PER_MODEL_GRAMS``).
+The HALS sweeps' products (:func:`tnmf_tpu_torch.kernels.hals.dot`: the
+Grams, the energy's and the plain sweep's) go through ``tnmf::matmul``, a
+plain ``torch.matmul`` whose vmap rule forms one product per model rather
+than one batched product: each model's products then have its single
+fit's bits, where a batched product sums in another order (cuBLAS's
+rounding, amplified by the nearly rank-one W-side Gram of plain NMF,
+moved the sweep's models 0.17 off float64; MKL's on AVX-512 rounds apart
+from its single products too: ROADMAP.md queue 3, C2 and C3).
 
 The engine calls the kernels through the functions below, which keep the
 wrappers' signatures (and pick the ``.t`` overload when a strength is a

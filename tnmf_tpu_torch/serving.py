@@ -386,6 +386,8 @@ def _torch_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch dtype or anything ``np.dtype`` takes."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if isinstance(dtype, str) and dtype == 'bfloat16':  # NumPy has no bfloat16
+        return torch.bfloat16
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
 
 

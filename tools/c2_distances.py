@@ -118,12 +118,13 @@ def run_card(inits: Path) -> dict:
     exact = sweep_of(V.double(), W0.double(), H0.double())
     kernels = sweep_of(V, W0, H0)
     plain = sweep_of(V, W0, H0, use_pallas=False)
-    per_model = engine_hals.PER_MODEL_GRAMS
-    engine_hals.PER_MODEL_GRAMS = ()  # the earlier route: one batched product
+    per_model = engine_hals._dot
+    # the earlier route: one batched product of the models' Grams
+    engine_hals._dot = lambda a, b: torch.matmul(a, b.to(a.dtype))
     try:
         batched = sweep_of(V, W0, H0)
     finally:
-        engine_hals.PER_MODEL_GRAMS = per_model
+        engine_hals._dot = per_model
     singles = [engine_hals.fit_loop(V, W0[s], H0[s], N_ITER, float(SPARSITY[s]), L2, 0., 0.,
                                     inner=inner, update_H=True, update_W=True)
                for s in range(len(SPARSITY))]

@@ -283,15 +283,29 @@ failure (exit code != 0, no result line):
    samples fed by ``prefetch_to_device`` and by the host in turns, W and H
    bit-equal, ms per step; ``python -m tnmf_tpu_torch.cli export`` in a
    subprocess on a flagship checkpoint, its artifact's request of 8
-   samples bit-equal to an in-process ``export_serving``'s.
+   samples bit-equal to an in-process ``export_serving``'s;
+22. the examples and demos as a user runs them: the thirteen examples of
+   ``tnmf_tpu_torch.examples`` at their full sizes (``run(smoke=False)``)
+   on the kernels, counts reset before and read after each, then with
+   ``use_pallas=False`` (no launch there), every figure within 1e-4
+   relative and every text and integer equal, then on the kernels again
+   (so neither route alone pays a first run's costs), each run's ms (CUDA
+   events around ``run``) and its printed lines; the five demos headless
+   through the streamlit shim (no matplotlib: the drawing skipped, every
+   fit and reconstruction computed) the same way; then ``python -m
+   tnmf_tpu_torch.cli example shift_invariant_decomposition`` and ``demo
+   --headless`` as subprocesses, each exiting 0; ``mu_ratio``, ``mu_w``,
+   K2, K3, K4 and K5 each launched at least once across the examples.
 
-Phases 7, 10, 12, 13, 14, 15, 16, 17 and 20 hold fits on the kernels against
-the same fits with ``use_pallas=False`` (the model's kernel/plain switch).
+Phases 7, 10, 12, 13, 14, 15, 16, 17, 20 and 22 hold fits on the kernels
+against the same fits with ``use_pallas=False`` (the model's kernel/plain
+switch).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths (phase 19's over the model axis also apart, K5's
-from the HALS sweeps (f) and (g); phases 20's and 21's also apart),
-error, times and bound; the last line is
+from the HALS sweeps (f) and (g); phases 20's, 21's and 22's also apart:
+``examples_launches`` across the examples, ``demos_launches`` across the
+demos), error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -299,6 +313,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import importlib
 import json
 import math
 import subprocess
@@ -4824,6 +4839,189 @@ def phase_tools() -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------- phase 22
+
+#: every figure of an example or a demo on the kernels against the same run
+#: with ``use_pallas=False`` (max |a - b| / |b|, the fits' limit of phases 7-20)
+EXAMPLE_RTOL = 1e-4
+#: the kernels phase 22 must launch across the examples
+EXAMPLE_KERNELS = ('mu_ratio', 'mu_w', 'grad_w', 'mu_h', 'inhibited_mu_h', 'hals_sweep')
+#: the CLI's runs: (arguments, what its output must show)
+EXAMPLE_CLI = ((['example', 'shift_invariant_decomposition'], 'dictionary recovery score'),
+               (['demo', '--headless'], ''))
+
+
+def _figures(tree, skip: tuple, path: str = '') -> dict:
+    """The figures of an example's or a demo's result, flat by path: every
+    number, string and None below it, except its ``'plot'`` data and the
+    names in ``skip``."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k != 'plot' and k not in skip:
+                out.update(_figures(v, skip, f'{path}/{k}'))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_figures(v, skip, f'{path}[{i}]'))
+        return out
+    return {path: tree.item() if isinstance(tree, np.generic) else tree}
+
+
+def _hold_figures(label: str, got: dict, want: dict) -> float:
+    """The largest relative difference of two runs' figures; raises past
+    ``EXAMPLE_RTOL`` or where the figures' names, texts or integers
+    differ."""
+    if got.keys() != want.keys():
+        raise AssertionError(f'{label}: figures {sorted(got)} against {sorted(want)}')
+    worst = 0.0
+    for key, b in want.items():
+        a = got[key]
+        if isinstance(b, float) or isinstance(a, float):
+            rel = abs(a - b) / abs(b) if b else abs(a - b)
+            worst = max(worst, rel)
+            if not (math.isfinite(a) and rel <= EXAMPLE_RTOL):
+                raise AssertionError(f'{label}: {key} {a!r} on the kernels against {b!r} on '
+                                     f'the plain versions (relative {rel:.3e}, limit '
+                                     f'{EXAMPLE_RTOL})')
+        elif a != b:
+            raise AssertionError(f'{label}: {key} {a!r} on the kernels against {b!r}')
+    return worst
+
+
+def _event_ms(fn) -> tuple:
+    """``fn()`` between two CUDA events: its result and the milliseconds
+    between them."""
+    sync()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _run_plain(label: str, fn) -> tuple:
+    """``fn()`` (a run with ``use_pallas=False``), timed, with no kernel
+    launched in it."""
+    reset_counts()
+    out, ms = _event_ms(fn)
+    launched = {k: n for k, n in counts().items() if n}
+    if launched:
+        raise AssertionError(f'{label} with use_pallas=False launched {launched}')
+    return out, ms
+
+
+def _kernels_plain_kernels(label: str, fn, total: dict) -> tuple:
+    """``fn(use_pallas)`` on the kernels (counts reset before and read
+    after, added to ``total``), with ``use_pallas=False``, then on the
+    kernels again, each between CUDA events: the first run's result, the
+    plain one's, the launches and the three ms (kernels, plain, kernels
+    after plain)."""
+    reset_counts()
+    result, ms = _event_ms(lambda: fn(None))
+    launches = counts()
+    for k, n in launches.items():
+        total[k] += n
+    plain, plain_ms = _run_plain(label, lambda: fn(False))
+    _, ms_after = _event_ms(lambda: fn(None))
+    return result, plain, {k: n for k, n in launches.items() if n}, (ms, plain_ms, ms_after)
+
+
+def _examples(total: dict) -> dict:
+    """Each ported example at full size in turns
+    (:func:`_kernels_plain_kernels`), every figure held within
+    ``EXAMPLE_RTOL`` of the plain run."""
+    from tnmf_tpu_torch.examples import EXAMPLES
+    out = {}
+    for name in EXAMPLES:
+        module = importlib.import_module(f'tnmf_tpu_torch.examples.{name}')
+        result, plain, launches, (ms, plain_ms, ms_after) = _kernels_plain_kernels(
+            name, lambda use_pallas: module.run(device=DEVICE, use_pallas=use_pallas), total)
+        got, want = (_figures(r, module.NOT_COMPARED) for r in (result, plain))
+        worst = _hold_figures(name, got, want)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, ms_after_plain=ms_after, figures=len(got),
+                         max_rel_diff=worst, launches=launches)
+        log(f'  example {name}: {ms:.1f} ms on the kernels, {plain_ms:.1f} ms plain, '
+            f'{ms_after:.1f} ms on the kernels after it; {len(got)} figures, worst '
+            f'{worst:.3e} apart; launches {launches}')
+        for line in module.lines(result):
+            log('    ' + line.replace('\n', '\n    '))
+    return out
+
+
+def _demos(total: dict) -> dict:
+    """The five demos headless through the streamlit shim on the card (no
+    matplotlib: nothing drawn), counts added to ``total``, each demo's
+    figures against ``use_pallas=False``."""
+    from tnmf_tpu_torch.demos import demo_selector
+    from tnmf_tpu_torch.utils import demo as demo_utils
+    out = {}
+    for name in demo_selector.DEMO_NAME_DICT:
+        def run(use_pallas):
+            # every run fits: the demos' fit cache would serve the rerun
+            demo_utils._FIT_CACHE.clear()
+            return demo_selector.main(name, device=DEVICE, use_pallas=use_pallas)
+        result, plain, launches, (ms, plain_ms, ms_after) = _kernels_plain_kernels(
+            name, run, total)
+        got, want = (_figures(r, ()) for r in (result, plain))
+        worst = _hold_figures(name, got, want)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, ms_after_plain=ms_after, figures=len(got),
+                         max_rel_diff=worst, launches=launches)
+        log(f'  demo {name!r}: {ms:.1f} ms on the kernels, {plain_ms:.1f} ms plain, '
+            f'{ms_after:.1f} ms on the kernels after it; figures {got} (worst {worst:.3e} '
+            f'apart from plain); launches {launches}')
+    return out
+
+
+def phase_examples() -> tuple:
+    """Phase 22: the port's examples and demos as a user runs them, on the
+    card.  The thirteen examples (``_examples``), the five demos
+    (``_demos``), then ``python -m tnmf_tpu_torch.cli example
+    shift_invariant_decomposition`` and ``demo --headless`` as subprocesses
+    (both at once, after the timed runs), each exiting 0.  Fails where a
+    kernel of ``EXAMPLE_KERNELS`` launched no time across the examples.
+    Returns the examples' launches and the numbers."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    plan3d = ConvPlan.create('valid', (16, 16, 16), (5, 5, 5))
+    log(f'  the 3-D example runs the plain versions of K2, K3 and K4: '
+        f'{engine.plain_reason(plan3d, torch.float32)}')
+    total = dict.fromkeys(KERNELS, 0)
+    examples = _examples(total)
+    demo_total = dict.fromkeys(KERNELS, 0)
+    demos = _demos(demo_total)
+    missing = [name for name in EXAMPLE_KERNELS if total[name] == 0]
+    children = [(args, expect, subprocess.Popen(
+        [sys.executable, '-m', 'tnmf_tpu_torch.cli', *args], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for args, expect in EXAMPLE_CLI]
+    cli = {}
+    try:
+        t0 = time.perf_counter()
+        for args, expect, child in children:
+            stdout, stderr = child.communicate(timeout=600)
+            cli[' '.join(args)] = child.returncode
+            log(f'  tnmf-tpu-torch {" ".join(args)} (subprocess): exit {child.returncode}; '
+                f'{stdout.strip()[-300:]!r} {stderr.strip()[-300:]!r}')
+            if child.returncode != 0 or expect not in stdout:
+                raise AssertionError(f'tnmf-tpu-torch {" ".join(args)} failed')
+        log(f'  the CLI runs took {time.perf_counter() - t0:.1f} s after the timed runs')
+    finally:
+        for _, _, child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    seconds = time.perf_counter() - t_phase
+    log(f'  phase 22 launches across the examples {total}, across the demos {demo_total}; '
+        f'{seconds:.1f} s')
+    if missing:
+        raise AssertionError(f'phase 22: the examples launched no {missing}')
+    return total, dict(examples=examples, demos=demos, demo_launches=demo_total, cli=cli,
+                       seconds=seconds)
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -4875,6 +5073,9 @@ def main() -> int:
     log('the tools (phase 21):')
     tl_launches, tl_out = phase_tools()
     log(f'tool numbers ({card()}): ' + json.dumps(tl_out))
+    log('the examples and demos (phase 22):')
+    ex_launches, ex_out = phase_examples()
+    log(f'example and demo times ({card()}): ' + json.dumps(ex_out))
     srv_per_iteration = {kind: d['launches_per_iteration'] for kind, d in srv.items()}
     k5 = hals_out['k5']
     errors['hals_sweep'] = k5[K5_CASES[0][0]]['max_abs_err']
@@ -4891,7 +5092,8 @@ def main() -> int:
                            + mb_launches[name] + obj_launches[name] + grp_launches[name]
                            + hals_launches[name] + srv_launches[name]
                            + prec_launches[name] + sw_launches[name] + ms_launches[name]
-                           + tl_launches[name]),
+                           + tl_launches[name] + ex_launches[name]
+                           + ex_out['demo_launches'][name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
@@ -4917,6 +5119,8 @@ def main() -> int:
                  multiscale_launches_per_iteration=(
                      ms_out['flagship']['launches_per_iteration'].get(name, 0)),
                  tools_launches=tl_launches[name],
+                 examples_launches=ex_launches[name],
+                 demos_launches=ex_out['demo_launches'][name],
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     log(device['smi'])  # again here: the build's report may push the first one out of a tail

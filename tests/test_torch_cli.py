@@ -1,20 +1,27 @@
 """The PyTorch port's command line (``tnmf_tpu_torch.cli``), on the CPU:
 ``export`` of a checkpoint the JAX package wrote, the case of
 ``tests/test_serving_export.py::test_cli_export``, serving H within 1e-8 of
-the JAX model's ``transform`` in float64; the export's error path; ``demo``,
-``example`` and ``bench`` refused with the items they wait for.  The
-command exports the card's program; here ``main`` runs in-process with the
-checkpoint's load pointed at the CPU (``chip_smoke.py`` phase 21 runs the
-command as a subprocess on the card)."""
+the JAX model's ``transform`` in float64; the export's error path;
+``example`` and ``demo`` launching the port's scripts (the subprocess call
+captured), refusing unknown names, the mesh examples (item 14e) and, without
+streamlit, the interactive dashboard; ``bench`` refused with the item it
+waits for.  The command exports the card's program; here ``main`` runs
+in-process with the checkpoint's load pointed at the CPU (``chip_smoke.py``
+phase 21 runs the export, and phase 22 ``example`` and ``demo --headless``,
+as subprocesses on the card)."""
 
+import os
 import subprocess
+import sys
 
 import numpy as np
 import pytest
 
 import tnmf_tpu
+from tnmf_tpu.cli import list_examples as jax_list_examples
 from tnmf_tpu_torch import TransformInvariantNMF, load_serving
-from tnmf_tpu_torch.cli import main
+from tnmf_tpu_torch.cli import DEMO_NAMES, list_examples, main
+from tnmf_tpu_torch.examples import EXAMPLES, MESH_EXAMPLES
 
 
 def _data(n=4, seed=0):
@@ -59,10 +66,66 @@ def test_cli_export_error_exits_1(tmp_path, capsys, load_on_cpu):
     assert 'sample_shape' in capsys.readouterr().err
 
 
-@pytest.mark.parametrize('argv, item', [(['demo', '--headless'], '14d-ii'),
-                                        (['example', 'quickstart'], '14d-ii'),
-                                        (['bench'], '5')])
+@pytest.mark.parametrize('argv, item', [(['bench'], '5')])
 def test_unported_commands_exit_1(argv, item, capsys, monkeypatch):
     monkeypatch.setattr(subprocess, 'call', lambda *a, **k: pytest.fail('ran a script'))
     assert main(argv) == 1
     assert f'item {item})' in capsys.readouterr().err
+
+
+@pytest.fixture
+def calls(monkeypatch):
+    """``subprocess.call`` captured: the argument lists, each returning 0."""
+    seen = []
+    monkeypatch.setattr(subprocess, 'call', lambda args, **kw: seen.append((args, kw)) or 0)
+    return seen
+
+
+def test_examples_are_the_jax_packages_but_the_mesh_ones():
+    assert list_examples() == sorted(EXAMPLES)
+    assert set(jax_list_examples()) == set(EXAMPLES) | set(MESH_EXAMPLES)
+
+
+@pytest.mark.parametrize('name', sorted(EXAMPLES))
+def test_example_runs_the_ports_module(name, calls):
+    assert main(['example', name]) == 0
+    (args, kw), = calls
+    assert args == [sys.executable, '-m', f'tnmf_tpu_torch.examples.{name}']
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert kw['env']['PYTHONPATH'].split(os.pathsep)[0] == root
+
+
+def test_unknown_example_exits_1_with_the_list(calls, capsys):
+    assert main(['example', 'quickstart']) == 1
+    err = capsys.readouterr().err
+    assert "unknown example 'quickstart'" in err
+    assert all(name in err for name in EXAMPLES) and not calls
+
+
+@pytest.mark.parametrize('name', MESH_EXAMPLES)
+def test_mesh_example_exits_1_naming_item_14e(name, calls, capsys):
+    assert main(['example', name]) == 1
+    assert 'item 14e)' in capsys.readouterr().err and not calls
+
+
+def test_demo_without_streamlit_exits_1(calls, capsys, monkeypatch):
+    monkeypatch.setitem(sys.modules, 'streamlit', None)
+    assert main(['demo']) == 1
+    assert 'streamlit is not installed; run with --headless' in capsys.readouterr().err
+    assert not calls
+
+
+@pytest.mark.parametrize('name', DEMO_NAMES)
+def test_demo_headless_runs_the_ports_selector(name, calls):
+    assert main(['demo', name, '--headless']) == 0
+    (args, _), = calls
+    assert args == [sys.executable, '-m', 'tnmf_tpu_torch.demos.demo_selector', name]
+
+
+def test_demo_with_streamlit_serves_the_ports_selector(calls, monkeypatch):
+    monkeypatch.setitem(sys.modules, 'streamlit', object())
+    assert main(['demo']) == 0
+    (args, _), = calls
+    assert args[1:4] == ['-m', 'streamlit', 'run']
+    assert args[4].endswith(os.path.join('tnmf_tpu_torch', 'demos', 'demo_selector.py'))
+    assert args[5:] == ['--', '2-D Synthetic Signals']

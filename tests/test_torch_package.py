@@ -46,6 +46,28 @@ def test_import_leaves_jax_out():
     assert proc.stdout.strip() == '[]'
 
 
+def test_examples_and_demos_import_no_jax_and_no_plotting():
+    """The examples, the demos and their utilities, in a fresh process, load
+    no module of JAX or of the JAX package, and no matplotlib or streamlit
+    module (both are optional; the card's machine has neither)."""
+    from tnmf_tpu_torch.examples import EXAMPLES
+    modules = ([f'tnmf_tpu_torch.examples.{name}' for name in EXAMPLES]
+               + [f'tnmf_tpu_torch.demos.{name}' for name in (
+                   'demo_selector', 'synthetic_signals', 'demo_image', 'demo_inpainting',
+                   'demo_sweep')]
+               + ['tnmf_tpu_torch.utils.demo', 'tnmf_tpu_torch.utils._st_shim',
+                  'tnmf_tpu_torch.utils.drawing', 'tnmf_tpu_torch.cli'])
+    code = ('import importlib, sys\n'
+            f'for m in {modules!r}:\n'
+            '    importlib.import_module(m)\n'
+            'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
+            '             ("jax", "jaxlib", "tnmf_tpu", "matplotlib", "streamlit"))\n'
+            'print(len(sys.modules), bad)')
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split(' ', 1)[1].strip() == '[]'
+
+
 def test_sources_import_no_jax():
     """No module of the port names jax or the JAX package in an import."""
     for path in PKG.rglob('*.py'):

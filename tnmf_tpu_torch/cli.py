@@ -1,17 +1,41 @@
 """Command-line interface of the PyTorch port (port of :mod:`tnmf_tpu.cli`).
 
-``tnmf-tpu-torch export checkpoint output`` serializes a checkpoint (a
-``.npz`` of either package's ``save``) into a serving artifact on the card
-(:func:`tnmf_tpu_torch.serving.export_serving`).  The JAX package's other
-commands are not ported yet: ``demo`` and ``example`` (ROADMAP.md queue 1,
-item 14d-ii) and ``bench`` (item 5) take any arguments, exit with status 1
-and say so; none of them runs the JAX package's scripts.
+* ``tnmf-tpu-torch example <name>`` runs one of the port's examples
+  (``python -m tnmf_tpu_torch.examples.<name>``) in a subprocess;
+* ``tnmf-tpu-torch demo [name] [--headless]`` serves the demo dashboard
+  through streamlit, or runs one demo once with the widget defaults
+  (``--headless``, no streamlit needed);
+* ``tnmf-tpu-torch export checkpoint output`` serializes a checkpoint (a
+  ``.npz`` of either package's ``save``) into a serving artifact on the card
+  (:func:`tnmf_tpu_torch.serving.export_serving`).
+
+``bench`` is not ported yet (ROADMAP.md queue 1, item 5): it takes any
+arguments, exits with status 1 and says so; nor are the JAX package's three
+mesh examples (item 14e).  No command runs the JAX package's scripts.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import subprocess
 import sys
+
+from .demos.demo_selector import DEMO_NAME_DICT
+from .examples import EXAMPLES, MESH_EXAMPLES, MESH_ITEM
+
+DEMO_NAMES = list(DEMO_NAME_DICT)
+PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
+SELECTOR = os.path.join(PACKAGE_DIR, 'demos', 'demo_selector.py')
+
+
+def _run_module(module: str, *args: str) -> int:
+    """``python -m module args`` in a subprocess that imports this copy of
+    the package (its parent directory first on ``PYTHONPATH``)."""
+    path = [os.path.dirname(PACKAGE_DIR), os.environ.get('PYTHONPATH', '')]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in path if p))
+    return subprocess.call([sys.executable, '-m', module, *args], env=env)
+
 
 def _not_ported(what: str, item: str) -> int:
     print(f'{what} is not ported to tnmf_tpu_torch yet (ROADMAP.md queue 1, item {item}); '
@@ -19,12 +43,34 @@ def _not_ported(what: str, item: str) -> int:
     return 1
 
 
+def list_examples() -> list:
+    """The port's examples, by name."""
+    return sorted(EXAMPLES)
+
+
 def cmd_demo(args) -> int:
-    return _not_ported('the demo dashboard', '14d-ii')
+    if args.headless:
+        return _run_module('tnmf_tpu_torch.demos.demo_selector', args.name)
+    try:
+        import streamlit  # noqa: F401
+    except ImportError:
+        print('streamlit is not installed; run with --headless for a '
+              'non-interactive pass using the widget defaults.', file=sys.stderr)
+        return 1
+    return _run_module('streamlit', 'run', SELECTOR, '--', args.name)
 
 
 def cmd_example(args) -> int:
-    return _not_ported('the bundled examples', '14d-ii')
+    if args.name in MESH_EXAMPLES:
+        print(f'the example {args.name!r} needs a device mesh, which is not ported to '
+              f'tnmf_tpu_torch yet ({MESH_ITEM})', file=sys.stderr)
+        return 1
+    examples = list_examples()
+    if args.name not in examples:
+        print(f'unknown example {args.name!r}; available: {", ".join(examples)}',
+              file=sys.stderr)
+        return 1
+    return _run_module(f'tnmf_tpu_torch.examples.{args.name}')
 
 
 def cmd_export(args) -> int:
@@ -52,15 +98,24 @@ def cmd_bench(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog='tnmf-tpu-torch',
-        description='Transform-invariant NMF on PyTorch and CUDA: serving export '
-                    '(demos, examples and benchmarks are not ported yet).')
+        description='Transform-invariant NMF on PyTorch and CUDA: demos, examples, '
+                    'serving export (the benchmark is not ported yet).')
     sub = parser.add_subparsers(dest='command', required=True)
 
-    # the commands not ported yet take any arguments (parse_known_args below)
-    for name, func, text in (('demo', cmd_demo, 'launch the interactive demo dashboard'),
-                             ('example', cmd_example, 'run a bundled example script'),
-                             ('bench', cmd_bench, 'run the benchmark harness')):
-        sub.add_parser(name, help=f'{text} (not ported)').set_defaults(func=func)
+    p_demo = sub.add_parser('demo', help='launch the interactive demo dashboard')
+    p_demo.add_argument('name', nargs='?', default='2-D Synthetic Signals',
+                        choices=DEMO_NAMES)
+    p_demo.add_argument('--headless', action='store_true',
+                        help='run once with widget defaults, no streamlit server')
+    p_demo.set_defaults(func=cmd_demo)
+
+    p_ex = sub.add_parser('example', help='run a bundled example script')
+    p_ex.add_argument('name', help=f'one of: {", ".join(list_examples())}')
+    p_ex.set_defaults(func=cmd_example)
+
+    # not ported yet: takes any arguments (parse_known_args below)
+    sub.add_parser('bench', help='run the benchmark harness (not ported)').set_defaults(
+        func=cmd_bench)
 
     p_exp = sub.add_parser(
         'export', help='serialize a checkpoint into a serving artifact '
@@ -78,7 +133,7 @@ def main(argv=None) -> int:
     p_exp.set_defaults(func=cmd_export)
 
     args, rest = parser.parse_known_args(argv)
-    if rest and args.func is cmd_export:
+    if rest and args.func is not cmd_bench:
         parser.error(f'unrecognized arguments: {" ".join(rest)}')
     return args.func(args)
 

@@ -85,3 +85,4 @@ def divergence(V: torch.Tensor, R: torch.Tensor, beta: float = 2.0,
     if mask is not None:
         e = e * mask.to(acc)
     return torch.sum(e)
+

@@ -295,7 +295,27 @@ failure (exit code != 0, no result line):
    fit and reconstruction computed) the same way; then ``python -m
    tnmf_tpu_torch.cli example shift_invariant_decomposition`` and ``demo
    --headless`` as subprocesses, each exiting 0; ``mu_ratio``, ``mu_w``,
-   K2, K3, K4 and K5 each launched at least once across the examples.
+   K2, K3, K4 and K5 each launched at least once across the examples;
+23. data parallelism over the samples (``mesh=``): (a) a world of one on
+   NCCL in this process, the conv flagship for 10 iterations with
+   ``mesh=make_mesh()`` bit-equal to the mesh-free fit from the same seeded
+   init (also inhibited, 5 iterations), ``mu_w``, K2 and K3 (K4) launched
+   once per iteration and no plain version called, ms per iteration with
+   and without the mesh in turns (CUDA events) beside one all-reduce of the
+   W statistics alone; plain-NMF HALS at 16384 x 1 x 4096 with 256 atoms
+   (3 iterations, against float64) and shift-invariant HALS on the
+   flagship's data (2 iterations) on the same mesh; (b) two worker
+   processes sharing the card over gloo (this script with
+   ``--mesh-worker``, the kernels built before they start), 32 samples
+   each: the plain flagship (10 iterations) and the inhibited one (5),
+   each rank's W and rows of H within rtol 2e-5 / atol 1e-7 of (a)'s, each
+   rank's launches printed and required (no plain version called); (c)
+   the same workers' HALS: plain NMF no farther from the float64 fit than
+   twice the world of one's float32 fit (C3's rule), shift-invariant
+   within 1e-4 of the world of one; (d) ``python -m tnmf_tpu_torch.cli
+   example data_parallel_fit`` and ``example multihost_fit`` with
+   ``TNMF_TPU_SMOKE=1`` as subprocesses, each exiting 0.  A worker or a
+   child that exits non-zero or outlives its timeout fails the run.
 
 Phases 7, 10, 12, 13, 14, 15, 16, 17, 20 and 22 hold fits on the kernels
 against the same fits with ``use_pallas=False`` (the model's kernel/plain
@@ -305,7 +325,9 @@ The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths (phase 19's over the model axis also apart, K5's
 from the HALS sweeps (f) and (g); phases 20's, 21's and 22's also apart:
 ``examples_launches`` across the examples, ``demos_launches`` across the
-demos), error, times and bound; the last line is
+demos; phase 23's world of one as ``mesh_launches``, and the world of
+two's, summed over its ranks, as ``mesh_world_two_launches``), error,
+times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -316,6 +338,7 @@ import gc
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -4930,12 +4953,12 @@ def _kernels_plain_kernels(label: str, fn, total: dict) -> tuple:
 
 
 def _examples(total: dict) -> dict:
-    """Each ported example at full size in turns
+    """Each ported example of one process at full size in turns
     (:func:`_kernels_plain_kernels`), every figure held within
-    ``EXAMPLE_RTOL`` of the plain run."""
-    from tnmf_tpu_torch.examples import EXAMPLES
+    ``EXAMPLE_RTOL`` of the plain run (the data-parallel ones: phase 23)."""
+    from tnmf_tpu_torch.examples import SINGLE_PROCESS_EXAMPLES
     out = {}
-    for name in EXAMPLES:
+    for name in SINGLE_PROCESS_EXAMPLES:
         module = importlib.import_module(f'tnmf_tpu_torch.examples.{name}')
         result, plain, launches, (ms, plain_ms, ms_after) = _kernels_plain_kernels(
             name, lambda use_pallas: module.run(device=DEVICE, use_pallas=use_pallas), total)
@@ -5022,6 +5045,307 @@ def phase_examples() -> tuple:
                        seconds=seconds)
 
 
+# ---------------------------------------------------------------- phase 23
+
+#: iterations of the flagship fits on a mesh: plain, inhibited
+MESH_ITER = 10
+MESH_INHIBITED_ITER = 5
+#: a world of two against a world of one, |a - b| <= atol + rtol |b| (the
+#: JAX package's bound of sharded against single-device steps,
+#: __graft_entry__.py:123-129)
+MESH_RTOL, MESH_ATOL = 2e-5, 1e-7
+#: HALS on a mesh: plain NMF at phase 16's size, shift-invariant on the
+#: flagship's data, and the latter's limit against the world of one
+MESH_HALS_ITER = 3
+MESH_HALS_CONV_ITER = 2
+MESH_HALS_CONV_TOL = 1e-4
+#: seconds each process phase 23 starts may take
+MESH_TIMEOUT = 600
+#: the CLI's data-parallel examples: (arguments, what the output must show)
+MESH_CLI = ((['example', 'data_parallel_fit'], 'final energy (mesh=1)'),
+            (['example', 'multihost_fit'], 'multi-host fit finished on both ranks.'))
+
+
+def _mesh_config() -> dict:
+    """What the world of one and the workers fit: the device, the sizes and
+    the iterations (handed to the workers on their command line)."""
+    return dict(device=DEVICE, flagship=FLAGSHIP, hals_plain=HALS_PLAIN, hals_conv=HALS_CONV,
+                iterations=dict(plain=MESH_ITER, inhibited=MESH_INHIBITED_ITER,
+                                hals_plain=MESH_HALS_ITER, hals_conv=MESH_HALS_CONV_ITER))
+
+
+def _mesh_fits(cfg: dict) -> list:
+    """``(label, make(mesh, **kw), data, fit keywords, iterations, launches
+    per iteration)`` of each fit phase 23 runs on a mesh."""
+    f, hp, hc, it = cfg['flagship'], cfg['hals_plain'], cfg['hals_conv'], cfg['iterations']
+    device = cfg['device']
+    V = np.random.default_rng(SEED).random((f['N'], f['C']) + tuple(f['S']), dtype=np.float32)
+    V2 = np.random.default_rng(SEED + 50).random((hp['N'], 1, hp['F']), dtype=np.float32)
+    Vc = np.random.default_rng(SEED).random((hc['N'], hc['C']) + tuple(hc['S']),
+                                            dtype=np.float32)
+
+    def flagship(mesh=None, **kw):
+        return TransformInvariantNMF(f['M'], tuple(f['A']), reconstruction_mode=f['mode'],
+                                     seed=SEED, device=device, mesh=mesh, **kw)
+
+    def hals_plain(mesh=None, **kw):
+        return TransformInvariantNMF(hp['M'], (hp['F'],), reconstruction_mode='full', seed=SEED,
+                                     device=device, mesh=mesh, **kw)
+
+    def hals_conv(mesh=None, **kw):
+        return TransformInvariantNMF(hc['M'], tuple(hc['A']), reconstruction_mode='full',
+                                     seed=SEED, device=device, mesh=mesh, **kw)
+    return [
+        ('plain', flagship, V, dict(sparsity_H=f['sparsity']), it['plain'],
+         dict(mu_w=1, grad_w=1, mu_h=1)),
+        ('inhibited', flagship, V, dict(sparsity_H=f['sparsity'],
+                                        inhibition_strength=f['inhibition']),
+         it['inhibited'], dict(mu_w=1, grad_w=1, inhibited_mu_h=1)),
+        ('hals_plain', hals_plain, V2, dict(solver='hals'), it['hals_plain'],
+         dict(hals_sweep=2)),
+        ('hals_conv', hals_conv, Vc, dict(solver='hals', sparsity_H=hc['sparsity']),
+         it['hals_conv'], dict(hals_sweep=math.prod(hc['A']), grad_w=1, mu_ratio=1)),
+    ]
+
+
+def _mesh_fit(label: str, nmf, V, fit: dict, n: int, per_iteration: dict) -> dict:
+    """``nmf.fit(V, n_iterations=n, **fit)``, counts reset before and read
+    after: each kernel of ``per_iteration`` launched that many times per
+    iteration, no other, and no plain version called."""
+    reset_counts()
+    with plain_calls() as plain:
+        nmf.fit(V, n_iterations=n, **fit)
+    if DEVICE == 'cuda':
+        sync()
+    launches = counts()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update({k: v * n for k, v in per_iteration.items()})
+    if launches != want or any(plain.values()):
+        raise AssertionError(f'{label} on a mesh: launches {launches} (plain versions '
+                             f'{plain}), not {want}')
+    return launches
+
+
+def _mesh_ms(model, fit: dict, n: int) -> float:
+    """Device ms per MU iteration of ``model`` on its mesh (CUDA events), the
+    W statistics all-reduced over the model's process group."""
+    args, flags = _fit_kw(fit)
+
+    def run():
+        model._W, model._H = engine.fit_loop(model._Vp, model._W, model._H, n, *args,
+                                             model._kernels, plan=model._plan,
+                                             strategy=model._strategy,
+                                             process_group=model._pg, **flags)
+    return time_ms(run, reps=1) / n
+
+
+def mesh_worker(store: str, rank: int, out: str, cfg: dict) -> None:
+    """One rank of phase 23's world of two (``python3 chip_smoke.py
+    --mesh-worker STORE RANK OUT CONFIG``): every fit of :func:`_mesh_fits`
+    on ``make_mesh()`` over gloo (the two ranks share the card), its
+    launches required; W, this rank's rows of H, the launches and ms per
+    iteration of the plain flagship into ``OUT/rank<rank>.npz``."""
+    from tnmf_tpu_torch.parallel import distributed, make_mesh
+    distributed.initialize(store, num_processes=2, process_id=rank, backend='gloo',
+                           timeout=MESH_TIMEOUT)
+    try:
+        mesh = make_mesh(devices=cfg['device'])
+        res, launches = {}, {}
+        for label, make, V, fit, n, per_iteration in _mesh_fits(cfg):
+            nmf = make(mesh)
+            launches[label] = _mesh_fit(f'rank {rank} {label}', nmf, V, fit, n, per_iteration)
+            res[f'{label}/W'], res[f'{label}/H'] = nmf.W, nmf._local_H()
+            if label == 'plain' and cfg['device'] == 'cuda':
+                res['plain/ms'] = np.float64(_mesh_ms(nmf, fit, n))
+            del nmf
+        res['launches'] = np.array(json.dumps(launches))
+        np.savez(Path(out) / f'rank{rank}.npz', **res)
+        log(f'rank {rank}: launches {json.dumps(launches)}')
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _world_one(cfg: dict) -> tuple:
+    """Phase 23 (a): a world of one in this process (NCCL on the card); each
+    fit on ``make_mesh()`` and the flagship's also without a mesh (the
+    all-reduce of one rank is the identity: bit-equal required), the
+    plain-NMF HALS fit also in float64 (C3's reference).  Returns the
+    launches, the references and the numbers."""
+    from tnmf_tpu_torch.parallel import distributed, make_mesh
+    distributed.initialize(num_processes=1)
+    backend = torch.distributed.get_backend()
+    total, refs, out = dict.fromkeys(KERNELS, 0), {}, dict(backend=backend)
+    try:
+        mesh = make_mesh(devices=DEVICE)
+        for label, make, V, fit, n, per_iteration in _mesh_fits(cfg):
+            meshed = make(mesh)
+            for name, k in _mesh_fit(label, meshed, V, fit, n, per_iteration).items():
+                total[name] += k
+            refs[label] = (meshed.W, meshed._local_H())
+            if label.startswith('hals'):
+                if label == 'hals_plain':
+                    ref64 = make(dtype=torch.float64)
+                    ref64.fit(V, n_iterations=n, **fit)
+                    refs['hals_plain_float64'] = (ref64.W, ref64.H)
+                    del ref64
+                del meshed
+                continue
+            free = make()
+            _mesh_fit(f'{label} without a mesh', free, V, fit, n, per_iteration)
+            same = torch.equal(meshed._W, free._W) and torch.equal(meshed._H, free._H)
+            log(f'  (a) {label}: world of one on {backend} against no mesh: '
+                f'{"bit-equal" if same else "DIFFERENT"}; energy {meshed._energy_function()!r}')
+            if not same:
+                raise AssertionError(f'phase 23 (a) {label}: the world of one is not bit-equal '
+                                     'to the mesh-free fit')
+            if label == 'plain' and DEVICE == 'cuda':
+                ms = dict(no_mesh=[], mesh=[])
+                for key, model in (('no_mesh', free), ('mesh', meshed), ('mesh', meshed),
+                                   ('no_mesh', free)):
+                    ms[key].append(_mesh_ms(model, fit, n))
+                # the W statistics' all-reduce alone, and with the stacking of
+                # the pair into one buffer (engine.all_reduce_sum), in turns
+                W, group = meshed._W, mesh.get_group()
+                stats = torch.zeros(2 * W.numel(), dtype=W.dtype, device=W.device)
+                calls = dict(all_reduce=lambda: torch.distributed.all_reduce(stats, group=group),
+                             all_reduce_sum=lambda: engine.all_reduce_sum(
+                                 W, W, process_group=group))
+                reduce = dict(all_reduce=[], all_reduce_sum=[])
+                for key in ('all_reduce', 'all_reduce_sum', 'all_reduce_sum', 'all_reduce'):
+                    reduce[key].append(time_ms(calls[key], reps=100))
+                pair_ms = float(np.mean(reduce['all_reduce_sum']))
+                out.update(ms_per_iteration=ms, all_reduce_ms=reduce,
+                           all_reduce_share=pair_ms / float(np.mean(ms['mesh'])))
+                log(f'  (a) flagship ms/iteration in turns (no mesh, mesh, mesh, no mesh): '
+                    f'{ms["no_mesh"][0]:.4f}, {ms["mesh"][0]:.4f}, {ms["mesh"][1]:.4f}, '
+                    f'{ms["no_mesh"][1]:.4f}; the {stats.numel()} statistics\' all_reduce '
+                    f'alone {reduce["all_reduce"][0]:.4f}/{reduce["all_reduce"][1]:.4f} ms, '
+                    f'with the stacking (engine.all_reduce_sum) '
+                    f'{reduce["all_reduce_sum"][0]:.4f}/{reduce["all_reduce_sum"][1]:.4f} ms '
+                    f'(in turns, 100 calls a window), {100 * out["all_reduce_share"]:.2f} % of '
+                    'an iteration on the mesh')
+            del meshed, free
+    finally:
+        torch.distributed.destroy_process_group()
+    return total, refs, out
+
+
+def _close(a: np.ndarray, b: np.ndarray) -> float:
+    """The largest ``|a - b| / (atol + rtol |b|)``: at most 1 within
+    ``MESH_RTOL`` and ``MESH_ATOL``."""
+    return float(np.max(np.abs(a - b) / (MESH_ATOL + MESH_RTOL * np.abs(b))))
+
+
+def _world_two(cfg: dict, refs: dict) -> dict:
+    """Phase 23 (b) and (c): two workers sharing the card over gloo, held
+    against the world of one's fits."""
+    with tempfile.TemporaryDirectory() as tmp:
+        store = 'file://' + str(Path(tmp) / 'store')
+        children = [subprocess.Popen(
+            [sys.executable, str(ROOT / 'chip_smoke.py'), '--mesh-worker', store, str(rank), tmp,
+             json.dumps(cfg)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for rank in range(2)]
+        outputs = []
+        try:
+            for child in children:
+                outputs.append(child.communicate(timeout=MESH_TIMEOUT))
+        finally:
+            for child in children:
+                if child.poll() is None:
+                    child.kill()
+                    child.wait()
+        for rank, ((stdout, stderr), child) in enumerate(zip(outputs, children)):
+            log(f'  (b) worker {rank}: exit {child.returncode}; {stdout.strip()[-600:]!r} '
+                f'{stderr.strip()[-600:]!r}')
+        if any(child.returncode != 0 for child in children):
+            raise AssertionError('phase 23: a worker of the world of two failed')
+        ranks = [dict(np.load(Path(tmp) / f'rank{r}.npz')) for r in range(2)]
+    out = dict(launches=[json.loads(str(r['launches'])) for r in ranks])
+    if 'plain/ms' in ranks[0]:
+        out['ms_per_iteration_per_rank'] = [float(r['plain/ms']) for r in ranks]
+        log('  (b) flagship ms/iteration on each rank (32 samples, the card shared with the '
+            'other rank, timed at once): '
+            + ', '.join(f'{t:.4f}' for t in out['ms_per_iteration_per_rank']))
+    for label in ('plain', 'inhibited'):
+        W1, H1 = refs[label]
+        n = H1.shape[0] // 2
+        worst = max(max(_close(r[f'{label}/W'], W1),
+                        _close(r[f'{label}/H'], H1[i * n:(i + 1) * n]))
+                    for i, r in enumerate(ranks))
+        out[label] = worst
+        log(f'  (b) {label}: world of two against world of one, largest |a - b| / '
+            f'({MESH_ATOL} + {MESH_RTOL} |b|) = {worst:.3e} (at most 1)')
+        if not worst <= 1:
+            raise AssertionError(f'phase 23 (b) {label}: {worst:.3e} past the bound')
+    W64, H64 = refs['hals_plain_float64']
+    W1, H1 = refs['hals_plain']
+    W2 = ranks[0]['hals_plain/W']
+    H2 = np.concatenate([r['hals_plain/H'] for r in ranks])
+    one = max(_rel(W1, W64), _rel(H1, H64))
+    two = max(_rel(W2, W64), _rel(H2, H64))
+    out['hals_plain'] = dict(world_one_float64=one, world_two_float64=two)
+    log(f'  (c) HALS plain NMF: max|x - x64| / max|x64| of W and H: world of one {one:.3e}, '
+        f'world of two {two:.3e} (at most twice the first)')
+    if not two <= 2 * one:
+        raise AssertionError(f'phase 23 (c) plain-NMF HALS: {two:.3e} > 2 x {one:.3e}')
+    W1, H1 = refs['hals_conv']
+    H2 = np.concatenate([r['hals_conv/H'] for r in ranks])
+    conv = max(_rel(ranks[0]['hals_conv/W'], W1), _rel(ranks[1]['hals_conv/W'], W1),
+               _rel(H2, H1))
+    out['hals_conv'] = conv
+    log(f'  (c) HALS shift-invariant: world of two against world of one {conv:.3e} '
+        f'(at most {MESH_HALS_CONV_TOL})')
+    if not conv <= MESH_HALS_CONV_TOL:
+        raise AssertionError(f'phase 23 (c) shift-invariant HALS: {conv:.3e} off')
+    return out
+
+
+def _mesh_cli() -> dict:
+    """Phase 23 (d): the CLI's data-parallel examples as subprocesses, both
+    at once, with ``TNMF_TPU_SMOKE=1``."""
+    env = dict(os.environ, TNMF_TPU_SMOKE='1')
+    children = [(args, expect, subprocess.Popen(
+        [sys.executable, '-m', 'tnmf_tpu_torch.cli', *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)) for args, expect in MESH_CLI]
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for args, expect, child in children:
+            stdout, stderr = child.communicate(timeout=MESH_TIMEOUT)
+            out[' '.join(args)] = child.returncode
+            log(f'  (d) tnmf-tpu-torch {" ".join(args)}: exit {child.returncode}; '
+                f'{stdout.strip()[-400:]!r} {stderr.strip()[-300:]!r}')
+            if child.returncode != 0 or expect not in stdout:
+                raise AssertionError(f'phase 23 (d): tnmf-tpu-torch {" ".join(args)} failed')
+        out['seconds'] = time.perf_counter() - t0
+    finally:
+        for _, _, child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    return out
+
+
+def phase_mesh() -> tuple:
+    """Phase 23: data parallelism over the samples, (a) to (d) in the
+    module docstring.  Returns the world of one's launches and the
+    numbers."""
+    t_phase = time.perf_counter()
+    cfg = _mesh_config()
+    total, refs, world_one = _world_one(cfg)
+    world_two = _world_two(cfg, refs)
+    cli = _mesh_cli()
+    seconds = time.perf_counter() - t_phase
+    two = dict.fromkeys(KERNELS, 0)
+    for rank in world_two['launches']:
+        for fit in rank.values():
+            for name, n in fit.items():
+                two[name] += n
+    log(f'  phase 23: world of one launches {total}, world of two {two}; {seconds:.1f} s')
+    return total, dict(world_one=world_one, world_two=world_two, world_two_launches=two,
+                       cli=cli, seconds=seconds)
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -5076,6 +5400,9 @@ def main() -> int:
     log('the examples and demos (phase 22):')
     ex_launches, ex_out = phase_examples()
     log(f'example and demo times ({card()}): ' + json.dumps(ex_out))
+    log('data parallelism over the samples (phase 23):')
+    mesh_launches, mesh_out = phase_mesh()
+    log(f'mesh numbers ({card()}): ' + json.dumps(mesh_out))
     srv_per_iteration = {kind: d['launches_per_iteration'] for kind, d in srv.items()}
     k5 = hals_out['k5']
     errors['hals_sweep'] = k5[K5_CASES[0][0]]['max_abs_err']
@@ -5093,7 +5420,7 @@ def main() -> int:
                            + hals_launches[name] + srv_launches[name]
                            + prec_launches[name] + sw_launches[name] + ms_launches[name]
                            + tl_launches[name] + ex_launches[name]
-                           + ex_out['demo_launches'][name]),
+                           + ex_out['demo_launches'][name] + mesh_launches[name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
@@ -5121,6 +5448,8 @@ def main() -> int:
                  tools_launches=tl_launches[name],
                  examples_launches=ex_launches[name],
                  demos_launches=ex_out['demo_launches'][name],
+                 mesh_launches=mesh_launches[name],
+                 mesh_world_two_launches=mesh_out['world_two_launches'][name],
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
     log(device['smi'])  # again here: the build's report may push the first one out of a tail
@@ -5132,4 +5461,7 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if len(sys.argv) == 6 and sys.argv[1] == '--mesh-worker':
+        mesh_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4], json.loads(sys.argv[5]))
+        sys.exit(0)
     sys.exit(main())

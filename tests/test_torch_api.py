@@ -140,12 +140,13 @@ def test_constructor_dtype(value, dtype):
 
 @pytest.mark.parametrize('args,kwargs', [
     ((None, 'auto', None, 2), dict(shard_axis='atoms')),
-    ((None, 'auto', None, 0, 'valid', 'float32', object()), {}),
+    ((None, 'auto', None, 0, 'valid', 'float32', None, 0, '5-smooth'), dict(shard_axis='both')),
 ])
 def test_unported_positional_arguments_raise(args, kwargs):
-    """``mesh`` is a real parameter that raises unless it holds the default,
-    as do the later keywords whose code is not ported (``shard_axis``);
-    ``logger``, ``verbose`` and ``fft_policy`` are ported."""
+    """The later keywords whose code is not ported raise (``shard_axis``
+    other than 'samples'); ``logger``, ``verbose``, ``mesh`` (a
+    ``DeviceMesh``, ``tests/test_torch_distributed.py``) and
+    ``fft_policy`` are ported."""
     with pytest.raises(NotImplementedError, match='ROADMAP.md queue 1, item'):
         tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), *args, device='cpu', **kwargs)
     # at their defaults they are accepted, and so are a logger and a verbosity

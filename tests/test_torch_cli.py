@@ -3,7 +3,7 @@
 ``tests/test_serving_export.py::test_cli_export``, serving H within 1e-8 of
 the JAX model's ``transform`` in float64; the export's error path;
 ``example`` and ``demo`` launching the port's scripts (the subprocess call
-captured), refusing unknown names, the mesh examples (item 14e) and, without
+captured), refusing unknown names, the mesh example of item 14e-ii and, without
 streamlit, the interactive dashboard; ``bench`` refused with the item it
 waits for.  The command exports the card's program; here ``main`` runs
 in-process with the checkpoint's load pointed at the CPU (``chip_smoke.py``
@@ -105,7 +105,7 @@ def test_unknown_example_exits_1_with_the_list(calls, capsys):
 @pytest.mark.parametrize('name', MESH_EXAMPLES)
 def test_mesh_example_exits_1_naming_item_14e(name, calls, capsys):
     assert main(['example', name]) == 1
-    assert 'item 14e)' in capsys.readouterr().err and not calls
+    assert 'item 14e-ii)' in capsys.readouterr().err and not calls
 
 
 def test_demo_without_streamlit_exits_1(calls, capsys, monkeypatch):

@@ -1,7 +1,7 @@
 """The port's examples (``tnmf_tpu_torch.examples``) against the JAX
 package's (``examples/*.py``), on the CPU at their smoke settings: the 1-D
-examples, the sweep and the 3-D one (``tests/test_torch_examples_2d.py``
-holds the others).
+examples, the sweep, the 3-D one and the two data-parallel ones
+(``tests/test_torch_examples_2d.py`` holds the others).
 
 Each JAX example runs unedited and in-process (``runpy`` under
 ``TNMF_TPU_SMOKE=1`` and ``MPLBACKEND=Agg``, stdout captured); the port's
@@ -13,7 +13,19 @@ example's figure by figure (``tests/torch_examples.py``): float64 examples
 within rtol 1e-8, float32 ones within 1e-3, each plus the printed figures'
 rounding.  Left out, because they cannot match: the CPU times of
 ``minibatch_algorithms`` and the sweep's wall time, and the JAX sweep's
-last line, its mesh run (the port's meshes are ROADMAP.md item 14e)."""
+last line, its mesh run (a 'models' mesh, ROADMAP.md item 14e-iv).
+
+``data_parallel_fit`` runs at a world of one against the JAX example on
+one device; ``multihost_fit``'s two workers run on the CPU from the JAX
+package's device draws (the port's ``init='device'`` draws from torch's
+generators) against the lines the JAX example's two processes print."""
+
+import functools
+import json
+import os
+import runpy
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -21,10 +33,13 @@ import numpy as np
 import pytest
 import torch
 
+import tnmf_tpu
+import tnmf_tpu.parallel as jax_parallel
 from tnmf_tpu import engine as jengine
+from tnmf_tpu_torch.examples import multihost_fit
 from tnmf_tpu_torch.models import sweep as port_sweep
 
-from .torch_examples import check_example, jax_lines
+from .torch_examples import REPO, assert_figures, check_example, jax_lines
 from .torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures('one_torch_thread')
@@ -86,3 +101,71 @@ def test_main_prints_what_the_jax_example_prints(monkeypatch, capsys):
     import matplotlib.pyplot as plt
     assert plt.get_fignums()
     plt.close('all')
+
+
+def test_data_parallel_fit_matches_jax_at_a_world_of_one(monkeypatch, capsys):
+    """The port's example starts a world of one on the CPU (gloo); the JAX
+    example runs on one of its devices (its mesh and count patched to
+    one).  Left out: the layout line and the mesh fit's distance from the
+    mesh-free one (0 in the port's world of one, where the all-reduce is
+    the identity; about 2e-7 in the JAX package's sharded program)."""
+    monkeypatch.setattr(jax_parallel, 'make_mesh',
+                        functools.partial(jax_parallel.make_mesh, n_devices=1))
+    monkeypatch.setattr(jax, 'device_count', lambda: 1)
+    n = check_example('data_parallel_fit', monkeypatch, capsys, dtype=torch.float32, rtol=1e-3,
+                      keep=lambda line: not line.startswith(('sharded H layout', 'max |W')))
+    assert n == 4
+    assert not torch.distributed.is_initialized()
+
+
+MULTIHOST_WORKER = r'''
+import json, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from tnmf_tpu_torch import TransformInvariantNMF
+from tnmf_tpu_torch.examples import multihost_fit
+init = np.load(sys.argv[3])
+TransformInvariantNMF._device_uniform = lambda self, shape: torch.as_tensor(init['W'])
+TransformInvariantNMF._device_rows = lambda self, shape, rows: torch.as_tensor(init['H'][rows])
+print('RESULT ' + json.dumps(multihost_fit.worker(sys.argv[1], int(sys.argv[2]), 'cpu')))
+'''
+
+
+def test_multihost_fit_workers_match_the_jax_examples_energies(tmp_path, monkeypatch, capfd):
+    """Two port workers on the CPU, each drawing the JAX package's
+    ``init='device'`` start (its ``_device_uniform`` and ``_device_rows``
+    patched to hand back the JAX draws: W whole, H the rank's rows),
+    against the JAX example's two processes: every rank's final energy
+    and atom norms within rtol 1e-3 (float32), the layout lines left out
+    (the JAX processes hold four virtual devices each)."""
+    V = np.random.default_rng(0).random((16, 2, 24, 24)).astype(np.float32)
+    jm = tnmf_tpu.TransformInvariantNMF(n_atoms=4, atom_shape=(5, 5), init='device', seed=0)
+    jm._initialize_matrices(V, keep_W=False)
+    init = str(tmp_path / 'init.npz')
+    np.savez(init, W=np.asarray(jm._W), H=np.asarray(jm._H))
+    store = 'file://' + str(tmp_path / 'store')
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen([sys.executable, '-c', MULTIHOST_WORKER, store, str(rank), init],
+                              cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for rank in range(2)]
+    try:
+        capfd.readouterr()
+        monkeypatch.setenv('TNMF_TPU_SMOKE', '1')
+        runpy.run_path(os.path.join(REPO, 'examples', 'multihost_fit.py'), run_name='__main__')
+        jax_printed = capfd.readouterr().out.splitlines()
+        outputs = [p.communicate(timeout=180) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], outputs
+    workers = [json.loads(next(line[7:] for line in out.splitlines()
+                               if line.startswith('RESULT '))) for out, _ in outputs]
+    port = multihost_fit.lines(dict(workers=workers))
+
+    def results(lines):
+        return sorted(line for line in lines if 'final energy' in line or 'finished' in line)
+    # each rank's line: its number, its energy and the 8 atom norms
+    assert assert_figures(results(port), results(jax_printed), 1e-3) == 2 * (2 + 8)

@@ -235,7 +235,7 @@ def test_fit_arguments_at_jax_defaults_are_accepted():
     assert nmf.n_iterations_ == 1
 
 
-@pytest.mark.parametrize('kwargs', [dict(mesh=object()), dict(shard_axis='atoms')])
+@pytest.mark.parametrize('kwargs', [dict(shard_axis='spatial'), dict(shard_axis='atoms')])
 def test_unported_constructor_arguments_raise(kwargs):
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         tnmf_tpu_torch.TransformInvariantNMF(2, (3, 3), device='cpu', **kwargs)

@@ -10,8 +10,9 @@
   (:func:`tnmf_tpu_torch.serving.export_serving`).
 
 ``bench`` is not ported yet (ROADMAP.md queue 1, item 5): it takes any
-arguments, exits with status 1 and says so; nor are the JAX package's three
-mesh examples (item 14e).  No command runs the JAX package's scripts.
+arguments, exits with status 1 and says so; nor is the JAX package's
+``model_parallel_fit`` example (item 14e-ii).  No command runs the JAX
+package's scripts.
 """
 
 from __future__ import annotations
@@ -62,8 +63,8 @@ def cmd_demo(args) -> int:
 
 def cmd_example(args) -> int:
     if args.name in MESH_EXAMPLES:
-        print(f'the example {args.name!r} needs a device mesh, which is not ported to '
-              f'tnmf_tpu_torch yet ({MESH_ITEM})', file=sys.stderr)
+        print(f'the example {args.name!r} needs a mesh over the atoms, which is not ported '
+              f'to tnmf_tpu_torch yet ({MESH_ITEM})', file=sys.stderr)
         return 1
     examples = list_examples()
     if args.name not in examples:

@@ -68,6 +68,17 @@ Each of these functions takes the model's kernel/plain switch as
 any device, as one more reason of :func:`plain_reason` and
 :func:`dtype_reason`.
 
+Data parallelism over the samples (:mod:`tnmf_tpu_torch.parallel`): the
+functions that sum over the samples take a ``process_group`` (default
+None).  Each rank then holds its own rows of the data and of H and a
+replica of W, and every sum over the samples is one ``all_reduce`` over
+that group (:func:`all_reduce_sum`): the W statistics before
+:func:`apply_W_update` (so ``ortho_W``'s term, formed from the replicated
+W after it, is counted once), the energy, and the sums of
+:func:`correlate_init_H`.  The loops read their stopping tests off the
+reduced energy, so every rank stops at the same iteration.  With
+``process_group=None`` no collective is issued and no tensor copied.
+
 The objective is the JAX engine's: the beta-divergence of ``beta``
 (default 2, the Euclidean energy), weighted by a ``mask``, with the ridge
 penalty ``l2_H`` on H and the orthogonality penalty ``ortho_W`` on W
@@ -234,12 +245,27 @@ def partial_reconstruct(W: torch.Tensor, H: torch.Tensor, *, plan: ConvPlan,
 @_pinned
 def energy(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
            mask: Optional[torch.Tensor] = None, *, plan: ConvPlan, strategy: Strategy = 'conv',
-           beta: float = 2.0) -> torch.Tensor:
+           beta: float = 2.0, process_group=None) -> torch.Tensor:
     """Reconstruction objective ``D_beta(V || R)`` (``0.5 * sum((V - R)^2)``
     at the default beta = 2; :func:`tnmf_tpu_torch.ops.beta.divergence`),
     with ``mask`` the per-entry weighted one, as a 0-d tensor accumulated in
-    ``promote_types(V.dtype, float32)``."""
-    return beta_ops.divergence(V, reconstruct(W, H, plan=plan, strategy=strategy), beta, mask)
+    ``promote_types(V.dtype, float32)``; summed over the ranks of
+    ``process_group``."""
+    e = beta_ops.divergence(V, reconstruct(W, H, plan=plan, strategy=strategy), beta, mask)
+    return all_reduce_sum(e, process_group=process_group)[0]
+
+
+def all_reduce_sum(*tensors: torch.Tensor, process_group=None) -> Tuple[torch.Tensor, ...]:
+    """The sums of ``tensors`` (one dtype) over the ranks of
+    ``process_group``, in one ``all_reduce``: flattened into one buffer,
+    reduced, and handed back as contiguous views of it in their shapes.
+    ``process_group=None`` returns them as they are."""
+    if process_group is None:
+        return tensors
+    buf = torch.cat([t.reshape(-1) for t in tensors])
+    torch.distributed.all_reduce(buf, group=process_group)
+    return tuple(part.view(t.shape) for part, t in
+                 zip(buf.split([t.numel() for t in tensors]), tensors))
 
 
 def dtype_reason(dtype: torch.dtype, use_pallas: bool = True) -> Optional[str]:
@@ -539,13 +565,15 @@ def accumulate_gradient(acc_neg: torch.Tensor, acc_pos: torch.Tensor, neg: torch
 def _mu_W(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
           plan: ConvPlan, strategy: Strategy = 'conv', use_pallas: bool = True,
           beta: float = 2.0, mask: Optional[torch.Tensor] = None,
-          ortho: Optional[float] = None) -> torch.Tensor:
+          ortho: Optional[float] = None, process_group=None) -> torch.Tensor:
     """One multiplicative W update with atom-wise sum normalization
     (reference ``_update_W`` + ``normalize``, ``TransformInvariantNMF.py:240-244``):
-    :func:`grad_W_stats`, then :func:`apply_W_update` (``ortho``: the
+    :func:`grad_W_stats`, summed over the ranks of ``process_group`` in one
+    ``all_reduce``, then :func:`apply_W_update` (``ortho``: the
     orthogonality weight, None when absent)."""
     neg, pos = grad_W_stats(Vp, W, H, mask, plan=plan, strategy=strategy,
                             use_pallas=use_pallas, beta=beta)
+    neg, pos = all_reduce_sum(neg, pos, process_group=process_group)
     return apply_W_update(W, neg, pos, ortho, n_shift_axes=plan.ndim, use_pallas=use_pallas)
 
 
@@ -557,18 +585,20 @@ def update_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                 use_cross: bool = False, strategy: Strategy = 'conv',
                 use_pallas: bool = True, beta: float = 2.0,
                 mask: Optional[torch.Tensor] = None, l2_H: Optional[float] = None,
-                ortho_W: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                ortho_W: Optional[float] = None,
+                process_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One full MU iteration: H update, then W update.  Returns ``(W, H)``.
     ``use_pallas=False`` runs the plain versions of the kernels; ``beta``,
     ``mask``, ``l2_H`` and ``ortho_W`` (None: absent) are the objective's,
-    the JAX engine's keywords."""
+    the JAX engine's keywords; ``process_group`` the ranks whose W
+    statistics add up."""
     if update_H:
         H = _mu_H(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
                   use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy,
                   use_pallas=use_pallas, beta=beta, mask=mask, l2=l2_H)
     if update_W:
         W = _mu_W(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas, beta=beta,
-                  mask=mask, ortho=ortho_W)
+                  mask=mask, ortho=ortho_W, process_group=process_group)
     return W, H
 
 
@@ -599,7 +629,7 @@ def fit_loop_energies(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: tor
                       sparsity: float, inhibition: float = 0., cross_inhibition: float = 0.,
                       kernels: Sequence = (), *, n_iterations: int, plan: ConvPlan,
                       strategy: Strategy = 'conv', beta: float = 2.0,
-                      mask: Optional[torch.Tensor] = None,
+                      mask: Optional[torch.Tensor] = None, process_group=None,
                       **step) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``n_iterations`` MU iterations that also record the energy (of
     ``beta`` and ``mask``) after each one (one more reconstruction per
@@ -610,8 +640,10 @@ def fit_loop_energies(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: tor
     energies = energy_trace(V, int(n_iterations))
     for i in range(int(n_iterations)):
         W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
-                           plan=plan, strategy=strategy, beta=beta, mask=mask, **step)
-        energies[i] = energy(V, W, H, mask, plan=plan, strategy=strategy, beta=beta)
+                           plan=plan, strategy=strategy, beta=beta, mask=mask,
+                           process_group=process_group, **step)
+        energies[i] = energy(V, W, H, mask, plan=plan, strategy=strategy, beta=beta,
+                             process_group=process_group)
     return W, H, energies
 
 
@@ -665,7 +697,7 @@ def fit_loop_tol(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Te
                  n_max: int, tol: float, sparsity: float, inhibition: float = 0.,
                  cross_inhibition: float = 0., kernels: Sequence = (), *, check_every: int,
                  n_buf: int = 0, plan: ConvPlan, strategy: Strategy = 'conv', beta: float = 2.0,
-                 mask: Optional[torch.Tensor] = None, **step):
+                 mask: Optional[torch.Tensor] = None, process_group=None, **step):
     """Adaptive fit (port of the JAX package's ``fit_loop_tol``): MU
     iterations in blocks of ``min(check_every, n_max - i)``; after each
     block the relative improvement ``(e_prev - e) / max(e0, tiny)`` of the
@@ -684,11 +716,13 @@ def fit_loop_tol(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Te
     Returns ``(W, H, n_done, e_final, trace_or_None)``.
     """
     def energy_of(WH):
-        return energy(V, *WH, mask, plan=plan, strategy=strategy, beta=beta)
+        return energy(V, *WH, mask, plan=plan, strategy=strategy, beta=beta,
+                      process_group=process_group)
 
     def iteration(WH):
         return update_step(Vp, *WH, sparsity, inhibition, cross_inhibition, kernels,
-                           plan=plan, strategy=strategy, beta=beta, mask=mask, **step)
+                           plan=plan, strategy=strategy, beta=beta, mask=mask,
+                           process_group=process_group, **step)
 
     (W, H), n_done, e, trace = tol_loop((W, H), iteration, energy_of, int(n_max), tol,
                                         int(check_every), n_buf, V)
@@ -717,7 +751,8 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
                           use_inhibition: bool = False, use_cross: bool = False,
                           strategy: Strategy = 'conv', use_pallas: bool = True,
                           beta: float = 2.0, mask: Optional[torch.Tensor] = None,
-                          l2_H: Optional[float] = None, ortho_W: Optional[float] = None):
+                          l2_H: Optional[float] = None, ortho_W: Optional[float] = None,
+                          process_group=None):
     """Extrapolated MU with restarts (port of the JAX package's
     ``fit_loop_extrapolated``): each update is taken at the extrapolated
     point ``Y = X_new * clip(X_new / X_old)**beta_k`` (W's re-normalised).
@@ -733,12 +768,13 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
     Returns ``(W, H, n_done, e_final, trace_or_None)``.
     """
     def energy_of(W, H):
-        return energy(V, W, H, mask, plan=plan, strategy=strategy, beta=beta)
+        return energy(V, W, H, mask, plan=plan, strategy=strategy, beta=beta,
+                      process_group=process_group)
 
     h_flags = dict(plan=plan, use_inhibition=use_inhibition, use_cross=use_cross,
                    strategy=strategy, use_pallas=use_pallas, beta=beta, mask=mask, l2=l2_H)
     w_flags = dict(plan=plan, strategy=strategy, use_pallas=use_pallas, beta=beta, mask=mask,
-                   ortho=ortho_W)
+                   ortho=ortho_W, process_group=process_group)
     n_max, check_every = int(n_max), int(check_every)
     trace = energy_trace(V, n_buf) if n_buf > 0 else None
     e = energy_of(W, H)
@@ -787,15 +823,16 @@ def update_H_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: 
 def update_W_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
                   plan: ConvPlan, strategy: Strategy = 'conv', use_pallas: bool = True,
                   beta: float = 2.0, mask: Optional[torch.Tensor] = None,
-                  ortho_W: Optional[float] = None) -> torch.Tensor:
+                  ortho_W: Optional[float] = None, process_group=None) -> torch.Tensor:
     """One W-only MU update (H frozen), atoms sum-normalised."""
     return _mu_W(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas, beta=beta,
-                 mask=mask, ortho=ortho_W)
+                 mask=mask, ortho=ortho_W, process_group=process_group)
 
 
 @_pinned
 def correlate_init_H(Vp: torch.Tensor, Vd: torch.Tensor, W: torch.Tensor, *,
-                     plan: ConvPlan, strategy: Strategy = 'conv') -> torch.Tensor:
+                     plan: ConvPlan, strategy: Strategy = 'conv',
+                     process_group=None) -> torch.Tensor:
     """Matched-filter activations ``H0 = c * corr(Vp, W)`` with the
     least-squares scale ``c = <V, R0> / <R0, R0>``, ``R0 = reconstruct(W,
     corr(Vp, W))``, accumulated in ``promote_types(V.dtype, float32)``; a
@@ -804,14 +841,21 @@ def correlate_init_H(Vp: torch.Tensor, Vd: torch.Tensor, W: torch.Tensor, *,
     JAX package takes the correlation as the ``neg`` half of
     ``grad_H_pair(Vp, 0, W)``; here it is that half alone (one cuDNN
     correlation on the conv strategy).  Under a transform group both run
-    on the expanded dictionary, so H0 has ``M*G`` maps."""
+    on the expanded dictionary, so H0 has ``M*G`` maps.  Under a
+    ``process_group`` the scale and the mean are the whole batch's: its sums are reduced over
+    the ranks (equal row counts)."""
     strategy, group = split_strategy(strategy)
     if group is not None:
         W = expand_w(W, group)
     neg = get_ops(strategy).corr_H(Vp, W, plan)
     R0 = reconstruct(W, neg.to(W.dtype), plan=plan, strategy=strategy)
     acc = torch.promote_types(Vd.dtype, torch.float32)
-    num = torch.sum(Vd.to(acc) * R0.to(acc))
-    den = torch.clamp(torch.sum(R0.to(acc) ** 2), min=torch.finfo(acc).tiny)
-    H0 = (num / den).to(neg.dtype) * neg
-    return torch.maximum(H0, 0.01 * torch.mean(H0)).to(W.dtype)
+    num, den = all_reduce_sum(torch.sum(Vd.to(acc) * R0.to(acc)), torch.sum(R0.to(acc) ** 2),
+                              process_group=process_group)
+    H0 = (num / torch.clamp(den, min=torch.finfo(acc).tiny)).to(neg.dtype) * neg
+    if process_group is None:
+        mean = torch.mean(H0)
+    else:
+        mean = all_reduce_sum(torch.sum(H0), process_group=process_group)[0] / (
+            H0.numel() * torch.distributed.get_world_size(process_group))
+    return torch.maximum(H0, 0.01 * mean).to(W.dtype)

@@ -34,6 +34,13 @@ queue 1, item 15).  Their algebra, panel products for the coupling across
 blocks and a running correlation inside a block, is K5's design on the
 card (``csrc/hals_sweep.cu``).
 
+Data parallelism over the samples: with a ``process_group`` each rank
+holds its own rows of V and H and a replica of W; ``G`` and ``P`` are its
+own already, and ``A = H^T H`` and ``B = H^T V`` are summed over the ranks
+in one ``all_reduce`` (:func:`tnmf_tpu_torch.engine.all_reduce_sum`)
+after the products, so every rank's W sweep sees the whole batch's Grams,
+as does the energy.
+
 The energy is the MU engine's, ``0.5 * ||V - H W||_F^2``
 (:func:`tnmf_tpu_torch.ops.beta.divergence` at beta = 2).  The JAX package
 runs its loops as one on-device program each; here they are Python loops,
@@ -97,12 +104,13 @@ def _sweep_W(W: torch.Tensor, A: torch.Tensor, B: torch.Tensor, l1, l2, inner: i
 
 
 def _iteration(V2, W2, H2, l1, l2, l1w, l2w, *, inner: int, update_H: bool,
-               update_W: bool, use_pallas: bool = True):
+               update_W: bool, use_pallas: bool = True, process_group=None):
     """One outer iteration: H sweeps (fresh Grams), then W sweeps.
     ``l1``/``l2`` regularize H, ``l1w``/``l2w`` the dictionary: floats, or
     0-d tensors, cast to the Grams' dtype as the JAX ``_iteration`` casts
     them.  No branch reads a tensor's value, so the sweeps run it under
-    :func:`torch.func.vmap`."""
+    :func:`torch.func.vmap`.  ``process_group``: the ranks whose ``A`` and ``B``
+    add up."""
     if update_H:
         Wt = W2.to(_acc_dtype(W2)).T
         G = _dot(W2, Wt)                                  # (m, m)
@@ -112,6 +120,7 @@ def _iteration(V2, W2, H2, l1, l2, l1w, l2w, *, inner: int, update_H: bool,
         Ht = H2.to(_acc_dtype(H2)).T
         A = _dot(Ht, H2)                                  # (m, m)
         B = _dot(Ht, V2)                                  # (m, F)
+        A, B = engine.all_reduce_sum(A, B, process_group=process_group)
         W2 = _sweep_W(W2, A, B, _like(l1w, A), _like(l2w, A), inner, use_pallas)
     return W2, H2
 
@@ -134,62 +143,66 @@ def _canonical(X2: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return X2.reshape(like.shape).contiguous()
 
 
-def _energy(V2, W2, H2) -> torch.Tensor:
+def _energy(V2, W2, H2, process_group=None) -> torch.Tensor:
     R = _dot(H2, W2.to(_acc_dtype(W2)))
-    return beta_ops.divergence(V2, R, 2.0).to(_acc_dtype(V2))
+    return engine.all_reduce_sum(beta_ops.divergence(V2, R, 2.0).to(_acc_dtype(V2)),
+                                 process_group=process_group)[0]
 
 
 @_pinned
 def update_step(V, W, H, l1, l2, l1w, l2w, *, inner: int, update_H: bool, update_W: bool,
-                use_pallas: bool = True, plan: Optional[ConvPlan] = None):
+                use_pallas: bool = True, plan: Optional[ConvPlan] = None, process_group=None):
     """One outer iteration on the canonical model shapes.  Returns ``(W, H)``.
     ``plan`` carries the precision of the Grams (the JAX engine's ``plan``
-    keyword); without one they run in full float32."""
+    keyword); without one they run in full float32.  ``process_group``: the ranks
+    whose Grams add up (data parallelism over the samples)."""
     return fit_loop(V, W, H, 1, l1, l2, l1w, l2w, inner=inner, update_H=update_H,
-                    update_W=update_W, use_pallas=use_pallas, plan=plan)
+                    update_W=update_W, use_pallas=use_pallas, plan=plan,
+                    process_group=process_group)
 
 
 @_pinned
 def fit_loop(V, W, H, n_iterations, l1, l2, l1w, l2w, *, inner: int, update_H: bool,
-             update_W: bool, use_pallas: bool = True, plan: Optional[ConvPlan] = None):
+             update_W: bool, use_pallas: bool = True, plan: Optional[ConvPlan] = None,
+             process_group=None):
     """``n_iterations`` outer iterations.  Returns ``(W, H)``."""
     V2, W2, H2 = _flatten(V, W, H)
     for _ in range(int(n_iterations)):
         W2, H2 = _iteration(V2, W2, H2, l1, l2, l1w, l2w, inner=inner, update_H=update_H,
-                            update_W=update_W, use_pallas=use_pallas)
+                            update_W=update_W, use_pallas=use_pallas, process_group=process_group)
     return _canonical(W2, W), _canonical(H2, H)
 
 
 @_pinned
 def fit_loop_energies(V, W, H, l1, l2, l1w, l2w, *, n_iterations: int, inner: int,
                       update_H: bool, update_W: bool, use_pallas: bool = True,
-                      plan: Optional[ConvPlan] = None):
+                      plan: Optional[ConvPlan] = None, process_group=None):
     """``n_iterations`` outer iterations with the energy after each, kept on
     the device.  Returns ``(W, H, energies)``."""
     V2, W2, H2 = _flatten(V, W, H)
     energies = engine.energy_trace(V2, int(n_iterations))
     for i in range(int(n_iterations)):
         W2, H2 = _iteration(V2, W2, H2, l1, l2, l1w, l2w, inner=inner, update_H=update_H,
-                            update_W=update_W, use_pallas=use_pallas)
-        energies[i] = _energy(V2, W2, H2)
+                            update_W=update_W, use_pallas=use_pallas, process_group=process_group)
+        energies[i] = _energy(V2, W2, H2, process_group)
     return _canonical(W2, W), _canonical(H2, H), energies
 
 
 @_pinned
 def fit_loop_tol(V, W, H, n_max, tol, l1, l2, l1w, l2w, *, check_every: int, n_buf: int = 0,
                  inner: int, update_H: bool, update_W: bool, use_pallas: bool = True,
-                 plan: Optional[ConvPlan] = None):
+                 plan: Optional[ConvPlan] = None, process_group=None):
     """Adaptive fit by :func:`tnmf_tpu_torch.engine.tol_loop`.  Returns ``(W, H, n_done, e_final,
     trace_or_None)``."""
     V2, W2, H2 = _flatten(V, W, H)
 
     def step(WH):
         return _iteration(V2, *WH, l1, l2, l1w, l2w, inner=inner, update_H=update_H,
-                          update_W=update_W, use_pallas=use_pallas)
+                          update_W=update_W, use_pallas=use_pallas, process_group=process_group)
 
     (W2, H2), n_done, e, trace = engine.tol_loop(
-        (W2, H2), step, lambda WH: _energy(V2, *WH), int(n_max), tol, int(check_every),
-        int(n_buf), V2)
+        (W2, H2), step, lambda WH: _energy(V2, *WH, process_group), int(n_max), tol,
+        int(check_every), int(n_buf), V2)
     return _canonical(W2, W), _canonical(H2, H), n_done, e, trace
 
 

@@ -45,6 +45,11 @@ E`` instead of a fresh reconstruction), then ``W * neg / (pos + EPS)``
 through K1's ``mu_ratio``, without the atom normalisation (HALS keeps W's
 scale).  The energy ``0.5 * ||E||^2`` reads the residual, with no
 reconstruction.
+
+Data parallelism over the samples: the H phase sweep is per sample, so
+with a ``process_group`` each rank sweeps its own rows; the W step's
+statistics and the energy are summed over the ranks
+(:func:`tnmf_tpu_torch.engine.all_reduce_sum`) and W stays a replica.
 """
 
 from __future__ import annotations
@@ -234,20 +239,23 @@ def _decode_h(H_pm: torch.Tensor, plan: ConvPlan, batch_major: bool = False) -> 
     return H[(Ellipsis,) + tuple(slice(0, t) for t in T)].contiguous()
 
 
-def _mu_W_from_residual(V, E_pad, W, H, plan: ConvPlan, use_pallas: bool = True):
+def _mu_W_from_residual(V, E_pad, W, H, plan: ConvPlan, use_pallas: bool = True,
+                        process_group=None):
     """One multiplicative W step from the maintained residual: K2's
-    ``(neg, pos)`` of the streams ``(V, V - E)``, then ``W * neg / (pos +
-    EPS)`` by K1's ``mu_ratio``, without normalisation."""
+    ``(neg, pos)`` of the streams ``(V, V - E)``, summed over the ranks of
+    ``process_group``, then ``W * neg / (pos + EPS)`` by K1's ``mu_ratio``, without
+    normalisation."""
     E = E_pad[(Ellipsis,) + tuple(slice(0, s) for s in plan.sample_shape)]
     neg, pos = engine.grad_W_pair_of(conv_ops.extend_data(V, plan), V - E, H, None, plan,
                                      'conv', use_pallas, 2.0)
+    neg, pos = engine.all_reduce_sum(neg, pos, process_group=process_group)
     ratio = (engine.mu_ratio if engine.dtype_reason(W.dtype, use_pallas) is None
              else engine.mu_ratio_plain)
     return ratio(W, neg.contiguous(), pos.contiguous(), engine.EPS).to(W.dtype)
 
 
 def _iteration(V, E_pad, H_pm, W, G, l1, l2, *, inner: int, update_H: bool, update_W: bool,
-               plan: ConvPlan, use_pallas: bool = True):
+               plan: ConvPlan, use_pallas: bool = True, process_group=None):
     """One outer iteration: the exact H phase sweep, then the W step and a
     fresh residual (one reconstruction, as the MU engine's W half pays)."""
     if update_H:
@@ -255,41 +263,41 @@ def _iteration(V, E_pad, H_pm, W, G, l1, l2, *, inner: int, update_H: bool, upda
                                     use_pallas=use_pallas)
     if update_W:
         H = _decode_h(H_pm, plan)
-        W = _mu_W_from_residual(V, E_pad, W, H, plan, use_pallas)
+        W = _mu_W_from_residual(V, E_pad, W, H, plan, use_pallas, process_group)
         G = gram_W(W)
         E_pad = _residual(V, W, H, plan)
     return E_pad, H_pm, W, G
 
 
-def _energy_from_residual(E_pad: torch.Tensor) -> torch.Tensor:
+def _energy_from_residual(E_pad: torch.Tensor, process_group=None) -> torch.Tensor:
     Ef = E_pad.to(_acc_dtype(E_pad))
-    return 0.5 * torch.sum(Ef * Ef)
+    return engine.all_reduce_sum(0.5 * torch.sum(Ef * Ef), process_group=process_group)[0]
 
 
 @_pinned
 def fit_loop(V, W, H, n_iterations, l1, l2, *, inner: int, update_H: bool, update_W: bool,
-             plan: ConvPlan, use_pallas: bool = True):
+             plan: ConvPlan, use_pallas: bool = True, process_group=None):
     """``n_iterations`` outer iterations.  Returns ``(W, H)``."""
     E_pad, H_pm = _encode(V, W, H, plan)
     G = gram_W(W)
     for _ in range(int(n_iterations)):
         E_pad, H_pm, W, G = _iteration(V, E_pad, H_pm, W, G, l1, l2, inner=inner,
                                        update_H=update_H, update_W=update_W, plan=plan,
-                                       use_pallas=use_pallas)
+                                       use_pallas=use_pallas, process_group=process_group)
     return W, _decode_h(H_pm, plan)
 
 
 @_pinned
 def update_step(V, W, H, l1, l2, *, inner: int, update_H: bool, update_W: bool,
-                plan: ConvPlan, use_pallas: bool = True):
+                plan: ConvPlan, use_pallas: bool = True, process_group=None):
     """One outer iteration on canonical tensors.  Returns ``(W, H)``."""
     return fit_loop(V, W, H, 1, l1, l2, inner=inner, update_H=update_H, update_W=update_W,
-                    plan=plan, use_pallas=use_pallas)
+                    plan=plan, use_pallas=use_pallas, process_group=process_group)
 
 
 @_pinned
 def fit_loop_energies(V, W, H, l1, l2, *, n_iterations: int, inner: int, update_H: bool,
-                      update_W: bool, plan: ConvPlan, use_pallas: bool = True):
+                      update_W: bool, plan: ConvPlan, use_pallas: bool = True, process_group=None):
     """``n_iterations`` outer iterations with the energy after each, read
     off the residual and kept on the device.  Returns ``(W, H, energies)``."""
     acc = _acc_dtype(V)
@@ -299,15 +307,15 @@ def fit_loop_energies(V, W, H, l1, l2, *, n_iterations: int, inner: int, update_
     for i in range(int(n_iterations)):
         E_pad, H_pm, W, G = _iteration(V, E_pad, H_pm, W, G, l1, l2, inner=inner,
                                        update_H=update_H, update_W=update_W, plan=plan,
-                                       use_pallas=use_pallas)
-        energies[i] = _energy_from_residual(E_pad).to(acc)
+                                       use_pallas=use_pallas, process_group=process_group)
+        energies[i] = _energy_from_residual(E_pad, process_group).to(acc)
     return W, _decode_h(H_pm, plan), energies
 
 
 @_pinned
 def fit_loop_tol(V, W, H, n_max, tol, l1, l2, *, check_every: int, n_buf: int = 0,
                  inner: int, update_H: bool, update_W: bool, plan: ConvPlan,
-                 use_pallas: bool = True):
+                 use_pallas: bool = True, process_group=None):
     """Adaptive fit by :func:`tnmf_tpu_torch.engine.tol_loop` on the
     residual's energy.  Returns ``(W, H, n_done, e_final, trace_or_None)``."""
     acc = _acc_dtype(V)
@@ -315,10 +323,11 @@ def fit_loop_tol(V, W, H, n_max, tol, l1, l2, *, check_every: int, n_buf: int = 
 
     def step(carry):
         return _iteration(V, *carry, l1, l2, inner=inner, update_H=update_H,
-                          update_W=update_W, plan=plan, use_pallas=use_pallas)
+                          update_W=update_W, plan=plan, use_pallas=use_pallas,
+                          process_group=process_group)
 
     (E_pad, H_pm, W, _), n_done, e, trace = engine.tol_loop(
         (E_pad, H_pm, W, gram_W(W)), step,
-        lambda carry: _energy_from_residual(carry[0]).to(acc), int(n_max), tol,
+        lambda carry: _energy_from_residual(carry[0], process_group).to(acc), int(n_max), tol,
         int(check_every), int(n_buf), V)
     return W, _decode_h(H_pm, plan), n_done, e, trace

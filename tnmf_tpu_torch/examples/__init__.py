@@ -18,9 +18,10 @@ Figures named in a module's ``NOT_COMPARED`` (wall and CPU times, paths,
 file sizes, platforms, the memory planner's table) differ from run to run
 or from the JAX package's by nature; every other figure is a result.
 
-The JAX package's three mesh examples (``data_parallel_fit``,
-``model_parallel_fit``, ``multihost_fit``) wait for the port's meshes
-(ROADMAP.md queue 1, item 14e).
+The two data-parallel examples (``data_parallel_fit``, a world of one
+unless run under ``torchrun``; ``multihost_fit``, two worker processes)
+start process groups of their own; ``model_parallel_fit`` waits for the
+port's mesh over the atoms (ROADMAP.md queue 1, item 14e-ii).
 """
 
 from __future__ import annotations
@@ -29,16 +30,20 @@ import os
 
 import torch
 
-#: the ported examples, by module name
-EXAMPLES = ('beta_divergence', 'convergence_control', 'hyperparameter_sweep',
-            'masked_inpainting', 'minibatch_algorithms', 'multiscale_decomposition',
-            'online_learning', 'plain_nmf_solvers', 'serving_deployment',
-            'shift_invariant_decomposition', 'shift_invariant_solvers',
-            'transform_invariances', 'volumetric_decomposition')
+#: the ported examples that run in this process alone, by module name
+SINGLE_PROCESS_EXAMPLES = (
+    'beta_divergence', 'convergence_control', 'hyperparameter_sweep', 'masked_inpainting',
+    'minibatch_algorithms', 'multiscale_decomposition', 'online_learning',
+    'plain_nmf_solvers', 'serving_deployment', 'shift_invariant_decomposition',
+    'shift_invariant_solvers', 'transform_invariances', 'volumetric_decomposition')
+#: the ported examples that start process groups of their own
+DATA_PARALLEL_EXAMPLES = ('data_parallel_fit', 'multihost_fit')
+#: every ported example
+EXAMPLES = SINGLE_PROCESS_EXAMPLES + DATA_PARALLEL_EXAMPLES
 
-#: the JAX package's examples that need a device mesh
-MESH_EXAMPLES = ('data_parallel_fit', 'model_parallel_fit', 'multihost_fit')
-MESH_ITEM = 'ROADMAP.md queue 1, item 14e'
+#: the JAX package's examples that need a mesh not ported yet
+MESH_EXAMPLES = ('model_parallel_fit',)
+MESH_ITEM = 'ROADMAP.md queue 1, item 14e-ii'
 
 
 def smoke_from_env() -> bool:

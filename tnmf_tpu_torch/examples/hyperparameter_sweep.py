@@ -10,8 +10,8 @@ launched once per iteration for all the models.
 The script fits a seed x sparsity grid on synthetic patches, reports the
 per-model objectives and the winner, grids a dictionary-diversity (ortho)
 strength, and stops each model on its own ``tol``.  The JAX example's last
-step, the same sweep on a device mesh, waits for the port's meshes
-(ROADMAP.md queue 1, item 14e).
+step, the same sweep on a device mesh, waits for the port's 'models'
+mesh (ROADMAP.md queue 1, item 14e-iv).
 """
 
 from __future__ import annotations

@@ -58,7 +58,8 @@ EPS = engine.EPS
 #: engine's ``ENERGY_CHUNK``)
 ENERGY_CHUNK = 32
 
-_MESH_ITEM = 'ROADMAP.md queue 1, item 14e'
+_MESH_ITEM = 'ROADMAP.md queue 1, item 14e-iv'
+_CHECKPOINT_ITEM = 'ROADMAP.md queue 1, item 14e-v'
 
 
 def _pinned(fn):
@@ -255,7 +256,7 @@ class MultiScaleTNMF:
         ``NotImplementedError`` (ROADMAP.md queue 2, item f).
     mesh
         Not ported yet: any value but ``None`` raises
-        ``NotImplementedError`` (ROADMAP.md queue 1, item 14e).
+        ``NotImplementedError`` (ROADMAP.md queue 1, item 14e-iv).
     w_init : {'random', 'patches'}, h_init : {'random', 'correlate'}
         The JAX package's initialisations, per scale.
     device : str or torch.device, default 'cuda'
@@ -793,14 +794,14 @@ class MultiScaleTNMF:
 
     def save_sharded(self, path: str, include_H: bool = True, block: bool = True):
         raise NotImplementedError(
-            f'MultiScaleTNMF.save_sharded is not ported to tnmf_tpu_torch yet; see {_MESH_ITEM}')
+            f'MultiScaleTNMF.save_sharded is not ported to tnmf_tpu_torch yet; see {_CHECKPOINT_ITEM}')
 
     def wait_for_checkpoints(self):
         raise NotImplementedError(
             'MultiScaleTNMF.wait_for_checkpoints is not ported to tnmf_tpu_torch yet; '
-            f'see {_MESH_ITEM}')
+            f'see {_CHECKPOINT_ITEM}')
 
     @classmethod
     def load_sharded(cls, path: str, mesh=None, **kwargs):
         raise NotImplementedError(
-            f'MultiScaleTNMF.load_sharded is not ported to tnmf_tpu_torch yet; see {_MESH_ITEM}')
+            f'MultiScaleTNMF.load_sharded is not ported to tnmf_tpu_torch yet; see {_CHECKPOINT_ITEM}')

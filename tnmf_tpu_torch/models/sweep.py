@@ -38,7 +38,7 @@ and so on.  The draws are the port's own: the JAX package's PRNG keys
 give other numbers, and a sweep started from the JAX package's inits
 (:func:`_sweep_from_init`) follows its trajectory.
 
-Not ported here: ``mesh=`` (ROADMAP.md queue 1, item 14e).
+Not ported here: ``mesh=`` (ROADMAP.md queue 1, item 14e-iv).
 """
 
 from __future__ import annotations
@@ -190,7 +190,7 @@ def sweep_fit(
     package's errors.  ``hals_inner`` as in the model class (``'auto'`` by
     default).
 
-    Not ported: ``mesh`` (ROADMAP.md queue 1, item 14e) raises
+    Not ported: ``mesh`` (ROADMAP.md queue 1, item 14e-iv) raises
     ``NotImplementedError``.
     """
     device = torch.device(device)
@@ -210,7 +210,7 @@ def sweep_fit(
     if mesh is not None:
         raise NotImplementedError(
             'sweep_fit(mesh=...) is not ported to tnmf_tpu_torch yet; see '
-            + _ITEM.format('14e'))
+            + _ITEM.format('14e-iv'))
 
     if n_models is None:
         seeds = np.atleast_1d(np.asarray(seed, dtype=np.uint32))

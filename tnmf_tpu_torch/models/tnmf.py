@@ -20,7 +20,9 @@ the JAX package; ``init='device'``; ``w_init='patches'`` / ``'nndsvd'``;
 both packages read (``save`` / ``load``), the sklearn estimator protocol
 (``get_params`` / ``set_params`` / ``__sklearn_tags__``) and the HALS
 solvers (``fit_batch(solver='hals')``, :mod:`tnmf_tpu_torch.engine_hals`
-and :mod:`tnmf_tpu_torch.engine_hals_conv`).  Every strategy
+and :mod:`tnmf_tpu_torch.engine_hals_conv`) and data parallelism over the
+samples (``mesh=``, ``shard_axis='samples'``; :mod:`tnmf_tpu_torch.parallel`)
+for the MU and HALS full-batch fits and ``transform``.  Every strategy
 the JAX package picks off the TPU runs: direct convolution, FFT (with
 either ``fft_policy``) and the plain-NMF matmuls.  Arguments of the JAX API
 that select parts not ported yet raise ``NotImplementedError`` naming the
@@ -57,6 +59,8 @@ from ..ops import beta as beta_ops
 from ..ops.inhibition import cross_scale, inhibition_kernels, resolve_inhibition_range
 from ..ops.modes import ConvPlan
 from ..ops.transforms import TransformGroup, make_group
+from ..parallel.distributed import SampleShards
+from ..parallel.sharding import check_axis, local_rows, not_ported
 from ..utils.initialization import nndsvda_init, patches_init
 
 # reference backend names (tnmf/TransformInvariantNMF.py:168-176) and the
@@ -74,32 +78,6 @@ _BACKEND_STRATEGY = {
 }
 
 _ITEM = 'ROADMAP.md queue 1, item {}'
-
-#: constructor arguments of the JAX API not ported yet: (default, ROADMAP item)
-_UNPORTED_INIT = {
-    'mesh': (None, _ITEM.format(14)),
-    'shard_axis': ('samples', _ITEM.format(14)),
-}
-
-def _is_default(value, default) -> bool:
-    if value is default:
-        return True
-    if default is None or not isinstance(value, (bool, int, float, str)):
-        return False
-    return value == default
-
-
-def _reject_unported(where: str, kwargs: dict, table: dict) -> None:
-    """``TypeError`` for names the JAX API lacks, ``NotImplementedError``
-    for JAX arguments set to a value whose code is not ported yet."""
-    for name, value in kwargs.items():
-        if name not in table:
-            raise TypeError(f'{where}() got an unexpected keyword argument {name!r}')
-        default, item = table[name]
-        if not _is_default(value, default):
-            raise NotImplementedError(
-                f'{where}({name}={value!r}) is not ported to tnmf_tpu_torch yet; '
-                f'see {item}')
 
 
 def _trace_buf(n_iterations: int) -> int:
@@ -122,24 +100,42 @@ def _validate_tol(tol, tol_check_every):
 
 def _as_input(x, device: torch.device):
     """Data as the model takes it: a tensor (detached, moved to ``device``
-    if it lies elsewhere; no host copy) or a NumPy array."""
+    if it lies elsewhere; no host copy), the blocks of a batch that spans
+    processes (:class:`~tnmf_tpu_torch.parallel.distributed.SampleShards`,
+    this process's block moved likewise) or a NumPy array."""
+    if isinstance(x, SampleShards):
+        return SampleShards(x.local.detach().to(device), x.mesh)
     if isinstance(x, torch.Tensor):
         return x.detach().to(device)
     return np.asarray(x)
 
 
+def _all_ranks(ok: bool, x) -> bool:
+    """``ok`` on every rank of the mesh of ``x`` where it spans processes
+    (one ``all_reduce`` of the ranks' failures, so all of them raise or
+    none), else ``ok``."""
+    if not isinstance(x, SampleShards):
+        return ok
+    failed = torch.tensor(0.0 if ok else 1.0, device=x.local.device)
+    torch.distributed.all_reduce(failed, group=x.mesh.get_group())
+    return float(failed) == 0.0
+
+
 def _assert_nonnegative(x) -> None:
     """``ValueError`` unless every entry is >= 0 (NaN fails); a tensor is
-    checked on its device, one scalar read back."""
-    ok = bool(torch.all(x >= 0)) if isinstance(x, torch.Tensor) else bool(np.all(x >= 0))
-    if not ok:
+    checked on its device, one scalar read back; a batch that spans
+    processes on every rank's block."""
+    local = x.local if isinstance(x, SampleShards) else x
+    ok = (bool(torch.all(local >= 0)) if isinstance(local, torch.Tensor)
+          else bool(np.all(local >= 0)))
+    if not _all_ranks(ok, x):
         raise ValueError('The input data V must be non-negative.')
 
 
 def _np_dtype(x) -> np.dtype:
     """The NumPy dtype of an array's or a tensor's entries: the dtype of the
     host draws of H and W, as the JAX package draws them in ``V.dtype``."""
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, (torch.Tensor, SampleShards)):
         return np.dtype(str(x.dtype).removeprefix('torch.'))
     return x.dtype
 
@@ -227,8 +223,28 @@ class TransformInvariantNMF:
         Compute dtype.  On CUDA float32 runs the hand-written kernels;
         float64, the reference precision, runs their plain versions (the
         JAX kernels' own dtype gate).
-    mesh
-        Not ported yet: any value but ``None`` raises ``NotImplementedError``.
+    mesh : torch.distributed.device_mesh.DeviceMesh, optional
+        Data parallelism over the samples
+        (:func:`tnmf_tpu_torch.parallel.make_mesh`, a 1-D mesh over the
+        ranks of the default process group; every rank constructs the
+        model and calls the same methods).  Each rank keeps its contiguous
+        rows of V and H (the ``rank``-th of ``world`` equal blocks; the
+        sample count must divide) and a replica of W; the W statistics,
+        the energy and HALS's ``H^T H``/``H^T V`` are summed over the
+        ranks in one ``all_reduce`` each (:mod:`tnmf_tpu_torch.engine`), so
+        the fit is the mesh-free fit of the whole batch up to the order of
+        the sums.  ``fit`` takes the whole batch on every rank, or each
+        rank's block through
+        :func:`tnmf_tpu_torch.parallel.distributed.distribute_samples`
+        (``init='device'`` then, as in the JAX package).  The model's
+        device must be of the mesh's device type (its rank's card, or the
+        CPU).  Under a world above one ``V``, ``H``, ``R`` and
+        ``reconstruction_err_`` raise (no property hides a collective),
+        ``W`` reads on every rank, ``_energy_function()`` is the whole
+        batch's and ``transform`` returns the rank's rows; the minibatch,
+        streaming and online fits, ``save`` and ``checkpoint_every``
+        raise ``NotImplementedError`` naming their sub-items of ROADMAP.md
+        item 14e.
     seed : int, optional
         If given, W/H initialization (and dead-atom revival) draws from a
         private ``np.random.default_rng(seed)``; otherwise from the global
@@ -303,9 +319,13 @@ class TransformInvariantNMF:
         builds its plan, as in the JAX package.  Checkpoints do not store
         it; serving artifacts record it.
 
-    The JAX package's other later parameter ``shard_axis`` is taken by
-    keyword and raises ``NotImplementedError`` unless it holds its
-    default.  ``get_params`` / ``set_params`` hand
+    shard_axis : {'samples'}, default 'samples'
+        Keyword.  The axis ``mesh`` splits: the samples.  The JAX
+        package's other axes raise ``NotImplementedError`` naming the
+        sub-item of ROADMAP.md item 14e that ports them ('atoms' and
+        'samples+atoms' 14e-ii, 'spatial' and 'both' 14e-iii).
+
+    ``get_params`` / ``set_params`` hand
     the constructor's arguments back as given (the sklearn protocol, with
     ``device`` among them).
     """
@@ -319,9 +339,7 @@ class TransformInvariantNMF:
                  init: str = 'host', transform_type: Union[str, TransformGroup] = 'shift',
                  w_init: str = 'random', h_init: str = 'random', device='cuda',
                  use_pallas: Optional[bool] = None, beta_loss: Union[float, str] = 2.0,
-                 precision: Optional[str] = None, **unported):
-        unported = dict(mesh=mesh, **unported)
-        _reject_unported('TransformInvariantNMF', unported, _UNPORTED_INIT)
+                 precision: Optional[str] = None, shard_axis: str = 'samples'):
         # the arguments as given, for get_params / set_params / clone
         self._init_params = dict(
             n_atoms=n_atoms, atom_shape=atom_shape, inhibition_range=inhibition_range,
@@ -329,8 +347,7 @@ class TransformInvariantNMF:
             reconstruction_mode=reconstruction_mode, dtype=dtype, seed=seed,
             fft_policy=fft_policy, init=init, transform_type=transform_type, w_init=w_init,
             h_init=h_init, device=device, use_pallas=use_pallas, beta_loss=beta_loss,
-            precision=precision, **{name: unported.get(name, default)
-               for name, (default, _) in _UNPORTED_INIT.items()})
+            precision=precision, mesh=mesh, shard_axis=shard_axis)
         self.n_atoms = int(n_atoms)
         self.atom_shape = tuple(int(a) for a in atom_shape)
         self._group = make_group(transform_type, self.atom_shape)
@@ -375,6 +392,11 @@ class TransformInvariantNMF:
         self._h_init = h_init
         self.device = torch.device(device)
         self.dtype = _torch_dtype(dtype)
+        check_axis(shard_axis)
+        self._mesh, self._shard_axis = mesh, shard_axis
+        self._pg, self._world = None, 1
+        if mesh is not None:
+            self._pg, self._world = self._mesh_group(mesh)
         if use_pallas not in (None, False, True):
             raise ValueError(f'use_pallas must be None, False or True, got {use_pallas!r}')
         if use_pallas and self.device.type == 'cpu':
@@ -397,6 +419,7 @@ class TransformInvariantNMF:
         # first draw (a CUDA generator needs the card)
         self._device_seed = 0 if seed is None else int(seed)
         self._device_gen: Optional[torch.Generator] = None
+        self._row_draws = 0  # H draws of init='device' under a mesh (_device_rows)
 
         self._logger = (logger if logger is not None
                         else logging.getLogger(self.__class__.__name__))
@@ -424,6 +447,38 @@ class TransformInvariantNMF:
         self._sag_stat_ = None
         self.n_steps_: int = 0
 
+    def _mesh_group(self, mesh) -> tuple:
+        """``(process group, world size)`` of a 1-D ``DeviceMesh`` whose
+        device type is the model's."""
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                f'mesh must be a torch.distributed DeviceMesh '
+                f'(tnmf_tpu_torch.parallel.make_mesh), got {type(mesh).__name__}')
+        if mesh.ndim != 1:
+            raise not_ported(f'a {mesh.ndim}-D mesh', '14e-ii')
+        if mesh.device_type != self.device.type:
+            raise ValueError(
+                f'the mesh computes on {mesh.device_type!r} devices and the model on '
+                f'{self.device.type!r}: pass device={mesh.device_type!r}, or build the '
+                f'mesh with make_mesh(devices={self.device.type!r})')
+        return mesh.get_group(), mesh.size()
+
+    def _local_only(self, what: str) -> None:
+        """``RuntimeError`` where ``what`` would need the rows of other
+        ranks (a world above one): no property hides a collective."""
+        if self._world > 1:
+            raise RuntimeError(
+                f'{what} is not host-addressable under a process-spanning mesh; '
+                'access the per-process shards (this rank\'s rows: model._H, '
+                'model._Vd) instead')
+
+    def _not_under_mesh(self, what: str, item: str) -> None:
+        """``NotImplementedError`` naming the sub-item of item 14e that
+        ports ``what`` to a world above one."""
+        if self._world > 1:
+            raise not_ported(f'{what} under a mesh of {self._world} processes', item)
+
     # ------------------------------------------------------------------
     # accessors (reference TransformInvariantNMF.py:188-215)
     # ------------------------------------------------------------------
@@ -440,6 +495,7 @@ class TransformInvariantNMF:
         reconstruction)."""
         if self._plan is None:
             raise RuntimeError('reconstruction_err_ requires a fitted model')
+        self._local_only('reconstruction_err_')
         return float(np.sqrt(max(2.0 * self._energy_function(), 0.0)))
 
     @property
@@ -451,7 +507,14 @@ class TransformInvariantNMF:
         """Activations ``(n_samples, n_atoms, *shift)``; under a transform
         group ``(n_samples, n_atoms, n_transforms, *shift)``, a view of the
         flat m-major maps.  A host copy: the minibatch epochs write H in
-        place."""
+        place.  Under a world above one it raises: each rank holds its own
+        rows (``_H``)."""
+        self._local_only('H')
+        return self._local_H()
+
+    def _local_H(self) -> np.ndarray:
+        """This rank's rows of H (all of them without a mesh) as the ``H``
+        property shapes them."""
         H = self._H.to('cpu', copy=True).numpy()
         if self.n_transforms > 1:
             H = H.reshape((H.shape[0], self.n_atoms, self.n_transforms) + H.shape[2:])
@@ -461,27 +524,31 @@ class TransformInvariantNMF:
     def V(self) -> np.ndarray:
         """The last fit's data as a NumPy array (a tensor's host copy is made
         here, on each read)."""
+        self._local_only('V')
         if isinstance(self._V, torch.Tensor):
             return self._V.detach().cpu().numpy()
         return self._V
 
     @property
     def R(self) -> np.ndarray:
+        self._local_only('R')
         return engine.reconstruct(self._W, self._H, plan=self._plan,
                                   strategy=self._strategy).cpu().numpy()
 
     def R_partial(self, i_atom: int) -> np.ndarray:
         """The reconstruction of one atom (with all its tied copies under a
         transform group)."""
+        self._local_only('R_partial')
         return engine.partial_reconstruct(
             self._W, self._H, plan=self._plan, i_atom=int(i_atom),
             strategy=self._strategy).cpu().numpy()
 
     def _energy(self) -> torch.Tensor:
         """The fit's objective (its ``beta_loss``, weighted by its mask)
-        as a 0-d tensor on the device."""
+        as a 0-d tensor on the device; under a mesh the whole batch's (one
+        ``all_reduce``, called on every rank)."""
         return engine.energy(self._Vd, self._W, self._H, self._mask_d, plan=self._plan,
-                             strategy=self._strategy, beta=self._beta)
+                             strategy=self._strategy, beta=self._beta, process_group=self._pg)
 
     def _energy_function(self) -> float:
         return float(self._energy())
@@ -491,16 +558,17 @@ class TransformInvariantNMF:
         positive data, as in sklearn's ``NMF``: ``D_beta(v || r)`` diverges
         as v -> 0.  Masked-out entries are exempt, they never enter the
         objective.  A tensor is checked on its device, one scalar read
-        back."""
+        back; a batch that spans processes on every rank's block."""
         if self._beta > 0:
             return
-        positive = V > 0
+        local = V.local if isinstance(V, SampleShards) else V
+        positive = local > 0
         if mask is not None:
             observed = mask > 0
-            if not isinstance(V, torch.Tensor):
+            if not isinstance(local, torch.Tensor):
                 observed = observed.cpu().numpy()
             positive = positive | ~observed
-        if not bool(positive.all()):
+        if not _all_ranks(bool(positive.all()), V):
             raise ValueError(
                 f'beta_loss = {self._beta} (Itakura-Saito family) requires '
                 'strictly positive data, but V contains zeros')
@@ -508,10 +576,35 @@ class TransformInvariantNMF:
     def _prepare_mask(self, mask, V) -> Optional[torch.Tensor]:
         """A per-entry mask (0/1 for missing data, nonnegative float
         weights; an array or a tensor) of V's rank, broadcastable to V, as
-        a tensor on the model's device in its dtype, or None."""
+        a tensor on the model's device in its dtype, or None.  Under a mesh
+        it has V's full shape (the JAX package's rule); for a batch that
+        spans processes it is distributed likewise, and the result is this
+        rank's block."""
         if mask is None:
             return None
+        if isinstance(V, SampleShards):
+            if not isinstance(mask, SampleShards):
+                raise ValueError(
+                    'under a process-spanning global V the mask must itself '
+                    'be a process-spanning global array of the same shape; '
+                    'wrap the per-host slice with '
+                    'parallel.distributed.distribute_samples(mesh, mask_local)')
+            if tuple(mask.shape) != tuple(V.shape):
+                raise ValueError(
+                    f'global mask of shape {tuple(mask.shape)} must match V '
+                    f'{tuple(V.shape)} (broadcasting is not supported across '
+                    f'process-spanning shards)')
+            local = mask.local.to(self.device)
+            if not _all_ranks(not bool((local < 0).any()), mask):
+                raise ValueError('mask entries must be nonnegative '
+                                 '(0/1 for missing data, floats for weights)')
+            return self._tensor(local)
         mask = _as_input(mask, self.device)
+        if self._mesh is not None and tuple(mask.shape) != tuple(V.shape):
+            raise ValueError(
+                'under a mesh the mask must have the full data shape '
+                f'{tuple(V.shape)} (broadcasting across shards is not '
+                f'supported), got {tuple(mask.shape)}')
         if mask.ndim != V.ndim:
             raise ValueError(
                 f'mask must have the same rank as V ({V.ndim}), got '
@@ -573,12 +666,54 @@ class TransformInvariantNMF:
         U = torch.rand(shape, generator=self._device_gen, dtype=self.dtype, device=self.device)
         return U.neg_().add_(1)
 
+    def _device_rows(self, shape: tuple, rows: slice) -> torch.Tensor:
+        """The rows ``rows`` of a ``1 - U[0, 1)`` draw of ``shape`` under a
+        mesh (``init='device'``): each sample's row drawn on the model's
+        device from a seed of its own (the model's seed, the count of such
+        draws and the row's index), so that the ranks' rows put together
+        are a world of one's draw whatever the world, and no rank draws
+        another's rows or the whole batch."""
+        self._row_draws += 1
+        gen = torch.Generator(device=self.device)
+        out = torch.empty((rows.stop - rows.start,) + tuple(shape[1:]), dtype=self.dtype,
+                          device=self.device)
+        for i, row in enumerate(range(rows.start, rows.stop)):
+            state = np.random.SeedSequence((self._device_seed, self._row_draws, row))
+            gen.manual_seed(int(state.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+            out[i].uniform_(generator=gen)
+        return out.neg_().add_(1)
+
     def _initialize_matrices(self, V, keep_W: bool, keep_H: bool = False,
                              mask: Optional[torch.Tensor] = None):
         """W, H and the prepared data for a fit of ``V`` (a NumPy array, or
-        a tensor on the model's device, kept there) and its ``mask`` (from
-        :meth:`_prepare_mask`)."""
-        self._V = V
+        a tensor on the model's device, kept there, or the blocks of a batch
+        that spans processes) and its ``mask`` (from :meth:`_prepare_mask`).
+
+        Under a mesh W is drawn whole and alike on every rank, and H and the
+        data are this rank's rows (:func:`~tnmf_tpu_torch.parallel.sharding.local_rows`):
+        the host draw is the whole batch's, as without a mesh, cut to the
+        rows, so a seeded mesh fit starts where the JAX fit starts;
+        ``init='device'`` draws the rows alone (:meth:`_device_rows`)."""
+        rows = None
+        if isinstance(V, SampleShards):
+            if self._mesh is None or self._init != 'device':
+                raise ValueError(
+                    "a process-spanning global array requires mesh=... and "
+                    "init='device' (no host ever holds the full batch)")
+            rows = local_rows(self._mesh, V.shape[0])
+            local = V.local
+            if local.dtype != self.dtype:
+                raise ValueError(
+                    f'global array dtype {local.dtype} must match the compute dtype '
+                    f'{self.dtype}')
+        elif self._mesh is not None:
+            rows = local_rows(self._mesh, V.shape[0])
+            local = V[rows]
+            mask = None if mask is None else mask[rows].clone()
+        else:
+            local = V
+        self._V = local if isinstance(V, SampleShards) else V
+        self._n_samples = int(V.shape[0])
         self._plan = self._plan_for(V.shape[2:])
         self._check_strategy()
 
@@ -595,10 +730,11 @@ class TransformInvariantNMF:
         w_shape = (self.n_atoms, V.shape[1]) + self.atom_shape
         keep_h = keep_H and self._H is not None
         if keep_h:
-            if tuple(self._H.shape) != h_shape:
+            expected_h = h_shape if rows is None else (local.shape[0],) + h_shape[1:]
+            if tuple(self._H.shape) != expected_h:
                 raise ValueError(
                     f'keep_H: existing activations of shape {tuple(self._H.shape)} '
-                    f'do not match the new data (expected {h_shape}); '
+                    f'do not match the new data (expected {expected_h}); '
                     f'exact resume requires the same batch')
         # host-side init replicating the reference RNG stream exactly (H then
         # W, 1 - U[0,1); _Backend.py:83-98), in V's dtype, so seeded runs
@@ -610,7 +746,7 @@ class TransformInvariantNMF:
         elif self._h_init == 'correlate':
             H = None
         elif self._init == 'device':
-            H = self._device_uniform(h_shape)
+            H = self._device_uniform(h_shape) if rows is None else self._device_rows(h_shape, rows)
         else:
             H = np.asarray(1 - self._rng.random(h_shape), dtype=draw_dtype)
         if keep:
@@ -631,8 +767,10 @@ class TransformInvariantNMF:
         else:
             W = np.asarray(1 - self._rng.random(w_shape), dtype=draw_dtype)
             W /= W.sum(axis=self._axes_W_normalization, keepdims=True)
+        if rows is not None and self._init == 'host' and H is not None and not keep_h:
+            H = H[rows]  # the whole batch's host draw, cut to this rank's rows
         self._W = self._tensor(W)
-        self._Vd = self._tensor(V)
+        self._Vd = self._tensor(local)
         self._mask_d = mask
         # the prepared-data slot, as the JAX package fills it: prepare(V);
         # with a mask at beta = 2 the loop-invariant prepare(mask * V); the
@@ -653,7 +791,7 @@ class TransformInvariantNMF:
             # at beta = 2; prepare(V) where the slot holds the canonical V
             Vp0 = prepare(self._Vd) if canonical else self._Vp
             H = engine.correlate_init_H(Vp0, self._Vd, self._W, plan=self._plan,
-                                        strategy=self._strategy)
+                                        strategy=self._strategy, process_group=self._pg)
         self._H = self._tensor(H)
         # built in float64, cast to the compute dtype
         self._kernels = tuple(self._tensor(k) for k in self._inhibition_kernels_1D)
@@ -856,6 +994,7 @@ class TransformInvariantNMF:
                 raise ValueError(
                     'checkpoint_every uses the chunked loop and cannot combine '
                     'with progress_callback; call save() from your callback instead')
+            self._not_under_mesh('checkpoint_every', '14e-v')
             ckpt_path = checkpoint_path
 
             def progress_callback(model, iteration):  # noqa: F811
@@ -873,6 +1012,12 @@ class TransformInvariantNMF:
             if not (update_H and update_W):
                 raise ValueError('revive_every requires update_H and update_W '
                                  '(revival re-draws both factors)')
+            if self._world > 1:
+                raise ValueError(
+                    'revive_every re-draws atoms host-side and needs fully '
+                    'addressable factors; with multi-process global arrays, '
+                    'run utils.atoms.revive_dead_atoms between fits from '
+                    'gathered copies instead')
             from ..utils.atoms import revive_dead_atoms
             thr = float(revive_threshold)
 
@@ -897,7 +1042,8 @@ class TransformInvariantNMF:
             return
         regs = self._regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
         flags = dict(self._flags(inhibition_strength, cross_atom_inhibition_strength),
-                     update_H=update_H, update_W=update_W, **self._objective(l2_H, ortho_W))
+                     update_H=update_H, update_W=update_W, process_group=self._pg,
+                     **self._objective(l2_H, ortho_W))
         if extrapolate:
             # the JAX package leaves the block length unchecked here (a
             # length of 0 never ends its loop)
@@ -981,7 +1127,8 @@ class TransformInvariantNMF:
         from .. import engine_hals, engine_hals_conv as ehc
         V, l1, l2, l1w, l2w = self._Vd, float(l1), float(l2), float(l1w), float(l2w)
         flags = dict(update_H=update_H, update_W=update_W,
-                     use_pallas=self._use_pallas is not False, plan=self._plan)
+                     use_pallas=self._use_pallas is not False, plan=self._plan,
+                     process_group=self._pg)
         if math.prod(self._plan.transform_shape) != 1:
             if not ehc.applicable(self._plan):
                 raise ValueError(
@@ -1013,9 +1160,11 @@ class TransformInvariantNMF:
                 loop_plain=lambda n: ehc.fit_loop(V, self._W, self._H, n, l1, l2, **flags),
                 step=lambda: ehc.update_step(V, self._W, self._H, l1, l2, **flags))
         else:
+            # the whole batch's sample count: under a mesh the rank's rows
+            # would pick another count than the JAX fit
             flags['inner'] = engine_hals.auto_inner(
                 self._W.shape[0], math.prod(self._W.shape[1:]), hals_inner,
-                n_samples=int(self._H.shape[0]))
+                n_samples=self._n_samples)
             regs = (l1, l2, l1w, l2w)
             loops = dict(
                 # the JAX package hands this loop tol in float32
@@ -1150,7 +1299,9 @@ class TransformInvariantNMF:
         at the end).  Any earlier ``partial_fit`` state is dropped.
         ``l2_H``, ``ortho_W`` and ``mask`` are :meth:`fit_batch`'s; each
         batch takes its rows of the mask (a mask of one sample serves every
-        batch), and the epoch's energy is the masked one."""
+        batch), and the epoch's energy is the masked one.  Under a mesh of
+        more than one process it raises (ROADMAP.md item 14e-iv)."""
+        self._not_under_mesh('fit_minibatches', '14e-iv')
         V, mask = self._check_data(V, mask)
         self._sag_stat_ = None  # a fresh fit drops partial_fit's state
         self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength,
@@ -1196,7 +1347,9 @@ class TransformInvariantNMF:
         samples each go to ``fit(subsample, keep_W=True, **kwargs)`` in
         turn, until the iterator is exhausted or ``max_subsamples`` were
         fitted.  A subsample of tensors is stacked on their device (no host
-        copy); anything else goes through ``np.asarray``."""
+        copy); anything else goes through ``np.asarray``.  Under a mesh of
+        more than one process it raises (ROADMAP.md item 14e-iv)."""
+        self._not_under_mesh('fit_stream', '14e-iv')
         for isub in count(0):
             subsample = list(islice(V, subsample_size))
             if not subsample:
@@ -1227,8 +1380,10 @@ class TransformInvariantNMF:
         state.  Returns ``self``; ``n_steps_`` counts the calls.  ``l2_H``,
         ``ortho_W`` and ``mask`` are :meth:`fit_batch`'s, the mask the
         batch's; ``ortho_W`` is formed from the current W at the update,
-        never averaged into the statistics."""
+        never averaged into the statistics.  Under a mesh of more than one
+        process it raises (ROADMAP.md item 14e-iv)."""
         del y
+        self._not_under_mesh('partial_fit', '14e-iv')
         V, mask = self._check_data(V, mask)
         self._check_regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength,
                          l2_H, ortho_W)
@@ -1295,7 +1450,12 @@ class TransformInvariantNMF:
         the samples are encoded in independent chunks of that many and the
         chunks' H concatenated on the host; the model's ``V`` / ``H`` /
         ``R`` then hold the last chunk.  A ``mask`` with a row per sample
-        is sliced with the chunks; a broadcast one serves each chunk."""
+        is sliced with the chunks; a broadcast one serves each chunk.
+
+        Under a mesh each rank encodes its own rows, and a world above one
+        returns this rank's rows of H (the rows of its block of V); the
+        chunks of ``batch_size`` are not ported there (ROADMAP.md item
+        14e-iv)."""
         if self._W is None:
             raise RuntimeError(
                 'transform() requires a fitted or loaded dictionary; '
@@ -1303,7 +1463,8 @@ class TransformInvariantNMF:
         if batch_size is None:
             self.fit_batch(V, n_iterations=n_iterations, update_W=False, keep_W=True,
                            **kwargs)
-            return self.H
+            return self._local_H()
+        self._not_under_mesh('transform(batch_size=...)', '14e-iv')
         V = _as_input(V, self.device)
         mask = kwargs.pop('mask', None)
         per_sample = (mask is not None and np.ndim(mask) == V.ndim
@@ -1356,7 +1517,9 @@ class TransformInvariantNMF:
         JAX package's ``load`` reads; ``completed_iterations`` stamps the
         iterations that produced it.  Written to ``<path>.tmp`` and moved
         into place with ``os.replace``, so a crash never leaves a torn
-        checkpoint."""
+        checkpoint.  Under a mesh of more than one process it raises
+        (ROADMAP.md item 14e-v)."""
+        self._not_under_mesh('save', '14e-v')
         if self._W is None:
             raise ValueError('nothing to save: the model has not been fit yet')
         payload = dict(
@@ -1378,6 +1541,16 @@ class TransformInvariantNMF:
         with open(tmp, 'wb') as f:
             np.savez(f, **payload)
         os.replace(tmp, final)
+
+    def save_sharded(self, path: str, include_H: bool = True, block: bool = True):
+        raise not_ported('TransformInvariantNMF.save_sharded', '14e-v')
+
+    def wait_for_checkpoints(self):
+        raise not_ported('TransformInvariantNMF.wait_for_checkpoints', '14e-v')
+
+    @classmethod
+    def load_sharded(cls, path: str, mesh=None, shard_axis: str = 'samples', **kwargs):
+        raise not_ported('TransformInvariantNMF.load_sharded', '14e-v')
 
     @classmethod
     def load(cls, path: str, *, device='cuda', dtype: Optional[torch.dtype] = None,

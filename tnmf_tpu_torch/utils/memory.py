@@ -142,7 +142,8 @@ def _check_model(model, dtype) -> torch.dtype:
     model does."""
     if getattr(model, '_mesh', None) is not None:
         raise NotImplementedError(
-            'meshes are not ported to tnmf_tpu_torch yet (ROADMAP.md queue 1, item 14e)')
+            'the memory plan of a mesh fit is not ported to tnmf_tpu_torch yet '
+            '(ROADMAP.md queue 1, item 14e-iv)')
     from ..models.tnmf import _torch_dtype
     return _torch_dtype(model.dtype if dtype is None else dtype)
 

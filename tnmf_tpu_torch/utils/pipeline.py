@@ -54,7 +54,7 @@ def prefetch_to_device(source: Iterable, buffer_size: int = 2, sharding=None,
     if sharding is not None:
         raise NotImplementedError(
             'sharded layouts are not ported to tnmf_tpu_torch yet '
-            '(ROADMAP.md queue 1, item 14e)')
+            '(ROADMAP.md queue 1, item 14e-iv)')
     device = torch.device('cuda' if device is None else device)
     dtype = None if dtype is None else _torch_dtype(dtype)
     cuda = device.type == 'cuda'

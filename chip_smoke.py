@@ -315,7 +315,27 @@ failure (exit code != 0, no result line):
    within 1e-4 of the world of one; (d) ``python -m tnmf_tpu_torch.cli
    example data_parallel_fit`` and ``example multihost_fit`` with
    ``TNMF_TPU_SMOKE=1`` as subprocesses, each exiting 0.  A worker or a
-   child that exits non-zero or outlives its timeout fails the run.
+   child that exits non-zero or outlives its timeout fails the run;
+24. model parallelism over the atoms (``shard_axis='atoms'``): (k) K4's
+   summed route (``inhibited_mu_h_summed``: the atoms' sum given from
+   outside) against its plain version at the inhibited flagship's shapes
+   (17 x 17 taps, the block's own sum and a half block's with the other
+   half added) and at small ragged, 1-D, one-buffer and streamed shapes,
+   within 1e-4; its ms beside K4's own cross-atom route in turns (CUDA
+   events) and its bound; (a) a world of one on NCCL in this process with
+   ``make_mesh_atoms()``: the conv flagship plain and same-atom inhibited
+   (10 iterations) bit-equal to the mesh-free fit, cross-atom inhibited
+   (0.2, 5 iterations, on the summed route) within rtol 2e-5 / atol 1e-7
+   of it, each kernel launched once per iteration and no plain version
+   called, ms per iteration with and without the mesh in turns; (b) two
+   worker processes sharing the card over gloo (this script with
+   ``--atom-worker``), 8 atoms each: the same three fits, each rank's
+   atoms of W and maps of H within 2e-5 / 1e-7 of (a)'s, ms per iteration
+   on each rank and the ms of one all-reduce of R (64 x 256 x 256
+   float32) over gloo; (c) four workers on ``make_mesh_2d_atoms(2, 2)``,
+   the plain flagship for 5 iterations within 2e-5 / 1e-7 of the world of
+   one; (d) ``python -m tnmf_tpu_torch.cli example model_parallel_fit``
+   with ``TNMF_TPU_SMOKE=1``, exiting 0.
 
 Phases 7, 10, 12, 13, 14, 15, 16, 17, 20 and 22 hold fits on the kernels
 against the same fits with ``use_pallas=False`` (the model's kernel/plain
@@ -326,8 +346,10 @@ launches on the main paths (phase 19's over the model axis also apart, K5's
 from the HALS sweeps (f) and (g); phases 20's, 21's and 22's also apart:
 ``examples_launches`` across the examples, ``demos_launches`` across the
 demos; phase 23's world of one as ``mesh_launches``, and the world of
-two's, summed over its ranks, as ``mesh_world_two_launches``), error,
-times and bound; the last line is
+two's, summed over its ranks, as ``mesh_world_two_launches``; phase 24's
+world of one as ``atom_mesh_launches`` and its other worlds' as
+``atom_mesh_worlds_launches``; K4's row also counts its summed route's
+launches as ``summed_launches``), error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -390,7 +412,8 @@ TF32_FLOP_PER_S = 495e12
 OPS_PER_S = dict(mu_ratio=FP32_FLOP_PER_S, mu_w=FP32_FLOP_PER_S,
                  grad_w=TF32_FLOP_PER_S / 3, mu_h=TF32_FLOP_PER_S / 3,
                  grad_w_1pass=TF32_FLOP_PER_S, mu_h_1pass=TF32_FLOP_PER_S,
-                 inhibited_mu_h=FP32_FLOP_PER_S, hals_sweep=FP32_FLOP_PER_S)
+                 inhibited_mu_h=FP32_FLOP_PER_S, inhibited_mu_h_summed=FP32_FLOP_PER_S,
+                 hals_sweep=FP32_FLOP_PER_S)
 KERNELS = {
     'mu_ratio': dict(wrapper=mu.mu_ratio, source='tnmf_tpu_torch/csrc/mu_ratio.cu',
                      replaces='tnmf_tpu/experimental/pallas_mu.py:62'),
@@ -413,6 +436,11 @@ KERNELS = {
     'inhibited_mu_h': dict(wrapper=inhibit.inhibited_mu_h,
                            source='tnmf_tpu_torch/csrc/inhibited_mu_h.cu',
                            replaces='tnmf_tpu/experimental/pallas_mu.py:213'),
+    # K4's summed route (the cross-atom term under a mesh over the atoms):
+    # its own template instances and count
+    'inhibited_mu_h_summed': dict(wrapper=inhibit.inhibited_mu_h_summed,
+                                  source='tnmf_tpu_torch/csrc/inhibited_mu_h.cu',
+                                  replaces='tnmf_tpu/experimental/pallas_mu.py:213'),
     # the HALS solvers' Gauss-Seidel sweep, a lax.fori_loop in the JAX
     # package (no Pallas kernel of its own)
     'hals_sweep': dict(wrapper=hals.hals_sweep, source='tnmf_tpu_torch/csrc/hals_sweep.cu',
@@ -541,10 +569,12 @@ def counts() -> dict:
 
 @contextlib.contextmanager
 def plain_calls():
-    """Inside the block the engine's plain versions of the kernels count
-    their calls: yields the counts (a dict), read after the block."""
-    calls = dict.fromkeys(ENGINE_KERNELS, 0)
-    saved = {name: getattr(engine, name + '_plain') for name in ENGINE_KERNELS}
+    """Inside the block the engine's plain versions of the kernels (and of
+    K4's summed route) count their calls: yields the counts (a dict), read
+    after the block."""
+    names = ENGINE_KERNELS + ('inhibited_mu_h_summed',)
+    calls = dict.fromkeys(names, 0)
+    saved = {name: getattr(engine, name + '_plain') for name in names}
 
     def counting(name, fn):
         def call(*args, **kwargs):
@@ -5128,14 +5158,16 @@ def _mesh_fit(label: str, nmf, V, fit: dict, n: int, per_iteration: dict) -> dic
 
 def _mesh_ms(model, fit: dict, n: int) -> float:
     """Device ms per MU iteration of ``model`` on its mesh (CUDA events), the
-    W statistics all-reduced over the model's process group."""
+    W statistics all-reduced over the model's process group and the
+    reconstruction over its atom group."""
     args, flags = _fit_kw(fit)
 
     def run():
         model._W, model._H = engine.fit_loop(model._Vp, model._W, model._H, n, *args,
                                              model._kernels, plan=model._plan,
                                              strategy=model._strategy,
-                                             process_group=model._pg, **flags)
+                                             process_group=model._pg, atom_group=model._ag,
+                                             **flags)
     return time_ms(run, reps=1) / n
 
 
@@ -5236,15 +5268,18 @@ def _close(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.max(np.abs(a - b) / (MESH_ATOL + MESH_RTOL * np.abs(b))))
 
 
-def _world_two(cfg: dict, refs: dict) -> dict:
-    """Phase 23 (b) and (c): two workers sharing the card over gloo, held
-    against the world of one's fits."""
+def _workers(flag: str, cfg: dict, n: int, where: str) -> list:
+    """``n`` processes of this script with ``flag`` (``--mesh-worker`` or
+    ``--atom-worker``) and ``cfg``, meeting through a file store in a
+    temporary directory, each within ``MESH_TIMEOUT`` seconds; their
+    ``rank<r>.npz`` results by rank.  ``where`` names them in the log and
+    in the error when one fails."""
     with tempfile.TemporaryDirectory() as tmp:
         store = 'file://' + str(Path(tmp) / 'store')
         children = [subprocess.Popen(
-            [sys.executable, str(ROOT / 'chip_smoke.py'), '--mesh-worker', store, str(rank), tmp,
+            [sys.executable, str(ROOT / 'chip_smoke.py'), flag, store, str(rank), tmp,
              json.dumps(cfg)], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True) for rank in range(2)]
+            text=True) for rank in range(n)]
         outputs = []
         try:
             for child in children:
@@ -5255,11 +5290,17 @@ def _world_two(cfg: dict, refs: dict) -> dict:
                     child.kill()
                     child.wait()
         for rank, ((stdout, stderr), child) in enumerate(zip(outputs, children)):
-            log(f'  (b) worker {rank}: exit {child.returncode}; {stdout.strip()[-600:]!r} '
+            log(f'  {where} worker {rank}: exit {child.returncode}; {stdout.strip()[-600:]!r} '
                 f'{stderr.strip()[-600:]!r}')
         if any(child.returncode != 0 for child in children):
-            raise AssertionError('phase 23: a worker of the world of two failed')
-        ranks = [dict(np.load(Path(tmp) / f'rank{r}.npz')) for r in range(2)]
+            raise AssertionError(f'{where}: a worker failed')
+        return [dict(np.load(Path(tmp) / f'rank{r}.npz')) for r in range(n)]
+
+
+def _world_two(cfg: dict, refs: dict) -> dict:
+    """Phase 23 (b) and (c): two workers sharing the card over gloo, held
+    against the world of one's fits."""
+    ranks = _workers('--mesh-worker', cfg, 2, 'phase 23 (b)')
     out = dict(launches=[json.loads(str(r['launches'])) for r in ranks])
     if 'plain/ms' in ranks[0]:
         out['ms_per_iteration_per_rank'] = [float(r['plain/ms']) for r in ranks]
@@ -5346,6 +5387,318 @@ def phase_mesh() -> tuple:
                        cli=cli, seconds=seconds)
 
 
+# ---------------------------------------------------------------- phase 24
+
+#: iterations of the flagship fits on a mesh over the atoms: plain and
+#: same-atom inhibited, cross-atom inhibited (on K4's summed route), and
+#: the plain fit on the 2 x 2 mesh
+ATOM_ITER = 10
+ATOM_CROSS_ITER = 5
+ATOM_2D_ITER = 5
+#: the cross-atom strength of the flagship fit on the atom axis
+ATOM_CROSS = 0.2
+#: the CLI's atom-parallel example: (arguments, what the output must show)
+ATOM_CLI = (['example', 'model_parallel_fit'], 'final energy (atom-sharded, mesh=2)')
+#: K4's summed route alone: (where, H shape, inhibition range), random H,
+#: neg and pos; the atoms' sum of the block's own maps and of twice them
+#: (a half block, the other half added)
+K4_SUMMED_CASES = [
+    ('2-D ragged 3x5x37x29 r(6,2)', (3, 5, 37, 29), (6, 2)),
+    ('1-D 3x4x40 r(5)', (3, 4, 40), (5,)),
+    ('2-D one buffer 1x3x200x200 r(82)', (1, 3, 200, 200), (82, 82)),
+    ('2-D streamed 1x4x300x300 r(120)', (1, 4, 300, 300), (120, 120)),
+]
+
+
+def _summed_inputs(H, neg, pos, ks, half: bool) -> tuple:
+    """The summed route's arguments for the block ``H``: its own atoms' sum
+    and map count, or (``half``) those of a model twice its size whose
+    other half is a copy of it."""
+    h_sum = H.sum(dim=1, keepdim=True)
+    M = H.shape[1]
+    if half:
+        h_sum, M = 2 * h_sum, 2 * M
+    return (H, neg, pos, ks, 0.1, ATOM_CROSS, engine.EPS + 0.1, h_sum.contiguous(), M)
+
+
+def _k4_summed() -> tuple:
+    """(k): K4's summed route against its plain version, and its times at
+    the inhibited flagship in turns with K4's own cross-atom route."""
+    f = FLAGSHIP
+    rng = np.random.default_rng(SEED + 24)
+    dev = dict(device=DEVICE, dtype=torch.float32)
+    plan = ConvPlan.create(f['mode'], f['S'], f['A'])
+    shape = (f['N'], f['M']) + plan.transform_shape
+    H, neg, pos = (torch.tensor(rng.random(shape), **dev) for _ in range(3))
+    ks = tuple(torch.tensor(k, **dev) for k in inhibition_kernels(tuple(a - 1 for a in f['A'])))
+    err = None
+    for half in (False, True):
+        args = _summed_inputs(H, neg, pos, ks, half)
+        e = _compare('inhibited_mu_h_summed', lambda: inhibit.inhibited_mu_h_summed(*args),
+                     lambda: inhibit.inhibited_mu_h_summed_plain(*args),
+                     f'flagship {"half block" if half else "own sum"}')
+        err = e if err is None else err
+    # the block's own sum: within TOL of K4's own cross-atom route too
+    args = _summed_inputs(H, neg, pos, ks, False)
+    own = dict(use_same=True, use_cross=True)
+    _compare('inhibited_mu_h_summed', lambda: inhibit.inhibited_mu_h_summed(*args),
+             lambda: inhibit.inhibited_mu_h(*args[:7], **own), 'flagship against K4 own route')
+    for where, dims, ranges in K4_SUMMED_CASES:
+        Hs, ns, ps = (torch.tensor(rng.random(dims), **dev) for _ in range(3))
+        kk = tuple(torch.tensor(k, **dev) for k in inhibition_kernels(ranges))
+        g = inhibit.launch_geometry(dims, tuple(k.numel() for k in kk), True)
+        for half in (False, True):
+            a = _summed_inputs(Hs, ns, ps, kk, half)
+            _compare('inhibited_mu_h_summed', lambda: inhibit.inhibited_mu_h_summed(*a),
+                     lambda: inhibit.inhibited_mu_h_summed_plain(*a),
+                     f'{where}{" half" if half else ""} ({g["n_segments"]} seg)')
+    summed = lambda: inhibit.inhibited_mu_h_summed(*args)  # noqa: E731
+    plain = lambda: inhibit.inhibited_mu_h_summed_plain(*args)  # noqa: E731
+    cross = lambda: inhibit.inhibited_mu_h(*args[:7], **own)  # noqa: E731
+    c1, k1, k2, c2 = (time_ms(fn) for fn in (cross, summed, summed, cross))
+    p1, p2 = time_ms(plain), time_ms(plain)
+    nH, plane = H.numel(), H.numel() // H.shape[1]
+    taps = sum(k.numel() for k in ks)
+    # H, neg and pos read and H' written, plus the atoms' sum read once; the
+    # stencil of every map and of the sum, and the update
+    work = (4 * (4 * nH + plane), nH * (2 * taps + 10) + plane * 2 * taps)
+    bound_ms, bound_by = bound(*work, OPS_PER_S['inhibited_mu_h_summed'])
+    ms = (k1 + k2) / 2
+    times = dict(ms=ms, plain_ms=(p1 + p2) / 2, bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None, own_cross_route_ms=(c1 + c2) / 2)
+    log(f'  inhibited_mu_h_summed at {tuple(H.shape)}: kernel {k1:.4f}/{k2:.4f} ms, K4\'s '
+        f'own cross-atom route {c1:.4f}/{c2:.4f} ms (in turns), plain {p1:.4f}/{p2:.4f} ms, '
+        f'bound {bound_ms:.4f} ms ({bound_by}; {work[0] / 1e9:.4f} GB, '
+        f'{work[1] / 1e9:.4f} GFLOP), {100 * bound_ms / ms:.1f} % of bound ({card()})')
+    return err, times
+
+
+def _atom_config() -> dict:
+    """What the worlds of phase 24 fit (handed to the workers as JSON)."""
+    return dict(device=DEVICE, flagship=FLAGSHIP, cross=ATOM_CROSS,
+                iterations=dict(plain=ATOM_ITER, inhibited=ATOM_ITER, cross=ATOM_CROSS_ITER,
+                                plain_2d=ATOM_2D_ITER))
+
+
+def _atom_fits(cfg: dict) -> list:
+    """``(label, fit keywords, iterations, launches per iteration on an atom
+    axis)`` of each flagship fit of phase 24."""
+    f, it = cfg['flagship'], cfg['iterations']
+    plain = dict(sparsity_H=f['sparsity'])
+    same = dict(plain, inhibition_strength=f['inhibition'])
+    return [('plain', plain, it['plain'], dict(mu_w=1, grad_w=1, mu_h=1)),
+            ('inhibited', same, it['inhibited'], dict(mu_w=1, grad_w=1, inhibited_mu_h=1)),
+            ('cross', dict(same, cross_atom_inhibition_strength=cfg['cross']), it['cross'],
+             dict(mu_w=1, grad_w=1, inhibited_mu_h_summed=1))]
+
+
+def _atom_model(cfg: dict, mesh=None, axis: str = 'samples'):
+    f = cfg['flagship']
+    return TransformInvariantNMF(f['M'], tuple(f['A']), reconstruction_mode=f['mode'],
+                                 seed=SEED, device=cfg['device'], mesh=mesh, shard_axis=axis)
+
+
+def _atom_data(cfg: dict) -> np.ndarray:
+    f = cfg['flagship']
+    return np.random.default_rng(SEED).random((f['N'], f['C']) + tuple(f['S']),
+                                              dtype=np.float32)
+
+
+def _r_all_reduce_ms(cfg: dict, group, reps: int = 10) -> float:
+    """Host ms of one ``all_reduce`` of a flagship-sized R (N x C x S
+    float32) over ``group``, synchronised (gloo copies through the host),
+    after one warm-up call; every rank of the group calls it."""
+    f = cfg['flagship']
+    R = torch.ones((f['N'], f['C']) + tuple(f['S']), device=cfg['device'])
+    torch.distributed.all_reduce(R, group=group)
+    if cfg['device'] == 'cuda':
+        sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        torch.distributed.all_reduce(R, group=group)
+    if cfg['device'] == 'cuda':
+        sync()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def atom_worker(store: str, rank: int, out: str, cfg: dict) -> None:
+    """One rank of phase 24's worlds of two (``make_mesh_atoms()``) and four
+    (``make_mesh_2d_atoms(2, 2)``, when ``cfg['grid']`` is given):
+    ``python3 chip_smoke.py --atom-worker STORE RANK OUT CONFIG``.  Each
+    fit's launches are required; this rank's atoms of W and share of H, the
+    launches, the plain flagship's ms per iteration and R's all-reduce ms
+    go into ``OUT/rank<rank>.npz``."""
+    from tnmf_tpu_torch.parallel import distributed, make_mesh_2d_atoms, make_mesh_atoms
+    grid = cfg.get('grid')
+    world = 2 if grid is None else grid[0] * grid[1]
+    distributed.initialize(store, num_processes=world, process_id=rank, backend='gloo',
+                           timeout=MESH_TIMEOUT)
+    try:
+        if grid is None:
+            mesh, axis, fits = make_mesh_atoms(devices=cfg['device']), 'atoms', _atom_fits(cfg)
+        else:
+            mesh, axis = make_mesh_2d_atoms(*grid, devices=cfg['device']), 'samples+atoms'
+            label, fit, _, per_iteration = _atom_fits(cfg)[0]
+            fits = [(label, fit, cfg['iterations']['plain_2d'], per_iteration)]
+        V = _atom_data(cfg)
+        res, launches = {}, {}
+        for label, fit, n, per_iteration in fits:
+            nmf = _atom_model(cfg, mesh, axis)
+            launches[label] = _mesh_fit(f'rank {rank} {label}', nmf, V, fit, n, per_iteration)
+            res[f'{label}/W'], res[f'{label}/H'] = nmf._local_W(), nmf._local_H()
+            if label == 'plain' and grid is None and cfg['device'] == 'cuda':
+                res['plain/ms'] = np.float64(_mesh_ms(nmf, fit, n))
+            del nmf
+        if grid is None:
+            res['r_all_reduce_ms'] = np.float64(_r_all_reduce_ms(cfg, mesh.get_group()))
+        res['launches'] = np.array(json.dumps(launches))
+        np.savez(Path(out) / f'rank{rank}.npz', **res)
+        log(f'rank {rank}: launches {json.dumps(launches)}')
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _atom_world_one(cfg: dict) -> tuple:
+    """(a): a world of one on NCCL in this process with ``make_mesh_atoms()``;
+    each fit also without a mesh (plain and same-atom: bit-equal; the
+    cross-atom term on the summed route: within ``MESH_RTOL``/``MESH_ATOL``),
+    and the 2 x 2 mesh's reference, the plain fit at ``plain_2d``
+    iterations.  Returns the launches, the references and the numbers."""
+    from tnmf_tpu_torch.parallel import distributed, make_mesh_atoms
+    distributed.initialize(num_processes=1)
+    backend = torch.distributed.get_backend()
+    total, refs, out = dict.fromkeys(KERNELS, 0), {}, dict(backend=backend)
+    V = _atom_data(cfg)
+    try:
+        mesh = make_mesh_atoms(devices=cfg['device'])
+        for label, fit, n, per_iteration in _atom_fits(cfg):
+            meshed = _atom_model(cfg, mesh, 'atoms')
+            for name, k in _mesh_fit(f'{label} on make_mesh_atoms()', meshed, V, fit, n,
+                                     per_iteration).items():
+                total[name] += k
+            free = _atom_model(cfg)
+            own = {('inhibited_mu_h' if k == 'inhibited_mu_h_summed' else k): v
+                   for k, v in per_iteration.items()}
+            _mesh_fit(f'{label} without a mesh', free, V, fit, n, own)
+            refs[label] = (meshed._local_W(), meshed._local_H())
+            if label == 'cross':
+                worst = max(_close(meshed._local_W(), free.W), _close(meshed._local_H(), free.H))
+                out['cross_against_no_mesh'] = worst
+                log(f'  (a) cross: world of one on {backend} (K4\'s summed route) against no '
+                    f'mesh (K4\'s own): largest |a - b| / ({MESH_ATOL} + {MESH_RTOL} |b|) = '
+                    f'{worst:.3e} (at most 1); energy {meshed._energy_function()!r}')
+                if not worst <= 1:
+                    raise AssertionError(f'phase 24 (a) cross: {worst:.3e} past the bound')
+            else:
+                same = torch.equal(meshed._W, free._W) and torch.equal(meshed._H, free._H)
+                log(f'  (a) {label}: world of one on {backend} against no mesh: '
+                    f'{"bit-equal" if same else "DIFFERENT"}; energy '
+                    f'{meshed._energy_function()!r}')
+                if not same:
+                    raise AssertionError(f'phase 24 (a) {label}: the world of one is not '
+                                         'bit-equal to the mesh-free fit')
+            if label in ('plain', 'cross') and cfg['device'] == 'cuda':
+                ms = dict(no_mesh=[], mesh=[])
+                for key, model in (('no_mesh', free), ('mesh', meshed), ('mesh', meshed),
+                                   ('no_mesh', free)):
+                    ms[key].append(_mesh_ms(model, fit, n))
+                out[f'{label}_ms_per_iteration'] = ms
+                log(f'  (a) {label} flagship ms/iteration in turns (no mesh, mesh, mesh, no '
+                    f'mesh): {ms["no_mesh"][0]:.4f}, {ms["mesh"][0]:.4f}, {ms["mesh"][1]:.4f}, '
+                    f'{ms["no_mesh"][1]:.4f} ({card()})')
+            del meshed, free
+        plain = _atom_fits(cfg)[0]
+        ref2 = _atom_model(cfg)
+        _mesh_fit('plain for the 2 x 2 mesh, no mesh', ref2, V, plain[1],
+                  cfg['iterations']['plain_2d'], plain[3])
+        refs['plain_2d'] = (ref2.W, ref2.H)
+        if cfg['device'] == 'cuda':
+            out['r_all_reduce_ms_nccl_world_one'] = _r_all_reduce_ms(cfg, mesh.get_group())
+        del ref2
+    finally:
+        torch.distributed.destroy_process_group()
+    return total, refs, out
+
+
+def _atom_worlds(cfg: dict, refs: dict) -> dict:
+    """(b) two workers on ``make_mesh_atoms()`` and (c) four on
+    ``make_mesh_2d_atoms(2, 2)``, sharing the card over gloo, held against
+    the world of one's fits."""
+    out = {}
+    ranks = _workers('--atom-worker', cfg, 2, 'phase 24 (b)')
+    out['launches_b'] = [json.loads(str(r['launches'])) for r in ranks]
+    if 'plain/ms' in ranks[0]:
+        out['ms_per_iteration_per_rank'] = [float(r['plain/ms']) for r in ranks]
+        out['r_all_reduce_ms_gloo'] = [float(r['r_all_reduce_ms']) for r in ranks]
+        log('  (b) flagship ms/iteration on each rank (8 atoms each, the card shared with the '
+            'other rank, timed at once): '
+            + ', '.join(f'{t:.4f}' for t in out['ms_per_iteration_per_rank'])
+            + '; one all-reduce of R (64 x 256 x 256 float32) over gloo: '
+            + ', '.join(f'{t:.4f}' for t in out['r_all_reduce_ms_gloo']) + f' ms ({card()})')
+    for label in ('plain', 'inhibited', 'cross'):
+        W1, H1 = refs[label]
+        m = W1.shape[0] // 2
+        worst = max(max(_close(r[f'{label}/W'], W1[i * m:(i + 1) * m]),
+                        _close(r[f'{label}/H'], H1[:, i * m:(i + 1) * m]))
+                    for i, r in enumerate(ranks))
+        out[label] = worst
+        log(f'  (b) {label}: world of two against world of one, largest |a - b| / '
+            f'({MESH_ATOL} + {MESH_RTOL} |b|) = {worst:.3e} (at most 1)')
+        if not worst <= 1:
+            raise AssertionError(f'phase 24 (b) {label}: {worst:.3e} past the bound')
+    ranks = _workers('--atom-worker', dict(cfg, grid=[2, 2]), 4, 'phase 24 (c)')
+    out['launches_c'] = [json.loads(str(r['launches'])) for r in ranks]
+    W1, H1 = refs['plain_2d']
+    n, m = H1.shape[0] // 2, W1.shape[0] // 2
+    worst = max(max(_close(r['plain/W'], W1[(i % 2) * m:(i % 2 + 1) * m]),
+                    _close(r['plain/H'], H1[(i // 2) * n:(i // 2 + 1) * n,
+                                            (i % 2) * m:(i % 2 + 1) * m]))
+                for i, r in enumerate(ranks))
+    out['plain_2d'] = worst
+    log(f'  (c) plain on the 2 x 2 mesh against the mesh-free fit, largest |a - b| / '
+        f'({MESH_ATOL} + {MESH_RTOL} |b|) = {worst:.3e} (at most 1)')
+    if not worst <= 1:
+        raise AssertionError(f'phase 24 (c): {worst:.3e} past the bound')
+    return out
+
+
+def _atom_cli() -> dict:
+    """(d): ``tnmf-tpu-torch example model_parallel_fit`` as a subprocess
+    with ``TNMF_TPU_SMOKE=1``."""
+    args, expect = ATOM_CLI
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, '-m', 'tnmf_tpu_torch.cli', *args], cwd=ROOT,
+                           env=dict(os.environ, TNMF_TPU_SMOKE='1'), capture_output=True,
+                           text=True, timeout=MESH_TIMEOUT)
+    log(f'  (d) tnmf-tpu-torch {" ".join(args)}: exit {child.returncode}; '
+        f'{child.stdout.strip()[-600:]!r} {child.stderr.strip()[-300:]!r}')
+    if child.returncode != 0 or expect not in child.stdout:
+        raise AssertionError(f'phase 24 (d): tnmf-tpu-torch {" ".join(args)} failed')
+    return dict(exit=child.returncode, seconds=time.perf_counter() - t0)
+
+
+def phase_atoms() -> tuple:
+    """Phase 24: model parallelism over the atoms, (k) and (a) to (d) in
+    the module docstring.  Returns the world of one's launches, the other
+    worlds' launches, the summed route's error and times, and the numbers."""
+    t_phase = time.perf_counter()
+    err, k4_times = _k4_summed()
+    cfg = _atom_config()
+    total, refs, world_one = _atom_world_one(cfg)
+    worlds = _atom_worlds(cfg, refs)
+    cli = _atom_cli()
+    seconds = time.perf_counter() - t_phase
+    others = dict.fromkeys(KERNELS, 0)
+    for rank in worlds['launches_b'] + worlds['launches_c']:
+        for fit in rank.values():
+            for name, n in fit.items():
+                others[name] += n
+    log(f'  phase 24: world of one launches {total}, worlds of two and four {others}; '
+        f'{seconds:.1f} s')
+    return total, others, err, k4_times, dict(world_one=world_one, worlds=worlds, cli=cli,
+                                              k4_summed=k4_times, seconds=seconds)
+
+
 def main() -> int:
     device = phase_device()
     phase_build()
@@ -5403,6 +5756,10 @@ def main() -> int:
     log('data parallelism over the samples (phase 23):')
     mesh_launches, mesh_out = phase_mesh()
     log(f'mesh numbers ({card()}): ' + json.dumps(mesh_out))
+    log('model parallelism over the atoms (phase 24):')
+    atom_launches, atom_others, errors['inhibited_mu_h_summed'], \
+        times['inhibited_mu_h_summed'], atom_out = phase_atoms()
+    log(f'atom mesh numbers ({card()}): ' + json.dumps(atom_out))
     srv_per_iteration = {kind: d['launches_per_iteration'] for kind, d in srv.items()}
     k5 = hals_out['k5']
     errors['hals_sweep'] = k5[K5_CASES[0][0]]['max_abs_err']
@@ -5420,7 +5777,8 @@ def main() -> int:
                            + hals_launches[name] + srv_launches[name]
                            + prec_launches[name] + sw_launches[name] + ms_launches[name]
                            + tl_launches[name] + ex_launches[name]
-                           + ex_out['demo_launches'][name] + mesh_launches[name]),
+                           + ex_out['demo_launches'][name] + mesh_launches[name]
+                           + atom_launches[name]),
                  launches_per_iteration=launches[name] / max(iterations[name], 1),
                  encoder_launches_per_iteration=(enc_launches[name]
                                                  / max(enc_iterations[name], 1)),
@@ -5450,8 +5808,13 @@ def main() -> int:
                  demos_launches=ex_out['demo_launches'][name],
                  mesh_launches=mesh_launches[name],
                  mesh_world_two_launches=mesh_out['world_two_launches'][name],
+                 atom_mesh_launches=atom_launches[name],
+                 atom_mesh_worlds_launches=atom_others[name],
                  max_abs_err=errors[name], **times[name])
             for name, k in KERNELS.items()]
+    k4 = next(row for row in rows if row['name'] == 'inhibited_mu_h')
+    k4['summed_launches'] = next(row['launches'] for row in rows
+                                 if row['name'] == 'inhibited_mu_h_summed')
     log(device['smi'])  # again here: the build's report may push the first one out of a tail
     print(json.dumps({'kernels': rows}))
     print(json.dumps({'ok': True, 'device': dict(platform=device['platform'],
@@ -5463,5 +5826,8 @@ def main() -> int:
 if __name__ == '__main__':
     if len(sys.argv) == 6 and sys.argv[1] == '--mesh-worker':
         mesh_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4], json.loads(sys.argv[5]))
+        sys.exit(0)
+    if len(sys.argv) == 6 and sys.argv[1] == '--atom-worker':
+        atom_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4], json.loads(sys.argv[5]))
         sys.exit(0)
     sys.exit(main())

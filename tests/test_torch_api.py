@@ -139,12 +139,13 @@ def test_constructor_dtype(value, dtype):
 
 
 @pytest.mark.parametrize('args,kwargs', [
-    ((None, 'auto', None, 2), dict(shard_axis='atoms')),
+    ((None, 'auto', None, 2), dict(shard_axis='spatial')),
     ((None, 'auto', None, 0, 'valid', 'float32', None, 0, '5-smooth'), dict(shard_axis='both')),
 ])
 def test_unported_positional_arguments_raise(args, kwargs):
     """The later keywords whose code is not ported raise (``shard_axis``
-    other than 'samples'); ``logger``, ``verbose``, ``mesh`` (a
+    'spatial' and 'both'; 'atoms' is ported, ``tests/test_torch_mesh_atoms.py``);
+    ``logger``, ``verbose``, ``mesh`` (a
     ``DeviceMesh``, ``tests/test_torch_distributed.py``) and
     ``fft_policy`` are ported."""
     with pytest.raises(NotImplementedError, match='ROADMAP.md queue 1, item'):

@@ -3,8 +3,9 @@
 ``tests/test_serving_export.py::test_cli_export``, serving H within 1e-8 of
 the JAX model's ``transform`` in float64; the export's error path;
 ``example`` and ``demo`` launching the port's scripts (the subprocess call
-captured), refusing unknown names, the mesh example of item 14e-ii and, without
-streamlit, the interactive dashboard; ``bench`` refused with the item it
+captured), refusing unknown names, the mesh example of item 14e-ii (which
+runs since that item was ported) and, without streamlit, the interactive
+dashboard; ``bench`` refused with the item it
 waits for.  The command exports the card's program; here ``main`` runs
 in-process with the checkpoint's load pointed at the CPU (``chip_smoke.py``
 phase 21 runs the export, and phase 22 ``example`` and ``demo --headless``,
@@ -21,7 +22,7 @@ import tnmf_tpu
 from tnmf_tpu.cli import list_examples as jax_list_examples
 from tnmf_tpu_torch import TransformInvariantNMF, load_serving
 from tnmf_tpu_torch.cli import DEMO_NAMES, list_examples, main
-from tnmf_tpu_torch.examples import EXAMPLES, MESH_EXAMPLES
+from tnmf_tpu_torch.examples import EXAMPLES
 
 
 def _data(n=4, seed=0):
@@ -82,8 +83,9 @@ def calls(monkeypatch):
 
 
 def test_examples_are_the_jax_packages_but_the_mesh_ones():
+    # every JAX example is ported now, the mesh ones too
     assert list_examples() == sorted(EXAMPLES)
-    assert set(jax_list_examples()) == set(EXAMPLES) | set(MESH_EXAMPLES)
+    assert set(jax_list_examples()) == set(EXAMPLES)
 
 
 @pytest.mark.parametrize('name', sorted(EXAMPLES))
@@ -102,10 +104,14 @@ def test_unknown_example_exits_1_with_the_list(calls, capsys):
     assert all(name in err for name in EXAMPLES) and not calls
 
 
-@pytest.mark.parametrize('name', MESH_EXAMPLES)
+@pytest.mark.parametrize('name', ('model_parallel_fit',))
 def test_mesh_example_exits_1_naming_item_14e(name, calls, capsys):
-    assert main(['example', name]) == 1
-    assert 'item 14e-ii)' in capsys.readouterr().err and not calls
+    # item 14e-ii is ported: the command no longer refuses the example and
+    # runs the port's module
+    assert main(['example', name]) == 0
+    assert 'item 14e' not in capsys.readouterr().err
+    (args, _), = calls
+    assert args == [sys.executable, '-m', f'tnmf_tpu_torch.examples.{name}']
 
 
 def test_demo_without_streamlit_exits_1(calls, capsys, monkeypatch):

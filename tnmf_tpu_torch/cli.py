@@ -10,8 +10,7 @@
   (:func:`tnmf_tpu_torch.serving.export_serving`).
 
 ``bench`` is not ported yet (ROADMAP.md queue 1, item 5): it takes any
-arguments, exits with status 1 and says so; nor is the JAX package's
-``model_parallel_fit`` example (item 14e-ii).  No command runs the JAX
+arguments, exits with status 1 and says so.  No command runs the JAX
 package's scripts.
 """
 
@@ -23,7 +22,7 @@ import subprocess
 import sys
 
 from .demos.demo_selector import DEMO_NAME_DICT
-from .examples import EXAMPLES, MESH_EXAMPLES, MESH_ITEM
+from .examples import EXAMPLES
 
 DEMO_NAMES = list(DEMO_NAME_DICT)
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
@@ -62,10 +61,6 @@ def cmd_demo(args) -> int:
 
 
 def cmd_example(args) -> int:
-    if args.name in MESH_EXAMPLES:
-        print(f'the example {args.name!r} needs a mesh over the atoms, which is not ported '
-              f'to tnmf_tpu_torch yet ({MESH_ITEM})', file=sys.stderr)
-        return 1
     examples = list_examples()
     if args.name not in examples:
         print(f'unknown example {args.name!r}; available: {", ".join(examples)}',

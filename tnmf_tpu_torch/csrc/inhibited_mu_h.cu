@@ -71,6 +71,16 @@
 // inhibited_mu_h_segments_plain, sums in its order); every stencil that
 // fits in one piece runs the kernel above.
 //
+// The summed route (kSummed, the cross-atom term under a mesh over the
+// atoms): the block holds a rank's atoms, and the atoms' sum over every
+// rank arrives as one (N, 1, X, Y) plane hsum, reduced by the engine.  Where
+// the cross-atom sweep above sums the H tiles of the block's atoms, this
+// route stages the sample's tile of hsum, with its halo, into the same
+// buffer (the streamed route: into each segment's staged rows) and runs the
+// same stencil on it; each atom's own field is subtracted as before, and
+// cross comes divided by the global map count less one.  Only instances
+// with kCross and without kModels exist; the others keep their code.
+//
 // The model axis: a sweep of S models is one launch over S * N samples,
 // the models' (N, M, X, Y) stacks back to back.  With a per-model vector
 // of strengths (inh[S], cross[S], reg[S] in device memory) sample n reads
@@ -228,13 +238,14 @@ struct Tiling {
 
 // The streamed route (see the header): one block's tile, the taps walked in
 // segments through one H buffer.
-template <bool kTwoD, int kVec, bool kCross, bool kModels>
+template <bool kTwoD, int kVec, bool kCross, bool kModels, bool kSummed>
 __device__ __forceinline__ void streamed(const float* __restrict__ h,
                                          const float* __restrict__ neg,
                                          const float* __restrict__ pos,
                                          const float* __restrict__ taps,
                                          float* __restrict__ out, const InhShape& s,
-                                         const ModelAxis& a) {
+                                         const ModelAxis& a,
+                                         const float* __restrict__ hsum_in) {
   constexpr int kSX = Tiling<kTwoD>::kSX;
   constexpr int kSY = Tiling<kTwoD>::kSY;
   extern __shared__ float4 smem_raw[];
@@ -287,7 +298,8 @@ __device__ __forceinline__ void streamed(const float* __restrict__ h,
     }
   };
   // rows [r0, r0 + nr) and columns [c0, c0 + nc) of the halo tile of atom
-  // mm (mm < 0: summed over the atoms) into hs, zero outside the sample;
+  // mm (mm < 0: summed over the atoms, or the given sum) into hs, zero
+  // outside the sample;
   // the threads walk the elements row by row with carries (no division)
   auto stage = [&](int mm, int r0, int nr, int c0, int nc) {
     const int dc = kThreads % nc, dr = kThreads / nc;
@@ -300,8 +312,12 @@ __device__ __forceinline__ void streamed(const float* __restrict__ h,
       } else {
         float v = 0.f;
         if (ok) {
+          if constexpr (kSummed) {
+            v = __ldg(hsum_in + n * plane + static_cast<int64_t>(gx) * s.y + gy);
+          } else {
 #pragma unroll 8
-          for (int m = 0; m < s.m; ++m) v += __ldg(src + m * plane);
+            for (int m = 0; m < s.m; ++m) v += __ldg(src + m * plane);
+          }
         }
         hs[r * s.hp + c] = v;
       }
@@ -412,13 +428,15 @@ __device__ __forceinline__ void streamed(const float* __restrict__ h,
 // four blocks per SM (64 registers a thread) with the tap count compiled
 // in; three (up to 85 registers) for the runtime tap loop, whose window
 // spills at 64 (its 2-D cross-atom instances still spill a few words)
-template <bool kTwoD, int kVec, bool kCross, bool kModels, int kTaps, bool kStream>
+template <bool kTwoD, int kVec, bool kCross, bool kModels, int kTaps, bool kStream,
+          bool kSummed>
 __global__ void __launch_bounds__(kThreads, kTaps > 0 ? 4 : 3)
 inhibited_mu_h_kernel(const float* __restrict__ h, const float* __restrict__ neg,
                       const float* __restrict__ pos, const float* __restrict__ taps,
-                      float* __restrict__ out, InhShape s, ModelAxis a) {
+                      float* __restrict__ out, InhShape s, ModelAxis a,
+                      const float* __restrict__ hsum_in) {
   if constexpr (kStream) {
-    streamed<kTwoD, kVec, kCross, kModels>(h, neg, pos, taps, out, s, a);
+    streamed<kTwoD, kVec, kCross, kModels, kSummed>(h, neg, pos, taps, out, s, a, hsum_in);
     return;
   }
   constexpr int kSX = Tiling<kTwoD>::kSX;
@@ -544,23 +562,28 @@ inhibited_mu_h_kernel(const float* __restrict__ h, const float* __restrict__ neg
   float rsum[kSY];  // rows: the cross-atom sum of the fields at this thread's output
   if constexpr (kCross) {
     // the field is linear in H: sum_m (H[m] (*) k) = (sum_m H[m]) (*) k, so
-    // one sweep sums the H tiles (into the last H buffer) and one stencil
-    // gives the sum of the fields
+    // one sweep sums the H tiles (into the last H buffer; the summed route
+    // stages the given sum there) and one stencil gives the sum of the fields
     float* hsum = hs0 + (h_bufs - 1) * hsz;
+    const float* sum_src = kSummed ? hsum_in + n * plane : h + sample;
     for (int r = warp; r < hr; r += kWarps) {
       const int gx = x0 - rx + r;
       const bool row_ok = gx >= 0 && gx < s.x;
-      const float* row = h + sample + static_cast<int64_t>(gx) * s.y + y0 - ry;
+      const float* row = sum_src + static_cast<int64_t>(gx) * s.y + y0 - ry;
       if (s.h_vec) {
         // quads wholly inside or outside, as in stage_h; eight atoms in flight
         for (int c = 4 * lane; c < hw; c += 128) {
           const int gy = y0 - ry + c;
           float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
           if (row_ok && gy >= 0 && gy < s.y) {
+            if constexpr (kSummed) {
+              v = __ldg(reinterpret_cast<const float4*>(row + c));
+            } else {
 #pragma unroll 8
-            for (int mm = 0; mm < s.m; ++mm) {
-              const float4 q = __ldg(reinterpret_cast<const float4*>(row + c + mm * plane));
-              v.x += q.x; v.y += q.y; v.z += q.z; v.w += q.w;
+              for (int mm = 0; mm < s.m; ++mm) {
+                const float4 q = __ldg(reinterpret_cast<const float4*>(row + c + mm * plane));
+                v.x += q.x; v.y += q.y; v.z += q.z; v.w += q.w;
+              }
             }
           }
           *reinterpret_cast<float4*>(hsum + r * s.hp + c) = v;
@@ -570,8 +593,12 @@ inhibited_mu_h_kernel(const float* __restrict__ h, const float* __restrict__ neg
           const int gy = y0 - ry + c;
           float v = 0.f;
           if (row_ok && gy >= 0 && gy < s.y) {
+            if constexpr (kSummed) {
+              v = __ldg(row + c);
+            } else {
 #pragma unroll 8
-            for (int mm = 0; mm < s.m; ++mm) v += __ldg(row + c + mm * plane);
+              for (int mm = 0; mm < s.m; ++mm) v += __ldg(row + c + mm * plane);
+            }
           }
           hsum[r * s.hp + c] = v;
         }
@@ -669,11 +696,12 @@ inhibited_mu_h_kernel(const float* __restrict__ h, const float* __restrict__ neg
   }
 }
 
-template <bool kTwoD, int kVec, bool kCross, bool kModels, int kTaps, bool kStream = false>
+template <bool kTwoD, int kVec, bool kCross, bool kModels, bool kSummed, int kTaps,
+          bool kStream = false>
 cudaError_t launch(const float* h, const float* neg, const float* pos,
                    const float* taps, float* out, const InhShape& s, const ModelAxis& a,
-                   int smem_bytes, cudaStream_t st) {
-  auto kernel = inhibited_mu_h_kernel<kTwoD, kVec, kCross, kModels, kTaps, kStream>;
+                   const float* hsum, int smem_bytes, cudaStream_t st) {
+  auto kernel = inhibited_mu_h_kernel<kTwoD, kVec, kCross, kModels, kTaps, kStream, kSummed>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem_bytes);
   if (err != cudaSuccess) return err;
@@ -681,42 +709,52 @@ cudaError_t launch(const float* h, const float* neg, const float* pos,
       ((s.x + s.tile_x - 1) / s.tile_x) * ((s.y + s.tile_y - 1) / s.tile_y);
   const int ny = s.n < 65535 ? s.n : 65535;
   kernel<<<dim3(n_tiles, ny, (s.n + ny - 1) / ny), kThreads, smem_bytes, st>>>(h, neg, pos,
-                                                                              taps, out, s, a);
+                                                                              taps, out, s, a,
+                                                                              hsum);
   return cudaGetLastError();
 }
 
 // 2-D tiles with a tap count compiled in (the wrapper pads the taps of both
 // axes with zeros to it), else the runtime tap loop, in one piece or streamed
-template <bool kTwoD, int kVec, bool kCross, bool kModels>
+template <bool kTwoD, int kVec, bool kCross, bool kModels, bool kSummed>
 cudaError_t launch_taps(int compiled, const float* h, const float* neg, const float* pos,
                         const float* taps, float* out, const InhShape& s, const ModelAxis& a,
-                        int smem_bytes, cudaStream_t st) {
+                        const float* hsum, int smem_bytes, cudaStream_t st) {
   if (s.seg_x < s.tx || s.seg_y < s.ty)
-    return launch<kTwoD, kVec, kCross, kModels, 0, true>(h, neg, pos, taps, out, s, a, smem_bytes, st);
+    return launch<kTwoD, kVec, kCross, kModels, kSummed, 0, true>(h, neg, pos, taps, out, s, a, hsum, smem_bytes, st);
   if constexpr (kTwoD) {
-    if (compiled == 9) return launch<kTwoD, kVec, kCross, kModels, 9>(h, neg, pos, taps, out, s, a, smem_bytes, st);
-    if (compiled == 17) return launch<kTwoD, kVec, kCross, kModels, 17>(h, neg, pos, taps, out, s, a, smem_bytes, st);
+    if (compiled == 9) return launch<kTwoD, kVec, kCross, kModels, kSummed, 9>(h, neg, pos, taps, out, s, a, hsum, smem_bytes, st);
+    if (compiled == 17) return launch<kTwoD, kVec, kCross, kModels, kSummed, 17>(h, neg, pos, taps, out, s, a, hsum, smem_bytes, st);
   }
   if (compiled) return cudaErrorInvalidValue;
-  return launch<kTwoD, kVec, kCross, kModels, 0>(h, neg, pos, taps, out, s, a, smem_bytes, st);
+  return launch<kTwoD, kVec, kCross, kModels, kSummed, 0>(h, neg, pos, taps, out, s, a, hsum, smem_bytes, st);
 }
 
+// the summed route (hsum given) only with the cross-atom term and without a
+// model axis
 template <bool kTwoD, int kVec, bool kCross>
 cudaError_t launch_models(const float* h, const float* neg, const float* pos,
                           const float* taps, float* out, const InhShape& s, const ModelAxis& a,
-                          int compiled, int smem_bytes, cudaStream_t st) {
+                          const float* hsum, int compiled, int smem_bytes, cudaStream_t st) {
+  if (hsum != nullptr) {
+    if constexpr (kCross) {
+      if (a.strengths != nullptr) return cudaErrorInvalidValue;
+      return launch_taps<kTwoD, kVec, true, false, true>(compiled, h, neg, pos, taps, out, s, a, hsum, smem_bytes, st);
+    }
+    return cudaErrorInvalidValue;
+  }
   return a.strengths != nullptr
-      ? launch_taps<kTwoD, kVec, kCross, true>(compiled, h, neg, pos, taps, out, s, a, smem_bytes, st)
-      : launch_taps<kTwoD, kVec, kCross, false>(compiled, h, neg, pos, taps, out, s, a, smem_bytes, st);
+      ? launch_taps<kTwoD, kVec, kCross, true, false>(compiled, h, neg, pos, taps, out, s, a, nullptr, smem_bytes, st)
+      : launch_taps<kTwoD, kVec, kCross, false, false>(compiled, h, neg, pos, taps, out, s, a, nullptr, smem_bytes, st);
 }
 
 template <bool kTwoD, int kVec>
 cudaError_t launch_cross(bool cross, int compiled, const float* h, const float* neg,
                          const float* pos, const float* taps, float* out, const InhShape& s,
-                         const ModelAxis& a, int smem_bytes, cudaStream_t st) {
+                         const ModelAxis& a, const float* hsum, int smem_bytes, cudaStream_t st) {
   return cross
-      ? launch_models<kTwoD, kVec, true>(h, neg, pos, taps, out, s, a, compiled, smem_bytes, st)
-      : launch_models<kTwoD, kVec, false>(h, neg, pos, taps, out, s, a, compiled, smem_bytes, st);
+      ? launch_models<kTwoD, kVec, true>(h, neg, pos, taps, out, s, a, hsum, compiled, smem_bytes, st)
+      : launch_models<kTwoD, kVec, false>(h, neg, pos, taps, out, s, a, hsum, compiled, smem_bytes, st);
 }
 
 }  // namespace
@@ -728,12 +766,13 @@ extern "C" int tnmf_inhibited_mu_h(const float* h, const float* neg, const float
                                    int use_same, int use_cross, int two_d, int vec,
                                    int h_vec, int h_bufs, int compiled, int seg_x, int seg_y,
                                    int smem_bytes, const float* strengths, int n_per_model,
-                                   int models, void* stream) {
+                                   int models, const float* hsum, void* stream) {
   // vec: Y % 4 == 0 and 16-byte aligned tensors (neg/pos copies, H' stores);
   // h_vec: vec and ry % 4 == 0 as well (H tile copies); compiled: 0, or the
   // tap count of both axes (2-D tiles); seg_x, seg_y: the taps of a segment
   // (tx and ty: one piece; else the streamed route, one H buffer, 4-byte H
-  // copies, and 2-D tiles take every y tap in each segment)
+  // copies, and 2-D tiles take every y tap in each segment); hsum: the summed
+  // route's (N, 1, X, Y) atoms' sum (with use_cross, no model axis), or null
   if (compiled && (!two_d || tx != compiled || ty != compiled || h_bufs != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool segmented = seg_x < tx || seg_y < ty;
@@ -749,11 +788,11 @@ extern "C" int tnmf_inhibited_mu_h(const float* h, const float* neg, const float
   const bool c = use_cross != 0;
   cudaError_t err;
   if (two_d) {
-    err = vec ? launch_cross<true, 4>(c, compiled, h, neg, pos, taps, out, s, a, smem_bytes, st)
-              : launch_cross<true, 1>(c, compiled, h, neg, pos, taps, out, s, a, smem_bytes, st);
+    err = vec ? launch_cross<true, 4>(c, compiled, h, neg, pos, taps, out, s, a, hsum, smem_bytes, st)
+              : launch_cross<true, 1>(c, compiled, h, neg, pos, taps, out, s, a, hsum, smem_bytes, st);
   } else {
-    err = vec ? launch_cross<false, 4>(c, compiled, h, neg, pos, taps, out, s, a, smem_bytes, st)
-              : launch_cross<false, 1>(c, compiled, h, neg, pos, taps, out, s, a, smem_bytes, st);
+    err = vec ? launch_cross<false, 4>(c, compiled, h, neg, pos, taps, out, s, a, hsum, smem_bytes, st)
+              : launch_cross<false, 1>(c, compiled, h, neg, pos, taps, out, s, a, hsum, smem_bytes, st);
   }
   return static_cast<int>(err);
 }

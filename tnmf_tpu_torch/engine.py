@@ -79,6 +79,23 @@ W after it, is counted once), the energy, and the sums of
 reduced energy, so every rank stops at the same iteration.  With
 ``process_group=None`` no collective is issued and no tensor copied.
 
+Model parallelism over the atoms: the same functions take an
+``atom_group`` (default None).  Each rank then holds its block of W's
+atoms and H's maps of them, and every sum over the atoms is one
+``all_reduce`` over that group (:func:`atom_sum`): the reconstruction,
+wherever it is formed from W and H (:func:`reconstruct`, :func:`_mu_H`,
+:func:`grad_W_stats`, :func:`energy`, :func:`correlate_init_H`), summed in
+the canonical data layout after the strategy's own reconstruction (on fft
+after the inverse transform); the cross-atom inhibition field, whose
+atoms' sum ``H.sum(1)`` is reduced and handed to K4's summed route
+(:func:`~tnmf_tpu_torch.kernels.inhibit.inhibited_mu_h_summed`) with the
+global map count; ``ortho_W``'s atom sum; and the mean of
+:func:`correlate_init_H`.  Both MU gradients are then atom-local, and
+every atom rank reads the same energy, so the adaptive loops stop every
+rank at the same iteration.  Sums over the samples stay on
+``process_group`` (the data group of a 2-D mesh).  With
+``atom_group=None`` no collective is issued and no tensor copied.
+
 The objective is the JAX engine's: the beta-divergence of ``beta``
 (default 2, the Euclidean energy), weighted by a ``mask``, with the ridge
 penalty ``l2_H`` on H and the orthogonality penalty ``ortho_W`` on W
@@ -121,10 +138,10 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from .kernels.gw import grad_w_plain
-from .kernels.inhibit import inhibited_mu_h_plain
+from .kernels.inhibit import inhibited_mu_h_plain, inhibited_mu_h_summed_plain
 from .kernels.mu import mu_ratio_plain, mu_w_plain
 from .kernels.mu_h import mu_h_plain
-from .kernels.ops import grad_w, inhibited_mu_h, mu_h, mu_ratio, mu_w
+from .kernels.ops import grad_w, inhibited_mu_h, inhibited_mu_h_summed, mu_h, mu_ratio, mu_w
 from .ops import beta as beta_ops
 from .ops import conv as conv_ops
 from .ops import dot as dot_ops
@@ -224,10 +241,11 @@ def prepare_data(V: torch.Tensor, *, plan: ConvPlan, strategy: Strategy = 'conv'
 
 @_pinned
 def reconstruct(W: torch.Tensor, H: torch.Tensor, *, plan: ConvPlan,
-                strategy: Strategy = 'conv') -> torch.Tensor:
+                strategy: Strategy = 'conv', atom_group=None) -> torch.Tensor:
     """The model reconstruction ``R`` (canonical data layout); under a
-    transform group from the expanded dictionary and H's ``M*G`` maps."""
-    return get_ops(strategy).reconstruct(W, H, plan)
+    transform group from the expanded dictionary and H's ``M*G`` maps;
+    summed over the ranks of ``atom_group`` (:func:`atom_sum`)."""
+    return atom_sum(get_ops(strategy).reconstruct(W, H, plan), atom_group)
 
 
 @_pinned
@@ -245,13 +263,16 @@ def partial_reconstruct(W: torch.Tensor, H: torch.Tensor, *, plan: ConvPlan,
 @_pinned
 def energy(V: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
            mask: Optional[torch.Tensor] = None, *, plan: ConvPlan, strategy: Strategy = 'conv',
-           beta: float = 2.0, process_group=None) -> torch.Tensor:
+           beta: float = 2.0, process_group=None, atom_group=None) -> torch.Tensor:
     """Reconstruction objective ``D_beta(V || R)`` (``0.5 * sum((V - R)^2)``
     at the default beta = 2; :func:`tnmf_tpu_torch.ops.beta.divergence`),
     with ``mask`` the per-entry weighted one, as a 0-d tensor accumulated in
     ``promote_types(V.dtype, float32)``; summed over the ranks of
-    ``process_group``."""
-    e = beta_ops.divergence(V, reconstruct(W, H, plan=plan, strategy=strategy), beta, mask)
+    ``process_group``.  Under an ``atom_group`` R is whole on every atom
+    rank, so the divergence is summed over ``process_group`` alone and
+    every atom rank reads the same energy."""
+    R = reconstruct(W, H, plan=plan, strategy=strategy, atom_group=atom_group)
+    e = beta_ops.divergence(V, R, beta, mask)
     return all_reduce_sum(e, process_group=process_group)[0]
 
 
@@ -266,6 +287,21 @@ def all_reduce_sum(*tensors: torch.Tensor, process_group=None) -> Tuple[torch.Te
     torch.distributed.all_reduce(buf, group=process_group)
     return tuple(part.view(t.shape) for part, t in
                  zip(buf.split([t.numel() for t in tensors]), tensors))
+
+
+def atom_sum(x: torch.Tensor, atom_group=None) -> torch.Tensor:
+    """``x`` (a tensor the caller owns: formed just now) summed over the
+    ranks of ``atom_group`` in one ``all_reduce``, in place; ``x`` as it is
+    for ``atom_group=None``."""
+    if atom_group is None:
+        return x
+    x = x.contiguous()
+    torch.distributed.all_reduce(x, group=atom_group)
+    return x
+
+
+def _group_size(group) -> int:
+    return 1 if group is None else torch.distributed.get_world_size(group)
 
 
 def dtype_reason(dtype: torch.dtype, use_pallas: bool = True) -> Optional[str]:
@@ -387,7 +423,7 @@ def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
           *, plan: ConvPlan, use_inhibition: bool = False,
           use_cross: bool = False, strategy: Strategy = 'conv',
           use_pallas: bool = True, beta: float = 2.0, mask: Optional[torch.Tensor] = None,
-          l2: Optional[float] = None) -> torch.Tensor:
+          l2: Optional[float] = None, atom_group=None) -> torch.Tensor:
     """One multiplicative H update (reference ``_update_H``,
     ``TransformInvariantNMF.py:246-271``):
     ``H * corr(Xv, W) / (corr(Xr, W) + EPS + sparsity)``, fused in K3 on the
@@ -410,14 +446,19 @@ def _mu_H(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: float,
     Under a transform group (``strategy = (base, group)``) W is expanded
     once, and the reconstruction and K3 (or the stacked pair before K4)
     take the same ``W_exp`` of ``M*G`` atoms; H holds ``M*G`` maps, and
-    cross-atom inhibition spans them all."""
+    cross-atom inhibition spans them all.
+
+    Under an ``atom_group`` the rank's reconstruction is summed over its
+    ranks before the gradient pair, and cross-atom inhibition takes the
+    atoms' sum of every rank (:func:`_mu_H_of`)."""
     strategy, group = split_strategy(strategy)
     if group is not None:
         W = expand_w(W, group)
-    return _mu_H_of(Vp, get_ops(strategy).reconstruct(W, H, plan), W, H, sparsity, inhibition,
-                    cross_inhibition, kernels, plan=plan, use_inhibition=use_inhibition,
-                    use_cross=use_cross, strategy=strategy, use_pallas=use_pallas, beta=beta,
-                    mask=mask, l2=l2)
+    R = atom_sum(get_ops(strategy).reconstruct(W, H, plan), atom_group)
+    return _mu_H_of(Vp, R, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
+                    use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy,
+                    use_pallas=use_pallas, beta=beta, mask=mask, l2=l2,
+                    atom_group=atom_group)
 
 
 @_pinned
@@ -426,14 +467,20 @@ def _mu_H_of(Vp: torch.Tensor, R: torch.Tensor, W: torch.Tensor, H: torch.Tensor
              kernels: Sequence = (), *, plan: ConvPlan, use_inhibition: bool = False,
              use_cross: bool = False, strategy: str = 'conv', use_pallas: bool = True,
              beta: float = 2.0, mask: Optional[torch.Tensor] = None,
-             l2: Optional[float] = None) -> torch.Tensor:
+             l2: Optional[float] = None, atom_group=None) -> torch.Tensor:
     """:func:`_mu_H` against a given reconstruction ``R`` (canonical data
     layout) on a base ``strategy``, ``W`` the dictionary H's maps take (the
     expanded one under a group): on conv the streams of
     :func:`_conv_streams` from ``R``, then K3 (or the pair, then K4); on
     fft and dot the strategy's gradient pair against ``R``, then K1's
     ratio (or K4).  The multi-scale model passes the total reconstruction
-    of all its scales (:mod:`tnmf_tpu_torch.models.multiscale`)."""
+    of all its scales (:mod:`tnmf_tpu_torch.models.multiscale`).
+
+    With cross-atom inhibition under an ``atom_group`` (H: the rank's
+    maps), the atoms' sum ``H.sum(1)``, an ``(N, 1, *T)`` plane, is
+    summed over the group and handed with the global map count to K4's
+    summed route; same-atom inhibition alone is atom-local and keeps K4's
+    own route."""
     reg = EPS + _strength(sparsity)
     kernels_on = plain_reason(plan, H.dtype, use_pallas) is None
     inhibited = use_inhibition or use_cross
@@ -451,6 +498,12 @@ def _mu_H_of(Vp: torch.Tensor, R: torch.Tensor, W: torch.Tensor, H: torch.Tensor
     if not inhibited:  # fft and dot: K1's ratio
         ratio = mu_ratio if dtype_reason(H.dtype, use_pallas) is None else mu_ratio_plain
         return ratio(H, neg, pos, reg)
+    if use_cross and atom_group is not None:
+        h_sum = atom_sum(H.sum(dim=1, keepdim=True), atom_group)
+        n_total = H.shape[1] * _group_size(atom_group)
+        update = inhibited_mu_h_summed if kernels_on else inhibited_mu_h_summed_plain
+        return update(H, neg, pos, kernels, _strength(inhibition), _strength(cross_inhibition),
+                      reg, h_sum, n_total, use_same=use_inhibition)
     update = inhibited_mu_h if kernels_on else inhibited_mu_h_plain
     return update(H, neg, pos, kernels, _strength(inhibition), _strength(cross_inhibition),
                   reg, use_same=use_inhibition, use_cross=use_cross)
@@ -472,7 +525,7 @@ def _normalize_W(W: torch.Tensor, n_shift_axes: int) -> torch.Tensor:
 def grad_W_stats(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                  mask: Optional[torch.Tensor] = None, *, plan: ConvPlan,
                  strategy: Strategy = 'conv', use_pallas: bool = True,
-                 beta: float = 2.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                 beta: float = 2.0, atom_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``(neg, pos)`` statistics of the W gradient (the JAX engine's
     ``grad_W_stats``; reference ``_accumulate_gradient_W``,
     ``TransformInvariantNMF.py:444-455``): K2 on the stacked streams of
@@ -485,20 +538,24 @@ def grad_W_stats(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
 
     Under a transform group the statistics of the expanded dictionary
     (K2's ``(M*G, C, *A)`` on conv) are tied back to the canonical W's
-    shape (:func:`~tnmf_tpu_torch.ops.transforms.tie_back`)."""
+    shape (:func:`~tnmf_tpu_torch.ops.transforms.tie_back`).  Under an
+    ``atom_group`` the statistics are the rank's atoms', against the
+    reconstruction summed over the group."""
     strategy, group = split_strategy(strategy)
     if group is None:
-        return _grad_W_pair(Vp, W, H, mask, plan, strategy, use_pallas, beta)
-    neg, pos = _grad_W_pair(Vp, expand_w(W, group), H, mask, plan, strategy, use_pallas, beta)
+        return _grad_W_pair(Vp, W, H, mask, plan, strategy, use_pallas, beta, atom_group)
+    neg, pos = _grad_W_pair(Vp, expand_w(W, group), H, mask, plan, strategy, use_pallas, beta,
+                            atom_group)
     return tie_back(neg, group), tie_back(pos, group)
 
 
 def _grad_W_pair(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                  mask: Optional[torch.Tensor], plan: ConvPlan, strategy: str,
-                 use_pallas: bool, beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                 use_pallas: bool, beta: float,
+                 atom_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`grad_W_stats` on a base strategy, for the dictionary ``W``
     whose atoms are H's maps."""
-    R = get_ops(strategy).reconstruct(W, H, plan)
+    R = atom_sum(get_ops(strategy).reconstruct(W, H, plan), atom_group)
     return grad_W_pair_of(Vp, R, H, mask, plan, strategy, use_pallas, beta)
 
 
@@ -524,26 +581,28 @@ def grad_W_pair_of(Vp: torch.Tensor, R: torch.Tensor, H: torch.Tensor,
     return neg, ops.corr_W(ones, H.sum(dim=0, keepdim=True), plan).expand(neg.shape)
 
 
-def _ortho_positive_term(W: torch.Tensor, ortho: float) -> torch.Tensor:
+def _ortho_positive_term(W: torch.Tensor, ortho: float, atom_group=None) -> torch.Tensor:
     """Gradient of the cross-atom orthogonality penalty ``(ortho/2) *
     sum_{m != m'} <W_m, W_m'>``: ``ortho * sum_{m' != m} W_m'``, nonnegative,
-    so it joins the positive part (the JAX engine's ``_ortho_positive_term``)."""
-    return _strength(ortho) * (W.sum(dim=0, keepdim=True) - W)
+    so it joins the positive part (the JAX engine's ``_ortho_positive_term``).
+    Under an ``atom_group`` the atom sum spans every rank's atoms."""
+    return _strength(ortho) * (atom_sum(W.sum(dim=0, keepdim=True), atom_group) - W)
 
 
 def apply_W_update(W: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
                    ortho_W: Optional[float] = None, *, n_shift_axes: int,
-                   use_pallas: bool = True) -> torch.Tensor:
+                   use_pallas: bool = True, atom_group=None) -> torch.Tensor:
     """``normalize(W * neg / (pos + EPS))`` from given statistics (the JAX
     engine's ``apply_W_update``) in one launch of K1's W epilogue (any
     rank).  ``ortho_W`` (None: absent) adds the orthogonality gradient of
     the *current* W to ``pos`` before the launch, never to the statistics,
-    which the minibatch algorithms average over earlier dictionaries.  The
+    which the minibatch algorithms average over earlier dictionaries
+    (its atom sum over the ranks of ``atom_group``).  The
     kernel takes contiguous tensors: fft's pair and plain K2's (3-D fits)
     are views; K2's own, and summed or averaged statistics, are contiguous
     already, so no copy there."""
     if ortho_W is not None:
-        pos = pos + _ortho_positive_term(W, ortho_W)
+        pos = pos + _ortho_positive_term(W, ortho_W, atom_group)
     epilogue = mu_w if dtype_reason(W.dtype, use_pallas) is None else mu_w_plain
     return epilogue(W, neg.contiguous(), pos.contiguous(), EPS, n_shift_axes)
 
@@ -565,16 +624,18 @@ def accumulate_gradient(acc_neg: torch.Tensor, acc_pos: torch.Tensor, neg: torch
 def _mu_W(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
           plan: ConvPlan, strategy: Strategy = 'conv', use_pallas: bool = True,
           beta: float = 2.0, mask: Optional[torch.Tensor] = None,
-          ortho: Optional[float] = None, process_group=None) -> torch.Tensor:
+          ortho: Optional[float] = None, process_group=None, atom_group=None) -> torch.Tensor:
     """One multiplicative W update with atom-wise sum normalization
     (reference ``_update_W`` + ``normalize``, ``TransformInvariantNMF.py:240-244``):
     :func:`grad_W_stats`, summed over the ranks of ``process_group`` in one
     ``all_reduce``, then :func:`apply_W_update` (``ortho``: the
-    orthogonality weight, None when absent)."""
+    orthogonality weight, None when absent; ``atom_group``: the ranks
+    whose atoms complete the dictionary)."""
     neg, pos = grad_W_stats(Vp, W, H, mask, plan=plan, strategy=strategy,
-                            use_pallas=use_pallas, beta=beta)
+                            use_pallas=use_pallas, beta=beta, atom_group=atom_group)
     neg, pos = all_reduce_sum(neg, pos, process_group=process_group)
-    return apply_W_update(W, neg, pos, ortho, n_shift_axes=plan.ndim, use_pallas=use_pallas)
+    return apply_W_update(W, neg, pos, ortho, n_shift_axes=plan.ndim, use_pallas=use_pallas,
+                          atom_group=atom_group)
 
 
 @_pinned
@@ -585,20 +646,20 @@ def update_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor,
                 use_cross: bool = False, strategy: Strategy = 'conv',
                 use_pallas: bool = True, beta: float = 2.0,
                 mask: Optional[torch.Tensor] = None, l2_H: Optional[float] = None,
-                ortho_W: Optional[float] = None,
-                process_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                ortho_W: Optional[float] = None, process_group=None,
+                atom_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One full MU iteration: H update, then W update.  Returns ``(W, H)``.
     ``use_pallas=False`` runs the plain versions of the kernels; ``beta``,
     ``mask``, ``l2_H`` and ``ortho_W`` (None: absent) are the objective's,
     the JAX engine's keywords; ``process_group`` the ranks whose W
-    statistics add up."""
+    statistics add up, ``atom_group`` the ranks whose atoms add up."""
     if update_H:
         H = _mu_H(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
                   use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy,
-                  use_pallas=use_pallas, beta=beta, mask=mask, l2=l2_H)
+                  use_pallas=use_pallas, beta=beta, mask=mask, l2=l2_H, atom_group=atom_group)
     if update_W:
         W = _mu_W(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas, beta=beta,
-                  mask=mask, ortho=ortho_W, process_group=process_group)
+                  mask=mask, ortho=ortho_W, process_group=process_group, atom_group=atom_group)
     return W, H
 
 
@@ -630,6 +691,7 @@ def fit_loop_energies(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: tor
                       kernels: Sequence = (), *, n_iterations: int, plan: ConvPlan,
                       strategy: Strategy = 'conv', beta: float = 2.0,
                       mask: Optional[torch.Tensor] = None, process_group=None,
+                      atom_group=None,
                       **step) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``n_iterations`` MU iterations that also record the energy (of
     ``beta`` and ``mask``) after each one (one more reconstruction per
@@ -641,9 +703,9 @@ def fit_loop_energies(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: tor
     for i in range(int(n_iterations)):
         W, H = update_step(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels,
                            plan=plan, strategy=strategy, beta=beta, mask=mask,
-                           process_group=process_group, **step)
+                           process_group=process_group, atom_group=atom_group, **step)
         energies[i] = energy(V, W, H, mask, plan=plan, strategy=strategy, beta=beta,
-                             process_group=process_group)
+                             process_group=process_group, atom_group=atom_group)
     return W, H, energies
 
 
@@ -697,7 +759,8 @@ def fit_loop_tol(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Te
                  n_max: int, tol: float, sparsity: float, inhibition: float = 0.,
                  cross_inhibition: float = 0., kernels: Sequence = (), *, check_every: int,
                  n_buf: int = 0, plan: ConvPlan, strategy: Strategy = 'conv', beta: float = 2.0,
-                 mask: Optional[torch.Tensor] = None, process_group=None, **step):
+                 mask: Optional[torch.Tensor] = None, process_group=None, atom_group=None,
+                 **step):
     """Adaptive fit (port of the JAX package's ``fit_loop_tol``): MU
     iterations in blocks of ``min(check_every, n_max - i)``; after each
     block the relative improvement ``(e_prev - e) / max(e0, tiny)`` of the
@@ -717,12 +780,12 @@ def fit_loop_tol(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor, H: torch.Te
     """
     def energy_of(WH):
         return energy(V, *WH, mask, plan=plan, strategy=strategy, beta=beta,
-                      process_group=process_group)
+                      process_group=process_group, atom_group=atom_group)
 
     def iteration(WH):
         return update_step(Vp, *WH, sparsity, inhibition, cross_inhibition, kernels,
                            plan=plan, strategy=strategy, beta=beta, mask=mask,
-                           process_group=process_group, **step)
+                           process_group=process_group, atom_group=atom_group, **step)
 
     (W, H), n_done, e, trace = tol_loop((W, H), iteration, energy_of, int(n_max), tol,
                                         int(check_every), n_buf, V)
@@ -752,7 +815,7 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
                           strategy: Strategy = 'conv', use_pallas: bool = True,
                           beta: float = 2.0, mask: Optional[torch.Tensor] = None,
                           l2_H: Optional[float] = None, ortho_W: Optional[float] = None,
-                          process_group=None):
+                          process_group=None, atom_group=None):
     """Extrapolated MU with restarts (port of the JAX package's
     ``fit_loop_extrapolated``): each update is taken at the extrapolated
     point ``Y = X_new * clip(X_new / X_old)**beta_k`` (W's re-normalised).
@@ -769,12 +832,13 @@ def fit_loop_extrapolated(Vp: torch.Tensor, V: torch.Tensor, W: torch.Tensor,
     """
     def energy_of(W, H):
         return energy(V, W, H, mask, plan=plan, strategy=strategy, beta=beta,
-                      process_group=process_group)
+                      process_group=process_group, atom_group=atom_group)
 
     h_flags = dict(plan=plan, use_inhibition=use_inhibition, use_cross=use_cross,
-                   strategy=strategy, use_pallas=use_pallas, beta=beta, mask=mask, l2=l2_H)
+                   strategy=strategy, use_pallas=use_pallas, beta=beta, mask=mask, l2=l2_H,
+                   atom_group=atom_group)
     w_flags = dict(plan=plan, strategy=strategy, use_pallas=use_pallas, beta=beta, mask=mask,
-                   ortho=ortho_W, process_group=process_group)
+                   ortho=ortho_W, process_group=process_group, atom_group=atom_group)
     n_max, check_every = int(n_max), int(check_every)
     trace = energy_trace(V, n_buf) if n_buf > 0 else None
     e = energy_of(W, H)
@@ -812,27 +876,28 @@ def update_H_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, sparsity: 
                   use_cross: bool = False, strategy: Strategy = 'conv',
                   use_pallas: bool = True, beta: float = 2.0,
                   mask: Optional[torch.Tensor] = None,
-                  l2_H: Optional[float] = None) -> torch.Tensor:
+                  l2_H: Optional[float] = None, atom_group=None) -> torch.Tensor:
     """One H-only MU update (W frozen)."""
     return _mu_H(Vp, W, H, sparsity, inhibition, cross_inhibition, kernels, plan=plan,
                  use_inhibition=use_inhibition, use_cross=use_cross, strategy=strategy,
-                 use_pallas=use_pallas, beta=beta, mask=mask, l2=l2_H)
+                 use_pallas=use_pallas, beta=beta, mask=mask, l2=l2_H, atom_group=atom_group)
 
 
 @_pinned
 def update_W_step(Vp: torch.Tensor, W: torch.Tensor, H: torch.Tensor, *,
                   plan: ConvPlan, strategy: Strategy = 'conv', use_pallas: bool = True,
                   beta: float = 2.0, mask: Optional[torch.Tensor] = None,
-                  ortho_W: Optional[float] = None, process_group=None) -> torch.Tensor:
+                  ortho_W: Optional[float] = None, process_group=None,
+                  atom_group=None) -> torch.Tensor:
     """One W-only MU update (H frozen), atoms sum-normalised."""
     return _mu_W(Vp, W, H, plan=plan, strategy=strategy, use_pallas=use_pallas, beta=beta,
-                 mask=mask, ortho=ortho_W, process_group=process_group)
+                 mask=mask, ortho=ortho_W, process_group=process_group, atom_group=atom_group)
 
 
 @_pinned
 def correlate_init_H(Vp: torch.Tensor, Vd: torch.Tensor, W: torch.Tensor, *,
                      plan: ConvPlan, strategy: Strategy = 'conv',
-                     process_group=None) -> torch.Tensor:
+                     process_group=None, atom_group=None) -> torch.Tensor:
     """Matched-filter activations ``H0 = c * corr(Vp, W)`` with the
     least-squares scale ``c = <V, R0> / <R0, R0>``, ``R0 = reconstruct(W,
     corr(Vp, W))``, accumulated in ``promote_types(V.dtype, float32)``; a
@@ -843,19 +908,22 @@ def correlate_init_H(Vp: torch.Tensor, Vd: torch.Tensor, W: torch.Tensor, *,
     correlation on the conv strategy).  Under a transform group both run
     on the expanded dictionary, so H0 has ``M*G`` maps.  Under a
     ``process_group`` the scale and the mean are the whole batch's: its sums are reduced over
-    the ranks (equal row counts)."""
+    the ranks (equal row counts).  Under an ``atom_group`` (W and H0: the
+    rank's atoms) R0 is summed over its ranks, and the mean over every
+    entry of both groups."""
     strategy, group = split_strategy(strategy)
     if group is not None:
         W = expand_w(W, group)
     neg = get_ops(strategy).corr_H(Vp, W, plan)
-    R0 = reconstruct(W, neg.to(W.dtype), plan=plan, strategy=strategy)
+    R0 = reconstruct(W, neg.to(W.dtype), plan=plan, strategy=strategy, atom_group=atom_group)
     acc = torch.promote_types(Vd.dtype, torch.float32)
     num, den = all_reduce_sum(torch.sum(Vd.to(acc) * R0.to(acc)), torch.sum(R0.to(acc) ** 2),
                               process_group=process_group)
     H0 = (num / torch.clamp(den, min=torch.finfo(acc).tiny)).to(neg.dtype) * neg
-    if process_group is None:
+    if process_group is None and atom_group is None:
         mean = torch.mean(H0)
     else:
-        mean = all_reduce_sum(torch.sum(H0), process_group=process_group)[0] / (
-            H0.numel() * torch.distributed.get_world_size(process_group))
+        total = atom_sum(all_reduce_sum(torch.sum(H0), process_group=process_group)[0],
+                         atom_group)
+        mean = total / (H0.numel() * _group_size(process_group) * _group_size(atom_group))
     return torch.maximum(H0, 0.01 * mean).to(W.dtype)

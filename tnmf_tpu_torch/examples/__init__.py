@@ -18,10 +18,10 @@ Figures named in a module's ``NOT_COMPARED`` (wall and CPU times, paths,
 file sizes, platforms, the memory planner's table) differ from run to run
 or from the JAX package's by nature; every other figure is a result.
 
-The two data-parallel examples (``data_parallel_fit``, a world of one
-unless run under ``torchrun``; ``multihost_fit``, two worker processes)
-start process groups of their own; ``model_parallel_fit`` waits for the
-port's mesh over the atoms (ROADMAP.md queue 1, item 14e-ii).
+The mesh examples start process groups of their own: ``data_parallel_fit``
+(a world of one unless run under ``torchrun``), ``multihost_fit`` and
+``model_parallel_fit`` (two worker processes each; the latter on a mesh
+over the atoms).
 """
 
 from __future__ import annotations
@@ -37,13 +37,9 @@ SINGLE_PROCESS_EXAMPLES = (
     'plain_nmf_solvers', 'serving_deployment', 'shift_invariant_decomposition',
     'shift_invariant_solvers', 'transform_invariances', 'volumetric_decomposition')
 #: the ported examples that start process groups of their own
-DATA_PARALLEL_EXAMPLES = ('data_parallel_fit', 'multihost_fit')
+PROCESS_GROUP_EXAMPLES = ('data_parallel_fit', 'multihost_fit', 'model_parallel_fit')
 #: every ported example
-EXAMPLES = SINGLE_PROCESS_EXAMPLES + DATA_PARALLEL_EXAMPLES
-
-#: the JAX package's examples that need a mesh not ported yet
-MESH_EXAMPLES = ('model_parallel_fit',)
-MESH_ITEM = 'ROADMAP.md queue 1, item 14e-ii'
+EXAMPLES = SINGLE_PROCESS_EXAMPLES + PROCESS_GROUP_EXAMPLES
 
 
 def smoke_from_env() -> bool:

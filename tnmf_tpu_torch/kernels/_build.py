@@ -56,8 +56,9 @@ SIGNATURES = {
     # h, neg, pos, taps, out, n, m, x, y, tx, ty, tile_x, tile_y, hp, xtp, npp,
     # inh, cross, reg, use_same, use_cross, two_d, vec, h_vec, h_bufs, compiled,
     # seg_x, seg_y, smem_bytes, strengths (per model, or null), n_per_model,
-    # models, stream
-    'tnmf_inhibited_mu_h': (_P,) * 5 + (_I,) * 11 + (_F,) * 3 + (_I,) * 10 + (_P, _I, _I, _P),
+    # models, hsum (the summed route's atoms' sum, or null), stream
+    'tnmf_inhibited_mu_h': (_P,) * 5 + (_I,) * 11 + (_F,) * 3 + (_I,) * 10 + (_P, _I, _I, _P,
+                                                                             _P),
     # x, g, p, out, each with its row and column strides; l1, l2, inner, rows,
     # m, rows_per_block, resident, smem_bytes, stream
     'tnmf_hals_sweep': (_P, _I64, _I64) * 4 + (_F, _F, _I, _I64, _I, _I, _I, _I, _P),

@@ -39,6 +39,16 @@ that fits in one piece runs as before, so :func:`_geometry` never raises
 for a 1-D or 2-D stencil.  Only the streamed route sums in another order:
 :func:`inhibited_mu_h_segments_plain` sums in its order.
 
+The summed route (:func:`inhibited_mu_h_summed`, the cross-atom term under
+a mesh over the atoms): the block holds a rank's atoms, and the atoms' sum
+of every rank comes from outside as an ``(N, 1, *T)`` plane ``h_sum``
+(reduced over the ranks by the engine).  The kernel stages each sample's
+tile of ``h_sum``, with its halo, into the buffer where its own route sums
+the H tiles of the block's atoms, runs the same stencil on it and subtracts
+each atom's own field as before; ``cross`` is divided by the global map
+count less one.  It is a template instance of its own (``kSummed``), so
+the instances without it keep their instructions.
+
 The model axis (:func:`inhibited_mu_h_models`, a sweep's S models in one
 launch): the stacks ``(S, N, M, *T)`` are ``S * N`` samples of one launch,
 and each sample reads its model's strengths (``inh``, ``cross`` and
@@ -79,13 +89,28 @@ _STREAM_BUDGET = (233472 - 2 * 1024) // 2
 def inhibited_mu_h_plain(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
                          kernels: Sequence, inhibition: float, cross_inhibition: float,
                          reg: float, *, use_same: bool = True,
-                         use_cross: bool = False) -> torch.Tensor:
+                         use_cross: bool = False, h_sum: Optional[torch.Tensor] = None,
+                         n_total: Optional[int] = None) -> torch.Tensor:
     """The plain PyTorch version: ``pos`` plus the inhibition term of
     :func:`~tnmf_tpu_torch.ops.inhibition.inhibition_positive_term`, then
-    the ratio (the order of ``engine._mu_H`` in the JAX package)."""
+    the ratio (the order of ``engine._mu_H`` in the JAX package).  Given
+    ``h_sum`` and ``n_total`` the cross-atom field is the stencil of the
+    given atoms' sum (:func:`inhibited_mu_h_summed`)."""
     term = inhibition_positive_term(H, kernels, H.dim() - 2, inhibition, cross_inhibition,
-                                    H.shape[1], use_same, use_cross)
+                                    H.shape[1], use_same, use_cross, h_sum, n_total)
     return H * neg / (pos + term + reg)
+
+
+def inhibited_mu_h_summed_plain(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
+                                kernels: Sequence, inhibition: float, cross_inhibition: float,
+                                reg: float, h_sum: torch.Tensor, n_total: int, *,
+                                use_same: bool = True) -> torch.Tensor:
+    """The plain version of :func:`inhibited_mu_h_summed`: cross-atom
+    inhibition against the given atoms' sum ``h_sum`` of ``n_total``
+    maps."""
+    return inhibited_mu_h_plain(H, neg, pos, kernels, inhibition, cross_inhibition, reg,
+                                use_same=use_same, use_cross=True, h_sum=h_sum,
+                                n_total=n_total)
 
 
 def _corr(A: torch.Tensor, k: torch.Tensor, axis: int) -> torch.Tensor:
@@ -339,6 +364,16 @@ def inhibited_mu_h(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
     if H.device.type == 'cpu':
         return inhibited_mu_h_plain(H, neg, pos, kernels, inhibition, cross_inhibition, reg,
                                     use_same=use_same, use_cross=use_cross)
+    ks = _checked_taps(H, neg, pos, kernels)
+    cross = cross_scale(cross_inhibition, H.shape[1]) if use_cross else 0.
+    return _launch(H, neg, pos, ks, inhibition, cross, reg, None, 1, use_same, use_cross)
+
+
+def _checked_taps(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
+                  kernels: Sequence) -> list:
+    """The wrapper's checks of a single launch's operands (float32, CUDA,
+    contiguous, one shape, 1-D or 2-D shifts, odd taps); the taps as
+    float32 tensors on H's device."""
     _build.check_inputs('inhibited_mu_h', H, neg, pos)
     nd = H.dim() - 2
     if nd not in (1, 2):
@@ -351,24 +386,52 @@ def inhibited_mu_h(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
     if len(ks) != nd or any(k.numel() % 2 == 0 for k in ks):
         raise ValueError(f'inhibited_mu_h: expected {nd} kernels of odd length, '
                          f'got lengths {[k.numel() for k in ks]}')
-    cross = cross_scale(cross_inhibition, H.shape[1]) if use_cross else 0.
-    return _launch(H, neg, pos, ks, inhibition, cross, reg, None, 1, use_same, use_cross)
+    return ks
+
+
+def inhibited_mu_h_summed(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
+                          kernels: Sequence, inhibition: float, cross_inhibition: float,
+                          reg: float, h_sum: torch.Tensor, n_total: int, *,
+                          use_same: bool = True) -> torch.Tensor:
+    """Inhibited H update with the cross-atom term against a given atoms'
+    sum: ``h_sum`` ``(N, 1, *T)``, the sum over all ``n_total`` maps of
+    which ``H`` holds ``M`` (a rank's block under a mesh over the atoms).
+    The plain version for CPU tensors; on CUDA tensors K4's summed route
+    (float32, contiguous, ``h_sum`` checked like the others), counted in
+    its own ``launches``."""
+    if H.device.type == 'cpu':
+        return inhibited_mu_h_summed_plain(H, neg, pos, kernels, inhibition, cross_inhibition,
+                                           reg, h_sum, n_total, use_same=use_same)
+    ks = _checked_taps(H, neg, pos, kernels)
+    _build.check_inputs('inhibited_mu_h_summed', H, h_sum)
+    want = (H.shape[0], 1) + tuple(H.shape[2:])
+    if tuple(h_sum.shape) != want:
+        raise ValueError(f'inhibited_mu_h_summed: h_sum of shape {tuple(h_sum.shape)}, '
+                         f'not {want}')
+    if int(n_total) < H.shape[1]:
+        raise ValueError(f'inhibited_mu_h_summed: n_total={n_total} is fewer than the '
+                         f'{H.shape[1]} maps H holds')
+    cross = cross_scale(cross_inhibition, int(n_total))
+    return _launch(H, neg, pos, ks, inhibition, cross, reg, None, 1, use_same, True, h_sum)
 
 
 def _launch(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor, ks: list, inhibition: float,
             cross: float, reg: float, strengths: Optional[torch.Tensor], models: int,
-            use_same: bool, use_cross: bool) -> torch.Tensor:
+            use_same: bool, use_cross: bool,
+            h_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch over the ``N`` samples of ``H`` (``models`` stacked
     problems of ``N / models`` samples each): ``strengths``, the per-model
     ``[inh, cross, reg]`` vectors concatenated, or the scalars (``cross``
-    already divided by ``M - 1``).  Counts it (``strengths``: as a launch
-    over a model axis too)."""
+    already divided by the map count less one).  ``h_sum``: the summed
+    route's atoms' sum (single launches only).  Counts it on its route's
+    wrapper (``strengths``: as a launch over a model axis too)."""
     nd = H.dim() - 2
     N, M = H.shape[:2]
     out = torch.empty_like(H)
     if out.numel() == 0:
         return out
-    aligned = all(t.data_ptr() % 16 == 0 for t in (H, neg, pos, out))
+    operands = (H, neg, pos, out) + (() if h_sum is None else (h_sum,))
+    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
     g = launch_geometry(tuple(H.shape), tuple(k.numel() for k in ks), use_cross, aligned)
     X, Y, tx, ty, compiled = g['X'], g['Y'], g['tx'], g['ty'], g['compiled']
     if nd == 1:  # a 1-D problem is a 2-D one with one row and one x tap
@@ -382,7 +445,12 @@ def _launch(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor, ks: list, inh
             float(inhibition), float(cross), float(reg), int(use_same), int(use_cross),
             int(g['two_d']), int(g['vec']), int(g['h_vec']), g['h_bufs'], compiled, g['seg_x'],
             g['seg_y'], g['smem_bytes'], None if strengths is None else strengths.data_ptr(),
-            N // models, models, _build.stream_of(H))
+            N // models, models, None if h_sum is None else h_sum.data_ptr(),
+            _build.stream_of(H))
+    if h_sum is not None:
+        _build.check_launch(err, 'inhibited_mu_h_summed')
+        inhibited_mu_h_summed.launches += 1
+        return out
     _build.check_launch(err, 'inhibited_mu_h')
     inhibited_mu_h.launches += 1
     inhibited_mu_h.model_launches += strengths is not None
@@ -433,6 +501,8 @@ def inhibited_mu_h_models(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
 
 
 #: kernel launches since the last reset (plain counts, read by chip_smoke.py):
-#: all of them, and those over a model axis (:func:`inhibited_mu_h_models`)
+#: all of them, and those over a model axis (:func:`inhibited_mu_h_models`);
+#: the summed route's apart
 inhibited_mu_h.launches = 0
 inhibited_mu_h.model_launches = 0
+inhibited_mu_h_summed.launches = 0

@@ -1,7 +1,9 @@
 """The kernels of the MU step as PyTorch custom operators.
 
 ``tnmf::mu_ratio`` (K1's ratio), ``tnmf::mu_h`` (K3), ``tnmf::inhibited_mu_h``
-(K4) and ``tnmf::hals_sweep`` (K5) are defined in the ``tnmf`` operator
+(K4), ``tnmf::inhibited_mu_h_summed`` (K4's summed route, the cross-atom
+term under a mesh over the atoms; no vmap rule: sweeps under a mesh are
+not ported) and ``tnmf::hals_sweep`` (K5) are defined in the ``tnmf`` operator
 library when this module is imported (the package imports it), so that
 ``torch.export`` can hold them: a traced program keeps each as one opaque
 node, and the serving artifact (:mod:`tnmf_tpu_torch.serving`) calls them
@@ -133,6 +135,13 @@ _define('inhibited_mu_h.t(Tensor H, Tensor neg, Tensor pos, Tensor[] kernels, '
                                        _one(inhibition), _one(cross), _one(reg),
                                        use_same=use_same, use_cross=use_cross)[0],
         _like_first)
+_define('inhibited_mu_h_summed(Tensor H, Tensor neg, Tensor pos, Tensor[] kernels, '
+        'float inhibition, float cross_inhibition, float reg, Tensor h_sum, int n_total, '
+        'bool use_same) -> Tensor',
+        lambda H, neg, pos, kernels, inhibition, cross, reg, h_sum, n_total, use_same:
+        _inhibit.inhibited_mu_h_summed(H, neg, pos, kernels, inhibition, cross, reg, h_sum,
+                                       n_total, use_same=use_same),
+        _like_first)
 _define('mu_w(Tensor W, Tensor neg, Tensor pos, float reg, int n_shift_axes) -> Tensor',
         lambda *args: _mu.mu_w(*args), _like_first)
 _define('grad_w(Tensor X2, Tensor H, int passes=3) -> (Tensor, Tensor)',
@@ -154,6 +163,7 @@ mu_h_op = torch.ops.tnmf.mu_h.default
 mu_h_t_op = torch.ops.tnmf.mu_h.t
 inhibited_mu_h_op = torch.ops.tnmf.inhibited_mu_h.default
 inhibited_mu_h_t_op = torch.ops.tnmf.inhibited_mu_h.t
+inhibited_mu_h_summed_op = torch.ops.tnmf.inhibited_mu_h_summed.default
 mu_w_op = torch.ops.tnmf.mu_w.default
 grad_w_op = torch.ops.tnmf.grad_w.default
 hals_sweep_op = torch.ops.tnmf.hals_sweep.default
@@ -293,6 +303,17 @@ def inhibited_mu_h(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor, kernel
                                    bool(use_same), bool(use_cross))
     return inhibited_mu_h_op(H, neg, pos, kernels, float(inhibition), float(cross_inhibition),
                              float(reg), bool(use_same), bool(use_cross))
+
+
+def inhibited_mu_h_summed(H: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor,
+                          kernels: Sequence, inhibition, cross_inhibition, reg,
+                          h_sum: torch.Tensor, n_total: int, *,
+                          use_same: bool = True) -> torch.Tensor:
+    """:func:`tnmf_tpu_torch.kernels.inhibit.inhibited_mu_h_summed` through
+    ``tnmf::inhibited_mu_h_summed`` (float strengths: a single fit's)."""
+    return inhibited_mu_h_summed_op(H, neg, pos, [torch.as_tensor(k) for k in kernels],
+                                    float(inhibition), float(cross_inhibition), float(reg),
+                                    h_sum, int(n_total), bool(use_same))
 
 
 def mu_w(W: torch.Tensor, neg: torch.Tensor, pos: torch.Tensor, reg: float,

@@ -20,9 +20,11 @@ the JAX package; ``init='device'``; ``w_init='patches'`` / ``'nndsvd'``;
 both packages read (``save`` / ``load``), the sklearn estimator protocol
 (``get_params`` / ``set_params`` / ``__sklearn_tags__``) and the HALS
 solvers (``fit_batch(solver='hals')``, :mod:`tnmf_tpu_torch.engine_hals`
-and :mod:`tnmf_tpu_torch.engine_hals_conv`) and data parallelism over the
+and :mod:`tnmf_tpu_torch.engine_hals_conv`), data parallelism over the
 samples (``mesh=``, ``shard_axis='samples'``; :mod:`tnmf_tpu_torch.parallel`)
-for the MU and HALS full-batch fits and ``transform``.  Every strategy
+for the MU and HALS full-batch fits and ``transform``, and model parallelism
+over the atoms (``shard_axis='atoms'`` and ``'samples+atoms'``) for the MU
+full-batch fits and ``transform``.  Every strategy
 the JAX package picks off the TPU runs: direct convolution, FFT (with
 either ``fft_policy``) and the plain-NMF matmuls.  Arguments of the JAX API
 that select parts not ported yet raise ``NotImplementedError`` naming the
@@ -60,7 +62,8 @@ from ..ops.inhibition import cross_scale, inhibition_kernels, resolve_inhibition
 from ..ops.modes import ConvPlan
 from ..ops.transforms import TransformGroup, make_group
 from ..parallel.distributed import SampleShards
-from ..parallel.sharding import check_axis, local_rows, not_ported
+from ..parallel.sharding import (check_axis, check_mesh, data_rows, local_atoms, local_rows,
+                                 not_ported)
 from ..utils.initialization import nndsvda_init, patches_init
 
 # reference backend names (tnmf/TransformInvariantNMF.py:168-176) and the
@@ -245,6 +248,25 @@ class TransformInvariantNMF:
         streaming and online fits, ``save`` and ``checkpoint_every``
         raise ``NotImplementedError`` naming their sub-items of ROADMAP.md
         item 14e.
+
+        With ``shard_axis='atoms'`` (a mesh from
+        :func:`tnmf_tpu_torch.parallel.make_mesh_atoms`) each rank keeps its
+        contiguous block of atoms of W (the ``rank``-th of ``world`` equal
+        blocks; the atom count must divide), H's maps of them (m-major, so
+        an atom's maps under a transform group stay on its rank) and all of
+        V; with ``'samples+atoms'`` (:func:`~tnmf_tpu_torch.parallel.make_mesh_2d_atoms`)
+        its data row's samples and its atom column's atoms.  Every sum over
+        the atoms (the reconstruction, the cross-atom inhibition field,
+        ``ortho_W``'s atom sum) is one ``all_reduce`` over the atom group
+        (:mod:`tnmf_tpu_torch.engine`), so the fit is the mesh-free fit up
+        to the order of the sums.  The host draw of W and H is the whole
+        model's, cut to the rank's share, so a seeded fit starts where the
+        mesh-free one starts.  Under a world above one ``W``, ``H``,
+        ``R_partial``, ``inverse_transform(H)`` and ``export_serving``
+        raise (the rank's atoms: ``_local_W()``); ``R`` reads under
+        ``'atoms'``, where every rank's reconstruction is whole (one
+        ``all_reduce``, called on every rank); ``solver='hals'`` raises the
+        JAX package's ``ValueError``.
     seed : int, optional
         If given, W/H initialization (and dead-atom revival) draws from a
         private ``np.random.default_rng(seed)``; otherwise from the global
@@ -319,11 +341,11 @@ class TransformInvariantNMF:
         builds its plan, as in the JAX package.  Checkpoints do not store
         it; serving artifacts record it.
 
-    shard_axis : {'samples'}, default 'samples'
-        Keyword.  The axis ``mesh`` splits: the samples.  The JAX
-        package's other axes raise ``NotImplementedError`` naming the
-        sub-item of ROADMAP.md item 14e that ports them ('atoms' and
-        'samples+atoms' 14e-ii, 'spatial' and 'both' 14e-iii).
+    shard_axis : {'samples', 'atoms', 'samples+atoms'}, default 'samples'
+        Keyword.  The axis ``mesh`` splits: the samples, the atoms, or both
+        on a 2-D mesh; it must be the axis the mesh was built for.  The JAX
+        package's other axes ('spatial' and 'both') raise
+        ``NotImplementedError`` naming ROADMAP.md item 14e-iii.
 
     ``get_params`` / ``set_params`` hand
     the constructor's arguments back as given (the sklearn protocol, with
@@ -394,9 +416,11 @@ class TransformInvariantNMF:
         self.dtype = _torch_dtype(dtype)
         check_axis(shard_axis)
         self._mesh, self._shard_axis = mesh, shard_axis
-        self._pg, self._world = None, 1
+        # the data and atom groups (None where the mesh does not split that
+        # axis) and the mesh's size
+        self._pg, self._ag, self._world = None, None, 1
         if mesh is not None:
-            self._pg, self._world = self._mesh_group(mesh)
+            self._pg, self._ag, self._world = self._mesh_group(mesh)
         if use_pallas not in (None, False, True):
             raise ValueError(f'use_pallas must be None, False or True, got {use_pallas!r}')
         if use_pallas and self.device.type == 'cpu':
@@ -448,21 +472,27 @@ class TransformInvariantNMF:
         self.n_steps_: int = 0
 
     def _mesh_group(self, mesh) -> tuple:
-        """``(process group, world size)`` of a 1-D ``DeviceMesh`` whose
-        device type is the model's."""
+        """``(data group, atom group, world size)`` of a ``DeviceMesh``
+        whose device type is the model's and whose axes are the shard
+        axis's (:func:`~tnmf_tpu_torch.parallel.sharding.check_mesh`): the
+        data group None under ``'atoms'``, the atom group None under
+        ``'samples'``."""
         from torch.distributed.device_mesh import DeviceMesh
         if not isinstance(mesh, DeviceMesh):
             raise TypeError(
                 f'mesh must be a torch.distributed DeviceMesh '
                 f'(tnmf_tpu_torch.parallel.make_mesh), got {type(mesh).__name__}')
-        if mesh.ndim != 1:
-            raise not_ported(f'a {mesh.ndim}-D mesh', '14e-ii')
+        check_mesh(mesh, self._shard_axis)
         if mesh.device_type != self.device.type:
             raise ValueError(
                 f'the mesh computes on {mesh.device_type!r} devices and the model on '
                 f'{self.device.type!r}: pass device={mesh.device_type!r}, or build the '
                 f'mesh with make_mesh(devices={self.device.type!r})')
-        return mesh.get_group(), mesh.size()
+        if self._shard_axis == 'samples':
+            return mesh.get_group(), None, mesh.size()
+        if self._shard_axis == 'atoms':
+            return None, mesh.get_group(), mesh.size()
+        return mesh.get_group('data'), mesh.get_group('atoms'), mesh.size()
 
     def _local_only(self, what: str) -> None:
         """``RuntimeError`` where ``what`` would need the rows of other
@@ -472,6 +502,15 @@ class TransformInvariantNMF:
                 f'{what} is not host-addressable under a process-spanning mesh; '
                 'access the per-process shards (this rank\'s rows: model._H, '
                 'model._Vd) instead')
+
+    def _whole_W(self, what: str) -> None:
+        """``RuntimeError`` where ``what`` would need the atoms of other
+        ranks (an atom axis in a world above one)."""
+        if self._ag is not None and self._world > 1:
+            raise RuntimeError(
+                f'{what} is not host-addressable under a process-spanning mesh over the '
+                "atoms; access the per-process shards (this rank's atoms: "
+                'model._local_W(), its maps: model._H) instead')
 
     def _not_under_mesh(self, what: str, item: str) -> None:
         """``NotImplementedError`` naming the sub-item of item 14e that
@@ -500,6 +539,13 @@ class TransformInvariantNMF:
 
     @property
     def W(self) -> np.ndarray:
+        """The dictionary; under a world above one with an atom axis it
+        raises: each rank holds its own atoms (``_local_W()``)."""
+        self._whole_W('W')
+        return self._local_W()
+
+    def _local_W(self) -> np.ndarray:
+        """This rank's atoms of W (all of them without an atom axis)."""
         return self._W.cpu().numpy()
 
     @property
@@ -513,11 +559,12 @@ class TransformInvariantNMF:
         return self._local_H()
 
     def _local_H(self) -> np.ndarray:
-        """This rank's rows of H (all of them without a mesh) as the ``H``
-        property shapes them."""
+        """This rank's share of H (all of it without a mesh: its rows, and
+        under an atom axis its atoms' maps) as the ``H`` property shapes
+        them."""
         H = self._H.to('cpu', copy=True).numpy()
         if self.n_transforms > 1:
-            H = H.reshape((H.shape[0], self.n_atoms, self.n_transforms) + H.shape[2:])
+            H = H.reshape((H.shape[0], -1, self.n_transforms) + H.shape[2:])
         return H
 
     @property
@@ -531,14 +578,19 @@ class TransformInvariantNMF:
 
     @property
     def R(self) -> np.ndarray:
-        self._local_only('R')
-        return engine.reconstruct(self._W, self._H, plan=self._plan,
-                                  strategy=self._strategy).cpu().numpy()
+        """The reconstruction; under ``shard_axis='atoms'`` every rank's is
+        whole once summed over the atom group (one ``all_reduce``: read it
+        on every rank), elsewhere a world above one raises."""
+        if self._shard_axis != 'atoms':
+            self._local_only('R')
+        return engine.reconstruct(self._W, self._H, plan=self._plan, strategy=self._strategy,
+                                  atom_group=self._ag).cpu().numpy()
 
     def R_partial(self, i_atom: int) -> np.ndarray:
         """The reconstruction of one atom (with all its tied copies under a
         transform group)."""
         self._local_only('R_partial')
+        self._whole_W('R_partial')
         return engine.partial_reconstruct(
             self._W, self._H, plan=self._plan, i_atom=int(i_atom),
             strategy=self._strategy).cpu().numpy()
@@ -548,7 +600,8 @@ class TransformInvariantNMF:
         as a 0-d tensor on the device; under a mesh the whole batch's (one
         ``all_reduce``, called on every rank)."""
         return engine.energy(self._Vd, self._W, self._H, self._mask_d, plan=self._plan,
-                             strategy=self._strategy, beta=self._beta, process_group=self._pg)
+                             strategy=self._strategy, beta=self._beta, process_group=self._pg,
+                             atom_group=self._ag)
 
     def _energy_function(self) -> float:
         return float(self._energy())
@@ -666,22 +719,43 @@ class TransformInvariantNMF:
         U = torch.rand(shape, generator=self._device_gen, dtype=self.dtype, device=self.device)
         return U.neg_().add_(1)
 
-    def _device_rows(self, shape: tuple, rows: slice) -> torch.Tensor:
-        """The rows ``rows`` of a ``1 - U[0, 1)`` draw of ``shape`` under a
-        mesh (``init='device'``): each sample's row drawn on the model's
-        device from a seed of its own (the model's seed, the count of such
-        draws and the row's index), so that the ranks' rows put together
-        are a world of one's draw whatever the world, and no rank draws
-        another's rows or the whole batch."""
+    def _device_rows(self, shape: tuple, rows: slice,
+                     maps: Optional[slice] = None) -> torch.Tensor:
+        """The rows ``rows`` (and under an atom axis the maps ``maps``) of a
+        ``1 - U[0, 1)`` draw of ``shape`` under a mesh (``init='device'``):
+        each sample's row drawn on the model's device from a seed of its own
+        (the model's seed, the count of such draws and the row's index), so
+        that the ranks' shares put together are a world of one's draw
+        whatever the world, and no rank draws another's rows or the whole
+        batch.  With ``maps`` each row is drawn whole into a buffer of one
+        row and its maps kept."""
         self._row_draws += 1
         gen = torch.Generator(device=self.device)
-        out = torch.empty((rows.stop - rows.start,) + tuple(shape[1:]), dtype=self.dtype,
+        n_maps = shape[1] if maps is None else maps.stop - maps.start
+        out = torch.empty((rows.stop - rows.start, n_maps) + tuple(shape[2:]), dtype=self.dtype,
                           device=self.device)
+        row_buf = None if maps is None else torch.empty(tuple(shape[1:]), dtype=self.dtype,
+                                                        device=self.device)
         for i, row in enumerate(range(rows.start, rows.stop)):
             state = np.random.SeedSequence((self._device_seed, self._row_draws, row))
             gen.manual_seed(int(state.generate_state(1, np.uint64)[0] >> np.uint64(1)))
-            out[i].uniform_(generator=gen)
+            if row_buf is None:
+                out[i].uniform_(generator=gen)
+            else:
+                out[i] = row_buf.uniform_(generator=gen)[maps]
         return out.neg_().add_(1)
+
+    def _share(self, n_samples: int) -> tuple:
+        """``(rows, atoms)`` of this rank under the model's mesh: slices of
+        the samples and of the atoms, each None where the mesh does not
+        split that axis (the JAX package's divisibility errors)."""
+        if self._mesh is None:
+            return None, None
+        if self._shard_axis == 'samples':
+            return local_rows(self._mesh, n_samples), None
+        rows = (data_rows(self._mesh, n_samples) if self._shard_axis == 'samples+atoms'
+                else slice(0, n_samples))
+        return rows, local_atoms(self._mesh, self.n_atoms)
 
     def _initialize_matrices(self, V, keep_W: bool, keep_H: bool = False,
                              mask: Optional[torch.Tensor] = None):
@@ -693,13 +767,20 @@ class TransformInvariantNMF:
         data are this rank's rows (:func:`~tnmf_tpu_torch.parallel.sharding.local_rows`):
         the host draw is the whole batch's, as without a mesh, cut to the
         rows, so a seeded mesh fit starts where the JAX fit starts;
-        ``init='device'`` draws the rows alone (:meth:`_device_rows`)."""
-        rows = None
+        ``init='device'`` draws the rows alone (:meth:`_device_rows`).
+        Under an atom axis W and H are cut likewise to the rank's atoms and
+        their maps (m-major), ``init='device'`` drawing H's rows whole one
+        at a time; ``w_init='patches'`` and ``'nndsvd'`` are computed whole
+        and cut, ``h_init='correlate'`` runs on the rank's atoms."""
+        rows = atoms = maps = None
         if isinstance(V, SampleShards):
             if self._mesh is None or self._init != 'device':
                 raise ValueError(
                     "a process-spanning global array requires mesh=... and "
                     "init='device' (no host ever holds the full batch)")
+            if self._ag is not None:
+                raise not_ported('a process-spanning global array under '
+                                 f'shard_axis={self._shard_axis!r}', '14e-iv')
             rows = local_rows(self._mesh, V.shape[0])
             local = V.local
             if local.dtype != self.dtype:
@@ -707,7 +788,7 @@ class TransformInvariantNMF:
                     f'global array dtype {local.dtype} must match the compute dtype '
                     f'{self.dtype}')
         elif self._mesh is not None:
-            rows = local_rows(self._mesh, V.shape[0])
+            rows, atoms = self._share(V.shape[0])
             local = V[rows]
             mask = None if mask is None else mask[rows].clone()
         else:
@@ -717,9 +798,12 @@ class TransformInvariantNMF:
         self._plan = self._plan_for(V.shape[2:])
         self._check_strategy()
 
+        if atoms is not None:
+            maps = slice(atoms.start * self.n_transforms, atoms.stop * self.n_transforms)
         keep = keep_W and self._W is not None
         if keep:
-            expected = (self.n_atoms, V.shape[1]) + self.atom_shape
+            n_atoms = self.n_atoms if atoms is None else atoms.stop - atoms.start
+            expected = (n_atoms, V.shape[1]) + self.atom_shape
             if tuple(self._W.shape) != expected:
                 raise ValueError(
                     f'keep_W: existing dictionary of shape {tuple(self._W.shape)} '
@@ -731,6 +815,8 @@ class TransformInvariantNMF:
         keep_h = keep_H and self._H is not None
         if keep_h:
             expected_h = h_shape if rows is None else (local.shape[0],) + h_shape[1:]
+            if maps is not None:
+                expected_h = expected_h[:1] + (maps.stop - maps.start,) + expected_h[2:]
             if tuple(self._H.shape) != expected_h:
                 raise ValueError(
                     f'keep_H: existing activations of shape {tuple(self._H.shape)} '
@@ -745,8 +831,11 @@ class TransformInvariantNMF:
             H = self._H
         elif self._h_init == 'correlate':
             H = None
+        elif self._init == 'device' and rows is None:
+            H = self._device_uniform(h_shape)
         elif self._init == 'device':
-            H = self._device_uniform(h_shape) if rows is None else self._device_rows(h_shape, rows)
+            H = (self._device_rows(h_shape, rows) if maps is None
+                 else self._device_rows(h_shape, rows, maps))
         else:
             H = np.asarray(1 - self._rng.random(h_shape), dtype=draw_dtype)
         if keep:
@@ -769,6 +858,10 @@ class TransformInvariantNMF:
             W /= W.sum(axis=self._axes_W_normalization, keepdims=True)
         if rows is not None and self._init == 'host' and H is not None and not keep_h:
             H = H[rows]  # the whole batch's host draw, cut to this rank's rows
+            if maps is not None:  # and to its atoms' maps
+                H = np.ascontiguousarray(H[:, maps])
+        if atoms is not None and not keep:
+            W = W[atoms]  # the whole dictionary, cut to this rank's atoms
         self._W = self._tensor(W)
         self._Vd = self._tensor(local)
         self._mask_d = mask
@@ -791,7 +884,8 @@ class TransformInvariantNMF:
             # at beta = 2; prepare(V) where the slot holds the canonical V
             Vp0 = prepare(self._Vd) if canonical else self._Vp
             H = engine.correlate_init_H(Vp0, self._Vd, self._W, plan=self._plan,
-                                        strategy=self._strategy, process_group=self._pg)
+                                        strategy=self._strategy, process_group=self._pg,
+                                        atom_group=self._ag)
         self._H = self._tensor(H)
         # built in float64, cast to the compute dtype
         self._kernels = tuple(self._tensor(k) for k in self._inhibition_kernels_1D)
@@ -1043,7 +1137,7 @@ class TransformInvariantNMF:
         regs = self._regs(sparsity_H, inhibition_strength, cross_atom_inhibition_strength)
         flags = dict(self._flags(inhibition_strength, cross_atom_inhibition_strength),
                      update_H=update_H, update_W=update_W, process_group=self._pg,
-                     **self._objective(l2_H, ortho_W))
+                     atom_group=self._ag, **self._objective(l2_H, ortho_W))
         if extrapolate:
             # the JAX package leaves the block length unchecked here (a
             # length of 0 never ends its loop)
@@ -1115,6 +1209,11 @@ class TransformInvariantNMF:
             raise ValueError(
                 "transform groups are MU-only (solver='hals' applies "
                 'to the degenerate plain-NMF geometry)')
+        if self._mesh is not None and self._shard_axis != 'samples':
+            raise ValueError(
+                "solver='hals' supports shard_axis='samples' meshes "
+                '(Grams become all-reduces); atom/spatial sharding '
+                'would serialize the Gauss-Seidel sweep')
 
     def _fit_batch_hals(self, n_iterations, *, update_H, update_W, l1, l2, l1w, l2w,
                         hals_inner, progress_callback, callback_interval, record_energies,
@@ -1437,7 +1536,10 @@ class TransformInvariantNMF:
         if np.any(W < 0):
             raise ValueError('dictionary entries must be nonnegative')
         s = W.sum(axis=self._axes_W_normalization, keepdims=True)
-        self._W = self._tensor(W / np.where(s == 0, 1, s))
+        W = W / np.where(s == 0, 1, s)
+        if self._ag is not None:  # this rank's atoms
+            W = W[local_atoms(self._mesh, self.n_atoms)]
+        self._W = self._tensor(W)
         self._H = None
         self._plan = None
         return self
@@ -1452,8 +1554,9 @@ class TransformInvariantNMF:
         ``R`` then hold the last chunk.  A ``mask`` with a row per sample
         is sliced with the chunks; a broadcast one serves each chunk.
 
-        Under a mesh each rank encodes its own rows, and a world above one
-        returns this rank's rows of H (the rows of its block of V); the
+        Under a mesh each rank encodes its own rows (under an atom axis
+        against its atoms), and a world above one returns this rank's share
+        of H (the rows of its block of V, the maps of its atoms); the
         chunks of ``batch_size`` are not ported there (ROADMAP.md item
         14e-iv)."""
         if self._W is None:
@@ -1480,7 +1583,9 @@ class TransformInvariantNMF:
         """Serialize the encoding step ``V -> H`` against the current
         dictionary to a serving artifact (:func:`tnmf_tpu_torch.serving.export_serving`;
         ``kwargs`` are its keywords); also written to ``path`` when given.
-        Returns the artifact bytes."""
+        Returns the artifact bytes.  Under a world above one with an atom
+        axis it raises: the artifact holds the whole dictionary."""
+        self._whole_W('export_serving')
         from ..serving import export_serving
         return export_serving(self, path=path, **kwargs)
 
@@ -1499,6 +1604,7 @@ class TransformInvariantNMF:
                 '(or load a checkpoint that includes H) first')
         if H is None:
             return self.R
+        self._whole_W('inverse_transform(H)')
         H = self._tensor(_as_input(H, self.device))
         if self.n_transforms > 1 and H.dim() == 3 + self._plan.ndim:
             # the H property's (n, atoms, transforms, *shift) view -> m-major maps

@@ -118,6 +118,8 @@ def inhibition_positive_term(
     n_atoms: int,
     with_same_atom: bool,
     with_cross_atom: bool,
+    h_sum: Optional[torch.Tensor] = None,
+    n_total: Optional[int] = None,
 ) -> torch.Tensor:
     """Additional positive-gradient term for the H update.
 
@@ -125,6 +127,13 @@ def inhibition_positive_term(
     H itself (an atom must not suppress its own activation), the cross-atom
     term broadcasts the atom-summed inhibition minus the own-atom
     contribution, scaled by 1/(n_atoms-1).
+
+    Given ``h_sum``, the atoms' sum ``sum_m H[:, m]`` as an ``(N, 1, *T)``
+    plane (under a mesh over the atoms: the sum of every rank's maps, of
+    which H holds a block), and ``n_total``, the global map count, the
+    cross field is the stencil of ``h_sum`` minus the own-atom field,
+    scaled by ``1/(n_total - 1)`` (the stencil is linear, so that is the
+    sum of the fields).
     """
     axes = tuple(range(-n_shift_axes, 0))
     g = convolve_multi_1d(H, kernels, axes)
@@ -132,6 +141,9 @@ def inhibition_positive_term(
     if with_same_atom:
         term = term + inhibition * (g - H)
     if with_cross_atom:
-        cross = g.sum(dim=1, keepdim=True) - g
-        term = term + cross_scale(cross_inhibition, n_atoms) * cross
+        if h_sum is None:
+            cross, n_maps = g.sum(dim=1, keepdim=True) - g, n_atoms
+        else:
+            cross, n_maps = convolve_multi_1d(h_sum, kernels, axes) - g, n_total
+        term = term + cross_scale(cross_inhibition, n_maps) * cross
     return term

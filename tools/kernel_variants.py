@@ -143,6 +143,10 @@ def make_copy(name: str) -> Path:
 _MODEL_ARG = {'grad_w_partial': (4, 5), 'grad_w_reduce': (0, 1),
               'inhibited_mu_h_kernel': (3, 6), 'mu_h_mma_kernel': (2, 3), 'mu_h_kernel': (0, 1),
               'hals_sweep_kernel': (3, 4)}
+#: K4's ``kSummed`` template argument, last, after the arguments above: a
+#: summed-route instance (``kSummed`` = 1) is left out like a model-axis one,
+#: and a package without the summed route has no such argument
+_SUMMED_ARG = {'inhibited_mu_h_kernel': 6}
 
 
 def single_sass(sass: str) -> dict:
@@ -160,6 +164,9 @@ def single_sass(sass: str) -> dict:
             if m:
                 args = re.findall(r'L[ib](-?\d+)E', m.group(3) or '')
                 at, count = _MODEL_ARG[m.group(1)]
+                if m.group(1) in _SUMMED_ARG and len(args) == count + 1:
+                    if args.pop(_SUMMED_ARG[m.group(1)]) == '1':
+                        continue
                 if len(args) == count:
                     if args.pop(at) == '1':
                         continue
@@ -219,9 +226,11 @@ def time_package(root: Path) -> dict:
             inside = ('grad_w' in line and not re.search(r'Li1E(?:Lb0E)?EEv', line)
                       and not re.search(r'Lb1EE+v', line))
             # the 17-tap instances of a single launch alone (a model-axis
-            # instance's name has kModels = 1 just before its tap count)
+            # instance's name has kModels = 1 just before its tap count, a
+            # summed-route one kSummed = 1 after its kStream)
             k4_inside = ('inhibited_mu_h_kernel' in line and 'Li17E' in line
-                         and not re.search(r'ELb[01]ELb1ELi17E', line))
+                         and not re.search(r'ELb[01]ELb1ELi17E', line)
+                         and not re.search(r'Li17ELb0ELb1E', line))
         elif '/*' in line:
             if inside:
                 digest.update(line.split(';')[0].strip().encode())
